@@ -1,0 +1,510 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+Run from the root of a checkout on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises and the script exits non-zero:
+
+1. prints the card's name and power limit (``nvidia-smi``) and builds
+   every kernel of the path from ``src/repro_torch/csrc`` (one ``nvcc``
+   per source, all started together);
+2. holds each kernel against its plain PyTorch version on the card at
+   full width (qwen2.5-14b: 40 query heads, 8 KV heads, head_dim 128,
+   vocab 152064), in float32 and bf16;
+3. times each kernel at full width with CUDA events (median of 10 after
+   3 warm-ups, L2 flushed before each), beside its plain version, the one
+   PyTorch call that computes the same function where there is one, and
+   the least time the card could take (bytes over its memory rate or
+   operations over its peak rate for their type, whichever is larger);
+4. sets every kernel's launch counter to 0, runs the slice's main path —
+   the 16-entry captured roster (``repro_torch.suite``) on the card —
+   recording every launch's spec, reads the counters, checks 16/16
+   classes as expected, every kernel launched, and rows equal to the same
+   roster run on the CPU;
+5. holds each kernel against its plain version again at every distinct
+   shape (and index vector) the main path launched it with;
+6. checks, in two child processes, that an out-of-range gather index or
+   page-table entry makes the launch fail rather than read past the table;
+7. prints the kernels line and, last, ``{"ok": true, "device": ...}``.
+
+Tolerances: gather is exact.  STREAM's plain version rounds op by op as
+the kernel does, so both dtypes are held to the float32 tolerance of the
+CPU tests (rtol 1e-5, atol 1e-6).  Attention and paged decode in float32:
+rtol 1e-4, atol 2e-5.  In bf16 their output is held against the plain
+version computed in float32 on the same bf16 inputs (the kernels compute
+in float32 and round once): rtol 1e-2, 2.5x the bf16 rounding of a value
+(2^-8), and atol 1e-3 of the output's rms.
+
+It exits non-zero without a result when no CUDA device is available, and
+when run outside a checkout (it imports the package from ``src/`` beside
+itself).
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+WARMUP, REPS = 3, 10
+FLUSH_BYTES = 1 << 30   # > 50 MB L2, and long enough to hide the enqueue
+
+# Published dense peaks of the SXM parts (NVIDIA data sheets): HBM bytes/s,
+# bf16 tensor-core and f32 CUDA-core flop/s, keyed by what nvidia-smi calls
+# the card ("NVIDIA H100 80GB HBM3" is the H100 SXM).
+PEAKS = {
+    "H100 80GB HBM3": dict(bytes=3.35e12, bf16=989e12, f32=67e12),
+    "H200": dict(bytes=4.8e12, bf16=989e12, f32=67e12),
+}
+
+KERNEL_SITES = {
+    "stream": ("src/repro_torch/csrc/stream.cu",
+               "src/repro/kernels/stream/kernel.py:59"),
+    "token_gather": ("src/repro_torch/csrc/token_gather.cu",
+                     "src/repro/kernels/token_gather/kernel.py:53"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:108"),
+    "paged_kv_decode": ("src/repro_torch/csrc/paged_kv_decode.cu",
+                        "src/repro/kernels/paged_kv_decode/kernel.py:96"),
+}
+
+
+def say(obj) -> None:
+    print(json.dumps(obj) if not isinstance(obj, str) else obj, flush=True)
+
+
+def card_peaks(name: str) -> dict:
+    for key, peaks in PEAKS.items():
+        if key in name:
+            return peaks
+    raise RuntimeError(f"no published peaks for card {name!r}")
+
+
+class Bench:
+    """CUDA-event timing and the bound for one card."""
+
+    def __init__(self, peaks: dict) -> None:
+        self.peaks = peaks
+        self.flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+
+    def ms(self, fn) -> float:
+        for _ in range(WARMUP):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(REPS):
+            self.flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    def bound(self, nbytes: float, ops: float, rate: str) -> tuple[float, str]:
+        t_bytes = nbytes / self.peaks["bytes"] * 1e3
+        t_ops = ops / self.peaks[rate] * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+STREAM_TOL = (1e-5, 1e-6)   # (rtol, atol), both dtypes
+ATTN_TOL = (1e-4, 2e-5)     # flash and paged decode, float32
+BF16_RTOL, BF16_ATOL_RMS = 1e-2, 1e-3
+
+
+def check_close(kernel: str, case: str, got, want, *, exact=False,
+                tol: tuple[float, float] = (0.0, 0.0)) -> float:
+    """Assert the kernel's output matches the plain version's ``want``
+    within ``(rtol, atol)``; returns the max abs error."""
+    torch.cuda.synchronize()
+    got32, want32 = got.float(), want.float()
+    err = (got32 - want32).abs().max().item()
+    rtol, atol = tol
+    ok = (torch.equal(got, want) if exact
+          else torch.allclose(got32, want32, rtol=rtol, atol=atol))
+    say({"phase": "parity", "kernel": kernel, "case": case,
+         "dtype": str(got.dtype).replace("torch.", ""),
+         "max_abs_err": err,
+         "want_rms": want32.pow(2).mean().sqrt().item(),
+         "tolerance": "exact" if exact else {"rtol": rtol, "atol": atol},
+         "ok": bool(ok)})
+    if not ok or not torch.isfinite(got32).all():
+        raise AssertionError(f"{kernel} {case}: kernel disagrees with its "
+                             f"plain version (max abs err {err})")
+    return err
+
+
+def attn_tol(dtype: torch.dtype, want: torch.Tensor) -> tuple[float, float]:
+    """Attention tolerance: float32's, or for bf16 (``want`` computed in
+    float32 on the bf16 inputs) a limit scaled to the output."""
+    if dtype == torch.float32:
+        return ATTN_TOL
+    return BF16_RTOL, BF16_ATOL_RMS * want.pow(2).mean().sqrt().item()
+
+
+# An out-of-range index must fail the launch, as the plain version raises.
+BAD_INDEX = {
+    "token_gather": (
+        "from repro_torch.kernels.token_gather import gather\n"
+        "t = torch.zeros(4, 128, device='cuda')\n"
+        "gather(t, torch.tensor([0, 4], dtype=torch.int32, device='cuda'))\n"),
+    "paged_kv_decode": (
+        "from repro_torch.kernels.paged_kv_decode import paged_decode\n"
+        "p = torch.zeros(4, 16, 128, device='cuda')\n"
+        "paged_decode(torch.zeros(1, 128, device='cuda'), p, p,\n"
+        "             torch.tensor([1, 4], dtype=torch.int32, device='cuda'))\n"),
+}
+
+
+def check_bad_index() -> None:
+    """Run each BAD_INDEX snippet in its own process (a trapped launch
+    leaves that process's CUDA context unusable) and require it to fail
+    with a CUDA error at the synchronize."""
+    head = f"import sys, torch\nsys.path.insert(0, {str(ROOT / 'src')!r})\n"
+    procs = {k: subprocess.Popen(
+        [sys.executable, "-c",
+         head + code + "torch.cuda.synchronize()\nprint('no error')\n"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for k, code in BAD_INDEX.items()}
+    for kernel, proc in procs.items():
+        out, err = proc.communicate(timeout=300)
+        failed = (proc.returncode != 0 and "no error" not in out
+                  and "CUDA error" in err)
+        say({"phase": "bad-index", "kernel": kernel,
+             "exit": proc.returncode, "launch_failed": failed,
+             "error": [ln for ln in err.splitlines() if "CUDA error" in ln]})
+        if not failed:
+            raise AssertionError(f"{kernel}: an out-of-range index did not "
+                                 f"fail the launch:\n{out}\n{err}")
+
+
+def stream_calls() -> dict:
+    """op -> (kernel, plain version, library call) on (a, b, q[, out])."""
+    from repro_torch.kernels.stream import ops, ref
+
+    return {
+        "copy": (lambda a, b, q: ops.stream_copy(a),
+                 lambda a, b, q: ref.copy_ref(a),
+                 lambda a, b, q, o: o.copy_(a)),
+        "scale": (lambda a, b, q: ops.stream_scale(a, q),
+                  lambda a, b, q: ref.scale_ref(a, q),
+                  lambda a, b, q, o: torch.mul(a, q, out=o)),
+        "add": (lambda a, b, q: ops.stream_add(a, b),
+                lambda a, b, q: ref.add_ref(a, b),
+                lambda a, b, q, o: torch.add(a, b, out=o)),
+        "triad": (lambda a, b, q: ops.stream_triad(a, b, q),
+                  lambda a, b, q: ref.triad_ref(a, b, q),
+                  lambda a, b, q, o: torch.add(a, b, alpha=q, out=o)),
+    }
+
+
+def hold_main_path(launched: list, randn, errs: dict[str, float]) -> int:
+    """Hold each kernel against its plain version at every distinct launch
+    the main path recorded: seeded inputs at the launch's shapes, with its
+    own index vector (gather rows, page table; paged decode also reversed).
+    Records each max abs error in ``errs``; returns the distinct count."""
+    from repro_torch.kernels.flash_attention import attention_ref, mha
+    from repro_torch.kernels.paged_kv_decode import (paged_decode,
+                                                     paged_decode_ref)
+    from repro_torch.kernels.token_gather import gather, gather_rows_ref
+
+    streams = stream_calls()
+
+    def hold(spec) -> None:
+        dtype = spec.operands[-1].dtype
+        if spec.name.startswith("stream_"):
+            op = spec.name.removeprefix("stream_")
+            kern, plain, _ = streams[op]
+            rows, lanes = spec.operand("o").shape
+            a, b = randn(rows * lanes, dtype=dtype), randn(rows * lanes,
+                                                           dtype=dtype)
+            errs["stream"] = max(errs["stream"], check_close(
+                "stream", f"main path {op} n={rows * lanes}", kern(a, b, 1.5),
+                plain(a, b, 1.5), tol=STREAM_TOL))
+        elif spec.name == "token_gather":
+            n_rows, d = spec.operand("table").shape
+            table, idx = randn(n_rows, d, dtype=dtype), spec.index
+            errs["token_gather"] = max(errs["token_gather"], check_close(
+                "token_gather", f"main path {n_rows}x{d} m={len(idx)}",
+                gather(table, idx), gather_rows_ref(table, idx), exact=True))
+        elif spec.name == "flash_attention":
+            (bh, sq, d), (_, bq, _) = (spec.operand("q").shape,
+                                       spec.operand("q").block_shape)
+            (bg, sk, _), (_, bk, _) = (spec.operand("k").shape,
+                                       spec.operand("k").block_shape)
+            qq = randn(1, sq, bh, d, dtype=dtype)
+            kk, vv = (randn(1, sk, bg, d, dtype=dtype) for _ in range(2))
+            want = attention_ref(qq.float(), kk.float(), vv.float(),
+                                 causal=False)
+            errs["flash_attention"] = max(errs["flash_attention"], check_close(
+                "flash_attention", f"main path sq={sq} sk={sk} d={d}",
+                mha(qq, kk, vv, causal=False, block_q=bq, block_k=bk), want,
+                tol=attn_tol(dtype, want)))
+        elif spec.name == "paged_kv_decode":
+            h, d = spec.operand("q").shape
+            n_pages, page, _ = spec.operand("k").shape
+            qq = randn(h, d, dtype=dtype)
+            kp, vp = (randn(n_pages, page, d, dtype=dtype) for _ in range(2))
+            for table in (spec.index, spec.index.flip(0)):
+                want = paged_decode_ref(qq.float(), kp.float(), vp.float(),
+                                        table)
+                errs["paged_kv_decode"] = max(
+                    errs["paged_kv_decode"], check_close(
+                        "paged_kv_decode",
+                        f"main path pool={n_pages} page={page} h={h} "
+                        f"n={len(table)}", paged_decode(qq, kp, vp, table),
+                        want, tol=attn_tol(dtype, want)))
+        else:
+            raise AssertionError(f"main path launched unknown {spec.name!r}")
+
+    held = set()
+    for spec in launched:
+        key = (spec.name, tuple(op.shape for op in spec.operands),
+               spec.operands[-1].dtype,
+               None if spec.index is None
+               else spec.index.cpu().numpy().tobytes())
+        if key not in held:
+            held.add(key)
+            hold(spec)
+    return len(held)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    import repro_torch
+
+    if not Path(repro_torch.__file__).resolve().is_relative_to(ROOT):
+        raise RuntimeError(f"repro_torch imported from outside {ROOT}")
+    from repro_torch import kernels as K
+    from repro_torch.capture.launch import record as record_launches
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import attention_ref, mha
+    from repro_torch.kernels.paged_kv_decode import (paged_decode,
+                                                     paged_decode_ref)
+    from repro_torch.kernels.stream import ops as stream_ops
+    from repro_torch.kernels.token_gather import gather, gather_rows_ref
+    from repro_torch.suite.runner import SuiteRunner
+    import torch.nn.functional as F
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    say(smi)
+    name = torch.cuda.get_device_name(0)
+    say({"torch": torch.__version__, "cuda": torch.version.cuda,
+         "device": name})
+    peaks = card_peaks(name)
+
+    # -- 1. build ------------------------------------------------------------
+    t0 = time.perf_counter()
+    logs = _build.build(list(K.KERNELS))
+    say({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
+         "built": sorted(logs)})
+    for kname, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                say(f"# ptxas {kname}: {line.strip()}")
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    errs: dict[str, float] = dict.fromkeys(K.KERNELS, 0.0)
+    rows: dict[str, dict] = {}
+    bench = Bench(peaks)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def record(kernel: str, case: str, dtype, ms: float, plain_ms: float,
+               library_ms, nbytes: float, ops: float, rate: str) -> dict:
+        bound_ms, bound_by = bench.bound(nbytes, ops, rate)
+        row = {"phase": "timing", "kernel": kernel, "case": case,
+               "dtype": str(dtype).replace("torch.", ""), "ms": ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_share": bound_ms / ms, "card": smi}
+        say(row)
+        return row
+
+    # -- 2+3. STREAM ------------------------------------------------------------
+    streams = stream_calls()
+    q = 3.0
+    n = 2**28
+    for dtype in (torch.float32, torch.bfloat16):
+        a, b = randn(n, dtype=dtype), randn(n, dtype=dtype)
+        o = torch.empty_like(a)
+        for op, (kern, plain, lib) in streams.items():
+            errs["stream"] = max(errs["stream"], check_close(
+                "stream", f"{op} full n=2^28", kern(a, b, q),
+                plain(a, b, q), tol=STREAM_TOL))
+            row = record(
+                "stream", op, dtype,
+                bench.ms(lambda: kern(a, b, q)),
+                bench.ms(lambda: plain(a, b, q)),
+                bench.ms(lambda: lib(a, b, q, o)),
+                stream_ops.bytes_moved(op, n, a.element_size()),
+                stream_ops.STREAM_OPS[op][1] * n, "f32")
+            if op == "triad" and dtype == torch.float32:
+                rows["stream"] = row
+        del a, b, o
+    torch.cuda.empty_cache()
+
+    # -- 2+3. token gather ----------------------------------------------------
+    def gather_idx(n_rows: int, m: int):
+        idx = torch.randint(0, n_rows, (m,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        idx[:3] = torch.tensor([0, n_rows - 1, 0], dtype=torch.int32)
+        return idx
+
+    n_rows, d, m = 152064, 5120, 8192
+    for dtype in (torch.float32, torch.bfloat16):
+        table, idx = randn(n_rows, d, dtype=dtype), gather_idx(n_rows, m)
+        errs["token_gather"] = max(errs["token_gather"], check_close(
+            "token_gather", f"full {n_rows}x{d} m={m}",
+            gather(table, idx), gather_rows_ref(table, idx), exact=True))
+        row = record(
+            "token_gather", f"{n_rows}x{d} m={m}", dtype,
+            bench.ms(lambda: gather(table, idx)),
+            bench.ms(lambda: gather_rows_ref(table, idx)),
+            bench.ms(lambda: torch.index_select(table, 0, idx)),
+            2 * m * d * table.element_size() + 4 * m, 0.0, "f32")
+        if dtype == torch.float32:
+            rows["token_gather"] = row
+        del table, idx
+    torch.cuda.empty_cache()
+
+    # -- 2+3. flash attention -------------------------------------------------
+    bsz, s, h, g, d = 1, 4096, 40, 8, 128
+    for dtype in (torch.float32, torch.bfloat16):
+        qq = randn(bsz, s, h, d, dtype=dtype)
+        kk, vv = randn(bsz, s, g, d, dtype=dtype), randn(bsz, s, g, d, dtype=dtype)
+        for causal in (True, False):
+            want = attention_ref(qq.float(), kk.float(), vv.float(),
+                                 causal=causal)
+            errs["flash_attention"] = max(errs["flash_attention"], check_close(
+                "flash_attention",
+                f"full b={bsz} s={s} h={h} g={g} d={d} causal={causal}",
+                mha(qq, kk, vv, causal=causal), want,
+                tol=attn_tol(dtype, want)))
+            del want
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (qq, kk, vv))
+        pairs = bsz * h * s * (s + 1) // 2          # unmasked (q, k) pairs
+        row = record(
+            "flash_attention", f"b={bsz} s={s} h={h} g={g} d={d} causal",
+            dtype,
+            bench.ms(lambda: mha(qq, kk, vv, causal=True)),
+            bench.ms(lambda: attention_ref(qq, kk, vv, causal=True)),
+            bench.ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, scale=d ** -0.5,
+                enable_gqa=True)),
+            (2 * qq.numel() + kk.numel() + vv.numel()) * qq.element_size(),
+            4.0 * d * pairs, "f32" if dtype == torch.float32 else "bf16")
+        if dtype == torch.float32:
+            rows["flash_attention"] = row
+        del qq, kk, vv, qt, kt, vt
+        torch.cuda.empty_cache()
+
+    # -- 2+3. paged-KV decode -------------------------------------------------
+    def paged_inputs(n_pages, page, d, h, n_active, dtype=torch.float32):
+        perm = torch.randperm(n_pages, generator=gen, device=dev)
+        pt = perm[:n_active].to(torch.int32)
+        return (randn(h, d, dtype=dtype), randn(n_pages, page, d, dtype=dtype),
+                randn(n_pages, page, d, dtype=dtype), pt)
+
+    n_pages, page, d, h, n_active = 65536, 16, 128, 5, 2048
+    for dtype in (torch.float32, torch.bfloat16):
+        qq, kp, vp, pt = paged_inputs(n_pages, page, d, h, n_active, dtype)
+        want = paged_decode_ref(qq.float(), kp.float(), vp.float(), pt)
+        errs["paged_kv_decode"] = max(errs["paged_kv_decode"], check_close(
+            "paged_kv_decode",
+            f"full pool={n_pages} page={page} h={h} n={n_active}",
+            paged_decode(qq, kp, vp, pt), want, tol=attn_tol(dtype, want)))
+        del want
+        isz = qq.element_size()
+        row = record(
+            "paged_kv_decode",
+            f"pool={n_pages} page={page} h={h} d={d} n={n_active}", dtype,
+            bench.ms(lambda: paged_decode(qq, kp, vp, pt)),
+            bench.ms(lambda: paged_decode_ref(qq, kp, vp, pt)),
+            None,
+            (2 * n_active * page * d + 2 * h * d) * isz + 4 * n_active,
+            4.0 * h * page * d * n_active,
+            "f32" if dtype == torch.float32 else "bf16")
+        if dtype == torch.float32:
+            rows["paged_kv_decode"] = row
+        del qq, kp, vp, pt
+    del bench
+    torch.cuda.empty_cache()
+
+    # -- 4. the main path: the captured roster on the card ---------------------
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with record_launches() as launched:
+        runner = SuiteRunner(device="cuda")
+        roster = runner.roster()
+        torch.cuda.synchronize()
+    launches = K.launch_counts()
+    roster_s = time.perf_counter() - t0
+    bad = runner.divergent()
+    say({"phase": "roster", "entries": len(roster.rows),
+         "matching": len(roster.rows) - len(bad), "seconds": roster_s,
+         "launches": launches})
+    for rec in roster.records():
+        say({"phase": "roster-row", **rec})
+    if len(roster.rows) != 16 or bad:
+        raise AssertionError(f"roster: {len(bad)} divergent entries: {bad}")
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: {missing}")
+    cpu_rows = SuiteRunner(device="cpu").roster().rows
+    if cpu_rows != roster.rows:
+        raise AssertionError("roster rows on the card differ from the rows "
+                             "of the plain versions on the CPU")
+    say({"phase": "roster-vs-cpu", "identical": True})
+
+    # -- 5. parity at every shape the main path launched ------------------------
+    held = hold_main_path(launched, randn, errs)
+    say({"phase": "main-path-parity", "launches": len(launched),
+         "distinct": held})
+    if len(launched) != sum(launches.values()):
+        raise AssertionError(f"{len(launched)} launch specs recorded for "
+                             f"{sum(launches.values())} kernel launches")
+
+    # -- 6. out-of-range indices -------------------------------------------------
+    check_bad_index()
+
+    # -- 7. results ---------------------------------------------------------
+    kernels = []
+    for kname, (source, replaces) in KERNEL_SITES.items():
+        r = rows[kname]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[kname],
+            "max_abs_err": errs[kname], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        })
+    say({"kernels": kernels})
+    say({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

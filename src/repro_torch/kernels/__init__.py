@@ -1,0 +1,39 @@
+"""Hand-written CUDA kernels of the port, one package per reference family.
+
+Each package has ``ref.py`` (the plain PyTorch version), ``kernel.py``
+(the ctypes wrapper of ``csrc/<name>.cu``, with a plain-int ``launches``
+counter it bumps on every launch), ``ops.py`` (the entry point: computes
+the launch spec, records it, launches the kernel for CUDA tensors and the
+plain version for CPU tensors, and raises otherwise) and ``capture.py``
+(the per-thread capture hook of the suite):
+
+- ``stream``          — STREAM copy/scale/add/triad (one kernel);
+- ``token_gather``    — row gather steered by an index vector;
+- ``flash_attention`` — GQA attention with an online softmax;
+- ``paged_kv_decode`` — one decode step over a paged KV pool.
+"""
+
+from __future__ import annotations
+
+from . import flash_attention, paged_kv_decode, stream, token_gather
+
+__all__ = ["KERNELS", "launch_counts", "reset_launch_counts",
+           "flash_attention", "paged_kv_decode", "stream", "token_gather"]
+
+# Kernel name (= csrc/<name>.cu) -> the wrapper that launches it.
+KERNELS = {
+    "stream": stream.kernel.stream_cuda,
+    "token_gather": token_gather.kernel.gather_rows,
+    "flash_attention": flash_attention.kernel.flash_attention,
+    "paged_kv_decode": paged_kv_decode.kernel.paged_decode_attention,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches per kernel since the last reset."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
