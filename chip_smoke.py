@@ -8,34 +8,50 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. prints the card's name and power limit (``nvidia-smi``) and builds
-   every kernel of the path from ``src/repro_torch/csrc`` (one ``nvcc``
-   per source, all started together);
+   every kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per source,
+   all started together);
 2. holds each kernel against its plain PyTorch version on the card at
-   full width (qwen2.5-14b: 40 query heads, 8 KV heads, head_dim 128,
-   vocab 152064), in float32 and bf16;
+   full width, in float32 and bf16: qwen2.5-14b for STREAM, gather, flash
+   and paged decode (40 query heads, 8 KV heads, head_dim 128, vocab
+   152064); one DeepSeek-MoE-16B layer's routed dispatch (4096 tokens,
+   top-6 of 64 experts, d_model 2048, d_ff_expert 1408); one Zamba2-7B
+   Mamba-2 layer's scans (T 4096, d_inner 7168, ssm_state 64, chunk 128);
 3. times each kernel at full width with CUDA events (median of 10 after
    3 warm-ups, L2 flushed before each), beside its plain version, the one
    PyTorch call that computes the same function where there is one, and
    the least time the card could take (bytes over its memory rate or
    operations over its peak rate for their type, whichever is larger);
-4. sets every kernel's launch counter to 0, runs the slice's main path —
-   the 16-entry captured roster (``repro_torch.suite``) on the card —
-   recording every launch's spec, reads the counters, checks 16/16
-   classes as expected, every kernel launched, and rows equal to the same
-   roster run on the CPU;
-5. holds each kernel against its plain version again at every distinct
-   shape (and index vector) the main path launched it with;
-6. checks, in two child processes, that an out-of-range gather index or
-   page-table entry makes the launch fail rather than read past the table;
-7. prints the kernels line and, last, ``{"ok": true, "device": ...}``.
+4. main path 1: sets every launch counter to 0, runs the 24-entry
+   captured roster (``repro_torch.suite``) on the card recording every
+   launch's spec, reads the counters, checks 24/24 classes as expected,
+   all seven kernels launched, and rows equal to the roster run on the CPU;
+5. main path 2: sets the counters to 0 again, runs ``measure_windows``
+   for the 16 serving scenarios (``repro_torch.serving``) on the card,
+   reads the counters, checks that flash attention, paged decode and MoE
+   dispatch launched, and that every scenario's window traces, timeline
+   and whole-trace label equal the same run on the CPU;
+6. holds each kernel against its plain version again at every distinct
+   launch of both paths: its shapes and tiles, with its own index vectors
+   (gather rows; page table, also reversed; MoE token order and expert
+   ids) and, for the scans, its chunk;
+7. checks, in child processes, that an out-of-range gather index, page
+   or MoE expert id makes the launch fail rather than read past the table;
+8. prints the kernels line (``launches`` summed over both paths) and,
+   last, ``{"ok": true, "device": ...}``.
 
 Tolerances: gather is exact.  STREAM's plain version rounds op by op as
 the kernel does, so both dtypes are held to the float32 tolerance of the
-CPU tests (rtol 1e-5, atol 1e-6).  Attention and paged decode in float32:
-rtol 1e-4, atol 2e-5.  In bf16 their output is held against the plain
-version computed in float32 on the same bf16 inputs (the kernels compute
-in float32 and round once): rtol 1e-2, 2.5x the bf16 rounding of a value
-(2^-8), and atol 1e-3 of the output's rms.
+CPU tests (rtol 1e-5, atol 1e-6); so is the EMA scan in float32, which
+rounds op by op in the plain version's order.  Attention, paged decode
+and MoE dispatch in float32: rtol 1e-4, atol 2e-5 (MoE's is the
+reference's).  The state-expanded scan in float32: rtol 1e-4 and atol
+1e-4 of the output's rms; its state is rounded as the plain version's,
+but y_t's sum over the N state rows is taken in another order, whose
+error is at most N 2^-24 sum|c h|, about 3e-5 of the rms at N = 64.  In
+bf16 every kernel but STREAM is held against the plain version computed
+in float32 on the same bf16 inputs (the kernels compute in float32 and
+round once): rtol 1e-2, 2.5x the bf16 rounding of a value (2^-8), and
+atol 1e-3 of the output's rms.
 
 It exits non-zero without a result when no CUDA device is available, and
 when run outside a checkout (it imports the package from ``src/`` beside
@@ -76,6 +92,12 @@ KERNEL_SITES = {
                         "src/repro/kernels/flash_attention/kernel.py:108"),
     "paged_kv_decode": ("src/repro_torch/csrc/paged_kv_decode.cu",
                         "src/repro/kernels/paged_kv_decode/kernel.py:96"),
+    "moe_dispatch": ("src/repro_torch/csrc/moe_dispatch.cu",
+                     "src/repro/kernels/moe_dispatch/kernel.py:60"),
+    "ssm_ema_scan": ("src/repro_torch/csrc/ssm_ema_scan.cu",
+                     "src/repro/kernels/ssm_scan/kernel.py:59"),
+    "ssm_chunked_scan": ("src/repro_torch/csrc/ssm_chunked_scan.cu",
+                         "src/repro/kernels/ssm_scan/kernel.py:112"),
 }
 
 
@@ -119,42 +141,56 @@ class Bench:
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-STREAM_TOL = (1e-5, 1e-6)   # (rtol, atol), both dtypes
-ATTN_TOL = (1e-4, 2e-5)     # flash and paged decode, float32
+STREAM_TOL = (1e-5, 1e-6)   # (rtol, atol), both dtypes; EMA scan f32
+ATTN_TOL = (1e-4, 2e-5)     # flash, paged decode and MoE dispatch, float32
+CHUNKED_RTOL, CHUNKED_ATOL_RMS = 1e-4, 1e-4   # state-expanded scan, float32
 BF16_RTOL, BF16_ATOL_RMS = 1e-2, 1e-3
 
 
 def check_close(kernel: str, case: str, got, want, *, exact=False,
-                tol: tuple[float, float] = (0.0, 0.0)) -> float:
+                tol: tuple[float, float] = (0.0, 0.0), show=True) -> float:
     """Assert the kernel's output matches the plain version's ``want``
-    within ``(rtol, atol)``; returns the max abs error."""
+    within ``(rtol, atol)``; returns the max abs error.  Prints one JSON
+    line when ``show`` (always when the check fails)."""
     torch.cuda.synchronize()
     got32, want32 = got.float(), want.float()
     err = (got32 - want32).abs().max().item()
     rtol, atol = tol
     ok = (torch.equal(got, want) if exact
           else torch.allclose(got32, want32, rtol=rtol, atol=atol))
-    say({"phase": "parity", "kernel": kernel, "case": case,
-         "dtype": str(got.dtype).replace("torch.", ""),
-         "max_abs_err": err,
-         "want_rms": want32.pow(2).mean().sqrt().item(),
-         "tolerance": "exact" if exact else {"rtol": rtol, "atol": atol},
-         "ok": bool(ok)})
-    if not ok or not torch.isfinite(got32).all():
+    ok = bool(ok) and bool(torch.isfinite(got32).all())
+    if show or not ok:
+        say({"phase": "parity", "kernel": kernel, "case": case,
+             "dtype": str(got.dtype).replace("torch.", ""),
+             "max_abs_err": err, "want_rms": rms(want32),
+             "tolerance": "exact" if exact else {"rtol": rtol, "atol": atol},
+             "ok": ok})
+    if not ok:
         raise AssertionError(f"{kernel} {case}: kernel disagrees with its "
                              f"plain version (max abs err {err})")
     return err
 
 
-def attn_tol(dtype: torch.dtype, want: torch.Tensor) -> tuple[float, float]:
-    """Attention tolerance: float32's, or for bf16 (``want`` computed in
-    float32 on the bf16 inputs) a limit scaled to the output."""
+def rms(t: torch.Tensor) -> float:
+    return t.float().pow(2).mean().sqrt().item()
+
+
+def attn_tol(dtype: torch.dtype, want: torch.Tensor,
+             f32: tuple[float, float] = ATTN_TOL) -> tuple[float, float]:
+    """Tolerance of a kernel that computes in float32: ``f32`` for float32
+    inputs, or for bf16 (``want`` computed in float32 on the bf16 inputs)
+    a limit scaled to the output."""
     if dtype == torch.float32:
-        return ATTN_TOL
-    return BF16_RTOL, BF16_ATOL_RMS * want.pow(2).mean().sqrt().item()
+        return f32
+    return BF16_RTOL, BF16_ATOL_RMS * rms(want)
 
 
-# An out-of-range index must fail the launch, as the plain version raises.
+def chunked_tol(dtype: torch.dtype, want: torch.Tensor) -> tuple[float, float]:
+    return attn_tol(dtype, want, (CHUNKED_RTOL, CHUNKED_ATOL_RMS * rms(want)))
+
+
+# An out-of-range index, or a MoE token order that repeats a token, must
+# fail the launch, as the plain version raises.
 BAD_INDEX = {
     "token_gather": (
         "from repro_torch.kernels.token_gather import gather\n"
@@ -165,6 +201,18 @@ BAD_INDEX = {
         "p = torch.zeros(4, 16, 128, device='cuda')\n"
         "paged_decode(torch.zeros(1, 128, device='cuda'), p, p,\n"
         "             torch.tensor([1, 4], dtype=torch.int32, device='cuda'))\n"),
+    "moe_dispatch": (
+        "from repro_torch.kernels.moe_dispatch import moe_dispatch_sorted\n"
+        "ids = lambda *v: torch.tensor(v, dtype=torch.int32, device='cuda')\n"
+        "moe_dispatch_sorted(torch.zeros(4, 128, device='cuda'),\n"
+        "                    torch.zeros(2, 128, 128, device='cuda'),\n"
+        "                    ids(0, 1, 2, 3), ids(0, 0, 1, 2))\n"),
+    "moe_dispatch:repeated_token": (
+        "from repro_torch.kernels.moe_dispatch import moe_dispatch_sorted\n"
+        "ids = lambda *v: torch.tensor(v, dtype=torch.int32, device='cuda')\n"
+        "moe_dispatch_sorted(torch.zeros(4, 128, device='cuda'),\n"
+        "                    torch.zeros(2, 128, 128, device='cuda'),\n"
+        "                    ids(0, 1, 1, 3), ids(0, 0, 1, 1))\n"),
 }
 
 
@@ -210,19 +258,35 @@ def stream_calls() -> dict:
     }
 
 
-def hold_main_path(launched: list, randn, errs: dict[str, float]) -> int:
+def hold_main_path(launched: list, randn, rand,
+                   errs: dict[str, float]) -> int:
     """Hold each kernel against its plain version at every distinct launch
-    the main path recorded: seeded inputs at the launch's shapes, with its
-    own index vector (gather rows, page table; paged decode also reversed).
-    Records each max abs error in ``errs``; returns the distinct count."""
+    the main paths recorded: seeded inputs at the launch's shapes and
+    tiles, with its own index vectors (gather rows; page table, also
+    reversed; MoE token order and expert ids).  Prints one summary line per
+    kernel, records each max abs error in ``errs`` and returns the
+    distinct count."""
     from repro_torch.kernels.flash_attention import attention_ref, mha
+    from repro_torch.kernels.moe_dispatch import (moe_dispatch_sorted,
+                                                  moe_dispatch_sorted_ref)
     from repro_torch.kernels.paged_kv_decode import (paged_decode,
                                                      paged_decode_ref)
+    from repro_torch.kernels.ssm_scan import (ssm_chunked_ref,
+                                              ssm_chunked_scan, ssm_ema_ref,
+                                              ssm_ema_scan)
     from repro_torch.kernels.token_gather import gather, gather_rows_ref
 
     streams = stream_calls()
+    held_by: dict[str, int] = {}
+    path_err: dict[str, float] = {}
 
-    def hold(spec) -> None:
+    def check(kernel: str, case: str, got, want, **kw) -> None:
+        err = check_close(kernel, f"main path {case}", got, want, show=False,
+                          **kw)
+        errs[kernel] = max(errs[kernel], err)
+        path_err[kernel] = max(path_err.get(kernel, 0.0), err)
+
+    def hold(spec) -> str:
         dtype = spec.operands[-1].dtype
         if spec.name.startswith("stream_"):
             op = spec.name.removeprefix("stream_")
@@ -230,16 +294,16 @@ def hold_main_path(launched: list, randn, errs: dict[str, float]) -> int:
             rows, lanes = spec.operand("o").shape
             a, b = randn(rows * lanes, dtype=dtype), randn(rows * lanes,
                                                            dtype=dtype)
-            errs["stream"] = max(errs["stream"], check_close(
-                "stream", f"main path {op} n={rows * lanes}", kern(a, b, 1.5),
-                plain(a, b, 1.5), tol=STREAM_TOL))
-        elif spec.name == "token_gather":
+            check("stream", f"{op} n={rows * lanes}", kern(a, b, 1.5),
+                  plain(a, b, 1.5), tol=STREAM_TOL)
+            return "stream"
+        if spec.name == "token_gather":
             n_rows, d = spec.operand("table").shape
-            table, idx = randn(n_rows, d, dtype=dtype), spec.index
-            errs["token_gather"] = max(errs["token_gather"], check_close(
-                "token_gather", f"main path {n_rows}x{d} m={len(idx)}",
-                gather(table, idx), gather_rows_ref(table, idx), exact=True))
-        elif spec.name == "flash_attention":
+            table, (idx,) = randn(n_rows, d, dtype=dtype), spec.index
+            check("token_gather", f"{n_rows}x{d} m={len(idx)}",
+                  gather(table, idx), gather_rows_ref(table, idx), exact=True)
+            return "token_gather"
+        if spec.name == "flash_attention":
             (bh, sq, d), (_, bq, _) = (spec.operand("q").shape,
                                        spec.operand("q").block_shape)
             (bg, sk, _), (_, bk, _) = (spec.operand("k").shape,
@@ -248,36 +312,70 @@ def hold_main_path(launched: list, randn, errs: dict[str, float]) -> int:
             kk, vv = (randn(1, sk, bg, d, dtype=dtype) for _ in range(2))
             want = attention_ref(qq.float(), kk.float(), vv.float(),
                                  causal=False)
-            errs["flash_attention"] = max(errs["flash_attention"], check_close(
-                "flash_attention", f"main path sq={sq} sk={sk} d={d}",
-                mha(qq, kk, vv, causal=False, block_q=bq, block_k=bk), want,
-                tol=attn_tol(dtype, want)))
-        elif spec.name == "paged_kv_decode":
+            check("flash_attention", f"sq={sq} sk={sk} d={d}",
+                  mha(qq, kk, vv, causal=False, block_q=bq, block_k=bk), want,
+                  tol=attn_tol(dtype, want))
+            return "flash_attention"
+        if spec.name == "paged_kv_decode":
             h, d = spec.operand("q").shape
             n_pages, page, _ = spec.operand("k").shape
             qq = randn(h, d, dtype=dtype)
             kp, vp = (randn(n_pages, page, d, dtype=dtype) for _ in range(2))
-            for table in (spec.index, spec.index.flip(0)):
+            for table in (spec.index[0], spec.index[0].flip(0)):
                 want = paged_decode_ref(qq.float(), kp.float(), vp.float(),
                                         table)
-                errs["paged_kv_decode"] = max(
-                    errs["paged_kv_decode"], check_close(
-                        "paged_kv_decode",
-                        f"main path pool={n_pages} page={page} h={h} "
-                        f"n={len(table)}", paged_decode(qq, kp, vp, table),
-                        want, tol=attn_tol(dtype, want)))
-        else:
-            raise AssertionError(f"main path launched unknown {spec.name!r}")
+                check("paged_kv_decode",
+                      f"pool={n_pages} page={page} h={h} n={len(table)}",
+                      paged_decode(qq, kp, vp, table), want,
+                      tol=attn_tol(dtype, want))
+            return "paged_kv_decode"
+        if spec.name == "moe_dispatch":
+            t, d = spec.operand("x").shape
+            n_exp, _, f = spec.operand("w").shape
+            tok, eid = spec.index
+            x = randn(t, d, dtype=dtype)
+            w = randn(n_exp, d, f, dtype=dtype) / d ** 0.5
+            want = moe_dispatch_sorted_ref(x.float(), w.float(), tok, eid)
+            check("moe_dispatch", f"T={t} D={d} F={f} E={n_exp}",
+                  moe_dispatch_sorted(x, w, tok, eid), want,
+                  tol=attn_tol(dtype, want))
+            return "moe_dispatch"
+        if spec.name in ("ssm_ema", "ssm_expand"):
+            t, d = spec.operand("x").shape
+            chunk = spec.operand("x").block_shape[0]
+            x = randn(t, d, dtype=dtype)
+            dt = (0.95 + 0.049 * rand(t, d)).to(dtype)
+            case = f"T={t} D={d} chunk={chunk}"
+            if spec.name == "ssm_ema":
+                g = randn(t, d, dtype=dtype)
+                want = ssm_ema_ref(x.float(), dt.float(), g.float())
+                check("ssm_ema_scan", case, ssm_ema_scan(x, dt, g, chunk=chunk),
+                      want, tol=attn_tol(dtype, want, STREAM_TOL))
+                return "ssm_ema_scan"
+            n = spec.operand("b").shape[1]
+            b = randn(t, n, dtype=dtype) / n ** 0.5
+            c = randn(t, n, dtype=dtype)
+            want = ssm_chunked_ref(x.float(), dt.float(), b.float(), c.float())
+            check("ssm_chunked_scan", f"{case} N={n}",
+                  ssm_chunked_scan(x, dt, b, c, chunk=chunk), want,
+                  tol=chunked_tol(dtype, want))
+            return "ssm_chunked_scan"
+        raise AssertionError(f"main path launched unknown {spec.name!r}")
 
     held = set()
     for spec in launched:
-        key = (spec.name, tuple(op.shape for op in spec.operands),
+        key = (spec.name,
+               tuple((op.shape, op.block_shape) for op in spec.operands),
                spec.operands[-1].dtype,
-               None if spec.index is None
-               else spec.index.cpu().numpy().tobytes())
+               tuple(t.cpu().numpy().tobytes() for t in spec.index))
         if key not in held:
             held.add(key)
-            hold(spec)
+            kname = hold(spec)
+            held_by[kname] = held_by.get(kname, 0) + 1
+    for kname, n in sorted(held_by.items()):
+        say({"phase": "main-path-parity-kernel", "kernel": kname,
+             "distinct_launches": n, "max_abs_err": path_err[kname],
+             "ok": True})
     return len(held)
 
 
@@ -293,10 +391,19 @@ def main() -> int:
     from repro_torch.capture.launch import record as record_launches
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import attention_ref, mha
+    from repro_torch.kernels.moe_dispatch import (moe_dispatch,
+                                                  moe_dispatch_ref,
+                                                  moe_dispatch_sorted,
+                                                  moe_dispatch_sorted_ref)
     from repro_torch.kernels.paged_kv_decode import (paged_decode,
                                                      paged_decode_ref)
+    from repro_torch.kernels.ssm_scan import (ssm_chunked_ref,
+                                              ssm_chunked_scan, ssm_ema_ref,
+                                              ssm_ema_scan)
+    from repro_torch.kernels.ssm_scan.ops import scan_flops
     from repro_torch.kernels.stream import ops as stream_ops
     from repro_torch.kernels.token_gather import gather, gather_rows_ref
+    from repro_torch.serving import SCENARIOS, measure_windows
     from repro_torch.suite.runner import SuiteRunner
     import torch.nn.functional as F
 
@@ -330,6 +437,9 @@ def main() -> int:
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, device=dev)
 
     def record(kernel: str, case: str, dtype, ms: float, plain_ms: float,
                library_ms, nbytes: float, ops: float, rate: str) -> dict:
@@ -449,53 +559,164 @@ def main() -> int:
         if dtype == torch.float32:
             rows["paged_kv_decode"] = row
         del qq, kp, vp, pt
+    torch.cuda.empty_cache()
+
+    # -- 2+3. MoE dispatch: one DeepSeek-MoE-16B layer's routed tokens ---------
+    n_tok, top_k, d, f, n_exp = 4096, 6, 2048, 1408, 64
+    t = n_tok * top_k        # each token's row once per chosen expert
+    for dtype in (torch.float32, torch.bfloat16):
+        x = randn(n_tok, d, dtype=dtype).repeat_interleave(top_k, dim=0)
+        w = (randn(n_exp, d, f) / d ** 0.5).to(dtype)
+        eids = rand(n_tok, n_exp).argsort(dim=1)[:, :top_k].reshape(-1)
+        want = moe_dispatch_ref(x.float(), w.float(), eids)
+        errs["moe_dispatch"] = max(errs["moe_dispatch"], check_close(
+            "moe_dispatch", f"full T={t} D={d} F={f} E={n_exp} top{top_k}",
+            moe_dispatch(x, w, eids), want, tol=attn_tol(dtype, want)))
+        del want
+        tok = torch.argsort(eids, stable=True).to(torch.int32)
+        eid = eids[tok.long()].to(torch.int32)
+        row = record(
+            "moe_dispatch", f"T={t} D={d} F={f} E={n_exp} top{top_k}", dtype,
+            bench.ms(lambda: moe_dispatch_sorted(x, w, tok, eid)),
+            bench.ms(lambda: moe_dispatch_sorted_ref(x, w, tok, eid)),
+            None,
+            (x.numel() + w.numel() + t * f) * x.element_size() + 8 * t,
+            2.0 * t * d * f, "f32" if dtype == torch.float32 else "bf16")
+        if dtype == torch.float32:
+            rows["moe_dispatch"] = row
+        del x, w, eids, tok, eid
+        torch.cuda.empty_cache()
+
+    # -- 2+3. SSM scans: one Zamba2-7B Mamba-2 layer -----------------------
+    t, d, n, chunk = 4096, 2 * 3584, 64, 128
+    direct_ops = 5.0 * n * d * t
+    closed_ops = scan_flops("expand", seq_len=t, d=d, n=n, chunk=chunk)
+    say({"phase": "ssm-chunked-ops", "direct_recurrence": direct_ops,
+         "closed_form_scan_flops": closed_ops,
+         "sets_the_bound": "direct" if direct_ops <= closed_ops else "closed"})
+    for dtype in (torch.float32, torch.bfloat16):
+        x = randn(t, d, dtype=dtype)
+        dt = (0.95 + 0.049 * rand(t, d)).to(dtype)
+        g = randn(t, d, dtype=dtype)
+        b = (randn(t, n) / n ** 0.5).to(dtype)
+        c = randn(t, n, dtype=dtype)
+        want = ssm_ema_ref(x.float(), dt.float(), g.float())
+        errs["ssm_ema_scan"] = max(errs["ssm_ema_scan"], check_close(
+            "ssm_ema_scan", f"full T={t} D={d} chunk={chunk}",
+            ssm_ema_scan(x, dt, g, chunk=chunk), want,
+            tol=attn_tol(dtype, want, STREAM_TOL)))
+        want = ssm_chunked_ref(x.float(), dt.float(), b.float(), c.float())
+        errs["ssm_chunked_scan"] = max(errs["ssm_chunked_scan"], check_close(
+            "ssm_chunked_scan", f"full T={t} D={d} N={n} chunk={chunk}",
+            ssm_chunked_scan(x, dt, b, c, chunk=chunk), want,
+            tol=chunked_tol(dtype, want)))
+        del want
+        isz = x.element_size()
+        ema = record(
+            "ssm_ema_scan", f"T={t} D={d} chunk={chunk}", dtype,
+            bench.ms(lambda: ssm_ema_scan(x, dt, g, chunk=chunk)),
+            bench.ms(lambda: ssm_ema_ref(x, dt, g)), None,
+            4 * t * d * isz, 6.0 * t * d, "f32")
+        chunked = record(
+            "ssm_chunked_scan", f"T={t} D={d} N={n} chunk={chunk}", dtype,
+            bench.ms(lambda: ssm_chunked_scan(x, dt, b, c, chunk=chunk)),
+            bench.ms(lambda: ssm_chunked_ref(x, dt, b, c)), None,
+            (3 * t * d + 2 * t * n) * isz, min(direct_ops, closed_ops), "f32")
+        if dtype == torch.float32:
+            rows["ssm_ema_scan"], rows["ssm_chunked_scan"] = ema, chunked
+        del x, dt, g, b, c
     del bench
     torch.cuda.empty_cache()
 
-    # -- 4. the main path: the captured roster on the card ---------------------
+    # -- 4. main path 1: the captured roster on the card -----------------------
     K.reset_launch_counts()
     t0 = time.perf_counter()
     with record_launches() as launched:
         runner = SuiteRunner(device="cuda")
         roster = runner.roster()
         torch.cuda.synchronize()
-    launches = K.launch_counts()
+    roster_launches = K.launch_counts()
     roster_s = time.perf_counter() - t0
     bad = runner.divergent()
     say({"phase": "roster", "entries": len(roster.rows),
          "matching": len(roster.rows) - len(bad), "seconds": roster_s,
-         "launches": launches})
+         "launches": roster_launches})
     for rec in roster.records():
         say({"phase": "roster-row", **rec})
-    if len(roster.rows) != 16 or bad:
+    if len(roster.rows) != 24 or bad:
         raise AssertionError(f"roster: {len(bad)} divergent entries: {bad}")
-    missing = [k for k, n in launches.items() if n <= 0]
+    missing = [k for k, v in roster_launches.items() if v <= 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+        raise AssertionError(f"kernels not launched by the roster: {missing}")
+    if len(launched) != sum(roster_launches.values()):
+        raise AssertionError(f"{len(launched)} launch specs recorded for "
+                             f"{sum(roster_launches.values())} kernel launches")
     cpu_rows = SuiteRunner(device="cpu").roster().rows
     if cpu_rows != roster.rows:
         raise AssertionError("roster rows on the card differ from the rows "
                              "of the plain versions on the CPU")
     say({"phase": "roster-vs-cpu", "identical": True})
 
-    # -- 5. parity at every shape the main path launched ------------------------
-    held = hold_main_path(launched, randn, errs)
-    say({"phase": "main-path-parity", "launches": len(launched),
-         "distinct": held})
-    if len(launched) != sum(launches.values()):
-        raise AssertionError(f"{len(launched)} launch specs recorded for "
-                             f"{sum(launches.values())} kernel launches")
+    # -- 5. main path 2: the serving roster on the card ------------------------
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    timelines = {}
+    with record_launches() as served:
+        for scen in SCENARIOS:
+            t1, before = time.perf_counter(), K.launch_counts()
+            tl = timelines[scen] = measure_windows(scen, device="cuda")
+            torch.cuda.synchronize()
+            after = K.launch_counts()
+            say({"phase": "serving-scenario", "scenario": scen,
+                 "timeline": tl.timeline(), "whole_label": tl.whole_label,
+                 "seconds": time.perf_counter() - t1,
+                 "launches": {k: after[k] - before[k] for k in after
+                              if after[k] > before[k]}})
+    serving_launches = K.launch_counts()
+    serving_s = time.perf_counter() - t0
+    say({"phase": "serving", "scenarios": len(timelines),
+         "seconds": serving_s, "launches": serving_launches})
+    missing = [k for k in ("flash_attention", "paged_kv_decode",
+                           "moe_dispatch") if serving_launches[k] <= 0]
+    if len(timelines) != 16 or missing:
+        raise AssertionError(f"serving: {len(timelines)} scenarios, kernels "
+                             f"not launched: {missing}")
+    if len(served) != sum(serving_launches.values()):
+        raise AssertionError(f"{len(served)} launch specs recorded for "
+                             f"{sum(serving_launches.values())} kernel "
+                             f"launches")
+    t0 = time.perf_counter()
+    for scen, tl in timelines.items():
+        ref = measure_windows(scen, device="cpu")
+        same = (tl.labels == ref.labels and tl.whole_label == ref.whole_label
+                and all(a.addresses.tobytes() == b.addresses.tobytes()
+                        and (a.raw_refs, a.flops, a.batch)
+                        == (b.raw_refs, b.flops, b.batch)
+                        for a, b in zip(tl.windows, ref.windows)))
+        if not same:
+            raise AssertionError(f"serving {scen}: windows or labels on the "
+                                 f"card differ from the CPU run's")
+    say({"phase": "serving-vs-cpu", "identical": True,
+         "cpu_seconds": time.perf_counter() - t0})
 
-    # -- 6. out-of-range indices -------------------------------------------------
+    # -- 6. parity at every distinct launch of both paths -----------------------
+    t0 = time.perf_counter()
+    held = hold_main_path(launched + served, randn, rand, errs)
+    say({"phase": "main-path-parity",
+         "launches": len(launched) + len(served), "distinct": held,
+         "seconds": time.perf_counter() - t0})
+
+    # -- 7. out-of-range indices -------------------------------------------------
     check_bad_index()
 
-    # -- 7. results ---------------------------------------------------------
+    # -- 8. results ---------------------------------------------------------
     kernels = []
     for kname, (source, replaces) in KERNEL_SITES.items():
         r = rows[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[kname],
+            "replaces": replaces,
+            "launches": roster_launches[kname] + serving_launches[kname],
             "max_abs_err": errs[kname], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

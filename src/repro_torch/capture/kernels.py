@@ -5,17 +5,18 @@ Each entry runs a kernel capture hook (``repro_torch.kernels.*.capture``),
 which launches the kernel on the requested device and walks the launched
 spec into an HBM word-address stream, and wraps the stream as a
 :class:`repro_torch.core.tracegen.Workload` for the unchanged Step-2/3
-pipeline (locality, cache simulation, classification).  This slice holds
-the first four of the reference's six families, 16 of its 24 entries,
-with the reference's names and geometry: STREAM copy/scale/add/triad x2
-sizes, token_gather x2 tables, flash_attention x2 KV geometries, paged-KV
-decode x4.
+pipeline (locality, cache simulation, classification).  It holds the
+reference's six families, all 24 entries, with the reference's names,
+order and geometry: STREAM copy/scale/add/triad x2 sizes, token_gather x2
+tables, flash_attention x2 KV geometries, paged-KV decode x4, MoE dispatch
+x4, SSM scans x4.
 
 Modeling notes (as in the reference):
 
 - Traces are *per-thread*: hooks partition the kernel's grid the way the
   kernel is parallelized (row tiles for STREAM, index slices for gather,
-  q- or kv-splits for attention, one sequence per thread for decode).
+  q- or kv-splits for attention, one sequence per thread for decode, a
+  token slice for MoE dispatch, a time slice for the SSM scans).
 - Per-thread traces are length-normalized to ``target_refs`` by cycling
   (``np.resize``) when it is set.
 - AI comes from the capture's op count over its 1-core stream.
@@ -32,7 +33,9 @@ import torch
 from repro_torch.core.tracegen import TraceSpec, Workload
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import capture as flash_capture
+from repro_torch.kernels.moe_dispatch import capture as moe_capture
 from repro_torch.kernels.paged_kv_decode import capture as paged_capture
+from repro_torch.kernels.ssm_scan import capture as ssm_capture
 from repro_torch.kernels.stream import capture as stream_capture
 from repro_torch.kernels.token_gather import capture as gather_capture
 
@@ -48,7 +51,7 @@ class CapturedKernel:
     """Declaration of one captured-kernel suite entry."""
 
     name: str
-    kernel: str                 # "stream" | "gather" | "flashattn" | "pagedkv"
+    kernel: str                 # "stream" | "gather" | "flashattn" | ...
     domain: str
     expected_class: str
     target_refs: int            # per-thread trace length after cycling (0: raw)
@@ -91,6 +94,24 @@ def _paged_builder(n_pages: int, page: int, d: int, h: int,
         return paged_capture.capture(n_pages=n_pages, page=page, d=d, h=h,
                                      n_active=n_active, rng=rng,
                                      device=device)
+    return build
+
+
+def _moe_builder(n_tokens: int, d: int, f: int, n_experts: int) -> Builder:
+    def build(cores, rng, device):
+        del cores  # thread-private token slice over the shared expert table
+        return moe_capture.capture(n_tokens=n_tokens, d=d, f=f,
+                                   n_experts=n_experts, rng=rng,
+                                   device=device)
+    return build
+
+
+def _ssm_builder(op: str, seq_len: int, d: int, n: int,
+                 chunk: int) -> Builder:
+    def build(cores, rng, device):
+        del rng  # dense scan: no data-dependent addressing
+        return ssm_capture.capture(op, seq_len=seq_len, d=d, n=n,
+                                   chunk=chunk, cores=cores, device=device)
     return build
 
 
@@ -205,9 +226,76 @@ def _paged_entries() -> list[CapturedKernel]:
     ]
 
 
+# MoE dispatch: the tokens-per-expert ratio decides the class.  Cold
+# experts (~1 token each) stream the whole weight table per batch at ~6
+# ops/word (1a); long sorted runs amortize each weight tile over many
+# tokens, leaving the irregular activation gather/scatter (1b).
+_GEO_MOE = (
+    ("cold.64e", "1a", dict(n_tokens=64, d=128, f=128, n_experts=64)),
+    ("cold.96e", "1a", dict(n_tokens=96, d=128, f=128, n_experts=96)),
+    ("warm.8e", "1b", dict(n_tokens=512, d=128, f=256, n_experts=8)),
+    ("warm.32e", "1b", dict(n_tokens=256, d=128, f=128, n_experts=32)),
+)
+
+
+def _moe_entries() -> list[CapturedKernel]:
+    return [
+        CapturedKernel(
+            name=f"pal.moe.{tag}",
+            kernel="moe",
+            domain="TPU-kernel/moe-dispatch",
+            expected_class=cls,
+            target_refs=0,
+            l3_shared=True,
+            mlp=8.0,
+            dram_rows_irregular=False,
+            instr_overhead=3.0,
+            builder=_moe_builder(**geo),
+            geometry=tuple(sorted(geo.items())),
+            core_invariant=True,
+        )
+        for tag, cls, geo in _GEO_MOE
+    ]
+
+
+# SSM scans: the state never touches HBM, so the trace is pure
+# chunk-granular streaming.  The gated EMA scan moves ~3 ops per word
+# (1a); the state-expanded (n=128) scan retires two chunk-local matmuls
+# per block and profiles as compute-heavy streaming (1b).
+_GEO_SSM = (
+    ("ema.1k.d128", "1a", dict(op="ema", seq_len=1024, d=128, n=0,
+                               chunk=128)),
+    ("ema.512.d256", "1a", dict(op="ema", seq_len=512, d=256, n=0,
+                                chunk=64)),
+    ("expand.512.d128", "1b", dict(op="expand", seq_len=512, d=128, n=128,
+                                   chunk=128)),
+    ("expand.512.d256", "1b", dict(op="expand", seq_len=512, d=256, n=128,
+                                   chunk=64)),
+)
+
+
+def _ssm_entries() -> list[CapturedKernel]:
+    return [
+        CapturedKernel(
+            name=f"pal.ssm.{tag}",
+            kernel="ssm",
+            domain="TPU-kernel/ssm-scan",
+            expected_class=cls,
+            target_refs=0,
+            l3_shared=True,
+            mlp=8.0,
+            dram_rows_irregular=False,
+            instr_overhead=2.0,
+            builder=_ssm_builder(**geo),
+            geometry=tuple(sorted(geo.items())),
+        )
+        for tag, cls, geo in _GEO_SSM
+    ]
+
+
 CAPTURED_KERNELS: tuple[CapturedKernel, ...] = tuple(
     _stream_entries() + _gather_entries() + _flash_entries()
-    + _paged_entries()
+    + _paged_entries() + _moe_entries() + _ssm_entries()
 )
 
 

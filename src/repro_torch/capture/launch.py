@@ -43,8 +43,8 @@ class LaunchOperand:
     vector every program reads (the reference scalar-prefetches it once
     before the grid runs; a CUDA block reads it from global memory).  A
     ``steered`` operand's ``index_map`` takes the program ids followed by
-    the launch's index vector (as numpy), like a Pallas index map that
-    reads a scalar-prefetch ref.
+    every index vector of the launch (as numpy, in ``LaunchSpec.index``
+    order), like a Pallas index map that reads the scalar-prefetch refs.
     """
 
     name: str
@@ -60,22 +60,23 @@ class LaunchOperand:
 class LaunchSpec:
     """Grid + per-operand blocks of one kernel launch, and its op count.
 
-    ``index`` is the launch's index tensor (gather rows, page table) or
-    ``None``; it is read back to the host only when the spec is walked.
+    ``index`` holds the launch's index tensors (gather rows; page table;
+    MoE token order then expert ids), in the order of its ``"index"``
+    operands; they are read back to the host only when the spec is walked.
     """
 
     name: str
     grid: tuple[int, ...]
     operands: tuple[LaunchOperand, ...]
     flops: float
-    index: torch.Tensor | None = None
+    index: tuple[torch.Tensor, ...] = ()
 
     def operand(self, name: str) -> LaunchOperand:
         return next(op for op in self.operands if op.name == name)
 
     def to_grid_capture(self) -> GridCapture:
-        idx = (None if self.index is None
-               else self.index.detach().cpu().numpy().astype(np.int64))
+        idx = tuple(t.detach().cpu().numpy().astype(np.int64)
+                    for t in self.index)
         ops = []
         for op in self.operands:
             npdt = _NP_DTYPES[op.dtype]
@@ -89,7 +90,7 @@ class LaunchSpec:
                 continue
             imap = op.index_map
             if op.steered:
-                imap = (lambda *step, _m=op.index_map: _m(*step, idx))
+                imap = (lambda *step, _m=op.index_map: _m(*step, *idx))
             ops.append(OperandSpec(
                 name=op.name, role=op.role, shape=op.shape,
                 block_shape=op.block_shape, index_map=imap,

@@ -10,15 +10,20 @@ plain version for CPU tensors, and raises otherwise) and ``capture.py``
 - ``stream``          — STREAM copy/scale/add/triad (one kernel);
 - ``token_gather``    — row gather steered by an index vector;
 - ``flash_attention`` — GQA attention with an online softmax;
-- ``paged_kv_decode`` — one decode step over a paged KV pool.
+- ``paged_kv_decode`` — one decode step over a paged KV pool;
+- ``moe_dispatch``    — expert-sorted gather, per-expert GEMM, scatter;
+- ``ssm_scan``        — the gated EMA scan and the state-expanded scan
+  (two kernels, two sources).
 """
 
 from __future__ import annotations
 
-from . import flash_attention, paged_kv_decode, stream, token_gather
+from . import (flash_attention, moe_dispatch, paged_kv_decode, ssm_scan,
+               stream, token_gather)
 
 __all__ = ["KERNELS", "launch_counts", "reset_launch_counts",
-           "flash_attention", "paged_kv_decode", "stream", "token_gather"]
+           "flash_attention", "moe_dispatch", "paged_kv_decode", "ssm_scan",
+           "stream", "token_gather"]
 
 # Kernel name (= csrc/<name>.cu) -> the wrapper that launches it.
 KERNELS = {
@@ -26,6 +31,9 @@ KERNELS = {
     "token_gather": token_gather.kernel.gather_rows,
     "flash_attention": flash_attention.kernel.flash_attention,
     "paged_kv_decode": paged_kv_decode.kernel.paged_decode_attention,
+    "moe_dispatch": moe_dispatch.kernel.moe_grouped_gemm,
+    "ssm_ema_scan": ssm_scan.kernel.ssm_ema_cuda,
+    "ssm_chunked_scan": ssm_scan.kernel.ssm_chunked_cuda,
 }
 
 

@@ -51,7 +51,7 @@ def launch_spec(h: int, d: int, n_pages: int, page: int,
             LaunchOperand(name="o", role="out", **qo),
         ),
         flops=decode_flops(h=h, page=page, d=d, n_active=n_active),
-        index=page_table,
+        index=(page_table,),
     )
 
 

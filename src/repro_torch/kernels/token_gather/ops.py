@@ -42,7 +42,7 @@ def launch_spec(n_rows: int, d: int, idx: torch.Tensor,
                           index_map=lambda i: (i, 0)),
         ),
         flops=0.0,  # pure data movement
-        index=idx,
+        index=(idx,),
     )
 
 

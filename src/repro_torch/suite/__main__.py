@@ -21,16 +21,9 @@ import json
 import sys
 
 from repro_torch.core.sweep import CORE_SWEEP
+from repro_torch.study.cliutil import parse_cores
 
 from .runner import SuiteRunner
-
-
-def parse_cores(text: str) -> tuple[int, ...]:
-    """argparse type for ``--cores 1,4,16``."""
-    cores = tuple(int(x) for x in text.split(",") if x)
-    if not cores:
-        raise argparse.ArgumentTypeError("need at least one core count")
-    return cores
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -1,6 +1,6 @@
 """The port's captured traces against the reference's mirror geometry.
 
-For each of the 16 slice entries and every core count of the sweep, the
+For each of the 24 captured entries and every core count of the sweep, the
 word trace walked from the spec the port's launcher launched (on the CPU,
 through the plain versions) must be byte-identical to the reference's
 ``walk(spec.builder(cores, rng, path="mirror"))``, with equal loads,
@@ -29,8 +29,12 @@ JAX_BY_NAME = {k.name: k for k in JAX_KERNELS}
 
 
 def test_slice_is_the_first_four_families():
-    assert len(NAMES) == 16
-    assert NAMES == [k.name for k in JAX_KERNELS[:16]]
+    """The roster is the reference's six families, all 24 entries, in the
+    reference's order and with its metadata."""
+    assert len(NAMES) == 24
+    assert NAMES == [k.name for k in JAX_KERNELS]
+    assert {k.kernel for k in CAPTURED_KERNELS} == {
+        "stream", "gather", "flashattn", "pagedkv", "moe", "ssm"}
     assert CORE_SWEEP == JAX_CORE_SWEEP
     for k in CAPTURED_KERNELS:
         j = JAX_BY_NAME[k.name]

@@ -1,4 +1,4 @@
-"""The slice as a whole: the port's 16 roster rows (``SuiteRunner`` on the
+"""The slice as a whole: the port's 24 roster rows (``SuiteRunner`` on the
 CPU) against the reference's ``classify.measure`` / ``classify`` rows for
 the same workloads, on the reference's mirror capture path.  Classes must
 be equal, and so must every metric: the numpy pipeline is copied and the
@@ -52,7 +52,7 @@ def test_roster_row_equals_reference(name, port_rows, reference_rows):
 
 
 def test_all_classes_as_expected(port_rows):
-    assert len(port_rows) == 16
+    assert len(port_rows) == 24
     assert all(r[5] == 1 for r in port_rows.values())
 
 
@@ -64,9 +64,9 @@ def test_cli_check_and_histogram(tmp_path):
     roster, hist = json.loads(out.read_text())
     assert roster["name"] == "suite_roster"
     assert roster["columns"] == list(ROSTER_COLUMNS)
-    assert len(roster["rows"]) == 16
+    assert len(roster["rows"]) == 24
     counts = {row[0]: row[1] for row in hist["rows"]}
-    assert counts == {"1a": 12, "1b": 3, "1c": 1, "2a": 0, "2b": 0, "2c": 0}
+    assert counts == {"1a": 16, "1b": 7, "1c": 1, "2a": 0, "2b": 0, "2c": 0}
 
 
 def test_cli_csv_sections(capsys):
