@@ -9,18 +9,26 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. prints the card's name and power limit (``nvidia-smi``) and builds
    every kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per source,
-   all started together);
+   all started together); prints each kernel's ptxas registers/spills and counts the
+   flash library's ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load)
+   instructions with ``cuobjdump -sass``, failing if bf16 flash has no
+   ``HGMMA``;
 2. holds each kernel against its plain PyTorch version on the card at
    full width, in float32 and bf16: qwen2.5-14b for STREAM, gather, flash
    and paged decode (40 query heads, 8 KV heads, head_dim 128, vocab
-   152064); one DeepSeek-MoE-16B layer's routed dispatch (4096 tokens,
-   top-6 of 64 experts, d_model 2048, d_ff_expert 1408); one Zamba2-7B
-   Mamba-2 layer's scans (T 4096, d_inner 7168, ssm_state 64, chunk 128);
+   152064; bf16 flash also at head_dim 64); one DeepSeek-MoE-16B layer's
+   routed dispatch (4096 tokens, top-6 of 64 experts, d_model 2048,
+   d_ff_expert 1408); one Zamba2-7B Mamba-2 layer's scans (T 4096, d_inner
+   7168, ssm_state 64, chunk 128);
 3. times each kernel at full width with CUDA events (median of 10 after
    3 warm-ups, L2 flushed before each), beside its plain version, the one
    PyTorch call that computes the same function where there is one, and
    the least time the card could take (bytes over its memory rate or
-   operations over its peak rate for their type, whichever is larger);
+   operations over its peak rate for their type, whichever is larger).
+   STREAM is timed in turns instead: its library call and its kernel,
+   both writing into one preallocated output, and its entry point, which
+   allocates its output; each is first checked bit for bit against the
+   plain version.  bf16 flash is timed causal and not, beside SDPA;
 4. main path 1: sets every launch counter to 0, runs the 24-entry
    captured roster (``repro_torch.suite``) on the card recording every
    launch's spec, reads the counters, checks 24/24 classes as expected,
@@ -33,11 +41,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. holds each kernel against its plain version again at every distinct
    launch of both paths: its shapes and tiles, with its own index vectors
    (gather rows; page table, also reversed; MoE token order and expert
-   ids) and, for the scans, its chunk;
+   ids) and, for the scans, its chunk; every flash shape also recast to
+   bf16 at head_dim 64 and 128, causal and not;
 7. checks, in child processes, that an out-of-range gather index, page
    or MoE expert id makes the launch fail rather than read past the table;
-8. prints the kernels line (``launches`` summed over both paths) and,
-   last, ``{"ok": true, "device": ...}``.
+8. prints the kernels line (``launches`` summed over both paths, flash's
+   also split by kernel; the f32 timings, and the bf16 ones as
+   ``bf16_ms``, ``bf16_bound_ms``, ``bf16_library_ms``) and, last,
+   ``{"ok": true, "device": ...}``.
 
 Tolerances: gather is exact.  STREAM's plain version rounds op by op as
 the kernel does, so both dtypes are held to the float32 tolerance of the
@@ -49,9 +60,9 @@ reference's).  The state-expanded scan in float32: rtol 1e-4 and atol
 but y_t's sum over the N state rows is taken in another order, whose
 error is at most N 2^-24 sum|c h|, about 3e-5 of the rms at N = 64.  In
 bf16 every kernel but STREAM is held against the plain version computed
-in float32 on the same bf16 inputs (the kernels compute in float32 and
-round once): rtol 1e-2, 2.5x the bf16 rounding of a value (2^-8), and
-atol 1e-3 of the output's rms.
+in float32 on the same bf16 inputs (the kernels compute in float32, bf16
+flash's P.V on two bf16 halves of P, and round once): rtol 1e-2, 2.5x the
+bf16 rounding of a value (2^-8), and atol 1e-3 of the output's rms.
 
 It exits non-zero without a result when no CUDA device is available, and
 when run outside a checkout (it imports the package from ``src/`` beside
@@ -61,6 +72,8 @@ itself).
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -119,21 +132,34 @@ class Bench:
         self.peaks = peaks
         self.flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
 
+    def once(self, fn) -> float:
+        """ms of one run of ``fn`` after an L2 flush."""
+        self.flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
     def ms(self, fn) -> float:
         for _ in range(WARMUP):
             fn()
         torch.cuda.synchronize()
-        times = []
-        for _ in range(REPS):
-            self.flush.zero_()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
+        return statistics.median(self.once(fn) for _ in range(REPS))
+
+    def turns(self, calls: list[tuple[str, object]], rounds: int
+              ) -> dict[str, float]:
+        """Median ms of each named call, timed in turns: every round runs
+        the calls in the order given (a name may come twice)."""
+        for _, fn in calls:
             fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
+        times: dict[str, list[float]] = {name: [] for name, _ in calls}
+        for _ in range(rounds):
+            for name, fn in calls:
+                times[name].append(self.once(fn))
+        return {name: statistics.median(t) for name, t in times.items()}
 
     def bound(self, nbytes: float, ops: float, rate: str) -> tuple[float, str]:
         t_bytes = nbytes / self.peaks["bytes"] * 1e3
@@ -141,6 +167,7 @@ class Bench:
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+STREAM_ROUNDS = 15          # in-turns rounds of the STREAM timings
 STREAM_TOL = (1e-5, 1e-6)   # (rtol, atol), both dtypes; EMA scan f32
 ATTN_TOL = (1e-4, 2e-5)     # flash, paged decode and MoE dispatch, float32
 CHUNKED_RTOL, CHUNKED_ATOL_RMS = 1e-4, 1e-4   # state-expanded scan, float32
@@ -238,6 +265,29 @@ def check_bad_index() -> None:
                                  f"fail the launch:\n{out}\n{err}")
 
 
+SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS")
+
+
+def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
+    """Per kernel function of a built library, how many ``HGMMA`` (wgmma),
+    ``UTMALDG`` (TMA load) and ``LDGSTS`` (cp.async) instructions its SASS
+    holds (``cuobjdump -sass``)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts: dict[str, dict[str, int]] = {}
+    fn = None
+    for line in sass.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            fn = head.group(1)
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn:
+            for op in SASS_OPS:
+                counts[fn][op] += len(re.findall(rf"\b{op}\b", line))
+    return counts
+
+
 def stream_calls() -> dict:
     """op -> (kernel, plain version, library call) on (a, b, q[, out])."""
     from repro_torch.kernels.stream import ops, ref
@@ -315,6 +365,18 @@ def hold_main_path(launched: list, randn, rand,
             check("flash_attention", f"sq={sq} sk={sk} d={d}",
                   mha(qq, kk, vv, causal=False, block_q=bq, block_k=bk), want,
                   tol=attn_tol(dtype, want))
+            for d16 in (64, 128):        # the shape recast to bf16
+                qq = randn(1, sq, bh, d16, dtype=torch.bfloat16)
+                kk, vv = (randn(1, sk, bg, d16, dtype=torch.bfloat16)
+                          for _ in range(2))
+                for causal in (True, False):
+                    want = attention_ref(qq.float(), kk.float(), vv.float(),
+                                         causal=causal)
+                    check("flash_attention",
+                          f"bf16 sq={sq} sk={sk} d={d16} causal={causal}",
+                          mha(qq, kk, vv, causal=causal, block_q=bq,
+                              block_k=bk), want,
+                          tol=attn_tol(torch.bfloat16, want))
             return "flash_attention"
         if spec.name == "paged_kv_decode":
             h, d = spec.operand("q").shape
@@ -391,6 +453,8 @@ def main() -> int:
     from repro_torch.capture.launch import record as record_launches
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import attention_ref, mha
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention as flash_kernel)
     from repro_torch.kernels.moe_dispatch import (moe_dispatch,
                                                   moe_dispatch_ref,
                                                   moe_dispatch_sorted,
@@ -402,6 +466,7 @@ def main() -> int:
                                               ssm_ema_scan)
     from repro_torch.kernels.ssm_scan.ops import scan_flops
     from repro_torch.kernels.stream import ops as stream_ops
+    from repro_torch.kernels.stream.kernel import stream_cuda
     from repro_torch.kernels.token_gather import gather, gather_rows_ref
     from repro_torch.serving import SCENARIOS, measure_windows
     from repro_torch.suite.runner import SuiteRunner
@@ -426,13 +491,22 @@ def main() -> int:
          "built": sorted(logs)})
     for kname, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "entry function" in line):
                 say(f"# ptxas {kname}: {line.strip()}")
+    sass = sass_counts(_build.library_path("flash_attention"))
+    for fn, counts in sass.items():
+        say({"phase": "sass", "library": "flash_attention", "function": fn,
+             **counts})
+    hgmma = sum(c["HGMMA"] for fn, c in sass.items() if "flash_fwd_sm90" in fn)
+    if not hgmma:
+        raise AssertionError("flash_fwd_sm90 holds no HGMMA (wgmma) "
+                             "instruction")
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     errs: dict[str, float] = dict.fromkeys(K.KERNELS, 0.0)
-    rows: dict[str, dict] = {}
+    rows: dict[tuple[str, torch.dtype], dict] = {}   # timing rows
     bench = Bench(peaks)
 
     def randn(*shape, dtype=torch.float32):
@@ -442,36 +516,50 @@ def main() -> int:
         return torch.rand(*shape, generator=gen, device=dev)
 
     def record(kernel: str, case: str, dtype, ms: float, plain_ms: float,
-               library_ms, nbytes: float, ops: float, rate: str) -> dict:
+               library_ms, nbytes: float, ops: float, rate: str,
+               **extra) -> dict:
         bound_ms, bound_by = bench.bound(nbytes, ops, rate)
         row = {"phase": "timing", "kernel": kernel, "case": case,
                "dtype": str(dtype).replace("torch.", ""), "ms": ms,
                "plain_ms": plain_ms, "library_ms": library_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
-               "bound_share": bound_ms / ms, "card": smi}
+               "bound_share": bound_ms / ms, **extra, "card": smi}
         say(row)
         return row
 
     # -- 2+3. STREAM ------------------------------------------------------------
+    # In turns: the library call and the kernel, both writing into one
+    # preallocated output, and the entry point, which allocates its output
+    # as a user's call does.  ``ms`` is the kernel's; ``entry_ms`` the entry
+    # point's.
     streams = stream_calls()
     q = 3.0
     n = 2**28
     for dtype in (torch.float32, torch.bfloat16):
         a, b = randn(n, dtype=dtype), randn(n, dtype=dtype)
         o = torch.empty_like(a)
-        for op, (kern, plain, lib) in streams.items():
-            errs["stream"] = max(errs["stream"], check_close(
-                "stream", f"{op} full n=2^28", kern(a, b, q),
-                plain(a, b, q), tol=STREAM_TOL))
+        for op, (entry, plain, lib) in streams.items():
+            spec = stream_ops.launch_spec(op, n, dtype)
+            want = plain(a, b, q)
+            check_close("stream", f"{op} full n=2^28 entry point",
+                        entry(a, b, q), want, exact=True)
+            check_close("stream", f"{op} full n=2^28 into out",
+                        stream_cuda(spec, op, a, b, q, out=o), want,
+                        exact=True)
+            del want
+            ms = bench.turns(
+                [("library", lambda: lib(a, b, q, o)),
+                 ("kernel", lambda: stream_cuda(spec, op, a, b, q, out=o)),
+                 ("entry", lambda: entry(a, b, q)),
+                 ("library", lambda: lib(a, b, q, o))], STREAM_ROUNDS)
             row = record(
-                "stream", op, dtype,
-                bench.ms(lambda: kern(a, b, q)),
-                bench.ms(lambda: plain(a, b, q)),
-                bench.ms(lambda: lib(a, b, q, o)),
+                "stream", op, dtype, ms["kernel"],
+                bench.ms(lambda: plain(a, b, q)), ms["library"],
                 stream_ops.bytes_moved(op, n, a.element_size()),
-                stream_ops.STREAM_OPS[op][1] * n, "f32")
-            if op == "triad" and dtype == torch.float32:
-                rows["stream"] = row
+                stream_ops.STREAM_OPS[op][1] * n, "f32",
+                entry_ms=ms["entry"], vs_library=ms["kernel"] / ms["library"])
+            if op == "triad":
+                rows["stream", dtype] = row
         del a, b, o
     torch.cuda.empty_cache()
 
@@ -494,39 +582,52 @@ def main() -> int:
             bench.ms(lambda: gather_rows_ref(table, idx)),
             bench.ms(lambda: torch.index_select(table, 0, idx)),
             2 * m * d * table.element_size() + 4 * m, 0.0, "f32")
-        if dtype == torch.float32:
-            rows["token_gather"] = row
+        rows["token_gather", dtype] = row
         del table, idx
     torch.cuda.empty_cache()
 
     # -- 2+3. flash attention -------------------------------------------------
-    bsz, s, h, g, d = 1, 4096, 40, 8, 128
-    for dtype in (torch.float32, torch.bfloat16):
+    bsz, s, h, g = 1, 4096, 40, 8
+    for dtype, d in ((torch.float32, 128), (torch.bfloat16, 128),
+                     (torch.bfloat16, 64)):
         qq = randn(bsz, s, h, d, dtype=dtype)
         kk, vv = randn(bsz, s, g, d, dtype=dtype), randn(bsz, s, g, d, dtype=dtype)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (qq, kk, vv))
         for causal in (True, False):
+            case = f"b={bsz} s={s} h={h} g={g} d={d} causal={causal}"
             want = attention_ref(qq.float(), kk.float(), vv.float(),
                                  causal=causal)
+            tol = attn_tol(dtype, want)
             errs["flash_attention"] = max(errs["flash_attention"], check_close(
-                "flash_attention",
-                f"full b={bsz} s={s} h={h} g={g} d={d} causal={causal}",
-                mha(qq, kk, vv, causal=causal), want,
-                tol=attn_tol(dtype, want)))
+                "flash_attention", f"full {case}", mha(qq, kk, vv, causal=causal),
+                want, tol=tol))
+            if dtype == torch.bfloat16 and d == 128:
+                # SDPA's own bf16 result against the same limit (for the
+                # record: it rounds P to bf16 once).
+                sdpa = F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, scale=d ** -0.5,
+                    enable_gqa=True).transpose(1, 2).float()
+                err = (sdpa - want).abs()
+                say({"phase": "sdpa-vs-plain", "case": case,
+                     "max_abs_err": err.max().item(),
+                     "worst_over_limit": (err / (tol[1] + tol[0] * want.abs())
+                                          ).max().item()})
+                del sdpa, err
             del want
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (qq, kk, vv))
-        pairs = bsz * h * s * (s + 1) // 2          # unmasked (q, k) pairs
-        row = record(
-            "flash_attention", f"b={bsz} s={s} h={h} g={g} d={d} causal",
-            dtype,
-            bench.ms(lambda: mha(qq, kk, vv, causal=True)),
-            bench.ms(lambda: attention_ref(qq, kk, vv, causal=True)),
-            bench.ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, scale=d ** -0.5,
-                enable_gqa=True)),
-            (2 * qq.numel() + kk.numel() + vv.numel()) * qq.element_size(),
-            4.0 * d * pairs, "f32" if dtype == torch.float32 else "bf16")
-        if dtype == torch.float32:
-            rows["flash_attention"] = row
+            if d == 64 or (dtype == torch.float32 and not causal):
+                continue
+            pairs = bsz * h * (s * (s + 1) // 2 if causal else s * s)
+            row = record(
+                "flash_attention", case, dtype,
+                bench.ms(lambda: mha(qq, kk, vv, causal=causal)),
+                bench.ms(lambda: attention_ref(qq, kk, vv, causal=causal)),
+                bench.ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, scale=d ** -0.5,
+                    enable_gqa=True)),
+                (2 * qq.numel() + kk.numel() + vv.numel()) * qq.element_size(),
+                4.0 * d * pairs, "f32" if dtype == torch.float32 else "bf16")
+            if causal:
+                rows["flash_attention", dtype] = row
         del qq, kk, vv, qt, kt, vt
         torch.cuda.empty_cache()
 
@@ -556,8 +657,7 @@ def main() -> int:
             (2 * n_active * page * d + 2 * h * d) * isz + 4 * n_active,
             4.0 * h * page * d * n_active,
             "f32" if dtype == torch.float32 else "bf16")
-        if dtype == torch.float32:
-            rows["paged_kv_decode"] = row
+        rows["paged_kv_decode", dtype] = row
         del qq, kp, vp, pt
     torch.cuda.empty_cache()
 
@@ -582,8 +682,7 @@ def main() -> int:
             None,
             (x.numel() + w.numel() + t * f) * x.element_size() + 8 * t,
             2.0 * t * d * f, "f32" if dtype == torch.float32 else "bf16")
-        if dtype == torch.float32:
-            rows["moe_dispatch"] = row
+        rows["moe_dispatch", dtype] = row
         del x, w, eids, tok, eid
         torch.cuda.empty_cache()
 
@@ -622,8 +721,8 @@ def main() -> int:
             bench.ms(lambda: ssm_chunked_scan(x, dt, b, c, chunk=chunk)),
             bench.ms(lambda: ssm_chunked_ref(x, dt, b, c)), None,
             (3 * t * d + 2 * t * n) * isz, min(direct_ops, closed_ops), "f32")
-        if dtype == torch.float32:
-            rows["ssm_ema_scan"], rows["ssm_chunked_scan"] = ema, chunked
+        rows["ssm_ema_scan", dtype] = ema
+        rows["ssm_chunked_scan", dtype] = chunked
         del x, dt, g, b, c
     del bench
     torch.cuda.empty_cache()
@@ -636,11 +735,12 @@ def main() -> int:
         roster = runner.roster()
         torch.cuda.synchronize()
     roster_launches = K.launch_counts()
+    roster_flash = dict(flash_kernel.launches_by_kernel)
     roster_s = time.perf_counter() - t0
     bad = runner.divergent()
     say({"phase": "roster", "entries": len(roster.rows),
          "matching": len(roster.rows) - len(bad), "seconds": roster_s,
-         "launches": roster_launches})
+         "launches": roster_launches, "flash_launches_by_kernel": roster_flash})
     for rec in roster.records():
         say({"phase": "roster-row", **rec})
     if len(roster.rows) != 24 or bad:
@@ -673,9 +773,11 @@ def main() -> int:
                  "launches": {k: after[k] - before[k] for k in after
                               if after[k] > before[k]}})
     serving_launches = K.launch_counts()
+    serving_flash = dict(flash_kernel.launches_by_kernel)
     serving_s = time.perf_counter() - t0
     say({"phase": "serving", "scenarios": len(timelines),
-         "seconds": serving_s, "launches": serving_launches})
+         "seconds": serving_s, "launches": serving_launches,
+         "flash_launches_by_kernel": serving_flash})
     missing = [k for k in ("flash_attention", "paged_kv_decode",
                            "moe_dispatch") if serving_launches[k] <= 0]
     if len(timelines) != 16 or missing:
@@ -712,15 +814,21 @@ def main() -> int:
     # -- 8. results ---------------------------------------------------------
     kernels = []
     for kname, (source, replaces) in KERNEL_SITES.items():
-        r = rows[kname]
-        kernels.append({
+        r, r16 = rows[kname, torch.float32], rows[kname, torch.bfloat16]
+        entry = {
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": roster_launches[kname] + serving_launches[kname],
             "max_abs_err": errs[kname], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        })
+            "bf16_ms": r16["ms"], "bf16_bound_ms": r16["bound_ms"],
+            "bf16_library_ms": r16["library_ms"],
+        }
+        if kname == "flash_attention":
+            entry["launches_by_kernel"] = {
+                k: roster_flash[k] + serving_flash[k] for k in roster_flash}
+        kernels.append(entry)
     say({"kernels": kernels})
     say({"ok": True, "device": {"platform": "gpu", "kind": name,
                                 "count": torch.cuda.device_count()}})

@@ -4,25 +4,54 @@
 // src/repro/kernels/flash_attention/kernel.py (pallas_call at :108), whose
 // grid (b*h, n_q, n_kv) carries the online-softmax state (m, l, acc) in
 // VMEM scratch across the sequential kv axis.  On Hopper blocks run in no
-// order, so one block owns one (b*h, q tile) and loops the kv axis itself:
-// the Q tile stays in shared memory, K/V stream through shared memory in
-// 32-row chunks, and m, l, acc stay in f32 (acc in registers).
+// order, so one block owns one (b*h, q tile) and loops the kv axis itself.
+// Two kernels sit behind flash_attention_launch, chosen by dtype:
 //
-// Bound on the card: operations.  Attention at these shapes does ~4*D
-// flops per (query, key) pair against ~4*D bytes per query row, far above
-// the H100's ~20 f32 flops per byte of HBM, so it is limited by the FMA
-// rate; this first version runs on the CUDA cores (f32 FMAs, register
-// tiles of 4x4 scores and 4xD/8 outputs per thread) and leaves the tensor
-// cores to a later kernel.
+// bf16: flash_fwd_sm90, on the tensor cores.  Bound on the card:
+// operations, 4*D flops per unmasked (query, key) pair at 989 TFLOP/s
+// bf16 dense, against ~4*D bytes per query row: far above the H100's ~295
+// bf16 flops per byte of HBM.  So the design feeds wgmma and keeps
+// everything else off its path.  A block is three warpgroups for one
+// 128-row q tile: a producer (registers cut to 24 by setmaxnreg) whose one
+// thread issues TMA loads of the Q tile once and of 128-row K and V tiles
+// through a ring of two stages (mbarrier full/empty pairs), and two
+// consumers (registers raised to 240), each owning 64 q rows, the M of one
+// wgmma.  Tiles land in 128-byte-swizzled shared memory straight from the
+// [B*S, heads, D] layout (rank-3 tensor maps, box {64, 1, 128}; D = 128 is
+// two 64-column panels), so nothing is transposed.  S = Q K^T is
+// wgmma m64n128k16 with both operands in shared memory and f32
+// accumulators; the online softmax runs in registers (a row lies across
+// one quad, so its max and sum take two xor-shuffles), with
+// scale * log2(e) folded into exp2f; O += P V is wgmma m64nDk16 with P
+// from registers and V read MN-major (transposed) from shared memory.  P
+// goes in as two bf16 halves, hi = bf16(p) and lo = bf16(p - hi), two
+// products into the same f32 accumulator: one bf16 rounding of p puts an
+// error of ~2^-9 of the output's rms on every element, up to 12.6x the
+// tolerance against the f32 plain version (tests/test_torch_flash_tiles.py),
+// while the split leaves ~2^-17.
+// Causal q tiles are numbered heaviest first, and only the tile on the
+// diagonal is masked.  The output is normalized, rounded to bf16, staged
+// through the swizzled Q rows the consumer owns and written with 16-byte
+// stores.
 //
-// Semantics kept from the reference: scale D^-0.5 applied after the dot;
-// causal mask qpos >= kpos on absolute positions, with masked scores set
-// to -1e30 (not -inf) and whole kv tiles above the diagonal skipped
-// (ki*bk > qi*bq + bq - 1); out = acc / max(l, 1e-30).  q is
-// [B, Sq, H, D], k and v [B, Sk, G, D]; head h reads kv head h / (H/G).
+// f32: flash_fwd_kernel, on the CUDA cores (f32 FMAs; register tiles of
+// 4x4 scores and 4xD/8 outputs a thread; K/V in 32-row chunks through
+// shared memory), since TF32 would not hold the f32 tolerance.
+//
+// Semantics kept from the reference in both: scale D^-0.5 applied to the
+// dot; causal mask qpos >= kpos on absolute positions, with masked scores
+// set to -1e30 (not -inf) and whole kv tiles above the diagonal skipped
+// (ki*bk > qi*bq + bq - 1); out = acc / max(l, 1e-30).  q is [B, Sq, H, D],
+// k and v [B, Sk, G, D]; head h reads kv head h / (H/G).
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
+
 #include "common.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// f32: CUDA-core kernel
+// ---------------------------------------------------------------------------
 
 constexpr int kThreads = 256;
 constexpr int kMaxBQ = 128;  // rows of the reference q tile a block holds
@@ -202,34 +231,535 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
-               int Sq, int Sk, int H, int G, int D, int bq, int bk, int causal,
-               float scale, cudaStream_t s) {
-  if (D == 64)
-    return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, G, bq, bk, causal, scale, s);
-  if (D == 128)
-    return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, G, bq, bk, causal, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+
+// ---------------------------------------------------------------------------
+// bf16: tensor-core kernel (sm_90a)
+// ---------------------------------------------------------------------------
+
+namespace sm90 {
+
+constexpr int kBQ = 128;           // q rows a block owns (two consumers x 64)
+constexpr int kBK = 128;           // kv rows a stage holds
+constexpr int kStages = 2;         // K/V ring depth
+constexpr int kThreads = 384;      // producer + two consumer warpgroups
+constexpr int kPanelBytes = 128 * 128;   // 128 rows x 64 bf16 columns
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Wait until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// One TMA box {64 columns, 1 head, 128 rows} into shared memory, completing
+// bytes on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int col, int head,
+                                         int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
+      "r"(head), "r"(row)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor for a 128-byte-swizzled operand: rows of
+// 128 bytes, 8-row groups 1024 bytes apart (SBO); LBO is the distance
+// between 64-column panels, read only for MN-major operands wider than 64.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(1024 >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of wgmma's registers across
+// the asynchronous product.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// D[64 x 128] = A[64 x 16] * B[16 x 128], A and B in shared memory: the
+// first k-step, which reads no accumulator.
+__device__ __forceinline__ void wgmma_ss_n128_init(float (&d)[64], uint64_t da,
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
+        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+// D[64 x 128] += A[64 x 16] * B[16 x 128], A and B in shared memory.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] * B[16 x 128], A in registers, B in shared memory
+// read transposed (MN-major).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// D[64 x 64] += A[64 x 16] * B[16 x 64], A in registers, B in shared memory
+// read transposed (MN-major).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&acc)[D / 2], const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (D == 128)
+    wgmma_rs_n128(acc, a, db, 1);
+  else
+    wgmma_rs_n64(acc, a, db, 1);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo_col, hi_col);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int D>
+__host__ __device__ constexpr int tile_bytes() {
+  return kBK * D * 2;  // one 128-row bf16 tile, D/64 panels
+}
+
+template <int D>
+__host__ __device__ constexpr int smem_bytes() {
+  return 1024                                   // alignment slack
+         + (1 + 2 * kStages) * tile_bytes<D>()  // Q, K ring, V ring
+         + 8 * (1 + 3 * kStages);               // mbarriers
+}
+
+// grid (B*H, Sq/128): blockIdx.x is the head, blockIdx.y the q tile.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
+               const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v,
+               __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H, int G,
+               int causal, float scale_log2) {
+  constexpr int kPanels = D / 64;
+  constexpr int kTile = tile_bytes<D>();
+  constexpr int kAcc = D / 2;  // f32 accumulators a thread holds for 64 x D
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sK = sQ + kTile;
+  uint8_t* sV = sK + kStages * kTile;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(sV + kStages * kTile);
+  uint64_t* full_k = full_q + 1;
+  uint64_t* full_v = full_k + kStages;
+  uint64_t* empty = full_v + kStages;
+
+  const int n_q = Sq / kBQ;
+  const int bh = blockIdx.x;
+  const int tile = static_cast<int>(blockIdx.y);
+  const int qi = causal ? n_q - 1 - tile : tile;  // heaviest first
+  const int b = bh / H;
+  const int h = bh % H;
+  const int g = h / (H / G);
+  const int q0 = qi * kBQ;
+  // Tiles ki with ki*bk <= q0 + bq - 1 are computed under the causal mask.
+  const int n_kv = causal ? min(Sk / kBK, qi + 1) : Sk / kBK;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {  // producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+    if (tid == 0) {
+      const int q_row = b * Sq + q0;
+      const int kv_row = b * Sk;
+      mbar_expect_tx(full_q, kTile);
+      for (int p = 0; p < kPanels; ++p)
+        tma_load(sQ + p * kPanelBytes, &tm_q, full_q, 64 * p, h, q_row);
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % kStages;
+        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        uint8_t* k_dst = sK + s * kTile;
+        uint8_t* v_dst = sV + s * kTile;
+        mbar_expect_tx(&full_k[s], kTile);
+        for (int p = 0; p < kPanels; ++p)
+          tma_load(k_dst + p * kPanelBytes, &tm_k, &full_k[s], 64 * p, g,
+                   kv_row + j * kBK);
+        mbar_expect_tx(&full_v[s], kTile);
+        for (int p = 0; p < kPanels; ++p)
+          tma_load(v_dst + p * kPanelBytes, &tm_v, &full_v[s], 64 * p, g,
+                   kv_row + j * kBK);
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroups: c owns q rows 64c .. 64c+63 of the tile.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+  const int c = tid / 128 - 1;
+  const int t = tid % 128;
+  const int lane = t % 32;
+  const int row_lo = 16 * (t / 32) + lane / 4;  // and row_lo + 8
+  const int col_in = 2 * (lane % 4);            // first of two columns
+  const int q_first = q0 + 64 * c;              // position of row 0
+
+  float acc[kAcc];
+  float sc[64];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+  float m[2] = {REPRO_NEG_INF, REPRO_NEG_INF};
+  float l[2] = {0.f, 0.f};  // this thread's columns only until the end
+  const uint32_t q_addr = smem_u32(sQ) + 64 * c * 128;
+
+  mbar_wait(full_q, 0);
+  for (int j = 0; j < n_kv; ++j) {
+    const int s = j % kStages;
+    const int parity = (j / kStages) & 1;
+    const uint32_t k_addr = smem_u32(sK + s * kTile);
+    const uint32_t v_addr = smem_u32(sV + s * kTile);
+
+    // S = Q K^T over D in steps of 16 (32 bytes of one 128-byte row).
+    mbar_wait(&full_k[s], parity);
+    reg_fence(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
+      const uint64_t da = sw128_desc(q_addr + off, 16);
+      const uint64_t db = sw128_desc(k_addr + off, 16);
+      if (kk == 0)
+        wgmma_ss_n128_init(sc, da, db);
+      else
+        wgmma_ss_n128(sc, da, db);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(sc);
+
+    // Online softmax in the log2 domain.  sc[4n + e] is row row_lo + 8*(e/2),
+    // column 8n + col_in + e%2 of the tile.
+    const int k0 = j * kBK;
+    const bool diag = causal && k0 + kBK - 1 > q_first;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      float x = sc[i] * scale_log2;
+      if (diag) {
+        const int qpos = q_first + row_lo + 8 * ((i % 4) / 2);
+        const int kpos = k0 + 8 * (i / 4) + col_in + i % 2;
+        if (qpos < kpos) x = REPRO_NEG_INF;
+      }
+      sc[i] = x;
+      mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], x);
+    }
+    float alpha[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2f(m[r] - mx[r]);
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const float p = exp2f(sc[i] - m[(i % 4) / 2]);
+      sc[i] = p;
+      rsum[(i % 4) / 2] += p;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rsum[r];
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) acc[i] *= alpha[(i % 4) / 2];
+
+    // P as wgmma A fragments: k-step kk (kv columns 16kk..16kk+15) is
+    // sc[8kk .. 8kk+7] in the order the fragment wants; hi = bf16(p),
+    // lo = bf16(p - hi).
+    uint32_t p_hi[32], p_lo[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float x0 = sc[2 * i], x1 = sc[2 * i + 1];
+      __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+      const float2 hf = __bfloat1622float2(hi);
+      p_hi[i] = *reinterpret_cast<uint32_t*>(&hi);
+      p_lo[i] = pack_bf16(x0 - hf.x, x1 - hf.y);
+    }
+
+    // O += P V over the 128 kv rows in steps of 16 (2048 bytes of V).
+    mbar_wait(&full_v[s], parity);
+    reg_fence(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint64_t dv = sw128_desc(v_addr + kk * 16 * 128, kPanelBytes);
+      wgmma_pv<D>(acc, p_hi + 4 * kk, dv);
+      wgmma_pv<D>(acc, p_lo + 4 * kk, dv);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(acc);
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  // out = acc / max(l, 1e-30), rounded to bf16, staged in this consumer's
+  // Q rows (same swizzle) and written as 16-byte row segments.
+  float lim[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    lim[r] = fmaxf(l[r], 1e-30f);
+  }
+  uint8_t* sO = sQ + 64 * c * 128;
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + c) : "memory");  // Q rows read
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_lo + 8 * r;
+      uint8_t* dst = sO + (n / 8) * kPanelBytes + row * 128 +
+                     (((n % 8) ^ (row % 8)) * 16) + col_in * 2;
+      *reinterpret_cast<uint32_t*>(dst) =
+          pack_bf16(acc[4 * n + 2 * r] / lim[r], acc[4 * n + 2 * r + 1] / lim[r]);
+    }
+  }
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + c) : "memory");
+  constexpr int kChunks = D / 8;  // 16-byte segments in one output row
+  for (int i = t; i < 64 * kChunks; i += 128) {
+    const int row = i / kChunks;
+    const int ch = i % kChunks;
+    const uint4 val = *reinterpret_cast<const uint4*>(
+        sO + (ch / 8) * kPanelBytes + row * 128 + (((ch % 8) ^ (row % 8)) * 16));
+    const int64_t pos = static_cast<int64_t>(b) * Sq + q_first + row;
+    *reinterpret_cast<uint4*>(o + (pos * H + h) * D + ch * 8) = val;
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API call: fetch it through the runtime
+// so the library needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &found);
+#endif
+    return found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// Tensor map over a contiguous [rows, heads, D] bf16 array, boxes of
+// {64 columns, 1 head, 128 rows}, 128-byte swizzle.
+bool make_map(CUtensorMap* map, const void* base, int D, int heads,
+              int64_t rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(heads) * D * 2};
+  const cuuint32_t box[3] = {64, 1, static_cast<cuuint32_t>(kBK)};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(base), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+           int Sk, int H, int G, int causal, float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, D, H, static_cast<int64_t>(B) * Sq) ||
+      !make_map(&tk, k, D, G, static_cast<int64_t>(B) * Sk) ||
+      !make_map(&tv, v, D, G, static_cast<int64_t>(B) * Sk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = smem_bytes<D>();
+  auto* kern = flash_fwd_sm90<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, Sq / kBQ);
+  kern<<<grid, kThreads, smem, stream>>>(tq, tk, tv,
+                                         static_cast<__nv_bfloat16*>(o), Sq,
+                                         Sk, H, G, causal, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace sm90
 
 }  // namespace
 
-// Contract (checked by the Python wrapper): contiguous inputs, D in {64,
-// 128}, 0 < bq <= 128, Sq % bq == 0, bk % 32 == 0, Sk % bk == 0, H % G == 0.
+// Contract (checked by the Python wrapper): contiguous, 16-byte aligned
+// inputs, D in {64, 128}, Sq % bq == 0, Sk % bk == 0, H % G == 0; f32
+// takes 0 < bq <= 128 and bk % 32 == 0, bf16 takes bq = bk = 128.
 REPRO_EXPORT int flash_attention_launch(int dtype, const void* q, const void* k,
                                         const void* v, void* o, int B, int Sq,
                                         int Sk, int H, int G, int D, int bq,
                                         int bk, int causal, float scale,
                                         void* stream) {
-  if (bq <= 0 || bq > kMaxBQ || Sq % bq || bk % kKC || Sk % bk || H % G)
+  if (bq <= 0 || Sq % bq || bk <= 0 || Sk % bk || H % G || (D != 64 && D != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == REPRO_F32)
-    return dispatch_d<float>(q, k, v, o, B, Sq, Sk, H, G, D, bq, bk, causal,
-                             scale, s);
-  if (dtype == REPRO_BF16)
-    return dispatch_d<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, G, D, bq, bk,
-                                     causal, scale, s);
+  if (dtype == REPRO_F32) {
+    if (bq > kMaxBQ || bk % kKC) return static_cast<int>(cudaErrorInvalidValue);
+    return D == 64 ? launch<float, 64>(q, k, v, o, B, Sq, Sk, H, G, bq, bk,
+                                       causal, scale, s)
+                   : launch<float, 128>(q, k, v, o, B, Sq, Sk, H, G, bq, bk,
+                                        causal, scale, s);
+  }
+  if (dtype == REPRO_BF16) {
+    if (bq != sm90::kBQ || bk != sm90::kBK)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return D == 64 ? sm90::launch<64>(q, k, v, o, B, Sq, Sk, H, G, causal,
+                                      scale, s)
+                   : sm90::launch<128>(q, k, v, o, B, Sq, Sk, H, G, causal,
+                                       scale, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -45,3 +45,6 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    split = flash_attention.kernel.flash_attention.launches_by_kernel
+    for name in split:
+        split[name] = 0

@@ -88,6 +88,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     spec = stream_ops.launch_spec("copy", a.numel(), a.dtype)
     with pytest.raises(ValueError, match="CUDA"):
         stream_cuda(spec, "copy", a)
+    with pytest.raises(ValueError, match="CUDA"):
+        stream_cuda(spec, "copy", a, out=torch.empty_like(a))
     q = torch.zeros(1, 128, 1, 64)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(flash_spec(1, 128, 128, 1, 1, 64, q.dtype), q, q, q,
