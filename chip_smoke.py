@@ -9,10 +9,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. prints the card's name and power limit (``nvidia-smi``) and builds
    every kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per source,
-   all started together); prints each kernel's ptxas registers/spills and counts the
-   flash library's ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load)
-   instructions with ``cuobjdump -sass``, failing if bf16 flash has no
-   ``HGMMA``;
+   all started together); prints each kernel's ptxas registers/spills and
+   counts the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions of
+   the flash and MoE libraries with ``cuobjdump -sass``, failing if bf16
+   flash or bf16 MoE dispatch has no ``HGMMA``;
 2. holds each kernel against its plain PyTorch version on the card at
    full width, in float32 and bf16: qwen2.5-14b for STREAM, gather, flash
    and paged decode (40 query heads, 8 KV heads, head_dim 128, vocab
@@ -28,7 +28,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    STREAM is timed in turns instead: its library call and its kernel,
    both writing into one preallocated output, and its entry point, which
    allocates its output; each is first checked bit for bit against the
-   plain version.  bf16 flash is timed causal and not, beside SDPA;
+   plain version.  bf16 flash is timed causal and not, beside SDPA.  Paged
+   decode prints its split count; bf16 MoE dispatch prints, where the
+   card's torch has it, ``torch._grouped_mm`` on x already gathered into
+   sorted order as ``grouped_mm_ms`` (a yardstick for the GEMM alone).
+   Paged decode and MoE dispatch draw their inputs from a seed of their
+   own, here and in phase 8, and ``scripts/kernel_ab.py`` times another
+   checkout's kernels through the same functions on the same data;
 4. main path 1: sets every launch counter to 0, runs the 24-entry
    captured roster (``repro_torch.suite``) on the card recording every
    launch's spec, reads the counters, checks 24/24 classes as expected,
@@ -43,9 +49,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    (gather rows; page table, also reversed; MoE token order and expert
    ids) and, for the scans, its chunk; every flash shape also recast to
    bf16 at head_dim 64 and 128, causal and not;
-7. checks, in child processes, that an out-of-range gather index, page
+7. MoE dispatch's tile list: the pre-pass run alone on the card at every
+   distinct main-path MoE launch equals ``plan.tile_list``; dispatches
+   with an unsorted ``eid`` and with runs of 1, 7, 64, 127, 128 and 129
+   rows (f32 and bf16, into outputs filled with NaN) match the plain
+   version;
+8. prints paged decode's split count at each main-path geometry, and
+   times paged decode and MoE dispatch at the main paths' geometries (the
+   captured roster's four of each and the serving roster's one, float32),
+   checked against the plain version first;
+9. checks, in child processes, that an out-of-range gather index, page
    or MoE expert id makes the launch fail rather than read past the table;
-8. prints the kernels line (``launches`` summed over both paths, flash's
+10. prints the kernels line (``launches`` summed over both paths, flash's
    also split by kernel; the f32 timings, and the bf16 ones as
    ``bf16_ms``, ``bf16_bound_ms``, ``bf16_library_ms``) and, last,
    ``{"ok": true, "device": ...}``.
@@ -71,6 +86,7 @@ itself).
 
 from __future__ import annotations
 
+import itertools
 import json
 import re
 import shutil
@@ -441,6 +457,294 @@ def hold_main_path(launched: list, randn, rand,
     return len(held)
 
 
+# Full width of the two redesigned kernels (qwen2.5-14b decode over a
+# paged pool; one DeepSeek-MoE-16B layer's routed dispatch).
+FULL_PAGED = dict(n_pages=65536, page=16, d=128, h=5, n_active=2048)
+FULL_MOE = dict(n_tokens=4096, top_k=6, d=2048, f=1408, n_experts=64)
+
+
+def main_path_geometries() -> tuple[list, list]:
+    """(name, geometry) of paged decode and of MoE dispatch at the main
+    paths' launches: the captured roster's four geometries of each
+    (``capture/kernels.py``) and the serving roster's one
+    (``serving/scenario.py``)."""
+    from repro_torch.capture import kernels as cap
+    from repro_torch.serving import scenario as srv
+
+    paged = [(f"roster {tag}", geo) for tag, _, geo in cap._GEO_PAGED]
+    g = dict(srv._GEO_PAGED)
+    paged.append(("serving", dict(n_pages=g["n_pages"], page=g["page"],
+                                  d=g["d"], h=g["h"],
+                                  n_active=g["pages_per_seq"])))
+    moe = [(f"roster {tag}", geo) for tag, _, geo in cap._GEO_MOE]
+    g = dict(srv._GEO_MOE)
+    moe.append(("serving", dict(n_tokens=g["tokens_per_req"], d=g["d"],
+                                f=g["f"], n_experts=g["n_experts"])))
+    return paged, moe
+
+
+def paged_splits(geo: dict, itemsize: int) -> int:
+    """Splits the paged kernel takes at ``geo`` on this card."""
+    from repro_torch.kernels.paged_kv_decode.plan import split_plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return split_plan(geo["n_active"], geo["page"], geo["d"], geo["h"],
+                      itemsize, n_sm=sms)[1]
+
+
+def paged_inputs(gen, geo: dict, dtype: torch.dtype):
+    """q [H, D], the K and V pools [P, page, D] and a table of
+    ``n_active`` distinct pages."""
+    dev = torch.device("cuda")
+    pt = torch.randperm(geo["n_pages"], generator=gen, device=dev)[
+        :geo["n_active"]].to(torch.int32)
+    q, kp, vp = (torch.randn(*shape, generator=gen, device=dev).to(dtype)
+                 for shape in ((geo["h"], geo["d"]),
+                               (geo["n_pages"], geo["page"], geo["d"]),
+                               (geo["n_pages"], geo["page"], geo["d"])))
+    return q, kp, vp, pt
+
+
+def moe_inputs(gen, geo: dict, dtype: torch.dtype):
+    """x [T, D], w [E, D, F], the expert of each row in token order and
+    the sorted (tok, eid) of one dispatch: each token routed to ``top_k``
+    distinct experts (its row repeated), or to one expert drawn
+    uniformly."""
+    dev = torch.device("cuda")
+    n_tok, top_k = geo["n_tokens"], geo.get("top_k", 1)
+    d, f, n_exp = geo["d"], geo["f"], geo["n_experts"]
+    x = torch.randn(n_tok, d, generator=gen, device=dev).to(dtype)
+    x = x.repeat_interleave(top_k, dim=0)
+    w = (torch.randn(n_exp, d, f, generator=gen, device=dev) / d ** 0.5
+         ).to(dtype)
+    eids = torch.rand(n_tok, n_exp, generator=gen, device=dev).argsort(
+        dim=1)[:, :top_k].reshape(-1)
+    tok = torch.argsort(eids, stable=True).to(torch.int32)
+    return x, w, eids, tok, eids[tok.long()].to(torch.int32)
+
+
+def timing_row(bench: Bench, smi: str, kernel: str, case: str, dtype,
+               ms: float, plain_ms: float, library_ms, nbytes: float,
+               ops: float, rate: str, **extra) -> dict:
+    """Print and return one full-width timing row with its bound."""
+    bound_ms, bound_by = bench.bound(nbytes, ops, rate)
+    row = {"phase": "timing", "kernel": kernel, "case": case,
+           "dtype": str(dtype).replace("torch.", ""), "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_share": bound_ms / ms, **extra, "card": smi}
+    say(row)
+    return row
+
+
+# Seed of the inputs of paged decode's and MoE dispatch's timings, drawn
+# anew in each, so that phases 3 and 8 and scripts/kernel_ab.py (which
+# times another checkout's kernels with these functions) see the same data.
+TIMING_SEED = 1
+
+
+def paged_full_width(bench: Bench, smi: str, dtype: torch.dtype,
+                     **extra) -> tuple[dict, float]:
+    """Paged decode at ``FULL_PAGED``: held against its plain version,
+    then timed beside it.  Returns the timing row (printed, with
+    ``extra``) and the max abs error."""
+    from repro_torch.kernels.paged_kv_decode import (paged_decode,
+                                                     paged_decode_ref)
+
+    g = FULL_PAGED
+    gen = torch.Generator(device="cuda").manual_seed(TIMING_SEED)
+    q, kp, vp, pt = paged_inputs(gen, g, dtype)
+    case = (f"pool={g['n_pages']} page={g['page']} h={g['h']} d={g['d']} "
+            f"n={g['n_active']}")
+    want = paged_decode_ref(q.float(), kp.float(), vp.float(), pt)
+    err = check_close("paged_kv_decode", f"full {case}",
+                      paged_decode(q, kp, vp, pt), want,
+                      tol=attn_tol(dtype, want))
+    del want
+    isz = q.element_size()
+    row = timing_row(
+        bench, smi, "paged_kv_decode", case, dtype,
+        bench.ms(lambda: paged_decode(q, kp, vp, pt)),
+        bench.ms(lambda: paged_decode_ref(q, kp, vp, pt)), None,
+        (2 * g["n_active"] * g["page"] * g["d"] + 2 * g["h"] * g["d"]) * isz
+        + 4 * g["n_active"],
+        4.0 * g["h"] * g["page"] * g["d"] * g["n_active"],
+        "f32" if dtype == torch.float32 else "bf16", **extra)
+    return row, err
+
+
+def moe_full_width(bench: Bench, smi: str, dtype: torch.dtype,
+                   **extra) -> tuple[dict, float]:
+    """One DeepSeek-MoE-16B layer's routed dispatch (``FULL_MOE``): the
+    unsorted entry point held against its plain version, then the sorted
+    dispatch timed beside its plain version (and, in bf16, the
+    ``torch._grouped_mm`` yardstick).  Returns the timing row (printed,
+    with ``extra``) and the max abs error."""
+    from repro_torch.kernels.moe_dispatch import (moe_dispatch,
+                                                  moe_dispatch_ref,
+                                                  moe_dispatch_sorted,
+                                                  moe_dispatch_sorted_ref)
+
+    g = FULL_MOE
+    gen = torch.Generator(device="cuda").manual_seed(TIMING_SEED)
+    x, w, eids, tok, eid = moe_inputs(gen, g, dtype)
+    t, d, f = x.shape[0], g["d"], g["f"]
+    case = f"T={t} D={d} F={f} E={g['n_experts']} top{g['top_k']}"
+    want = moe_dispatch_ref(x.float(), w.float(), eids)
+    err = check_close("moe_dispatch", f"full {case}",
+                      moe_dispatch(x, w, eids), want,
+                      tol=attn_tol(dtype, want))
+    del want
+    row = timing_row(
+        bench, smi, "moe_dispatch", case, dtype,
+        bench.ms(lambda: moe_dispatch_sorted(x, w, tok, eid)),
+        bench.ms(lambda: moe_dispatch_sorted_ref(x, w, tok, eid)), None,
+        (x.numel() + w.numel() + t * f) * x.element_size() + 8 * t,
+        2.0 * t * d * f, "f32" if dtype == torch.float32 else "bf16",
+        **extra)
+    if dtype == torch.bfloat16:
+        grouped_mm_yardstick(bench, x, w, tok, eid, smi)
+    return row, err
+
+
+def geometry_timings(bench: Bench, smi: str, **tags) -> list[dict]:
+    """Time paged decode and MoE dispatch through their entry points at
+    the main paths' geometries in float32, each first held against its
+    plain version; prints one row each (with ``tags``) and returns them."""
+    from repro_torch.kernels.moe_dispatch import (moe_dispatch_sorted,
+                                                  moe_dispatch_sorted_ref)
+    from repro_torch.kernels.paged_kv_decode import (paged_decode,
+                                                     paged_decode_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(TIMING_SEED)
+    paged, moe = main_path_geometries()
+    f32 = torch.float32
+    rows = []
+    for name, g in paged:
+        q, kp, vp, pt = paged_inputs(gen, g, f32)
+        want = paged_decode_ref(q, kp, vp, pt)
+        err = check_close("paged_kv_decode", f"timing {name}",
+                          paged_decode(q, kp, vp, pt), want, tol=ATTN_TOL,
+                          show=False)
+        rows.append(dict(kernel="paged_kv_decode", case=name, geometry=g,
+                         dtype="float32",
+                         ms=bench.ms(lambda: paged_decode(q, kp, vp, pt)),
+                         max_abs_err=err))
+    for name, g in moe:
+        x, w, _, tok, eid = moe_inputs(gen, g, f32)
+        want = moe_dispatch_sorted_ref(x, w, tok, eid)
+        err = check_close("moe_dispatch", f"timing {name}",
+                          moe_dispatch_sorted(x, w, tok, eid), want,
+                          tol=ATTN_TOL, show=False)
+        rows.append(dict(kernel="moe_dispatch", case=name, geometry=g,
+                         dtype="float32",
+                         ms=bench.ms(lambda: moe_dispatch_sorted(x, w, tok,
+                                                                 eid)),
+                         max_abs_err=err))
+    for row in rows:
+        say({"phase": "geometry-timing", **tags, **row, "card": smi})
+    return rows
+
+
+def check_moe_tiles(launched: list, gen, errs: dict[str, float]) -> None:
+    """MoE dispatch's pre-pass on the card against ``plan.tile_list``, for
+    tiles of both heights the kernels take, at every distinct main-path
+    launch; then dispatches whose runs are 1, 7, 64, 127, 128 and 129 rows
+    long, one row for each of 64 experts, and an unsorted ``eid``, in
+    float32 and bf16 at F = 256 and 384, into outputs filled with NaN (a
+    row no tile writes stays NaN and fails the check), against the plain
+    version."""
+    from repro_torch.kernels.moe_dispatch import moe_dispatch_sorted_ref
+    from repro_torch.kernels.moe_dispatch.kernel import (moe_grouped_gemm,
+                                                         tile_list_on_card)
+    from repro_torch.kernels.moe_dispatch.ops import launch_spec
+    from repro_torch.kernels.moe_dispatch.plan import BM, SMALL_BM, tile_list
+
+    def same_lists(tok, eid, n_exp, case) -> int:
+        for bm in (SMALL_BM, BM):
+            got = tile_list_on_card(tok, eid, n_exp, bm)
+            want = tile_list(eid, bm)
+            if not torch.equal(got, want):
+                raise AssertionError(f"moe tile list {case}, bm {bm}: the "
+                                     f"card's {got.tolist()} != "
+                                     f"{want.tolist()}")
+        return len(want)
+
+    held, n_tiles = set(), 0
+    for spec in launched:
+        if spec.name != "moe_dispatch":
+            continue
+        tok, eid = spec.index
+        n_exp = spec.operand("w").shape[0]
+        key = (n_exp, tok.cpu().numpy().tobytes(), eid.cpu().numpy().tobytes())
+        if key not in held:
+            held.add(key)
+            n_tiles += same_lists(tok, eid, n_exp, f"main path T={len(tok)}")
+    say({"phase": "moe-tile-list", "distinct_launches": len(held),
+         "tiles_at_128_rows": n_tiles, "ok": True})
+
+    dev = torch.device("cuda")
+    cases = {f"runs of {n}": [e for e in range(3) for _ in range(n)]
+             for n in (1, 7, 64, 127, 128, 129)}
+    cases["cold: 1 row each of 64 experts"] = list(range(64))
+    cases["unsorted eid"] = torch.randint(0, 8, (300,), generator=gen,
+                                          device=dev).tolist()
+    d = 256
+    for case, eid_list in cases.items():
+        eid = torch.tensor(eid_list, dtype=torch.int32, device=dev)
+        t, n_exp = len(eid_list), max(eid_list) + 1
+        tok = torch.randperm(t, generator=gen, device=dev).to(torch.int32)
+        n = same_lists(tok, eid, n_exp, case)
+        # bf16 N-tiles of 256: F = 256 is one; F = 384 one and a last of 128
+        for dtype, f in itertools.product((torch.float32, torch.bfloat16),
+                                          (256, 384)):
+            x = torch.randn(t, d, generator=gen, device=dev).to(dtype)
+            w = (torch.randn(n_exp, d, f, generator=gen, device=dev)
+                 / d ** 0.5).to(dtype)
+            out = torch.full((t, f), float("nan"), dtype=dtype, device=dev)
+            got = moe_grouped_gemm(launch_spec(t, d, f, n_exp, tok, eid, dtype),
+                                   x, w, tok, eid, out=out)
+            want = moe_dispatch_sorted_ref(x.float(), w.float(), tok, eid)
+            errs["moe_dispatch"] = max(errs["moe_dispatch"], check_close(
+                "moe_dispatch", f"{case} ({n} tiles of <= 128 rows) T={t} "
+                f"D={d} F={f}", got, want, tol=attn_tol(dtype, want)))
+
+
+def grouped_mm_yardstick(bench: Bench, x, w, tok, eid, smi: str) -> None:
+    """Time ``torch._grouped_mm`` (where the card's torch has it) on x
+    already gathered into sorted order, with the experts' end offsets: a
+    yardstick for the GEMM alone (no gather, no scatter), never called by
+    the port.  Prints its time and its error against the plain version in
+    sorted order, or why it is absent or refused."""
+    fn = getattr(torch, "_grouped_mm", None)
+    row = {"phase": "yardstick", "kernel": "moe_dispatch",
+           "call": "torch._grouped_mm", "dtype": "bfloat16",
+           "grouped_mm_ms": None, "card": smi}
+    if fn is None:
+        say({**row, "why": "absent from this torch"})
+        return
+    xs = x[tok.long()]
+    offs = torch.bincount(eid.long(), minlength=w.shape[0]).cumsum(0).to(
+        torch.int32)
+    want = torch.cat([xs[a:b].float() @ w[e].float() for e, (a, b) in
+                      enumerate(zip([0] + offs[:-1].tolist(), offs.tolist()))
+                      if b > a])
+    for form, wb in (("w as stored [E, D, F]", w),
+                     ("w column-major", w.transpose(1, 2).contiguous()
+                      .transpose(1, 2))):
+        try:
+            got = fn(xs, wb, offs=offs)
+            torch.cuda.synchronize()
+        except Exception as exc:   # refused: say why, try the other layout
+            say({**row, "form": form, "why": f"{type(exc).__name__}: "
+                 f"{str(exc)[:200]}"})
+            continue
+        say({**row, "form": form,
+             "grouped_mm_ms": bench.ms(lambda: fn(xs, wb, offs=offs)),
+             "max_abs_err": (got.float() - want).abs().max().item()})
+        return
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -455,12 +759,6 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import attention_ref, mha
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention as flash_kernel)
-    from repro_torch.kernels.moe_dispatch import (moe_dispatch,
-                                                  moe_dispatch_ref,
-                                                  moe_dispatch_sorted,
-                                                  moe_dispatch_sorted_ref)
-    from repro_torch.kernels.paged_kv_decode import (paged_decode,
-                                                     paged_decode_ref)
     from repro_torch.kernels.ssm_scan import (ssm_chunked_ref,
                                               ssm_chunked_scan, ssm_ema_ref,
                                               ssm_ema_scan)
@@ -494,14 +792,14 @@ def main() -> int:
             if ("registers" in line or "spill" in line
                     or "entry function" in line):
                 say(f"# ptxas {kname}: {line.strip()}")
-    sass = sass_counts(_build.library_path("flash_attention"))
-    for fn, counts in sass.items():
-        say({"phase": "sass", "library": "flash_attention", "function": fn,
-             **counts})
-    hgmma = sum(c["HGMMA"] for fn, c in sass.items() if "flash_fwd_sm90" in fn)
-    if not hgmma:
-        raise AssertionError("flash_fwd_sm90 holds no HGMMA (wgmma) "
-                             "instruction")
+    for lib, fn_name in (("flash_attention", "flash_fwd_sm90"),
+                         ("moe_dispatch", "moe_gemm_sm90")):
+        sass = sass_counts(_build.library_path(lib))
+        for fn, counts in sass.items():
+            say({"phase": "sass", "library": lib, "function": fn, **counts})
+        if not sum(c["HGMMA"] for fn, c in sass.items() if fn_name in fn):
+            raise AssertionError(f"{fn_name} holds no HGMMA (wgmma) "
+                                 f"instruction")
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -515,17 +813,8 @@ def main() -> int:
     def rand(*shape):
         return torch.rand(*shape, generator=gen, device=dev)
 
-    def record(kernel: str, case: str, dtype, ms: float, plain_ms: float,
-               library_ms, nbytes: float, ops: float, rate: str,
-               **extra) -> dict:
-        bound_ms, bound_by = bench.bound(nbytes, ops, rate)
-        row = {"phase": "timing", "kernel": kernel, "case": case,
-               "dtype": str(dtype).replace("torch.", ""), "ms": ms,
-               "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "bound_share": bound_ms / ms, **extra, "card": smi}
-        say(row)
-        return row
+    def record(*args, **kw) -> dict:
+        return timing_row(bench, smi, *args, **kw)
 
     # -- 2+3. STREAM ------------------------------------------------------------
     # In turns: the library call and the kernel, both writing into one
@@ -631,59 +920,18 @@ def main() -> int:
         del qq, kk, vv, qt, kt, vt
         torch.cuda.empty_cache()
 
-    # -- 2+3. paged-KV decode -------------------------------------------------
-    def paged_inputs(n_pages, page, d, h, n_active, dtype=torch.float32):
-        perm = torch.randperm(n_pages, generator=gen, device=dev)
-        pt = perm[:n_active].to(torch.int32)
-        return (randn(h, d, dtype=dtype), randn(n_pages, page, d, dtype=dtype),
-                randn(n_pages, page, d, dtype=dtype), pt)
-
-    n_pages, page, d, h, n_active = 65536, 16, 128, 5, 2048
+    # -- 2+3. paged-KV decode and MoE dispatch (the same timings as
+    # scripts/kernel_ab.py) ------------------------------------------------
     for dtype in (torch.float32, torch.bfloat16):
-        qq, kp, vp, pt = paged_inputs(n_pages, page, d, h, n_active, dtype)
-        want = paged_decode_ref(qq.float(), kp.float(), vp.float(), pt)
-        errs["paged_kv_decode"] = max(errs["paged_kv_decode"], check_close(
-            "paged_kv_decode",
-            f"full pool={n_pages} page={page} h={h} n={n_active}",
-            paged_decode(qq, kp, vp, pt), want, tol=attn_tol(dtype, want)))
-        del want
-        isz = qq.element_size()
-        row = record(
-            "paged_kv_decode",
-            f"pool={n_pages} page={page} h={h} d={d} n={n_active}", dtype,
-            bench.ms(lambda: paged_decode(qq, kp, vp, pt)),
-            bench.ms(lambda: paged_decode_ref(qq, kp, vp, pt)),
-            None,
-            (2 * n_active * page * d + 2 * h * d) * isz + 4 * n_active,
-            4.0 * h * page * d * n_active,
-            "f32" if dtype == torch.float32 else "bf16")
+        row, err = paged_full_width(
+            bench, smi, dtype,
+            n_splits=paged_splits(FULL_PAGED, 4 if dtype == torch.float32
+                                  else 2))
         rows["paged_kv_decode", dtype] = row
-        del qq, kp, vp, pt
-    torch.cuda.empty_cache()
-
-    # -- 2+3. MoE dispatch: one DeepSeek-MoE-16B layer's routed tokens ---------
-    n_tok, top_k, d, f, n_exp = 4096, 6, 2048, 1408, 64
-    t = n_tok * top_k        # each token's row once per chosen expert
-    for dtype in (torch.float32, torch.bfloat16):
-        x = randn(n_tok, d, dtype=dtype).repeat_interleave(top_k, dim=0)
-        w = (randn(n_exp, d, f) / d ** 0.5).to(dtype)
-        eids = rand(n_tok, n_exp).argsort(dim=1)[:, :top_k].reshape(-1)
-        want = moe_dispatch_ref(x.float(), w.float(), eids)
-        errs["moe_dispatch"] = max(errs["moe_dispatch"], check_close(
-            "moe_dispatch", f"full T={t} D={d} F={f} E={n_exp} top{top_k}",
-            moe_dispatch(x, w, eids), want, tol=attn_tol(dtype, want)))
-        del want
-        tok = torch.argsort(eids, stable=True).to(torch.int32)
-        eid = eids[tok.long()].to(torch.int32)
-        row = record(
-            "moe_dispatch", f"T={t} D={d} F={f} E={n_exp} top{top_k}", dtype,
-            bench.ms(lambda: moe_dispatch_sorted(x, w, tok, eid)),
-            bench.ms(lambda: moe_dispatch_sorted_ref(x, w, tok, eid)),
-            None,
-            (x.numel() + w.numel() + t * f) * x.element_size() + 8 * t,
-            2.0 * t * d * f, "f32" if dtype == torch.float32 else "bf16")
+        errs["paged_kv_decode"] = max(errs["paged_kv_decode"], err)
+        row, err = moe_full_width(bench, smi, dtype)
         rows["moe_dispatch", dtype] = row
-        del x, w, eids, tok, eid
+        errs["moe_dispatch"] = max(errs["moe_dispatch"], err)
         torch.cuda.empty_cache()
 
     # -- 2+3. SSM scans: one Zamba2-7B Mamba-2 layer -----------------------
@@ -808,10 +1056,20 @@ def main() -> int:
          "launches": len(launched) + len(served), "distinct": held,
          "seconds": time.perf_counter() - t0})
 
-    # -- 7. out-of-range indices -------------------------------------------------
+    # -- 7. MoE dispatch's tile list, ragged tiles, unsorted eid --------------
+    check_moe_tiles(launched + served, gen, errs)
+
+    # -- 8. paged decode and MoE dispatch at the main paths' geometries ------
+    for case, geo in main_path_geometries()[0]:
+        say({"phase": "paged-splits", "case": case, "geometry": geo,
+             "n_splits": paged_splits(geo, 4)})
+    geometry_timings(Bench(peaks), smi)
+    torch.cuda.empty_cache()
+
+    # -- 9. out-of-range indices -------------------------------------------------
     check_bad_index()
 
-    # -- 8. results ---------------------------------------------------------
+    # -- 10. results --------------------------------------------------------
     kernels = []
     for kname, (source, replaces) in KERNEL_SITES.items():
         r, r16 = rows[kname, torch.float32], rows[kname, torch.bfloat16]
@@ -830,7 +1088,8 @@ def main() -> int:
                 k: roster_flash[k] + serving_flash[k] for k in roster_flash}
         kernels.append(entry)
     say({"kernels": kernels})
-    say({"ok": True, "device": {"platform": "gpu", "kind": name,
+    say({"ok": True, "device": {"platform": "gpu",
+                                "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})
     return 0
 

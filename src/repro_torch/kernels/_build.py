@@ -23,7 +23,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["CSRC", "BUILD_DIR", "ARCH", "nvcc_command", "build", "bind",
-           "check", "on_card", "dtype_code", "stream_ptr"]
+           "check", "on_card", "dtype_code", "stream_ptr", "sm_count"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -143,3 +143,14 @@ def dtype_code(*tensors: torch.Tensor) -> int:
 def stream_ptr(t: torch.Tensor) -> int:
     """PyTorch's current CUDA stream on ``t``'s device, as an integer."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(t: torch.Tensor) -> int:
+    """Streaming multiprocessors of the CUDA device ``t`` lies on."""
+    return _sms(t.device.index if t.device.index is not None
+                else torch.cuda.current_device())

@@ -2,8 +2,10 @@
 
 Replaces ``paged_decode_attention`` of
 ``repro/kernels/paged_kv_decode/kernel.py``.  :func:`paged_decode_attention`
-launches from the spec: the spec's sequential page grid ``(n_active,)``
-becomes the loop of one block over the page table, in table order.
+launches from the spec: the spec's sequential page grid ``(n_active,)`` is
+cut into ranges of consecutive table entries (``plan.split_plan``), one
+block walks each range in table order, and a second launch combines the
+blocks' partials in split order; one range writes the output directly.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from repro_torch.capture.launch import LaunchSpec
 
 from .. import _build
+from .plan import split_plan
 
 __all__ = ["paged_decode_attention", "smem_bytes", "MAX_SMEM_BYTES",
            "MAX_HEADS"]
@@ -29,19 +32,22 @@ def _launch_fn():
     v, i = ctypes.c_void_p, ctypes.c_int
     return _build.bind(
         "paged_kv_decode", "paged_decode_launch",
-        [i, v, v, v, v, v, ctypes.c_int64, i, i, i, i, ctypes.c_float, v])
+        [i, v, v, v, v, v, v, ctypes.c_int64, i, i, i, i, i, i, ctypes.c_float,
+         v])
 
 
 @functools.cache
 def _smem_fn():
     i = ctypes.c_int
     return _build.bind("paged_kv_decode", "paged_decode_smem_bytes",
-                       [i, i, i, i], ctypes.c_int64)
+                       [i, i, i, i, i], ctypes.c_int64)
 
 
-def smem_bytes(dtype: torch.dtype, h: int, d: int, page: int) -> int:
-    """Shared memory the kernel asks for at one (dtype, H, D, page)."""
-    return int(_smem_fn()(_build.DTYPE_CODES[dtype], h, d, page))
+def smem_bytes(dtype: torch.dtype, h: int, d: int, page: int,
+               per_split: int) -> int:
+    """Shared memory the split kernel asks for at one (dtype, H, D, page,
+    pages per split)."""
+    return int(_smem_fn()(_build.DTYPE_CODES[dtype], h, d, page, per_split))
 
 
 def paged_decode_attention(spec: LaunchSpec, q: torch.Tensor,
@@ -67,15 +73,21 @@ def paged_decode_attention(spec: LaunchSpec, q: torch.Tensor,
     if h > MAX_HEADS.get(d, 0):
         raise ValueError(f"paged decode kernel takes D in {list(MAX_HEADS)} "
                          f"with up to {MAX_HEADS} heads; got H={h}, D={d}")
-    need = smem_bytes(q.dtype, h, d, page)
+    per, n_splits = split_plan(n_active, page, d, h, q.element_size(),
+                               n_sm=_build.sm_count(q))
+    need = smem_bytes(q.dtype, h, d, page, per)
     if need > MAX_SMEM_BYTES:
-        raise ValueError(f"(H={h}, D={d}, page={page}) needs {need} bytes of "
-                         f"shared memory; a block has {MAX_SMEM_BYTES}")
+        raise ValueError(f"(H={h}, D={d}, page={page}, {per} pages a split) "
+                         f"needs {need} bytes of shared memory; a block has "
+                         f"{MAX_SMEM_BYTES}")
     out = torch.empty_like(q)
+    part = (torch.empty(n_splits * h * (d + 2), dtype=torch.float32,
+                        device=q.device) if n_splits > 1 else None)
     err = _launch_fn()(
         code, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), out.data_ptr(), n_pages, h, d, page, n_active,
-        d ** -0.5, _build.stream_ptr(q))
+        page_table.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), n_pages, h, d, page,
+        n_active, per, n_splits, d ** -0.5, _build.stream_ptr(q))
     _build.check("paged_kv_decode", err)
     paged_decode_attention.launches += 1
     return out
