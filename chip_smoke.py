@@ -12,14 +12,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    all started together); prints each kernel's ptxas registers/spills and
    counts the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions of
    the flash and MoE libraries with ``cuobjdump -sass``, failing if bf16
-   flash or bf16 MoE dispatch has no ``HGMMA``;
+   flash or bf16 MoE dispatch has no ``HGMMA``, or if the f32 flash kernel
+   or the state-expanded scan spills;
 2. holds each kernel against its plain PyTorch version on the card at
    full width, in float32 and bf16: qwen2.5-14b for STREAM, gather, flash
    and paged decode (40 query heads, 8 KV heads, head_dim 128, vocab
    152064; bf16 flash also at head_dim 64); one DeepSeek-MoE-16B layer's
    routed dispatch (4096 tokens, top-6 of 64 experts, d_model 2048,
    d_ff_expert 1408); one Zamba2-7B Mamba-2 layer's scans (T 4096, d_inner
-   7168, ssm_state 64, chunk 128);
+   7168, ssm_state 64, chunk 128); f32 flash also on two causal launches
+   its plan cuts into several kv ranges, some wholly above the diagonal;
 3. times each kernel at full width with CUDA events (median of 10 after
    3 warm-ups, L2 flushed before each), beside its plain version, the one
    PyTorch call that computes the same function where there is one, and
@@ -28,13 +30,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    STREAM is timed in turns instead: its library call and its kernel,
    both writing into one preallocated output, and its entry point, which
    allocates its output; each is first checked bit for bit against the
-   plain version.  bf16 flash is timed causal and not, beside SDPA.  Paged
-   decode prints its split count; bf16 MoE dispatch prints, where the
-   card's torch has it, ``torch._grouped_mm`` on x already gathered into
-   sorted order as ``grouped_mm_ms`` (a yardstick for the GEMM alone).
-   Paged decode and MoE dispatch draw their inputs from a seed of their
-   own, here and in phase 8, and ``scripts/kernel_ab.py`` times another
-   checkout's kernels through the same functions on the same data;
+   plain version.  Flash is timed causal and not (f32 and bf16), beside
+   SDPA, the f32 rows with the plan's kv split.  Paged decode prints its
+   split count, the state-expanded scan its plan and its issue floor (4 N
+   D T f32 lane-instructions, the update's multiplies and adds unfused);
+   bf16 MoE dispatch prints, where the card's torch has it,
+   ``torch._grouped_mm`` on x already gathered into sorted order as
+   ``grouped_mm_ms`` (a yardstick for the GEMM alone).  Paged decode, MoE
+   dispatch, flash and the state-expanded scan draw their inputs from a
+   seed of their own, here and in phase 8, and ``scripts/kernel_ab.py``
+   times another checkout's kernels through the same functions on the same
+   data;
 4. main path 1: sets every launch counter to 0, runs the 24-entry
    captured roster (``repro_torch.suite``) on the card recording every
    launch's spec, reads the counters, checks 24/24 classes as expected,
@@ -56,8 +62,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    version;
 8. prints paged decode's split count at each main-path geometry, and
    times paged decode and MoE dispatch at the main paths' geometries (the
-   captured roster's four of each and the serving roster's one, float32),
-   checked against the plain version first;
+   captured roster's four of each and the serving roster's one), flash
+   attention at every distinct flash launch of both paths (with its kv
+   split) and the state-expanded scan at every distinct launch of the
+   roster's (with its plan), in float32, each checked against the plain
+   version first;
 9. checks, in child processes, that an out-of-range gather index, page
    or MoE expert id makes the launch fail rather than read past the table;
 10. prints the kernels line (``launches`` summed over both paths, flash's
@@ -107,9 +116,14 @@ FLUSH_BYTES = 1 << 30   # > 50 MB L2, and long enough to hide the enqueue
 # Published dense peaks of the SXM parts (NVIDIA data sheets): HBM bytes/s,
 # bf16 tensor-core and f32 CUDA-core flop/s, keyed by what nvidia-smi calls
 # the card ("NVIDIA H100 80GB HBM3" is the H100 SXM).
+# ``f32_issue``: f32 lane-instructions a second (132 SMs x 128 lanes x the
+# 1.98 GHz boost clock), the floor of a kernel that may not fuse its
+# multiplies and adds (the state-expanded scan's op-by-op update).
 PEAKS = {
-    "H100 80GB HBM3": dict(bytes=3.35e12, bf16=989e12, f32=67e12),
-    "H200": dict(bytes=4.8e12, bf16=989e12, f32=67e12),
+    "H100 80GB HBM3": dict(bytes=3.35e12, bf16=989e12, f32=67e12,
+                           f32_issue=132 * 128 * 1.98e9),
+    "H200": dict(bytes=4.8e12, bf16=989e12, f32=67e12,
+                 f32_issue=132 * 128 * 1.98e9),
 }
 
 KERNEL_SITES = {
@@ -304,6 +318,26 @@ def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
     return counts
 
 
+def ptxas_spills(log: str) -> dict[str, int]:
+    """Spill-store plus spill-load bytes of each function in one library's
+    ptxas report (``-Xptxas -v``)."""
+    spills, fn = {}, None
+    for line in log.splitlines():
+        head = re.search(r"Function properties for (\S+)", line)
+        if head:
+            fn = head.group(1)
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if found and fn:
+            spills[fn] = int(found.group(1)) + int(found.group(2))
+    return spills
+
+
+# Kernels redesigned to keep every value in registers: a spill fails phase 1.
+NO_SPILL = {"flash_attention": "flash_fwd_kernel",
+            "ssm_chunked_scan": "ssm_chunked_kernel"}
+
+
 def stream_calls() -> dict:
     """op -> (kernel, plain version, library call) on (a, b, q[, out])."""
     from repro_torch.kernels.stream import ops, ref
@@ -483,13 +517,16 @@ def main_path_geometries() -> tuple[list, list]:
     return paged, moe
 
 
+def sm_count() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def paged_splits(geo: dict, itemsize: int) -> int:
     """Splits the paged kernel takes at ``geo`` on this card."""
     from repro_torch.kernels.paged_kv_decode.plan import split_plan
 
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     return split_plan(geo["n_active"], geo["page"], geo["d"], geo["h"],
-                      itemsize, n_sm=sms)[1]
+                      itemsize, n_sm=sm_count())[1]
 
 
 def paged_inputs(gen, geo: dict, dtype: torch.dtype):
@@ -607,19 +644,197 @@ def moe_full_width(bench: Bench, smi: str, dtype: torch.dtype,
     return row, err
 
 
-def geometry_timings(bench: Bench, smi: str, **tags) -> list[dict]:
-    """Time paged decode and MoE dispatch through their entry points at
-    the main paths' geometries in float32, each first held against its
-    plain version; prints one row each (with ``tags``) and returns them."""
+# Full width of flash attention (qwen2.5-14b prefill: one 4096-token
+# sequence, 40 query heads, 8 KV heads) and of the state-expanded scan (one
+# Zamba2-7B Mamba-2 layer: T 4096, d_inner 7168, ssm_state 64, chunk 128).
+FULL_FLASH = dict(b=1, s=4096, h=40, g=8)
+FULL_SCAN = dict(t=4096, d=2 * 3584, n=64, chunk=128)
+
+
+def flash_plan(b: int, h: int, sq: int, sk: int) -> dict:
+    """The f32 kernel's kv split at one launch on this card, or nothing for
+    a checkout from before the split design."""
+    try:
+        from repro_torch.kernels.flash_attention.plan import split_plan
+    except ImportError:
+        return {}
+    per, n_splits = split_plan(b, h, sq, sk, n_sm=sm_count())
+    return {"kv_rows_per_split": per, "n_splits": n_splits}
+
+
+def scan_plan_of(t: int, d: int, n: int, itemsize: int) -> dict:
+    """The chunked scan's plan at one launch on this card, or nothing for a
+    checkout from before the plan."""
+    try:
+        from repro_torch.kernels.ssm_scan.plan import scan_plan
+    except ImportError:
+        return {}
+    plan = scan_plan(t, d, n, itemsize, n_sm=sm_count())
+    return {"rows_per_thread": plan.rows, "channels_per_block": plan.channels,
+            "blocks": plan.blocks(d), "threads_per_block": plan.threads(n)}
+
+
+def flash_inputs(gen, b: int, sq: int, sk: int, h: int, g: int, d: int,
+                 dtype: torch.dtype):
+    """q [B, Sq, H, D] and k, v [B, Sk, G, D]."""
+    dev = torch.device("cuda")
+    q = torch.randn(b, sq, h, d, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(b, sk, g, d, generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    return q, k, v
+
+
+def flash_full_width(bench: Bench, smi: str, dtype: torch.dtype, d: int,
+                     causal: bool, **extra) -> tuple[dict | None, float]:
+    """Flash attention at ``FULL_FLASH`` and head width ``d``: held against
+    its plain version (bf16 d 128 also prints SDPA's own error against the
+    same limit), then, at d 128, timed beside its plain version and SDPA.
+    Returns the timing row (printed, with ``extra``; None at d 64) and the
+    max abs error."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import attention_ref, mha
+
+    g = FULL_FLASH
+    gen = torch.Generator(device="cuda").manual_seed(TIMING_SEED)
+    qq, kk, vv = flash_inputs(gen, g["b"], g["s"], g["s"], g["h"], g["g"], d,
+                              dtype)
+    case = (f"b={g['b']} s={g['s']} h={g['h']} g={g['g']} d={d} "
+            f"causal={causal}")
+    want = attention_ref(qq.float(), kk.float(), vv.float(), causal=causal)
+    tol = attn_tol(dtype, want)
+    err = check_close("flash_attention", f"full {case}",
+                      mha(qq, kk, vv, causal=causal), want, tol=tol)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (qq, kk, vv))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, scale=d ** -0.5, enable_gqa=True)
+
+    if dtype == torch.bfloat16 and d == 128:
+        # SDPA's own bf16 result against the same limit (for the record: it
+        # rounds P to bf16 once).
+        diff = (sdpa().transpose(1, 2).float() - want).abs()
+        say({"phase": "sdpa-vs-plain", "case": case,
+             "max_abs_err": diff.max().item(),
+             "worst_over_limit": (diff / (tol[1] + tol[0] * want.abs())
+                                  ).max().item()})
+        del diff
+    del want
+    if d != 128:
+        return None, err
+    s, pairs_per_head = g["s"], g["s"] * (g["s"] + 1) // 2
+    if not causal:
+        pairs_per_head = g["s"] * g["s"]
+    if dtype == torch.float32:
+        extra = {**flash_plan(g["b"], g["h"], s, s), **extra}
+    row = timing_row(
+        bench, smi, "flash_attention", case, dtype,
+        bench.ms(lambda: mha(qq, kk, vv, causal=causal)),
+        bench.ms(lambda: attention_ref(qq, kk, vv, causal=causal)),
+        bench.ms(sdpa),
+        (2 * qq.numel() + kk.numel() + vv.numel()) * qq.element_size(),
+        4.0 * d * g["b"] * g["h"] * pairs_per_head,
+        "f32" if dtype == torch.float32 else "bf16", **extra)
+    return row, err
+
+
+def scan_inputs(gen, t: int, d: int, n: int, dtype: torch.dtype):
+    """x, dt [T, D] (dt in (0.95, 0.999)) and b, c [T, N]."""
+    dev = torch.device("cuda")
+    x = torch.randn(t, d, generator=gen, device=dev).to(dtype)
+    dt = (0.95 + 0.049 * torch.rand(t, d, generator=gen, device=dev)
+          ).to(dtype)
+    b = (torch.randn(t, n, generator=gen, device=dev) / n ** 0.5).to(dtype)
+    c = torch.randn(t, n, generator=gen, device=dev).to(dtype)
+    return x, dt, b, c
+
+
+def chunked_full_width(bench: Bench, smi: str, dtype: torch.dtype,
+                       **extra) -> tuple[dict, float]:
+    """The state-expanded scan at ``FULL_SCAN``: held against its plain
+    version, then timed beside it, with the bound (the direct recurrence's
+    5 N D T operations at the f32 peak) and the issue floor (its 4 N D T
+    lane-instructions at ``f32_issue``).  Returns the timing row (printed,
+    with ``extra``) and the max abs error."""
+    from repro_torch.kernels.ssm_scan import ssm_chunked_ref, ssm_chunked_scan
+
+    g = FULL_SCAN
+    t, d, n, chunk = g["t"], g["d"], g["n"], g["chunk"]
+    gen = torch.Generator(device="cuda").manual_seed(TIMING_SEED)
+    x, dt, b, c = scan_inputs(gen, t, d, n, dtype)
+    case = f"T={t} D={d} N={n} chunk={chunk}"
+    want = ssm_chunked_ref(x.float(), dt.float(), b.float(), c.float())
+    err = check_close("ssm_chunked_scan", f"full {case}",
+                      ssm_chunked_scan(x, dt, b, c, chunk=chunk), want,
+                      tol=chunked_tol(dtype, want))
+    del want
+    row = timing_row(
+        bench, smi, "ssm_chunked_scan", case, dtype,
+        bench.ms(lambda: ssm_chunked_scan(x, dt, b, c, chunk=chunk)),
+        bench.ms(lambda: ssm_chunked_ref(x, dt, b, c)), None,
+        (3 * t * d + 2 * t * n) * x.element_size(), 5.0 * n * d * t, "f32",
+        issue_floor_ms=4.0 * n * d * t / bench.peaks["f32_issue"] * 1e3,
+        **scan_plan_of(t, d, n, x.element_size()), **extra)
+    return row, err
+
+
+def record_main_paths(device: str) -> list:
+    """The launch specs of both main paths (the captured roster, then the 16
+    serving scenarios) run on ``device``."""
+    from repro_torch.capture.launch import record
+    from repro_torch.serving import SCENARIOS, measure_windows
+    from repro_torch.suite.runner import SuiteRunner
+
+    with record() as launched:
+        SuiteRunner(device=device).roster()
+        for scen in SCENARIOS:
+            measure_windows(scen, device=device)
+    return launched
+
+
+def flash_scan_geometries(launched: list) -> tuple[list, list]:
+    """The distinct flash (``(bh, sq, bg, sk, d)``) and state-expanded scan
+    (``(t, d, n, chunk)``) launches among ``launched``, in launch order."""
+    flash, scans = {}, {}
+    for spec in launched:
+        if spec.name == "flash_attention":
+            bh, sq, d = spec.operand("q").shape
+            bg, sk, _ = spec.operand("k").shape
+            flash[(bh, sq, bg, sk, d)] = None
+        elif spec.name == "ssm_expand":
+            t, d = spec.operand("x").shape
+            scans[(t, d, spec.operand("b").shape[1],
+                   spec.operand("x").block_shape[0])] = None
+    return list(flash), list(scans)
+
+
+GEOMETRY_KERNELS = ("paged", "moe", "flash", "scan")
+
+
+def geometry_timings(bench: Bench, smi: str, launched: list,
+                     only=GEOMETRY_KERNELS, **tags) -> list[dict]:
+    """Time paged decode and MoE dispatch at the main paths' geometries,
+    and flash attention and the state-expanded scan at every distinct
+    launch of theirs among ``launched``, through the entry points in
+    float32, each first held against its plain version (``only`` names
+    which of the four); prints one row each (with ``tags``) and returns
+    them."""
+    from repro_torch.kernels.flash_attention import attention_ref, mha
     from repro_torch.kernels.moe_dispatch import (moe_dispatch_sorted,
                                                   moe_dispatch_sorted_ref)
     from repro_torch.kernels.paged_kv_decode import (paged_decode,
                                                      paged_decode_ref)
+    from repro_torch.kernels.ssm_scan import ssm_chunked_ref, ssm_chunked_scan
 
     gen = torch.Generator(device="cuda").manual_seed(TIMING_SEED)
     paged, moe = main_path_geometries()
     f32 = torch.float32
     rows = []
+    if "paged" not in only:
+        paged = []
+    if "moe" not in only:
+        moe = []
     for name, g in paged:
         q, kp, vp, pt = paged_inputs(gen, g, f32)
         want = paged_decode_ref(q, kp, vp, pt)
@@ -641,6 +856,36 @@ def geometry_timings(bench: Bench, smi: str, **tags) -> list[dict]:
                          ms=bench.ms(lambda: moe_dispatch_sorted(x, w, tok,
                                                                  eid)),
                          max_abs_err=err))
+    flash, scans = flash_scan_geometries(launched)
+    flash = flash if "flash" in only else []
+    scans = scans if "scan" in only else []
+    # flash and the scan draw from seeds of their own, so that a run that
+    # times only some of the four sees the same data
+    gen = torch.Generator(device="cuda").manual_seed(TIMING_SEED)
+    for bh, sq, bg, sk, d in flash:
+        q, k, v = flash_inputs(gen, 1, sq, sk, bh, bg, d, f32)
+        want = attention_ref(q, k, v, causal=False)
+        err = check_close("flash_attention", f"timing sq={sq} sk={sk} d={d}",
+                          mha(q, k, v, causal=False), want, tol=ATTN_TOL,
+                          show=False)
+        rows.append(dict(kernel="flash_attention", case=f"sq={sq} sk={sk}",
+                         geometry=dict(h=bh, g=bg, sq=sq, sk=sk, d=d),
+                         dtype="float32",
+                         ms=bench.ms(lambda: mha(q, k, v, causal=False)),
+                         max_abs_err=err, **flash_plan(1, bh, sq, sk)))
+    gen = torch.Generator(device="cuda").manual_seed(TIMING_SEED)
+    for t, d, n, chunk in scans:
+        x, dt, b, c = scan_inputs(gen, t, d, n, f32)
+        want = ssm_chunked_ref(x, dt, b, c)
+        err = check_close("ssm_chunked_scan", f"timing T={t} D={d} N={n}",
+                          ssm_chunked_scan(x, dt, b, c, chunk=chunk), want,
+                          tol=chunked_tol(f32, want), show=False)
+        rows.append(dict(kernel="ssm_chunked_scan", case=f"T={t} D={d}",
+                         geometry=dict(t=t, d=d, n=n, chunk=chunk),
+                         dtype="float32",
+                         ms=bench.ms(lambda: ssm_chunked_scan(x, dt, b, c,
+                                                              chunk=chunk)),
+                         max_abs_err=err, **scan_plan_of(t, d, n, 4)))
     for row in rows:
         say({"phase": "geometry-timing", **tags, **row, "card": smi})
     return rows
@@ -759,16 +1004,13 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import attention_ref, mha
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention as flash_kernel)
-    from repro_torch.kernels.ssm_scan import (ssm_chunked_ref,
-                                              ssm_chunked_scan, ssm_ema_ref,
-                                              ssm_ema_scan)
+    from repro_torch.kernels.ssm_scan import ssm_ema_ref, ssm_ema_scan
     from repro_torch.kernels.ssm_scan.ops import scan_flops
     from repro_torch.kernels.stream import ops as stream_ops
     from repro_torch.kernels.stream.kernel import stream_cuda
     from repro_torch.kernels.token_gather import gather, gather_rows_ref
     from repro_torch.serving import SCENARIOS, measure_windows
     from repro_torch.suite.runner import SuiteRunner
-    import torch.nn.functional as F
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -792,6 +1034,13 @@ def main() -> int:
             if ("registers" in line or "spill" in line
                     or "entry function" in line):
                 say(f"# ptxas {kname}: {line.strip()}")
+    for lib, fn_part in NO_SPILL.items():
+        spilled = {fn: n for fn, n in ptxas_spills(logs.get(lib, "")).items()
+                   if fn_part in fn}
+        say({"phase": "spills", "library": lib, "function": fn_part,
+             "bytes": spilled})
+        if any(spilled.values()):
+            raise AssertionError(f"{fn_part} spills: {spilled}")
     for lib, fn_name in (("flash_attention", "flash_fwd_sm90"),
                          ("moe_dispatch", "moe_gemm_sm90")):
         sass = sass_counts(_build.library_path(lib))
@@ -875,50 +1124,26 @@ def main() -> int:
         del table, idx
     torch.cuda.empty_cache()
 
-    # -- 2+3. flash attention -------------------------------------------------
-    bsz, s, h, g = 1, 4096, 40, 8
+    # -- 2+3. flash attention (the same timings as scripts/kernel_ab.py) ----
     for dtype, d in ((torch.float32, 128), (torch.bfloat16, 128),
                      (torch.bfloat16, 64)):
-        qq = randn(bsz, s, h, d, dtype=dtype)
-        kk, vv = randn(bsz, s, g, d, dtype=dtype), randn(bsz, s, g, d, dtype=dtype)
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (qq, kk, vv))
         for causal in (True, False):
-            case = f"b={bsz} s={s} h={h} g={g} d={d} causal={causal}"
-            want = attention_ref(qq.float(), kk.float(), vv.float(),
-                                 causal=causal)
-            tol = attn_tol(dtype, want)
-            errs["flash_attention"] = max(errs["flash_attention"], check_close(
-                "flash_attention", f"full {case}", mha(qq, kk, vv, causal=causal),
-                want, tol=tol))
-            if dtype == torch.bfloat16 and d == 128:
-                # SDPA's own bf16 result against the same limit (for the
-                # record: it rounds P to bf16 once).
-                sdpa = F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, scale=d ** -0.5,
-                    enable_gqa=True).transpose(1, 2).float()
-                err = (sdpa - want).abs()
-                say({"phase": "sdpa-vs-plain", "case": case,
-                     "max_abs_err": err.max().item(),
-                     "worst_over_limit": (err / (tol[1] + tol[0] * want.abs())
-                                          ).max().item()})
-                del sdpa, err
-            del want
-            if d == 64 or (dtype == torch.float32 and not causal):
-                continue
-            pairs = bsz * h * (s * (s + 1) // 2 if causal else s * s)
-            row = record(
-                "flash_attention", case, dtype,
-                bench.ms(lambda: mha(qq, kk, vv, causal=causal)),
-                bench.ms(lambda: attention_ref(qq, kk, vv, causal=causal)),
-                bench.ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, scale=d ** -0.5,
-                    enable_gqa=True)),
-                (2 * qq.numel() + kk.numel() + vv.numel()) * qq.element_size(),
-                4.0 * d * pairs, "f32" if dtype == torch.float32 else "bf16")
-            if causal:
+            row, err = flash_full_width(bench, smi, dtype, d, causal)
+            errs["flash_attention"] = max(errs["flash_attention"], err)
+            if row is not None and causal:
                 rows["flash_attention", dtype] = row
-        del qq, kk, vv, qt, kt, vt
         torch.cuda.empty_cache()
+    # f32 launches the plan cuts into several kv ranges, causal, so that the
+    # first q tiles' later ranges lie wholly above the diagonal.
+    for bsz, s, h, g, d in ((1, 1024, 2, 1, 128), (2, 512, 4, 2, 64)):
+        qq, kk, vv = flash_inputs(gen, bsz, s, s, h, g, d, torch.float32)
+        plan = flash_plan(bsz, h, s, s)
+        if plan["n_splits"] < 2:
+            raise AssertionError(f"flash plan gave one split at {plan}")
+        errs["flash_attention"] = max(errs["flash_attention"], check_close(
+            "flash_attention", f"split b={bsz} s={s} h={h} g={g} d={d} "
+            f"causal=True {plan}", mha(qq, kk, vv, causal=True),
+            attention_ref(qq, kk, vv, causal=True), tol=ATTN_TOL))
 
     # -- 2+3. paged-KV decode and MoE dispatch (the same timings as
     # scripts/kernel_ab.py) ------------------------------------------------
@@ -934,8 +1159,9 @@ def main() -> int:
         errs["moe_dispatch"] = max(errs["moe_dispatch"], err)
         torch.cuda.empty_cache()
 
-    # -- 2+3. SSM scans: one Zamba2-7B Mamba-2 layer -----------------------
-    t, d, n, chunk = 4096, 2 * 3584, 64, 128
+    # -- 2+3. SSM scans: one Zamba2-7B Mamba-2 layer (the chunked scan's
+    # timings are scripts/kernel_ab.py's) -----------------------------------
+    t, d, n, chunk = (FULL_SCAN[k] for k in ("t", "d", "n", "chunk"))
     direct_ops = 5.0 * n * d * t
     closed_ops = scan_flops("expand", seq_len=t, d=d, n=n, chunk=chunk)
     say({"phase": "ssm-chunked-ops", "direct_recurrence": direct_ops,
@@ -945,33 +1171,21 @@ def main() -> int:
         x = randn(t, d, dtype=dtype)
         dt = (0.95 + 0.049 * rand(t, d)).to(dtype)
         g = randn(t, d, dtype=dtype)
-        b = (randn(t, n) / n ** 0.5).to(dtype)
-        c = randn(t, n, dtype=dtype)
         want = ssm_ema_ref(x.float(), dt.float(), g.float())
         errs["ssm_ema_scan"] = max(errs["ssm_ema_scan"], check_close(
             "ssm_ema_scan", f"full T={t} D={d} chunk={chunk}",
             ssm_ema_scan(x, dt, g, chunk=chunk), want,
             tol=attn_tol(dtype, want, STREAM_TOL)))
-        want = ssm_chunked_ref(x.float(), dt.float(), b.float(), c.float())
-        errs["ssm_chunked_scan"] = max(errs["ssm_chunked_scan"], check_close(
-            "ssm_chunked_scan", f"full T={t} D={d} N={n} chunk={chunk}",
-            ssm_chunked_scan(x, dt, b, c, chunk=chunk), want,
-            tol=chunked_tol(dtype, want)))
         del want
-        isz = x.element_size()
-        ema = record(
+        rows["ssm_ema_scan", dtype] = record(
             "ssm_ema_scan", f"T={t} D={d} chunk={chunk}", dtype,
             bench.ms(lambda: ssm_ema_scan(x, dt, g, chunk=chunk)),
             bench.ms(lambda: ssm_ema_ref(x, dt, g)), None,
-            4 * t * d * isz, 6.0 * t * d, "f32")
-        chunked = record(
-            "ssm_chunked_scan", f"T={t} D={d} N={n} chunk={chunk}", dtype,
-            bench.ms(lambda: ssm_chunked_scan(x, dt, b, c, chunk=chunk)),
-            bench.ms(lambda: ssm_chunked_ref(x, dt, b, c)), None,
-            (3 * t * d + 2 * t * n) * isz, min(direct_ops, closed_ops), "f32")
-        rows["ssm_ema_scan", dtype] = ema
-        rows["ssm_chunked_scan", dtype] = chunked
-        del x, dt, g, b, c
+            4 * t * d * x.element_size(), 6.0 * t * d, "f32")
+        del x, dt, g
+        row, err = chunked_full_width(bench, smi, dtype)
+        rows["ssm_chunked_scan", dtype] = row
+        errs["ssm_chunked_scan"] = max(errs["ssm_chunked_scan"], err)
     del bench
     torch.cuda.empty_cache()
 
@@ -1063,7 +1277,7 @@ def main() -> int:
     for case, geo in main_path_geometries()[0]:
         say({"phase": "paged-splits", "case": case, "geometry": geo,
              "n_splits": paged_splits(geo, 4)})
-    geometry_timings(Bench(peaks), smi)
+    geometry_timings(Bench(peaks), smi, launched + served)
     torch.cuda.empty_cache()
 
     # -- 9. out-of-range indices -------------------------------------------------

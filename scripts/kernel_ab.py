@@ -1,13 +1,15 @@
-"""Time paged decode and MoE dispatch of one checkout of the port on the
-card, at full width (float32 and bf16) and at every main-path geometry
-(float32), each first held against its plain version.
+"""Time paged decode, MoE dispatch, flash attention (float32) and the
+state-expanded scan of one checkout of the port on the card, at full width
+and at every main-path geometry (float32), each first held against its
+plain version.
 
 It runs ``chip_smoke.py``'s own timing functions (phase 3's
-``paged_full_width`` and ``moe_full_width``, phase 8's
-``geometry_timings``: the same seeded inputs, CUDA events, L2 flushed
-before each run, median of 10 after 3 warm-ups) on the ``repro_torch``
-package found under ``--src``, so that two versions of the kernels can be
-compared on one card in one call, in turns::
+``paged_full_width``, ``moe_full_width``, ``flash_full_width`` (causal and
+not) and ``chunked_full_width``, phase 8's ``geometry_timings``: the same
+seeded inputs, CUDA events, L2 flushed before each run, median of 10 after
+3 warm-ups) on the ``repro_torch`` package found under ``--src``, so that
+two versions of the kernels can be compared on one card in one call, in
+turns::
 
     git archive <parent> | tar -x -C build/parent
     for side in parent change change parent; do
@@ -17,8 +19,10 @@ compared on one card in one call, in turns::
 
 Each run prints the card's name and power limit, one ``timing`` line a
 full-width case and one ``geometry-timing`` line a main-path case, each
-with ``label``; the full-width paged rows carry ``n_splits`` where the
-checkout has a split plan.
+with ``label``; rows carry the checkout's plan (paged and flash
+``n_splits``, the scan's rows and channels) where it has one.  The
+main-path flash and scan launches are those the checkout's roster and
+serving roster record when run on the CPU (``--only`` picks kernels).
 """
 
 from __future__ import annotations
@@ -48,6 +52,8 @@ def main() -> int:
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="directory holding the repro_torch package to time")
     ap.add_argument("--label", default="change")
+    ap.add_argument("--only", default="paged,moe,flash,scan",
+                    help="comma-separated kernels to time")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: torch.cuda.is_available() is False", file=sys.stderr)
@@ -68,15 +74,30 @@ def main() -> int:
     chip_smoke.say(smi)
     bench = chip_smoke.Bench(
         chip_smoke.card_peaks(torch.cuda.get_device_name(0)))
+    only = set(args.only.split(","))
+    cases = 0
     for dtype in (torch.float32, torch.bfloat16):
-        chip_smoke.paged_full_width(
-            bench, smi, dtype, label=args.label,
-            **paged_splits(chip_smoke, 4 if dtype == torch.float32 else 2))
-        chip_smoke.moe_full_width(bench, smi, dtype, label=args.label)
+        if "paged" in only:
+            chip_smoke.paged_full_width(
+                bench, smi, dtype, label=args.label,
+                **paged_splits(chip_smoke, 4 if dtype == torch.float32 else 2))
+        if "moe" in only:
+            chip_smoke.moe_full_width(bench, smi, dtype, label=args.label)
+        if "scan" in only:
+            chip_smoke.chunked_full_width(bench, smi, dtype, label=args.label)
+        cases += len(only & {"paged", "moe", "scan"})
         torch.cuda.empty_cache()
-    rows = chip_smoke.geometry_timings(bench, smi, label=args.label)
+    if "flash" in only:
+        for causal in (True, False):
+            chip_smoke.flash_full_width(bench, smi, torch.float32, 128, causal,
+                                        label=args.label)
+            torch.cuda.empty_cache()
+        cases += 2
+    launched = chip_smoke.record_main_paths("cpu")
+    rows = chip_smoke.geometry_timings(bench, smi, launched, only=only,
+                                       label=args.label)
     chip_smoke.say({"phase": "kernel-ab", "label": args.label,
-                    "src": str(src), "cases": len(rows) + 4})
+                    "src": str(src), "cases": len(rows) + cases})
     return 0
 
 

@@ -34,201 +34,390 @@
 // through the swizzled Q rows the consumer owns and written with 16-byte
 // stores.
 //
-// f32: flash_fwd_kernel, on the CUDA cores (f32 FMAs; register tiles of
-// 4x4 scores and 4xD/8 outputs a thread; K/V in 32-row chunks through
-// shared memory), since TF32 would not hold the f32 tolerance.
+// f32: flash_fwd_kernel + flash_combine, on the CUDA cores, since one TF32
+// pass would not hold the f32 tolerance.  Bound: operations, 4*D f32
+// flops per unmasked pair at 67 TFLOP/s, so the design keeps the FMA pipe
+// fed.  A block (8 warps) holds a 128-row q tile of one head and walks one
+// range of the kv axis in 64-row chunks through a ring of 16-byte cp.async
+// copies (2 stages at D = 128, where shared memory holds no third; 3 at
+// D = 64), so the next chunk loads while one is computed, with one block
+// barrier per chunk.  Both products are outer-product register tiles fed
+// by 128-bit shared-memory reads: S = Q K^T is 8 x 4 a thread (12 float4
+// reads per 128 FMAs), O += P V is 8 x D/16 (a float4 of V per 32 FMAs).
+// Q, K and P rows are swizzled (16-byte chunk ^ a 3-bit row group), so the
+// reads are conflict-free without padding, and a thread's rows share one
+// swizzle, so its reads walk each row's chunks in a per-thread order with
+// no index arithmetic in the loop.  The online softmax runs in registers
+// in the log2 domain (scale * log2(e) folded into one multiply); a row lies
+// on 16 lanes, so its max takes four xor-shuffles and its sum is reduced
+// once at the end.  P passes to P V through rows of shared memory that only
+// its warp reads (__syncwarp, no block barrier).  When the (b*h, q tile)
+// grid would leave SMs idle, the kv axis is cut into ranges (plan.py: the
+// main paths' one head and 1-2 q tiles become up to 264 blocks): each range
+// writes f32 partials (m, l, unnormalized acc) and flash_combine folds them
+// in split order, with no atomics.  At full width (1280 blocks) one range
+// writes the output itself.  Causal q tiles are numbered heaviest first.
 //
 // Semantics kept from the reference in both: scale D^-0.5 applied to the
 // dot; causal mask qpos >= kpos on absolute positions, with masked scores
 // set to -1e30 (not -inf) and whole kv tiles above the diagonal skipped
-// (ki*bk > qi*bq + bq - 1); out = acc / max(l, 1e-30).  q is [B, Sq, H, D],
-// k and v [B, Sk, G, D]; head h reads kv head h / (H/G).
+// (ki*bk > qi*bq + bq - 1; the f32 kernel skips its 64-row chunks above
+// the diagonal, which changes nothing: a masked score's p is exactly 0
+// once a row has seen key 0, and a range whose rows see only masked keys
+// has m = -1e30 and weight 2^(-1e30 - M) = 0 in the combine); out = acc /
+// max(l, 1e-30).  q is [B, Sq, H, D], k and v [B, Sk, G, D]; head h reads
+// kv head h / (H/G).
 #include "common.cuh"
 #include "sm90.cuh"  // mbarriers, TMA, wgmma descriptors and forms
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// f32: CUDA-core kernel
+// f32: CUDA-core kernel, split-KV
 // ---------------------------------------------------------------------------
 
-constexpr int kThreads = 256;
-constexpr int kMaxBQ = 128;  // rows of the reference q tile a block holds
-constexpr int kKC = 32;      // kv rows per shared-memory chunk
+namespace f32 {
+
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kBQ = 128;       // q rows a block holds
+constexpr int kBK = 64;        // kv rows a ring stage holds
+constexpr int kTX = 16;        // lanes that share a score row
+constexpr int kRQ = 8;         // score and output rows a thread holds
+constexpr float kLog2e = 1.4426950408889634f;
+
+// A ring of 3 stages where shared memory holds one (D = 64), else 2.
+template <int D>
+__host__ __device__ constexpr int stages() {
+  return D == 64 ? 3 : 2;
+}
 
 template <int D>
-constexpr size_t smem_floats() {
-  return static_cast<size_t>(kMaxBQ) * (D + 1)  // Q tile (padded rows)
-         + kKC * (D + 1)                        // K chunk (padded rows)
-         + kKC * D                              // V chunk
-         + kMaxBQ * (kKC + 1)                   // scores / probabilities
-         + 3 * kMaxBQ;                          // m, l, alpha
+__host__ __device__ constexpr int smem_floats() {
+  return kBQ * D                        // Q tile
+         + 2 * stages<D>() * kBK * D    // K and V rings
+         + kBQ * kBK;                   // P, each warp's 16 rows its own
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-                 int H, int G, int bq, int bk, int causal, float scale) {
-  constexpr int DP = D + 1;
-  constexpr int SP = kKC + 1;
-  constexpr int CPT = D / 8;  // output columns per thread
-  extern __shared__ float smem[];
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// kRows rows of D floats lying `stride` floats apart in global memory, into
+// shared rows of D floats.  With G > 0 the 16-byte chunks of row r are
+// stored in the order chunk ^ ((r / G) % 8): then the rows a warp reads at
+// one d (or k) fall in distinct bank groups, with no padding.  A thread's
+// own rows share one swizzle, so its reads walk the 8 chunks of each 32
+// floats in the order u ^ f for a per-thread f, without index arithmetic
+// in the loop.
+template <int D, int G, int kRows>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int64_t stride, int tid) {
+  constexpr int kChunks = D / 4;
+  static_assert(kRows * kChunks % kThreads == 0, "whole copies a thread");
+#pragma unroll
+  for (int n = 0; n < kRows * kChunks / kThreads; ++n) {
+    const int e = n * kThreads + tid;
+    const int r = e / kChunks, c = e % kChunks;
+    const int pc = G ? c ^ ((r / (G ? G : 1)) & 7) : c;
+    cp_async16(dst + r * D + 4 * pc, src + r * stride + 4 * c);
+  }
+}
+
+// One block: a 128-row q tile of one (b, h) against kv rows
+// [kv0, kv0 + per_split) of split `split`, in 64-row chunks.  Thread
+// (ty, tx) = (tid / 16, tid % 16) holds score rows 8ty..8ty+7 against
+// chunk columns 4tx..4tx+3, and output rows 8ty.. at columns 4tx + 64j
+// (+0..3).  A row's scores lie on the 16 lanes of one ty, so its max
+// takes four xor-shuffles; its sum is kept as a lane's share and reduced
+// once at the end.  Scores are taken in the log2 domain (scale * log2(e)
+// folded into one multiply), p = exp2(x - m).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ part, int Sq, int Sk, int H, int G,
+                 int causal, float scale_log2, int per_split, int n_splits) {
+  constexpr int kStages = stages<D>();
+  constexpr int OC = D / (4 * kTX);  // float4 output columns a thread holds
+  extern __shared__ __align__(16) float smem[];
   float* sQ = smem;
-  float* sK = sQ + kMaxBQ * DP;
-  float* sV = sK + kKC * DP;
-  float* sS = sV + kKC * D;
-  float* sM = sS + kMaxBQ * SP;
-  float* sL = sM + kMaxBQ;
-  float* sA = sL + kMaxBQ;
+  float* sK = sQ + kBQ * D;
+  float* sV = sK + kStages * kBK * D;
+  float* sP = sV + kStages * kBK * D;
 
   const int tid = threadIdx.x;
-  const int qi = blockIdx.x;
+  const int ty = tid / kTX, tx = tid % kTX;
+  const int r0 = kRQ * ty;   // first row this thread holds
+  const int fq = ty & 7;     // swizzle of its Q and P rows
+  const int fk = tx & 7;     // swizzle of its K rows (4tx..4tx+3)
+  const int n_q = Sq / kBQ;
+  const int split = blockIdx.x % n_splits;
+  const int tile = blockIdx.x / n_splits;
+  const int qi = causal ? n_q - 1 - tile : tile;  // heaviest first
   const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int g = h / (H / G);
-  const int q0 = qi * bq;
-  const int64_t q_stride = static_cast<int64_t>(H) * D;   // between positions
+  const int b = bh / H, h = bh % H, g = h / (H / G);
+  const int q0 = qi * kBQ;
+  const int kv0 = split * per_split;
+  int kv1 = min(Sk, kv0 + per_split);
+  if (causal) kv1 = min(kv1, q0 + kBQ);  // chunks wholly above the diagonal
+  const int n_chunks = kv1 > kv0 ? (kv1 - kv0) / kBK : 0;
+
+  const int64_t q_stride = static_cast<int64_t>(H) * D;
   const int64_t kv_stride = static_cast<int64_t>(G) * D;
-  const T* qb = q + (static_cast<int64_t>(b) * Sq * H + h) * D;
-  const T* kb = k + (static_cast<int64_t>(b) * Sk * G + g) * D;
-  const T* vb = v + (static_cast<int64_t>(b) * Sk * G + g) * D;
-  T* ob = o + (static_cast<int64_t>(b) * Sq * H + h) * D;
+  const float* qb = q + (static_cast<int64_t>(b) * Sq * H + h) * D;
+  const float* kb = k + (static_cast<int64_t>(b) * Sk * G + g) * D;
+  const float* vb = v + (static_cast<int64_t>(b) * Sk * G + g) * D;
 
-  for (int e = tid; e < kMaxBQ * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    sQ[r * DP + c] = r < bq ? to_f32(qb[(q0 + r) * q_stride + c]) : 0.f;
+  auto load_chunk = [&](int c) {
+    const int st = c % kStages;
+    const int64_t off = (kv0 + static_cast<int64_t>(c) * kBK) * kv_stride;
+    load_rows<D, 4, kBK>(sK + st * kBK * D, kb + off, kv_stride, tid);
+    load_rows<D, 0, kBK>(sV + st * kBK * D, vb + off, kv_stride, tid);
+  };
+  if (n_chunks > 0) {
+    load_rows<D, kRQ, kBQ>(sQ, qb + q0 * q_stride, q_stride, tid);
+    load_chunk(0);
   }
-  for (int r = tid; r < kMaxBQ; r += kThreads) {
-    sM[r] = REPRO_NEG_INF;
-    sL[r] = 0.f;
-  }
-
-  // Thread tiles: rows r0..r0+3 of the q tile; score columns c0..c0+3 of
-  // the chunk; output columns cg + 8*j.
-  const int r0 = (tid / 8) * 4;
-  const int c0 = (tid % 8) * 4;
-  const int cg = tid % 8;
-  float acc[4][CPT];
+  cp_async_commit();
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
-
-  int kv_end = Sk;
-  if (causal) {  // tiles ki with ki*bk <= q0 + bq - 1 are computed
-    const int last = (q0 + bq - 1) / bk;
-    kv_end = min(Sk, (last + 1) * bk);
+  for (int c = 1; c < kStages - 1; ++c) {
+    if (c < n_chunks) load_chunk(c);
+    cp_async_commit();
   }
 
-  for (int k0 = 0; k0 < kv_end; k0 += kKC) {
-    __syncthreads();  // previous chunk consumed; Q, m, l visible
-    for (int e = tid; e < kKC * D; e += kThreads) {
-      const int r = e / D, c = e % D;
-      const int64_t off = (k0 + r) * kv_stride + c;
-      sK[r * DP + c] = to_f32(kb[off]);
-      sV[r * D + c] = to_f32(vb[off]);
+  float m[kRQ], l[kRQ], acc[kRQ][4 * OC];
+#pragma unroll
+  for (int i = 0; i < kRQ; ++i) {
+    m[i] = REPRO_NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4 * OC; ++j) acc[i][j] = 0.f;
+  }
+  const float* qrow = sQ + r0 * D;
+  float* prow = sP + r0 * kBK;
+
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<kStages - 2>();  // chunk c has landed (this thread's part)
+    __syncthreads();               // ... everyone's; chunk c-1 consumed
+    if (c + kStages - 1 < n_chunks) load_chunk(c + kStages - 1);
+    cp_async_commit();
+
+    const float* krow = sK + (c % kStages) * kBK * D + 4 * tx * D;
+    const float* vrow = sV + (c % kStages) * kBK * D + 4 * tx;
+    const int k0 = kv0 + c * kBK;
+
+    // S = Q K^T: 8 x 4 a thread, 12 float4 reads per 128 FMAs.
+    float s[kRQ][4];
+#pragma unroll
+    for (int i = 0; i < kRQ; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 1
+    for (int d8 = 0; d8 < D; d8 += 32) {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        float4 qv[kRQ], kv[4];
+#pragma unroll
+        for (int i = 0; i < kRQ; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(qrow + i * D + d8 +
+                                                   4 * (u ^ fq));
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          kv[j] = *reinterpret_cast<const float4*>(krow + j * D + d8 +
+                                                   4 * (u ^ fk));
+#pragma unroll
+        for (int i = 0; i < kRQ; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+            s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+            s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+            s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+          }
+      }
     }
-    __syncthreads();
 
-    {  // scores s = (q . k) * scale, masked
-      float s[4][4];
+    // Online softmax in registers; P to the warp's rows of sP.
+    const bool mask = causal && k0 + kBK - 1 > q0;
+    float alpha[kRQ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kRQ; ++i) {
+      float mx = REPRO_NEG_INF;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        float qv[4], kv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) qv[i] = sQ[(r0 + i) * DP + d];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) kv[j] = sK[(c0 + j) * DP + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      for (int j = 0; j < 4; ++j) {
+        float x = s[i][j] * scale_log2;
+        if (mask && q0 + r0 + i < k0 + 4 * tx + j) x = REPRO_NEG_INF;
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int off = 1; off < kTX; off *= 2)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      alpha[i] = exp2f(m[i] - m_new);
+      float4 p;
+      p.x = exp2f(s[i][0] - m_new);
+      p.y = exp2f(s[i][1] - m_new);
+      p.z = exp2f(s[i][2] - m_new);
+      p.w = exp2f(s[i][3] - m_new);
+      l[i] = l[i] * alpha[i] + ((p.x + p.y) + (p.z + p.w));
+      m[i] = m_new;
+      // chunk tx of P row r0 + i, swizzled like the Q rows
+      *reinterpret_cast<float4*>(prow + i * kBK +
+                                 4 * (tx ^ fq)) = p;
+    }
+    __syncwarp();
+
+    // O = O * alpha + P V: 8 x 4*OC a thread; per k, OC float4 reads of V
+    // for 32 OC FMAs, and per 4 k, 8 float4 reads of P.
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float x = s[i][j] * scale;
-          if (causal && q0 + r0 + i < k0 + c0 + j) x = REPRO_NEG_INF;
-          sS[(r0 + i) * SP + c0 + j] = x;
+    for (int i = 0; i < kRQ; ++i)
+#pragma unroll
+      for (int j = 0; j < 4 * OC; ++j) acc[i][j] *= alpha[i];
+#pragma unroll 1
+    for (int k8 = 0; k8 < kBK; k8 += 32) {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        float4 pv[kRQ];
+#pragma unroll
+        for (int i = 0; i < kRQ; ++i)
+          pv[i] = *reinterpret_cast<const float4*>(prow + i * kBK + k8 +
+                                                   4 * (u ^ fq));
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float* vk = vrow + (k8 + 4 * u + kk) * D;
+#pragma unroll
+          for (int jj = 0; jj < OC; ++jj) {
+            const float4 vv =
+                *reinterpret_cast<const float4*>(vk + 4 * kTX * jj);
+#pragma unroll
+            for (int i = 0; i < kRQ; ++i) {
+              const float p = kk == 0 ? pv[i].x
+                              : kk == 1 ? pv[i].y
+                              : kk == 2 ? pv[i].z
+                                        : pv[i].w;
+              acc[i][4 * jj + 0] = fmaf(p, vv.x, acc[i][4 * jj + 0]);
+              acc[i][4 * jj + 1] = fmaf(p, vv.y, acc[i][4 * jj + 1]);
+              acc[i][4 * jj + 2] = fmaf(p, vv.z, acc[i][4 * jj + 2]);
+              acc[i][4 * jj + 3] = fmaf(p, vv.w, acc[i][4 * jj + 3]);
+            }
+          }
         }
-    }
-    __syncthreads();
-
-    if (tid < kMaxBQ) {  // online-softmax update of one row
-      float* row = sS + tid * SP;
-      float mx = row[0];
-      for (int j = 1; j < kKC; ++j) mx = fmaxf(mx, row[j]);
-      const float m_prev = sM[tid];
-      const float m_new = fmaxf(m_prev, mx);
-      const float alpha = expf(m_prev - m_new);
-      float sum = 0.f;
-      for (int j = 0; j < kKC; ++j) {
-        const float p = expf(row[j] - m_new);
-        row[j] = p;
-        sum += p;
-      }
-      sL[tid] = sL[tid] * alpha + sum;
-      sM[tid] = m_new;
-      sA[tid] = alpha;
-    }
-    __syncthreads();
-
-    {  // acc = acc * alpha + p @ v
-      float alpha[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) alpha[i] = sA[r0 + i];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) acc[i][j] *= alpha[i];
-      for (int t = 0; t < kKC; ++t) {
-        float p[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) p[i] = sS[(r0 + i) * SP + t];
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          const float vv = sV[t * D + cg + 8 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
-        }
       }
     }
+    __syncwarp();  // P read before the next chunk rewrites it
   }
-  __syncthreads();
+  cp_async_wait<0>();
 
+  // A row's sum: the 16 lanes' shares.
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + i;
-    if (r >= bq) continue;
-    const float l = fmaxf(sL[r], 1e-30f);
+  for (int i = 0; i < kRQ; ++i)
 #pragma unroll
-    for (int j = 0; j < CPT; ++j)
-      ob[(q0 + r) * q_stride + cg + 8 * j] = from_f32<T>(acc[i][j] / l);
+    for (int off = 1; off < kTX; off *= 2)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+  // Output row index (b*Sq + q)*H + h, as in o's [B, Sq, H, D] layout.
+  const int64_t row0 = (static_cast<int64_t>(b) * Sq + q0 + r0) * H + h;
+  if (n_splits == 1) {
+#pragma unroll
+    for (int i = 0; i < kRQ; ++i) {
+      const float inv = 1.f / fmaxf(l[i], 1e-30f);
+      float* orow = o + (row0 + static_cast<int64_t>(i) * H) * D + 4 * tx;
+#pragma unroll
+      for (int jj = 0; jj < OC; ++jj)
+        *reinterpret_cast<float4*>(orow + 4 * kTX * jj) =
+            make_float4(acc[i][4 * jj] * inv, acc[i][4 * jj + 1] * inv,
+                        acc[i][4 * jj + 2] * inv, acc[i][4 * jj + 3] * inv);
+    }
+    return;
+  }
+  // Partials of this split: acc [n_splits][rows][D], then (m, l) pairs
+  // [n_splits][rows][2].  A split with no chunk leaves m = -1e30, l = 0,
+  // acc = 0, which the combine weighs by exp2(-1e30 - M) = 0.
+  const int64_t rows = static_cast<int64_t>(gridDim.y / H) * Sq * H;
+  float* pacc = part + split * rows * D;
+  float* pml = part + n_splits * rows * D + split * rows * 2;
+#pragma unroll
+  for (int i = 0; i < kRQ; ++i) {
+    const int64_t r = row0 + static_cast<int64_t>(i) * H;
+    float* arow = pacc + r * D + 4 * tx;
+#pragma unroll
+    for (int jj = 0; jj < OC; ++jj)
+      *reinterpret_cast<float4*>(arow + 4 * kTX * jj) =
+          make_float4(acc[i][4 * jj], acc[i][4 * jj + 1], acc[i][4 * jj + 2],
+                      acc[i][4 * jj + 3]);
+    if (tx == 0)
+      *reinterpret_cast<float2*>(pml + 2 * r) = make_float2(m[i], l[i]);
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-           int Sk, int H, int G, int bq, int bk, int causal, float scale,
-           cudaStream_t stream) {
-  const size_t smem = smem_floats<D>() * sizeof(float);
-  auto* kern = flash_fwd_kernel<T, D>;
+// Fold the splits' partials of every output row in split order:
+// M = max m_s, L = sum l_s 2^(m_s - M),
+// out = sum acc_s 2^(m_s - M) / max(L, 1e-30).  One thread a float4 of one
+// row; no atomics, so the result is the same from run to run.
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_combine(const float* __restrict__ part, float* __restrict__ o,
+              int64_t rows, int n_splits) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= rows * (D / 4)) return;
+  const int64_t r = e / (D / 4);
+  const int c = static_cast<int>(e % (D / 4)) * 4;
+  const float* pml = part + n_splits * rows * D;
+  float big_m = REPRO_NEG_INF;
+  for (int s = 0; s < n_splits; ++s)
+    big_m = fmaxf(big_m, pml[(s * rows + r) * 2]);
+  float big_l = 0.f;
+  float4 out = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < n_splits; ++s) {
+    const float2 ml =
+        *reinterpret_cast<const float2*>(pml + (s * rows + r) * 2);
+    const float w = exp2f(ml.x - big_m);
+    big_l += ml.y * w;
+    const float4 a =
+        *reinterpret_cast<const float4*>(part + (s * rows + r) * D + c);
+    out.x += a.x * w;
+    out.y += a.y * w;
+    out.z += a.z * w;
+    out.w += a.w * w;
+  }
+  const float inv = 1.f / fmaxf(big_l, 1e-30f);
+  *reinterpret_cast<float4*>(o + r * D + c) =
+      make_float4(out.x * inv, out.y * inv, out.z * inv, out.w * inv);
+}
+
+template <int D>
+int launch(const float* q, const float* k, const float* v, float* o,
+           float* part, int B, int Sq, int Sk, int H, int G, int causal,
+           float scale, int per_split, int n_splits, cudaStream_t stream) {
+  constexpr int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
+  auto* kern = flash_fwd_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(Sq / bq, B * H);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, G, bq, bk,
-      causal, scale);
+  const dim3 grid((Sq / kBQ) * n_splits, B * H);
+  kern<<<grid, kThreads, smem, stream>>>(q, k, v, o, part, Sq, Sk, H, G,
+                                         causal, scale * kLog2e, per_split,
+                                         n_splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_splits == 1) return static_cast<int>(err);
+  const int64_t rows = static_cast<int64_t>(B) * Sq * H;
+  const int64_t threads = rows * (D / 4);
+  flash_combine<D><<<static_cast<unsigned>((threads + 255) / 256), 256, 0,
+                     stream>>>(part, o, rows, n_splits);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace f32
 
 
 // ---------------------------------------------------------------------------
@@ -521,25 +710,37 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
 }  // namespace
 
 // Contract (checked by the Python wrapper): contiguous, 16-byte aligned
-// inputs, D in {64, 128}, Sq % bq == 0, Sk % bk == 0, H % G == 0; f32
-// takes 0 < bq <= 128 and bk % 32 == 0, bf16 takes bq = bk = 128.
+// inputs, D in {64, 128}, Sq % bq == 0, Sk % bk == 0, H % G == 0.  f32
+// takes 0 < bq <= 128, bk % 32 == 0 and Sq % 128 == 0, with the kv axis cut
+// into n_splits ranges of per_split rows (a multiple of 32; plan.py), and
+// part holding n_splits * B*Sq*H * (D + 2) floats when n_splits > 1; bf16
+// takes bq = bk = 128 and one split.
 REPRO_EXPORT int flash_attention_launch(int dtype, const void* q, const void* k,
-                                        const void* v, void* o, int B, int Sq,
-                                        int Sk, int H, int G, int D, int bq,
-                                        int bk, int causal, float scale,
-                                        void* stream) {
+                                        const void* v, void* o, void* part,
+                                        int B, int Sq, int Sk, int H, int G,
+                                        int D, int bq, int bk, int causal,
+                                        float scale, int per_split,
+                                        int n_splits, void* stream) {
   if (bq <= 0 || Sq % bq || bk <= 0 || Sk % bk || H % G || (D != 64 && D != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == REPRO_F32) {
-    if (bq > kMaxBQ || bk % kKC) return static_cast<int>(cudaErrorInvalidValue);
-    return D == 64 ? launch<float, 64>(q, k, v, o, B, Sq, Sk, H, G, bq, bk,
-                                       causal, scale, s)
-                   : launch<float, 128>(q, k, v, o, B, Sq, Sk, H, G, bq, bk,
-                                        causal, scale, s);
+    if (bq > f32::kBQ || bk % 32 || Sq % f32::kBQ || per_split <= 0 ||
+        per_split % f32::kBK || n_splits != (Sk + per_split - 1) / per_split ||
+        (n_splits > 1 && part == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const auto* qf = static_cast<const float*>(q);
+    const auto* kf = static_cast<const float*>(k);
+    const auto* vf = static_cast<const float*>(v);
+    auto* of = static_cast<float*>(o);
+    auto* pf = static_cast<float*>(part);
+    return D == 64 ? f32::launch<64>(qf, kf, vf, of, pf, B, Sq, Sk, H, G,
+                                     causal, scale, per_split, n_splits, s)
+                   : f32::launch<128>(qf, kf, vf, of, pf, B, Sq, Sk, H, G,
+                                      causal, scale, per_split, n_splits, s);
   }
   if (dtype == REPRO_BF16) {
-    if (bq != sm90::kBQ || bk != sm90::kBK)
+    if (bq != sm90::kBQ || bk != sm90::kBK || n_splits != 1)
       return static_cast<int>(cudaErrorInvalidValue);
     return D == 64 ? sm90::launch<64>(q, k, v, o, B, Sq, Sk, H, G, causal,
                                       scale, s)

@@ -7,7 +7,9 @@ spec's ``n_kv`` axis inside the block.  The kernels read q, k and v in
 their [B, S, heads, D] layout, so no transpose is materialized.  The dtype
 picks the kernel (:func:`kernel_path`): bf16 runs ``flash_fwd_sm90`` on
 the tensor cores (``wgmma``, TMA), float32 ``flash_fwd_kernel`` on the
-CUDA cores.
+CUDA cores, its kv axis cut into ranges by ``plan.split_plan`` (one range
+writes the output; several write f32 partials into scratch that
+``flash_combine`` folds).
 """
 
 from __future__ import annotations
@@ -20,13 +22,14 @@ import torch
 from repro_torch.capture.launch import LaunchSpec
 
 from .. import _build
+from .plan import split_plan
 
 __all__ = ["flash_attention", "kernel_path", "HEAD_DIMS", "MAX_BLOCK_Q",
            "KV_CHUNK", "SM90_BLOCK"]
 
 HEAD_DIMS = (64, 128)   # head widths the kernels are instantiated for
-MAX_BLOCK_Q = 128       # f32: q-tile rows one block holds
-KV_CHUNK = 32           # f32: kv rows staged per step; block_k divides by it
+MAX_BLOCK_Q = 128       # f32: the spec's q tile fits the kernel's 128 rows
+KV_CHUNK = 32           # f32: the spec's block_k is a multiple of it
 SM90_BLOCK = 128        # bf16: the q and kv tile rows flash_fwd_sm90 takes
 
 # Which kernel a launch takes, by dtype.
@@ -60,7 +63,8 @@ def _fn():
     v, i = ctypes.c_void_p, ctypes.c_int
     return _build.bind(
         "flash_attention", "flash_attention_launch",
-        [i, v, v, v, v, i, i, i, i, i, i, i, i, i, ctypes.c_float, v])
+        [i, v, v, v, v, v, i, i, i, i, i, i, i, i, i, ctypes.c_float, i, i,
+         v])
 
 
 def flash_attention(spec: LaunchSpec, q: torch.Tensor, k: torch.Tensor,
@@ -79,10 +83,15 @@ def flash_attention(spec: LaunchSpec, q: torch.Tensor, k: torch.Tensor,
                for t in (q, k, v)):
         raise ValueError("flash_attention kernel takes contiguous, 16-byte "
                          "aligned inputs")
+    per, n_splits = (split_plan(b, h, sq, sk, n_sm=_build.sm_count(q))
+                     if path == "flash_fwd_kernel" else (sk, 1))
     out = torch.empty_like(q)
+    part = (torch.empty(n_splits * b * sq * h * (d + 2), dtype=torch.float32,
+                        device=q.device) if n_splits > 1 else None)
     err = _fn()(code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), b, sq, sk, h, g, d, bq, bk, int(causal),
-                d ** -0.5, _build.stream_ptr(q))
+                out.data_ptr(), None if part is None else part.data_ptr(),
+                b, sq, sk, h, g, d, bq, bk, int(causal), d ** -0.5, per,
+                n_splits, _build.stream_ptr(q))
     _build.check("flash_attention", err)
     flash_attention.launches += 1
     flash_attention.launches_by_kernel[path] += 1
