@@ -13,7 +13,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    counts the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions of
    the flash and MoE libraries with ``cuobjdump -sass``, failing if bf16
    flash or bf16 MoE dispatch has no ``HGMMA``, or if the f32 flash kernel
-   or the state-expanded scan spills;
+   or either scan spills;
 2. holds each kernel against its plain PyTorch version on the card at
    full width, in float32 and bf16: qwen2.5-14b for STREAM, gather, flash
    and paged decode (40 query heads, 8 KV heads, head_dim 128, vocab
@@ -22,6 +22,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    d_ff_expert 1408); one Zamba2-7B Mamba-2 layer's scans (T 4096, d_inner
    7168, ssm_state 64, chunk 128); f32 flash also on two causal launches
    its plan cuts into several kv ranges, some wholly above the diagonal;
+   the EMA scan also at T 1000, whose last ring stage is cut short;
 3. times each kernel at full width with CUDA events (median of 10 after
    3 warm-ups, L2 flushed before each), beside its plain version, the one
    PyTorch call that computes the same function where there is one, and
@@ -32,13 +33,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    allocates its output; each is first checked bit for bit against the
    plain version.  Flash is timed causal and not (f32 and bf16), beside
    SDPA, the f32 rows with the plan's kv split.  Paged decode prints its
-   split count, the state-expanded scan its plan and its issue floor (4 N
-   D T f32 lane-instructions, the update's multiplies and adds unfused);
+   split count, the EMA scan its plan, the state-expanded scan its plan
+   and its issue floor (4 N D T f32 lane-instructions, the update's
+   multiplies and adds unfused);
    bf16 MoE dispatch prints, where the card's torch has it,
    ``torch._grouped_mm`` on x already gathered into sorted order as
    ``grouped_mm_ms`` (a yardstick for the GEMM alone).  Paged decode, MoE
-   dispatch, flash and the state-expanded scan draw their inputs from a
-   seed of their own, here and in phase 8, and ``scripts/kernel_ab.py``
+   dispatch, flash and both scans draw their inputs from a seed of their
+   own, here and in phase 8, and ``scripts/kernel_ab.py``
    times another checkout's kernels through the same functions on the same
    data;
 4. main path 1: sets every launch counter to 0, runs the 24-entry
@@ -54,7 +56,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    launch of both paths: its shapes and tiles, with its own index vectors
    (gather rows; page table, also reversed; MoE token order and expert
    ids) and, for the scans, its chunk; every flash shape also recast to
-   bf16 at head_dim 64 and 128, causal and not;
+   bf16 at head_dim 64 and 128, causal and not; then flash at the
+   reference's other tiles (``block_q`` or ``block_k`` 256), float32 and
+   bf16, causal and not;
 7. MoE dispatch's tile list: the pre-pass run alone on the card at every
    distinct main-path MoE launch equals ``plan.tile_list``; dispatches
    with an unsorted ``eid`` and with runs of 1, 7, 64, 127, 128 and 129
@@ -64,9 +68,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    times paged decode and MoE dispatch at the main paths' geometries (the
    captured roster's four of each and the serving roster's one), flash
    attention at every distinct flash launch of both paths (with its kv
-   split) and the state-expanded scan at every distinct launch of the
-   roster's (with its plan), in float32, each checked against the plain
-   version first;
+   split) and both scans at every distinct launch of the roster's (with
+   their plans), in float32, each checked against the plain version
+   first;
 9. checks, in child processes, that an out-of-range gather index, page
    or MoE expert id makes the launch fail rather than read past the table;
 10. prints the kernels line (``launches`` summed over both paths, flash's
@@ -74,12 +78,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``bf16_ms``, ``bf16_bound_ms``, ``bf16_library_ms``) and, last,
    ``{"ok": true, "device": ...}``.
 
-Tolerances: gather is exact.  STREAM's plain version rounds op by op as
-the kernel does, so both dtypes are held to the float32 tolerance of the
-CPU tests (rtol 1e-5, atol 1e-6); so is the EMA scan in float32, which
-rounds op by op in the plain version's order.  Attention, paged decode
-and MoE dispatch in float32: rtol 1e-4, atol 2e-5 (MoE's is the
-reference's).  The state-expanded scan in float32: rtol 1e-4 and atol
+Tolerances: gather is exact, and so is the EMA scan in float32, which
+rounds op by op in the plain version's order.  STREAM's plain version
+rounds op by op as the kernel does, so both dtypes are held to the
+float32 tolerance of the CPU tests (rtol 1e-5, atol 1e-6).  Attention,
+paged decode and MoE dispatch in float32: rtol 1e-4, atol 2e-5 (MoE's is
+the reference's).  The state-expanded scan in float32: rtol 1e-4 and atol
 1e-4 of the output's rms; its state is rounded as the plain version's,
 but y_t's sum over the N state rows is taken in another order, whose
 error is at most N 2^-24 sum|c h|, about 3e-5 of the rms at N = 64.  In
@@ -198,7 +202,7 @@ class Bench:
 
 
 STREAM_ROUNDS = 15          # in-turns rounds of the STREAM timings
-STREAM_TOL = (1e-5, 1e-6)   # (rtol, atol), both dtypes; EMA scan f32
+STREAM_TOL = (1e-5, 1e-6)   # (rtol, atol), both dtypes
 ATTN_TOL = (1e-4, 2e-5)     # flash, paged decode and MoE dispatch, float32
 CHUNKED_RTOL, CHUNKED_ATOL_RMS = 1e-4, 1e-4   # state-expanded scan, float32
 BF16_RTOL, BF16_ATOL_RMS = 1e-2, 1e-3
@@ -335,6 +339,7 @@ def ptxas_spills(log: str) -> dict[str, int]:
 
 # Kernels redesigned to keep every value in registers: a spill fails phase 1.
 NO_SPILL = {"flash_attention": "flash_fwd_kernel",
+            "ssm_ema_scan": "ssm_ema_kernel",
             "ssm_chunked_scan": "ssm_chunked_kernel"}
 
 
@@ -462,7 +467,7 @@ def hold_main_path(launched: list, randn, rand,
                 g = randn(t, d, dtype=dtype)
                 want = ssm_ema_ref(x.float(), dt.float(), g.float())
                 check("ssm_ema_scan", case, ssm_ema_scan(x, dt, g, chunk=chunk),
-                      want, tol=attn_tol(dtype, want, STREAM_TOL))
+                      want, **ema_tol(dtype, want))
                 return "ssm_ema_scan"
             n = spec.operand("b").shape[1]
             b = randn(t, n, dtype=dtype) / n ** 0.5
@@ -489,6 +494,26 @@ def hold_main_path(launched: list, randn, rand,
              "distinct_launches": n, "max_abs_err": path_err[kname],
              "ok": True})
     return len(held)
+
+
+def check_reference_tiles(randn, errs: dict[str, float]) -> None:
+    """Flash attention at the reference's other tiles (``block_q`` or
+    ``block_k`` 256 against 128, ``tests/test_kernels.py``'s tile
+    invariance cases), float32 and bf16, causal and not, against the plain
+    version: the spec records the tile and the kernels walk their own."""
+    from repro_torch.kernels.flash_attention import attention_ref, mha
+
+    for dtype, (bq, bk), causal in itertools.product(
+            (torch.float32, torch.bfloat16), ((256, 128), (128, 256)),
+            (True, False)):
+        q = randn(1, 512, 4, 128, dtype=dtype)
+        k, v = (randn(1, 512, 2, 128, dtype=dtype) for _ in range(2))
+        want = attention_ref(q.float(), k.float(), v.float(), causal=causal)
+        errs["flash_attention"] = max(errs["flash_attention"], check_close(
+            "flash_attention", f"reference tile block_q={bq} block_k={bk} "
+            f"s=512 h=4 g=2 d=128 causal={causal}",
+            mha(q, k, v, causal=causal, block_q=bq, block_k=bk), want,
+            tol=attn_tol(dtype, want)))
 
 
 # Full width of the two redesigned kernels (qwen2.5-14b decode over a
@@ -674,6 +699,27 @@ def scan_plan_of(t: int, d: int, n: int, itemsize: int) -> dict:
             "blocks": plan.blocks(d), "threads_per_block": plan.threads(n)}
 
 
+def ema_plan_of(t: int, d: int, itemsize: int) -> dict:
+    """The EMA scan's plan at one launch on this card, or nothing for a
+    checkout from before the plan."""
+    try:
+        from repro_torch.kernels.ssm_scan.plan import ema_plan
+    except ImportError:
+        return {}
+    plan = ema_plan(t, d, itemsize, n_sm=sm_count())
+    return {"channels_per_block": plan.channels, "blocks": plan.blocks(d),
+            "stage_steps": plan.stage_steps, "ring": plan.ring,
+            "threads_per_block": plan.threads()}
+
+
+def ema_tol(dtype: torch.dtype, want: torch.Tensor) -> dict:
+    """check_close's limit for the EMA scan: float32 bit for bit (both
+    round op by op in one order), bf16 against the f32 plain version."""
+    if dtype == torch.float32:
+        return {"exact": True}
+    return {"tol": attn_tol(dtype, want)}
+
+
 def flash_inputs(gen, b: int, sq: int, sk: int, h: int, g: int, d: int,
                  dtype: torch.dtype):
     """q [B, Sq, H, D] and k, v [B, Sk, G, D]."""
@@ -750,6 +796,42 @@ def scan_inputs(gen, t: int, d: int, n: int, dtype: torch.dtype):
     return x, dt, b, c
 
 
+def ema_inputs(gen, t: int, d: int, dtype: torch.dtype):
+    """x, g [T, D] standard normal and dt [T, D] in (0.95, 0.999)."""
+    dev = torch.device("cuda")
+    x = torch.randn(t, d, generator=gen, device=dev).to(dtype)
+    dt = (0.95 + 0.049 * torch.rand(t, d, generator=gen, device=dev)
+          ).to(dtype)
+    g = torch.randn(t, d, generator=gen, device=dev).to(dtype)
+    return x, dt, g
+
+
+def ema_full_width(bench: Bench, smi: str, dtype: torch.dtype,
+                   **extra) -> tuple[dict, float]:
+    """The gated EMA scan at ``FULL_SCAN``'s T and D: held against its
+    plain version (float32 bit for bit), then timed beside it, with its
+    plan.  Returns the timing row (printed, with ``extra``) and the max abs
+    error."""
+    from repro_torch.kernels.ssm_scan import ssm_ema_ref, ssm_ema_scan
+
+    t, d, chunk = FULL_SCAN["t"], FULL_SCAN["d"], FULL_SCAN["chunk"]
+    gen = torch.Generator(device="cuda").manual_seed(TIMING_SEED)
+    x, dt, g = ema_inputs(gen, t, d, dtype)
+    case = f"T={t} D={d} chunk={chunk}"
+    want = ssm_ema_ref(x.float(), dt.float(), g.float())
+    err = check_close("ssm_ema_scan", f"full {case}",
+                      ssm_ema_scan(x, dt, g, chunk=chunk), want,
+                      **ema_tol(dtype, want))
+    del want
+    row = timing_row(
+        bench, smi, "ssm_ema_scan", case, dtype,
+        bench.ms(lambda: ssm_ema_scan(x, dt, g, chunk=chunk)),
+        bench.ms(lambda: ssm_ema_ref(x, dt, g)), None,
+        4 * t * d * x.element_size(), 6.0 * t * d, "f32",
+        **ema_plan_of(t, d, x.element_size()), **extra)
+    return row, err
+
+
 def chunked_full_width(bench: Bench, smi: str, dtype: torch.dtype,
                        **extra) -> tuple[dict, float]:
     """The state-expanded scan at ``FULL_SCAN``: held against its plain
@@ -793,39 +875,45 @@ def record_main_paths(device: str) -> list:
     return launched
 
 
-def flash_scan_geometries(launched: list) -> tuple[list, list]:
-    """The distinct flash (``(bh, sq, bg, sk, d)``) and state-expanded scan
-    (``(t, d, n, chunk)``) launches among ``launched``, in launch order."""
-    flash, scans = {}, {}
+def launch_geometries(launched: list) -> dict[str, list]:
+    """The distinct flash (``(bh, sq, bg, sk, d)``), state-expanded scan
+    (``(t, d, n, chunk)``) and EMA scan (``(t, d, chunk)``) launches among
+    ``launched``, in launch order."""
+    found: dict[str, dict] = {"flash": {}, "scan": {}, "ema": {}}
     for spec in launched:
         if spec.name == "flash_attention":
             bh, sq, d = spec.operand("q").shape
             bg, sk, _ = spec.operand("k").shape
-            flash[(bh, sq, bg, sk, d)] = None
-        elif spec.name == "ssm_expand":
+            found["flash"][(bh, sq, bg, sk, d)] = None
+        elif spec.name in ("ssm_expand", "ssm_ema"):
             t, d = spec.operand("x").shape
-            scans[(t, d, spec.operand("b").shape[1],
-                   spec.operand("x").block_shape[0])] = None
-    return list(flash), list(scans)
+            chunk = spec.operand("x").block_shape[0]
+            if spec.name == "ssm_ema":
+                found["ema"][(t, d, chunk)] = None
+            else:
+                found["scan"][(t, d, spec.operand("b").shape[1], chunk)] = None
+    return {k: list(v) for k, v in found.items()}
 
 
-GEOMETRY_KERNELS = ("paged", "moe", "flash", "scan")
+GEOMETRY_KERNELS = ("paged", "moe", "flash", "scan", "ema")
 
 
 def geometry_timings(bench: Bench, smi: str, launched: list,
                      only=GEOMETRY_KERNELS, **tags) -> list[dict]:
     """Time paged decode and MoE dispatch at the main paths' geometries,
-    and flash attention and the state-expanded scan at every distinct
-    launch of theirs among ``launched``, through the entry points in
-    float32, each first held against its plain version (``only`` names
-    which of the four); prints one row each (with ``tags``) and returns
-    them."""
+    and flash attention, the state-expanded scan and the EMA scan at every
+    distinct launch of theirs among ``launched``, through the entry points
+    in float32, each first held against its plain version (the EMA scan
+    bit for bit; ``only`` names which of the five); prints one row each
+    (with ``tags``) and returns them."""
     from repro_torch.kernels.flash_attention import attention_ref, mha
     from repro_torch.kernels.moe_dispatch import (moe_dispatch_sorted,
                                                   moe_dispatch_sorted_ref)
     from repro_torch.kernels.paged_kv_decode import (paged_decode,
                                                      paged_decode_ref)
-    from repro_torch.kernels.ssm_scan import ssm_chunked_ref, ssm_chunked_scan
+    from repro_torch.kernels.ssm_scan import (ssm_chunked_ref,
+                                              ssm_chunked_scan, ssm_ema_ref,
+                                              ssm_ema_scan)
 
     gen = torch.Generator(device="cuda").manual_seed(TIMING_SEED)
     paged, moe = main_path_geometries()
@@ -856,11 +944,12 @@ def geometry_timings(bench: Bench, smi: str, launched: list,
                          ms=bench.ms(lambda: moe_dispatch_sorted(x, w, tok,
                                                                  eid)),
                          max_abs_err=err))
-    flash, scans = flash_scan_geometries(launched)
-    flash = flash if "flash" in only else []
-    scans = scans if "scan" in only else []
-    # flash and the scan draw from seeds of their own, so that a run that
-    # times only some of the four sees the same data
+    geos = launch_geometries(launched)
+    flash = geos["flash"] if "flash" in only else []
+    scans = geos["scan"] if "scan" in only else []
+    emas = geos["ema"] if "ema" in only else []
+    # flash and the scans draw from seeds of their own, so that a run that
+    # times only some of the five sees the same data
     gen = torch.Generator(device="cuda").manual_seed(TIMING_SEED)
     for bh, sq, bg, sk, d in flash:
         q, k, v = flash_inputs(gen, 1, sq, sk, bh, bg, d, f32)
@@ -886,6 +975,18 @@ def geometry_timings(bench: Bench, smi: str, launched: list,
                          ms=bench.ms(lambda: ssm_chunked_scan(x, dt, b, c,
                                                               chunk=chunk)),
                          max_abs_err=err, **scan_plan_of(t, d, n, 4)))
+    gen = torch.Generator(device="cuda").manual_seed(TIMING_SEED)
+    for t, d, chunk in emas:
+        x, dt, g = ema_inputs(gen, t, d, f32)
+        err = check_close("ssm_ema_scan", f"timing T={t} D={d}",
+                          ssm_ema_scan(x, dt, g, chunk=chunk),
+                          ssm_ema_ref(x, dt, g), exact=True, show=False)
+        rows.append(dict(kernel="ssm_ema_scan", case=f"T={t} D={d}",
+                         geometry=dict(t=t, d=d, chunk=chunk),
+                         dtype="float32",
+                         ms=bench.ms(lambda: ssm_ema_scan(x, dt, g,
+                                                          chunk=chunk)),
+                         max_abs_err=err, **ema_plan_of(t, d, 4)))
     for row in rows:
         say({"phase": "geometry-timing", **tags, **row, "card": smi})
     return rows
@@ -1168,21 +1269,17 @@ def main() -> int:
          "closed_form_scan_flops": closed_ops,
          "sets_the_bound": "direct" if direct_ops <= closed_ops else "closed"})
     for dtype in (torch.float32, torch.bfloat16):
-        x = randn(t, d, dtype=dtype)
-        dt = (0.95 + 0.049 * rand(t, d)).to(dtype)
-        g = randn(t, d, dtype=dtype)
+        row, err = ema_full_width(bench, smi, dtype)
+        rows["ssm_ema_scan", dtype] = row
+        errs["ssm_ema_scan"] = max(errs["ssm_ema_scan"], err)
+        # a sequence whose last ring stage is cut short (T 1000, stages of
+        # 64 steps: TMA reads the box's rows past T as zeros)
+        x, dt, g = ema_inputs(gen, 1000, 256, dtype)
         want = ssm_ema_ref(x.float(), dt.float(), g.float())
         errs["ssm_ema_scan"] = max(errs["ssm_ema_scan"], check_close(
-            "ssm_ema_scan", f"full T={t} D={d} chunk={chunk}",
-            ssm_ema_scan(x, dt, g, chunk=chunk), want,
-            tol=attn_tol(dtype, want, STREAM_TOL)))
-        del want
-        rows["ssm_ema_scan", dtype] = record(
-            "ssm_ema_scan", f"T={t} D={d} chunk={chunk}", dtype,
-            bench.ms(lambda: ssm_ema_scan(x, dt, g, chunk=chunk)),
-            bench.ms(lambda: ssm_ema_ref(x, dt, g)), None,
-            4 * t * d * x.element_size(), 6.0 * t * d, "f32")
-        del x, dt, g
+            "ssm_ema_scan", f"short last stage T=1000 D=256 "
+            f"{ema_plan_of(1000, 256, x.element_size())}",
+            ssm_ema_scan(x, dt, g, chunk=40), want, **ema_tol(dtype, want)))
         row, err = chunked_full_width(bench, smi, dtype)
         rows["ssm_chunked_scan", dtype] = row
         errs["ssm_chunked_scan"] = max(errs["ssm_chunked_scan"], err)
@@ -1269,6 +1366,7 @@ def main() -> int:
     say({"phase": "main-path-parity",
          "launches": len(launched) + len(served), "distinct": held,
          "seconds": time.perf_counter() - t0})
+    check_reference_tiles(randn, errs)
 
     # -- 7. MoE dispatch's tile list, ragged tiles, unsorted eid --------------
     check_moe_tiles(launched + served, gen, errs)

@@ -1,15 +1,15 @@
-"""Time paged decode, MoE dispatch, flash attention (float32) and the
-state-expanded scan of one checkout of the port on the card, at full width
-and at every main-path geometry (float32), each first held against its
-plain version.
+"""Time paged decode, MoE dispatch, flash attention (float32), the
+state-expanded scan and the gated EMA scan of one checkout of the port on
+the card, at full width and at every main-path geometry (float32), each
+first held against its plain version.
 
 It runs ``chip_smoke.py``'s own timing functions (phase 3's
 ``paged_full_width``, ``moe_full_width``, ``flash_full_width`` (causal and
-not) and ``chunked_full_width``, phase 8's ``geometry_timings``: the same
-seeded inputs, CUDA events, L2 flushed before each run, median of 10 after
-3 warm-ups) on the ``repro_torch`` package found under ``--src``, so that
-two versions of the kernels can be compared on one card in one call, in
-turns::
+not), ``chunked_full_width`` and ``ema_full_width``, phase 8's
+``geometry_timings``: the same seeded inputs, CUDA events, L2 flushed
+before each run, median of 10 after 3 warm-ups) on the ``repro_torch``
+package found under ``--src``, so that two versions of the kernels can be
+compared on one card in one call, in turns::
 
     git archive <parent> | tar -x -C build/parent
     for side in parent change change parent; do
@@ -20,9 +20,10 @@ turns::
 Each run prints the card's name and power limit, one ``timing`` line a
 full-width case and one ``geometry-timing`` line a main-path case, each
 with ``label``; rows carry the checkout's plan (paged and flash
-``n_splits``, the scan's rows and channels) where it has one.  The
-main-path flash and scan launches are those the checkout's roster and
-serving roster record when run on the CPU (``--only`` picks kernels).
+``n_splits``, the scans' rows, channels and stages) where it has one.
+The main-path flash and scan launches are those the checkout's roster and
+serving roster record when run on the CPU (``--only`` picks kernels:
+``paged``, ``moe``, ``flash``, ``scan``, ``ema``).
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ def main() -> int:
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="directory holding the repro_torch package to time")
     ap.add_argument("--label", default="change")
-    ap.add_argument("--only", default="paged,moe,flash,scan",
+    ap.add_argument("--only", default="paged,moe,flash,scan,ema",
                     help="comma-separated kernels to time")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -85,7 +86,9 @@ def main() -> int:
             chip_smoke.moe_full_width(bench, smi, dtype, label=args.label)
         if "scan" in only:
             chip_smoke.chunked_full_width(bench, smi, dtype, label=args.label)
-        cases += len(only & {"paged", "moe", "scan"})
+        if "ema" in only:
+            chip_smoke.ema_full_width(bench, smi, dtype, label=args.label)
+        cases += len(only & {"paged", "moe", "scan", "ema"})
         torch.cuda.empty_cache()
     if "flash" in only:
         for causal in (True, False):

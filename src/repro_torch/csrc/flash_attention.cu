@@ -710,11 +710,13 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
 }  // namespace
 
 // Contract (checked by the Python wrapper): contiguous, 16-byte aligned
-// inputs, D in {64, 128}, Sq % bq == 0, Sk % bk == 0, H % G == 0.  f32
-// takes 0 < bq <= 128, bk % 32 == 0 and Sq % 128 == 0, with the kv axis cut
-// into n_splits ranges of per_split rows (a multiple of 32; plan.py), and
-// part holding n_splits * B*Sq*H * (D + 2) floats when n_splits > 1; bf16
-// takes bq = bk = 128 and one split.
+// inputs, D in {64, 128}, Sq % bq == 0, Sk % bk == 0, H % G == 0, where bq
+// and bk are the reference's tiles, which neither kernel reads (the f32
+// kernel walks 128-row q tiles and 64-row kv chunks, flash_fwd_sm90 128-row
+// tiles of both).  f32 takes Sq % 128 == 0 and Sk % 64 == 0, with the kv
+// axis cut into n_splits ranges of per_split rows (a multiple of 64;
+// plan.py), and part holding n_splits * B*Sq*H * (D + 2) floats when
+// n_splits > 1; bf16 takes Sq and Sk multiples of 128 and one split.
 REPRO_EXPORT int flash_attention_launch(int dtype, const void* q, const void* k,
                                         const void* v, void* o, void* part,
                                         int B, int Sq, int Sk, int H, int G,
@@ -725,7 +727,7 @@ REPRO_EXPORT int flash_attention_launch(int dtype, const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == REPRO_F32) {
-    if (bq > f32::kBQ || bk % 32 || Sq % f32::kBQ || per_split <= 0 ||
+    if (Sq % f32::kBQ || Sk % f32::kBK || per_split <= 0 ||
         per_split % f32::kBK || n_splits != (Sk + per_split - 1) / per_split ||
         (n_splits > 1 && part == nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
@@ -740,7 +742,7 @@ REPRO_EXPORT int flash_attention_launch(int dtype, const void* q, const void* k,
                                       causal, scale, per_split, n_splits, s);
   }
   if (dtype == REPRO_BF16) {
-    if (bq != sm90::kBQ || bk != sm90::kBK || n_splits != 1)
+    if (Sq % sm90::kBQ || Sk % sm90::kBK || n_splits != 1)
       return static_cast<int>(cudaErrorInvalidValue);
     return D == 64 ? sm90::launch<64>(q, k, v, o, B, Sq, Sk, H, G, causal,
                                       scale, s)

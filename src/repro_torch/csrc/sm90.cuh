@@ -2,7 +2,8 @@
 // mbarriers, TMA loads through a tensor map, wgmma shared-memory
 // descriptors for 128-byte-swizzled operands, and the wgmma forms the
 // kernels issue (bf16 inputs, f32 accumulators).  flash_attention.cu
-// (flash_fwd_sm90) and moe_dispatch.cu (the bf16 grouped GEMM) include it.
+// (flash_fwd_sm90), moe_dispatch.cu (the bf16 grouped GEMM) and
+// ssm_ema_scan.cu (its TMA ring) include it.
 //
 // The helpers live in the translation unit's unnamed namespace, in sm90,
 // so a kernel file reopens the same namespace around its own code.
@@ -61,6 +62,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// One TMA box of a rank-2 tensor map, at coordinates {c0, c1} (the
+// innermost first), into shared memory, completing its bytes on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
       : "memory");
 }
 

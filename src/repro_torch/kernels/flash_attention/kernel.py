@@ -1,15 +1,15 @@
 """Flash attention forward as CUDA kernels (``csrc/flash_attention.cu``).
 
 Replaces ``flash_attention`` of ``repro/kernels/flash_attention/kernel.py``.
-:func:`flash_attention` launches from the spec: one block per
-``(b*h, q tile)`` of the spec's grid ``(b*h, n_q, n_kv)``, looping the
-spec's ``n_kv`` axis inside the block.  The kernels read q, k and v in
-their [B, S, heads, D] layout, so no transpose is materialized.  The dtype
-picks the kernel (:func:`kernel_path`): bf16 runs ``flash_fwd_sm90`` on
-the tensor cores (``wgmma``, TMA), float32 ``flash_fwd_kernel`` on the
-CUDA cores, its kv axis cut into ranges by ``plan.split_plan`` (one range
-writes the output; several write f32 partials into scratch that
-``flash_combine`` folds).
+:func:`flash_attention` launches one block per ``(b*h, 128-row q tile)``
+(times the kv ranges of a split), each looping its kv rows itself; the
+spec's tiles are the reference's and only set what the trace walk
+replays.  The kernels read q, k and v in their [B, S, heads, D] layout, so
+no transpose is materialized.  The dtype picks the kernel
+(:func:`kernel_path`): bf16 runs ``flash_fwd_sm90`` on the tensor cores
+(``wgmma``, TMA), float32 ``flash_fwd_kernel`` on the CUDA cores, its kv
+axis cut into ranges by ``plan.split_plan`` (one range writes the output;
+several write f32 partials into scratch that ``flash_combine`` folds).
 """
 
 from __future__ import annotations
@@ -24,13 +24,10 @@ from repro_torch.capture.launch import LaunchSpec
 from .. import _build
 from .plan import split_plan
 
-__all__ = ["flash_attention", "kernel_path", "HEAD_DIMS", "MAX_BLOCK_Q",
-           "KV_CHUNK", "SM90_BLOCK"]
+__all__ = ["flash_attention", "kernel_path", "HEAD_DIMS", "SM90_BLOCK"]
 
 HEAD_DIMS = (64, 128)   # head widths the kernels are instantiated for
-MAX_BLOCK_Q = 128       # f32: the spec's q tile fits the kernel's 128 rows
-KV_CHUNK = 32           # f32: the spec's block_k is a multiple of it
-SM90_BLOCK = 128        # bf16: the q and kv tile rows flash_fwd_sm90 takes
+SM90_BLOCK = 128        # bf16: the q and kv tile rows flash_fwd_sm90 walks
 
 # Which kernel a launch takes, by dtype.
 PATHS = {torch.float32: "flash_fwd_kernel", torch.bfloat16: "flash_fwd_sm90"}
@@ -38,23 +35,20 @@ PATHS = {torch.float32: "flash_fwd_kernel", torch.bfloat16: "flash_fwd_sm90"}
 
 def kernel_path(dtype: torch.dtype, d: int, block_q: int, block_k: int) -> str:
     """The kernel that takes a launch of this dtype, head width and spec
-    tiles; raises on a launch neither kernel takes."""
+    tiles; raises on a launch neither kernel takes.  Neither kernel reads
+    the spec's tiles (the f32 kernel walks 128-row q tiles and 64-row kv
+    chunks, flash_fwd_sm90 128-row tiles of both), so every tile
+    ``ops.launch_spec`` gives is taken; the card path's Sq, Sk multiples of
+    128 keep the kernels' own tiles whole."""
     if dtype not in PATHS:
         raise ValueError(f"flash_attention kernel takes {list(PATHS)}, "
                          f"got {dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes D in {HEAD_DIMS}, "
                          f"got D={d}")
-    if dtype == torch.bfloat16:
-        if block_q != SM90_BLOCK or block_k != SM90_BLOCK:
-            raise ValueError(
-                f"flash_fwd_sm90 takes block_q = block_k = {SM90_BLOCK}; "
-                f"got block_q={block_q}, block_k={block_k}")
-    elif block_q > MAX_BLOCK_Q or block_k % KV_CHUNK:
-        raise ValueError(
-            f"flash_fwd_kernel takes block_q <= {MAX_BLOCK_Q} and block_k a "
-            f"multiple of {KV_CHUNK}; got block_q={block_q}, "
-            f"block_k={block_k}")
+    if block_q < 1 or block_k < 1:
+        raise ValueError(f"flash_attention takes positive tiles; got "
+                         f"block_q={block_q}, block_k={block_k}")
     return PATHS[dtype]
 
 

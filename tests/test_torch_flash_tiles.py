@@ -146,23 +146,47 @@ def test_one_bf16_rounding_of_p_misses_the_card_tolerance(case):
     (torch.bfloat16, 64, 128, 128, "flash_fwd_sm90"),
     (torch.float32, 128, 128, 128, "flash_fwd_kernel"),
     (torch.float32, 64, 64, 32, "flash_fwd_kernel"),
+    # Neither kernel reads the spec's tile: the reference's other tiles are
+    # taken (they were refused before the tile check went).
+    (torch.bfloat16, 128, 64, 128, "flash_fwd_sm90"),
+    (torch.bfloat16, 64, 128, 256, "flash_fwd_sm90"),
+    (torch.float32, 128, 256, 128, "flash_fwd_kernel"),
+    (torch.float32, 128, 128, 48, "flash_fwd_kernel"),
 ])
 def test_kernel_path_names_the_kernel(dtype, d, bq, bk, path):
     assert kernel_path(dtype, d, bq, bk) == path
 
 
 @pytest.mark.parametrize("dtype,d,bq,bk,match", [
-    (torch.bfloat16, 128, 64, 128, "block_q = block_k = 128"),
-    (torch.bfloat16, 64, 128, 256, "block_q = block_k = 128"),
     (torch.bfloat16, 96, 128, 128, "D in"),
     (torch.float32, 256, 128, 128, "D in"),
-    (torch.float32, 128, 256, 128, "block_q <="),
-    (torch.float32, 128, 128, 48, "multiple of 32"),
     (torch.float16, 128, 128, 128, "takes"),
 ])
 def test_kernel_path_refuses_what_no_kernel_takes(dtype, d, bq, bk, match):
     with pytest.raises(ValueError, match=match):
         kernel_path(dtype, d, bq, bk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block_q,block_k", [(128, 128), (256, 128),
+                                             (128, 256)])
+def test_kernel_path_takes_the_reference_tiles(dtype, block_q, block_k):
+    # tests/test_kernels.py's tile invariance cases: the spec records the
+    # reference's tile, and the wrapper takes whatever tile it records.
+    from repro_torch.kernels.flash_attention.ops import launch_spec, mha
+
+    spec = launch_spec(1, 512, 512, 4, 2, 64, dtype, block_q=block_q,
+                       block_k=block_k)
+    assert spec.operand("q").block_shape[1] == block_q
+    assert spec.operand("k").block_shape[1] == block_k
+    assert spec.grid == (4, 512 // block_q, 512 // block_k)
+    path = "flash_fwd_kernel" if dtype == torch.float32 else "flash_fwd_sm90"
+    assert kernel_path(dtype, 64, block_q, block_k) == path
+    q, k, v = (torch.from_numpy(x) for x in _inputs(
+        (1, 512, 512, 4, 2, 64, True, 1.0)))
+    np.testing.assert_array_equal(
+        mha(q, k, v, causal=True, block_q=block_q, block_k=block_k).numpy(),
+        attention_ref(q, k, v, causal=True).numpy())
 
 
 def test_sm90_block_is_the_default_spec_tile():
