@@ -43,10 +43,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    own, here and in phase 8, and ``scripts/kernel_ab.py``
    times another checkout's kernels through the same functions on the same
    data;
-4. main path 1: sets every launch counter to 0, runs the 24-entry
-   captured roster (``repro_torch.suite``) on the card recording every
-   launch's spec, reads the counters, checks 24/24 classes as expected,
-   all seven kernels launched, and rows equal to the roster run on the CPU;
+4. main path 1: sets every launch counter to 0, runs the 45-entry roster
+   (``SuiteRunner(default_registry(device="cuda"), store=None)``: 21
+   synthetic entries at ``DEFAULT_REFS`` and 24 captured ones, the full
+   core sweep) on the card recording every launch's spec, reads the
+   counters, prints the seconds of each source, checks 45/45 classes as
+   expected, all seven kernels launched, and rows equal to the roster run
+   on the CPU;
 5. main path 2: sets the counters to 0 again, runs ``measure_windows``
    for the 16 serving scenarios (``repro_torch.serving``) on the card,
    reads the counters, checks that flash attention, paged decode and MoE
@@ -73,9 +76,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    first;
 9. checks, in child processes, that an out-of-range gather index, page
    or MoE expert id makes the launch fail rather than read past the table;
-10. prints the kernels line (``launches`` summed over both paths, flash's
-   also split by kernel; the f32 timings, and the bf16 ones as
-   ``bf16_ms``, ``bf16_bound_ms``, ``bf16_library_ms``) and, last,
+Paths 3-5 first drop the capture and window memos, so each launches its
+kernels as a fresh process does:
+
+10. main path 3: the same roster with the ``scalability`` and ``energy``
+   sections, counters reset before and read after: every kernel
+   launched, 45/45, its first 12 columns phase 4's rows, all of it equal
+   to the CPU run's;
+11. main path 4: the serving section (``registry_for(sections=
+   ("serving",), device="cuda")``), counters reset before and read after:
+   flash, paged decode and MoE dispatch launched, 16/16, each
+   ``phase_timeline`` phase 5's timeline, rows equal to the CPU run's;
+12. main path 5, at ``FAST_REFS``, in a temporary result store: a CPU run
+   fills it and the card's first run recalls none of its rows (computes
+   45), a second runner recalls all 45 with no simulation, and two
+   spawned worker processes give the same rows;
+13. prints the kernels line (``launches`` summed over main paths 1 and 2,
+   as before, and ``launches_by_path`` for paths 1-4; flash's also split
+   by kernel; the f32 timings, and the bf16 ones as ``bf16_ms``,
+   ``bf16_bound_ms``, ``bf16_library_ms``) and, last,
    ``{"ok": true, "device": ...}``.
 
 Tolerances: gather is exact, and so is the EMA scan in float32, which
@@ -862,14 +881,18 @@ def chunked_full_width(bench: Bench, smi: str, dtype: torch.dtype,
 
 
 def record_main_paths(device: str) -> list:
-    """The launch specs of both main paths (the captured roster, then the 16
-    serving scenarios) run on ``device``."""
+    """The launch specs of both main paths (the 45-entry roster, then the
+    16 serving scenarios) run on ``device``.  The roster runs at
+    ``FAST_REFS``: only its captured entries launch, and their launches do
+    not depend on the synthetic trace length."""
     from repro_torch.capture.launch import record
     from repro_torch.serving import SCENARIOS, measure_windows
-    from repro_torch.suite.runner import SuiteRunner
+    from repro_torch.suite import SuiteRunner, default_registry
+    from repro_torch.suite.__main__ import FAST_REFS
 
     with record() as launched:
-        SuiteRunner(device=device).roster()
+        SuiteRunner(default_registry(refs=FAST_REFS, device=device),
+                    store=None).roster()
         for scen in SCENARIOS:
             measure_windows(scen, device=device)
     return launched
@@ -1091,6 +1114,171 @@ def grouped_mm_yardstick(bench: Bench, x, w, tok, eid, smi: str) -> None:
         return
 
 
+def forget_captures() -> None:
+    """Drop the capture memo (one launch per geometry) and the serving
+    window memo, so the next path launches its kernels as a fresh process
+    does rather than reusing an earlier path's launches."""
+    from repro_torch.capture import launch
+    from repro_torch.serving import scenario
+
+    launch._MEMO.clear()
+    scenario._WINDOW_CACHE.clear()
+
+
+def counted(K, drive) -> tuple[object, dict, float]:
+    """Run ``drive()`` with every launch counter set to 0 just before it;
+    returns its result, the counters read just after, and its seconds."""
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = drive()
+    torch.cuda.synchronize()
+    return out, K.launch_counts(), time.perf_counter() - t0
+
+
+def sections_phase(K, registry, cpu_registry, roster) -> dict:
+    """Main path 3: the roster with the scalability and energy sections on
+    the card; every kernel launched, 45/45, its first 12 columns phase 4's
+    rows, all of it equal to the same roster on the CPU."""
+    from repro_torch.suite import SuiteRunner
+
+    sections = ("scalability", "energy")
+
+    def drive():
+        forget_captures()
+        return SuiteRunner(registry, store=None, sections=sections).roster()
+
+    table, launches, secs = counted(K, drive)
+    bad = [r for r in table.records() if not r["match"]]
+    say({"phase": "sections", "sections": list(sections),
+         "entries": len(table.rows), "matching": len(table.rows) - len(bad),
+         "seconds": secs, "launches": launches})
+    missing = [k for k, v in launches.items() if v <= 0]
+    if len(table.rows) != 45 or bad or missing:
+        raise AssertionError(f"sections: {len(table.rows)} rows, divergent "
+                             f"{bad}, kernels not launched: {missing}")
+    if [r[:12] for r in table.rows] != roster.rows:
+        raise AssertionError("sections: the first 12 columns differ from "
+                             "the plain roster's rows")
+    t0 = time.perf_counter()
+    cpu = SuiteRunner(cpu_registry, store=None, sections=sections).roster()
+    if cpu.rows != table.rows:
+        raise AssertionError("sections: rows on the card differ from the "
+                             "CPU run's")
+    say({"phase": "sections-vs-cpu", "identical": True,
+         "cpu_seconds": time.perf_counter() - t0})
+    return launches
+
+
+def serving_section_phase(K, timelines: dict) -> dict:
+    """Main path 4: the serving roster through the suite runner on the
+    card; flash, paged decode and MoE dispatch launched, 16 rows whose
+    ``phase_timeline`` equals phase 5's timelines, rows equal to the CPU
+    run's."""
+    from repro_torch.suite import SuiteRunner, registry_for
+
+    sections = ("serving",)
+
+    def drive():
+        forget_captures()
+        return SuiteRunner(registry_for(sections=sections, device="cuda"),
+                           store=None, sections=sections).roster()
+
+    table, launches, secs = counted(K, drive)
+    records = table.records()
+    bad = [r for r in records if not r["match"]]
+    say({"phase": "serving-section", "entries": len(records),
+         "matching": len(records) - len(bad), "seconds": secs,
+         "launches": launches,
+         "mitigations": {r["name"]: [r["best_mitigation"], r["best_speedup"]]
+                         for r in records}})
+    missing = [k for k in ("flash_attention", "paged_kv_decode",
+                           "moe_dispatch") if launches[k] <= 0]
+    if len(records) != 16 or bad or missing:
+        raise AssertionError(f"serving section: {len(records)} rows, "
+                             f"divergent {bad}, not launched: {missing}")
+    wrong = [r["name"] for r in records
+             if r["phase_timeline"] != timelines[r["name"]].timeline()]
+    if wrong:
+        raise AssertionError(f"serving section: timelines differ from "
+                             f"measure_windows' for {wrong}")
+    t0 = time.perf_counter()
+    cpu = SuiteRunner(registry_for(sections=sections, device="cpu"),
+                      store=None, sections=sections).roster()
+    if cpu.rows != table.rows:
+        raise AssertionError("serving section: rows on the card differ from "
+                             "the CPU run's")
+    say({"phase": "serving-section-vs-cpu", "identical": True,
+         "cpu_seconds": time.perf_counter() - t0})
+    return launches
+
+
+def store_pool_phase(K) -> dict:
+    """Main path 5, at ``FAST_REFS``: a store that the CPU run filled is not
+    recalled on the card; the card's first run computes 45 rows, a second
+    runner recalls all 45 with no simulation; two worker processes give
+    the sequential rows."""
+    import tempfile
+
+    from repro_torch.suite import ResultStore, SuiteRunner, default_registry
+    from repro_torch.suite.__main__ import FAST_REFS
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store = ResultStore(Path(tmp) / "store")
+        cpu = SuiteRunner(default_registry(refs=FAST_REFS, device="cpu"),
+                          store=store)
+        cpu_rows = cpu.roster().rows
+        registry = default_registry(refs=FAST_REFS, device="cuda")
+
+        def drive():
+            forget_captures()
+            first = SuiteRunner(registry, store=store)
+            first.roster()
+            second = SuiteRunner(registry, store=store)
+            second.roster()
+            return first, second
+
+        (first, second), launches, secs = counted(K, drive)
+        say({"phase": "store", "refs": FAST_REFS, "seconds": secs,
+             "cpu_run": cpu.stats.as_dict(),
+             "card_first": first.stats.as_dict(),
+             "card_second": second.stats.as_dict(),
+             "card_second_engine": second.study.stats.as_dict(),
+             "launches": launches})
+        if cpu.stats.computed != 45 or first.stats.recalled != 0 \
+                or first.stats.computed != 45:
+            raise AssertionError("store: a CPU-written record was recalled "
+                                 "on the card, or the first run missed rows")
+        if second.stats.recalled != 45 or second.study.stats.sim_runs != 0:
+            raise AssertionError("store: the warm rerun simulated")
+        rows = first.roster().rows
+        if not rows == second.roster().rows == cpu_rows:
+            raise AssertionError("store: rows differ between the first run, "
+                                 "the recall and the CPU run")
+        missing = [k for k, v in launches.items() if v <= 0]
+        if missing:
+            raise AssertionError(f"store: the card run launched no "
+                                 f"{missing}")
+
+        def drive_pool():
+            pool = SuiteRunner(registry, store=ResultStore(Path(tmp) / "pool"),
+                               processes=2)
+            # every entry goes to the workers: none falls back in-process
+            if not all(pool._reconstructible(e) for e in registry):
+                raise AssertionError("pool: an entry of the card registry "
+                                     "is not rebuilt alike in a worker")
+            return pool, pool.roster().rows
+
+        (pool, pool_rows), pool_launches, pool_secs = counted(K, drive_pool)
+        say({"phase": "pool", "processes": 2, "seconds": pool_secs,
+             "stats": pool.stats.as_dict(),
+             "launches_in_parent": pool_launches})
+        if pool.stats.computed != 45 or pool_rows != rows:
+            raise AssertionError("pool: two worker processes gave other rows "
+                                 "than the sequential run")
+    say({"phase": "store-pool-vs-sequential", "identical": True})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1111,7 +1299,7 @@ def main() -> int:
     from repro_torch.kernels.stream.kernel import stream_cuda
     from repro_torch.kernels.token_gather import gather, gather_rows_ref
     from repro_torch.serving import SCENARIOS, measure_windows
-    from repro_torch.suite.runner import SuiteRunner
+    from repro_torch.suite import SuiteRunner, default_registry
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1286,23 +1474,35 @@ def main() -> int:
     del bench
     torch.cuda.empty_cache()
 
-    # -- 4. main path 1: the captured roster on the card -----------------------
+    # -- 4. main path 1: the 45-entry roster on the card -----------------------
+    # Driven entry by entry (``row``, what ``roster`` runs after one batch of
+    # the same cells) to time each source; ``roster`` then only reads.
     K.reset_launch_counts()
     t0 = time.perf_counter()
+    by_source = {"synthetic": 0.0, "captured": 0.0}
     with record_launches() as launched:
-        runner = SuiteRunner(device="cuda")
+        registry = default_registry(device="cuda")
+        registry_s = time.perf_counter() - t0
+        runner = SuiteRunner(registry, store=None)
+        for entry in registry:
+            t1 = time.perf_counter()
+            runner.row(entry)
+            torch.cuda.synchronize()
+            by_source[entry.source] += time.perf_counter() - t1
         roster = runner.roster()
         torch.cuda.synchronize()
     roster_launches = K.launch_counts()
     roster_flash = dict(flash_kernel.launches_by_kernel)
     roster_s = time.perf_counter() - t0
-    bad = runner.divergent()
+    bad = [r for r in roster.records() if not r["match"]]
     say({"phase": "roster", "entries": len(roster.rows),
          "matching": len(roster.rows) - len(bad), "seconds": roster_s,
+         "registry_seconds": registry_s, "seconds_by_source": by_source,
+         "engine": runner.study.stats.as_dict(),
          "launches": roster_launches, "flash_launches_by_kernel": roster_flash})
     for rec in roster.records():
         say({"phase": "roster-row", **rec})
-    if len(roster.rows) != 24 or bad:
+    if len(roster.rows) != 45 or bad:
         raise AssertionError(f"roster: {len(bad)} divergent entries: {bad}")
     missing = [k for k, v in roster_launches.items() if v <= 0]
     if missing:
@@ -1310,11 +1510,14 @@ def main() -> int:
     if len(launched) != sum(roster_launches.values()):
         raise AssertionError(f"{len(launched)} launch specs recorded for "
                              f"{sum(roster_launches.values())} kernel launches")
-    cpu_rows = SuiteRunner(device="cpu").roster().rows
+    t0 = time.perf_counter()
+    cpu_registry = default_registry(device="cpu")
+    cpu_rows = SuiteRunner(cpu_registry, store=None).roster().rows
     if cpu_rows != roster.rows:
         raise AssertionError("roster rows on the card differ from the rows "
                              "of the plain versions on the CPU")
-    say({"phase": "roster-vs-cpu", "identical": True})
+    say({"phase": "roster-vs-cpu", "identical": True,
+         "cpu_seconds": time.perf_counter() - t0})
 
     # -- 5. main path 2: the serving roster on the card ------------------------
     K.reset_launch_counts()
@@ -1381,7 +1584,12 @@ def main() -> int:
     # -- 9. out-of-range indices -------------------------------------------------
     check_bad_index()
 
-    # -- 10. results --------------------------------------------------------
+    # -- 10-12. the sections, the serving section, the store and the pool ------
+    sections_launches = sections_phase(K, registry, cpu_registry, roster)
+    serving_section_launches = serving_section_phase(K, timelines)
+    store_pool_phase(K)
+
+    # -- 13. results --------------------------------------------------------
     kernels = []
     for kname, (source, replaces) in KERNEL_SITES.items():
         r, r16 = rows[kname, torch.float32], rows[kname, torch.bfloat16]
@@ -1389,6 +1597,11 @@ def main() -> int:
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": roster_launches[kname] + serving_launches[kname],
+            "launches_by_path": {
+                "roster": roster_launches[kname],
+                "serving": serving_launches[kname],
+                "sections": sections_launches[kname],
+                "serving_section": serving_section_launches[kname]},
             "max_abs_err": errs[kname], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

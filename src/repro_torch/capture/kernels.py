@@ -64,6 +64,17 @@ class CapturedKernel:
     # True when the per-thread trace and l3_factor ignore the core count.
     core_invariant: bool = False
 
+    def params(self) -> dict:
+        """The suite registry's parameters of this entry: part of its store
+        fingerprint, so a geometry edit invalidates stored rows."""
+        return {
+            "kernel": self.kernel,
+            "target_refs": self.target_refs,
+            "l3": "shared" if self.l3_shared else "partitioned",
+            "mlp": self.mlp,
+            **dict(self.geometry),
+        }
+
 
 def _stream_builder(op: str, n_elems: int) -> Builder:
     def build(cores, rng, device):

@@ -23,6 +23,7 @@ default).  The simulator is host-side NumPy; it runs no kernel.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -41,8 +42,28 @@ __all__ = [
     "host_config",
     "ndp_config",
     "BACKENDS",
+    "default_backend",
     "WORDS_PER_LINE",
 ]
+
+
+def default_backend() -> str:
+    """Backend used when ``backend=None``: ``REPRO_SIM_BACKEND``
+    (``reference`` | ``vectorized``) overrides the built-in vectorized
+    default.  The reference package also takes ``jax``, its jitted window
+    scan; that scan is not ported yet, so asking for it raises rather
+    than running another backend under its name."""
+    backend = os.environ.get("REPRO_SIM_BACKEND", "vectorized")
+    if backend == "jax":
+        raise ValueError(
+            "REPRO_SIM_BACKEND='jax': the jitted window scan is not ported "
+            "yet (ROADMAP.md, queue 1 item 4); use 'vectorized' or "
+            "'reference'")
+    if backend not in BACKENDS:
+        raise ValueError(
+            f"REPRO_SIM_BACKEND={backend!r} invalid; expected one of "
+            f"{BACKENDS}")
+    return backend
 
 
 @dataclass(frozen=True)
@@ -140,6 +161,15 @@ class SimResult:
             return 0.0
         return 1000.0 * self.llc_misses / self.instructions
 
+    @property
+    def dram_lines(self) -> int:
+        # Demand misses; prefetch traffic is accounted separately.
+        return self.llc_misses
+
+    @property
+    def dram_bytes(self) -> int:
+        return (self.llc_misses + self.prefetch_issued) * LINE_BYTES
+
 
 def broadcast_l3_factor(l3_factor, n: int) -> list[float]:
     """A scalar ``l3_factor`` is shared by all ``n`` configs; a sequence
@@ -164,9 +194,12 @@ def broadcast_names(names, n: int) -> list:
     return names
 
 
-def _check_backend(backend: str) -> None:
+def _check_backend(backend: str | None) -> str:
+    if backend is None:
+        return default_backend()
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected {BACKENDS}")
+    return backend
 
 
 def simulate_batch(
@@ -177,7 +210,7 @@ def simulate_batch(
     instr_per_access: float = 2.0,
     l3_factor=1.0,
     names=None,
-    backend: str = "vectorized",
+    backend: str | None = None,
 ) -> list[SimResult]:
     """Run one trace through several hierarchy configs in one call.
 
@@ -186,7 +219,7 @@ def simulate_batch(
     reference backend it is the equivalent per-config loop, so the two
     stay counter-identical cell for cell.
     """
-    _check_backend(backend)
+    backend = _check_backend(backend)
     if backend == "vectorized":
         from . import cachesim_vec  # deferred: cachesim_vec imports us
 
@@ -277,7 +310,7 @@ def simulate(
     instr_per_access: float = 2.0,
     l3_factor: float = 1.0,
     name: str | None = None,
-    backend: str = "vectorized",
+    backend: str | None = None,
 ) -> SimResult:
     """Run a word-address trace through a cache hierarchy.
 
@@ -287,7 +320,7 @@ def simulate(
     ``l3_factor``: effective fraction of the shared LLC available to this
     thread (contention model; ignored for NDP).
     """
-    _check_backend(backend)
+    backend = _check_backend(backend)
     if backend == "vectorized":
         from . import cachesim_vec  # deferred: cachesim_vec imports us
 

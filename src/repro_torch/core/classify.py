@@ -1,9 +1,12 @@
-"""Six-class memory-bottleneck classifier (DAMOV §3.3; counterpart of
+"""Six-class memory-bottleneck classifier (DAMOV §3.3, §3.5; counterpart of
 ``repro.core.classify``).
 
-The fixed-threshold decision procedure with the paper's published phase-1
-thresholds (temporal locality 0.48, LFMR 0.56, LLC MPKI 11.0, AI 8.5) plus
-the LFMR-vs-core-count slope.
+1. The fixed-threshold decision procedure with the paper's published
+   phase-1 thresholds (temporal locality 0.48, LFMR 0.56, LLC MPKI 11.0,
+   AI 8.5) plus the LFMR-vs-core-count slope;
+2. the two-phase validation protocol: derive thresholds from a labeled
+   training set (midpoint between low-class and high-class means), then
+   score a held-out set.
 
 Metric conventions:
 - temporal locality: architecture-independent Eq. 2 on the 1-core trace;
@@ -29,6 +32,8 @@ __all__ = [
     "FunctionMetrics",
     "measure",
     "classify",
+    "derive_thresholds",
+    "validate",
     "CLASSES",
     "MITIGATIONS",
 ]
@@ -79,6 +84,11 @@ class FunctionMetrics:
     def lfmr_slope(self) -> float:
         """Signed end-to-end LFMR change across the core sweep."""
         return self.lfmr_by_cores[-1] - self.lfmr_by_cores[0]
+
+    @property
+    def lfmr_low(self) -> float:
+        """LFMR at low core counts (class definitions reference it)."""
+        return float(np.mean(self.lfmr_by_cores[:2]))
 
 
 def measure(workload: Workload, *, seed: int = 0,
@@ -132,3 +142,59 @@ def classify(m: FunctionMetrics, t: Thresholds = PAPER_THRESHOLDS) -> str:
     if m.ai >= t.ai:
         return "2c"
     return "2b"
+
+
+# --------------------------------------------------------------------------
+# §3.5 two-phase validation.
+# --------------------------------------------------------------------------
+_LOW_T = {"1a", "1b", "1c"}
+_HIGH_MPKI = {"1a"}
+_HIGH_AI = {"2c"}
+_HIGH_LFMR = {"1a", "1b"}
+
+
+def derive_thresholds(train: list[FunctionMetrics]) -> Thresholds:
+    """Phase 1: midpoint between low-group and high-group means per metric.
+
+    Bounded metrics (temporal locality, LFMR in [0, 1]) use the arithmetic
+    midpoint; ratio-scale metrics (MPKI, AI) use the geometric midpoint so
+    one extreme workload cannot drag the threshold past its group."""
+
+    def midpoint(vals_low: list[float], vals_high: list[float],
+                 default: float, *, geometric: bool = False) -> float:
+        if not vals_low or not vals_high:
+            return default
+        lo, hi = float(np.mean(vals_low)), float(np.mean(vals_high))
+        if geometric and lo > 0 and hi > 0:
+            return float(np.sqrt(lo * hi))
+        return 0.5 * (lo + hi)
+
+    def by(pred, attr: str) -> list[float]:
+        return [getattr(m, attr) for m in train
+                if m.expected_class and pred(m.expected_class)]
+
+    return Thresholds(
+        temporal=midpoint(by(lambda c: c in _LOW_T, "temporal"),
+                          by(lambda c: c not in _LOW_T, "temporal"), 0.48),
+        mpki=midpoint(by(lambda c: c not in _HIGH_MPKI, "mpki"),
+                      by(lambda c: c in _HIGH_MPKI, "mpki"), 11.0,
+                      geometric=True),
+        ai=midpoint(by(lambda c: c not in _HIGH_AI, "ai"),
+                    by(lambda c: c in _HIGH_AI, "ai"), 8.5,
+                    geometric=True),
+        lfmr=midpoint(by(lambda c: c not in _HIGH_LFMR, "lfmr_low"),
+                      by(lambda c: c in _HIGH_LFMR, "lfmr_low"), 0.56),
+    )
+
+
+def validate(held_out: list[FunctionMetrics],
+             thresholds: Thresholds) -> tuple[float, list[tuple[str, str, str]]]:
+    """Phase 2: accuracy + (name, expected, predicted) table."""
+    rows = []
+    correct = 0
+    for m in held_out:
+        pred = classify(m, thresholds)
+        correct += pred == m.expected_class
+        rows.append((m.name, m.expected_class or "?", pred))
+    acc = correct / len(held_out) if held_out else 0.0
+    return acc, rows

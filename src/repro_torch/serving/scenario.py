@@ -134,6 +134,24 @@ class ServingScenario:
             raise ValueError(f"kernel must be one of {KERNELS}, "
                              f"got {self.kernel!r}")
 
+    def params(self) -> dict:
+        """Fingerprint-relevant geometry for the suite registry: any edit
+        here (or in ``geometry``/``traffic``) makes stored rows
+        unreachable instead of wrongly recalled."""
+        p = {
+            "kernel": self.kernel,
+            "traffic": self.traffic.name,
+            "traffic_family": self.traffic.family,
+            "keyspace": self.traffic.keyspace,
+            "rate": self.traffic.rate,
+            "windows": self.n_windows,
+            "window_refs": self.window_refs,
+            "max_batch": self.max_batch,
+            "decode_steps": self.decode_steps,
+        }
+        p.update(dict(self.geometry))
+        return p
+
     def window_traces(self, *, seed: int = 0,
                       device: str | torch.device = "cuda"
                       ) -> list[WindowTrace]:

@@ -1,36 +1,193 @@
-"""Memoized simulation engine (a minimal counterpart of
+"""Content-addressed, memoized simulation engine (counterpart of
 ``repro.study.engine``).
 
-One trace per ``(workload.name, cores, seed)`` and one simulation per
-``(workload.name, seed, cores, hierarchy)``.  A core-invariant workload
-shares its 1-core trace across the whole sweep, so the per-trace memo of
-:mod:`repro_torch.core.cachesim_vec` answers every sweep point from one
-array.  Workload identity is its name: build one engine per roster.
+The DAMOV pipeline evaluates many *simulation cells* — one functional
+cache-hierarchy simulation per (workload, seed) x cores x hierarchy config.
+The same cells are needed by several consumers (locality metrics,
+classification, scalability curves, energy breakdowns, the serving phase
+timelines), so :class:`SimEngine` runs each cell exactly once and shares
+the result:
+
+- traces are memoized on ``(workload.name, cores, seed)``; a core-invariant
+  workload shares its 1-core trace across the whole sweep;
+- simulations are memoized on ``(workload.name, seed, cores, hierarchy)``,
+  where the hierarchy is the frozen :class:`~repro_torch.core.cachesim
+  .HierarchyConfig` itself (content, not identity);
+- :meth:`SimEngine.simulate_cells` / :meth:`SimEngine.simulate_batch`
+  accept many cells at once, group the missing ones by trace and hand each
+  group to the backend's batched single pass;
+- :class:`EngineStats` counts hits/misses for both layers.
+
+Workload identity is its *name*: the engine fingerprints each workload
+(family, expected class, AI, instructions-per-access, plus the trace
+generator's code and closed-over parameters such as trace length or the
+device a captured kernel launches on) and refuses to mix two different
+workloads under one name.  For any (name, seed, cores, hierarchy) key the
+simulation runs at most once per engine; duplicate cells in one call count
+as hits.  The memo is not locked: submit overlapping cells from one thread.
 """
 
 from __future__ import annotations
 
-from typing import Iterable
+import hashlib
+import os
+from concurrent.futures import Executor, ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import Callable, Iterable
 
 from repro_torch.core import cachesim
 from repro_torch.core.cachesim import HierarchyConfig, SimResult
 from repro_torch.core.tracegen import TraceSpec, Workload
 
-__all__ = ["SimEngine"]
+__all__ = ["CellKey", "EngineStats", "SimEngine"]
+
+
+@dataclass(frozen=True)
+class CellKey:
+    """Content address of one simulation cell."""
+
+    workload: str
+    seed: int
+    cores: int
+    hierarchy: HierarchyConfig
+
+
+@dataclass
+class EngineStats:
+    """Hit/miss accounting for the two memoization layers."""
+
+    trace_runs: int = 0
+    trace_hits: int = 0
+    sim_runs: int = 0
+    sim_hits: int = 0
+
+    @property
+    def sim_hit_rate(self) -> float:
+        total = self.sim_runs + self.sim_hits
+        return self.sim_hits / total if total else 0.0
+
+    def as_dict(self) -> dict[str, float]:
+        return {
+            "trace_runs": self.trace_runs,
+            "trace_hits": self.trace_hits,
+            "sim_runs": self.sim_runs,
+            "sim_hits": self.sim_hits,
+            "sim_hit_rate": round(self.sim_hit_rate, 4),
+        }
+
+
+def _gen_signature(w: Workload) -> tuple:
+    """Content signature of the trace generator: its code object plus the
+    closed-over parameters (trace length, footprint, device, ...), so two
+    suites built with different ``refs`` cannot alias under one name."""
+    gen = w.gen
+    code = getattr(gen, "__code__", None)
+    code_id = (code.co_filename, code.co_firstlineno,
+               code.co_code) if code is not None else None
+    cells: tuple = ()
+    for cell in getattr(gen, "__closure__", None) or ():
+        try:
+            hash(cell.cell_contents)
+            cells += (cell.cell_contents,)
+        except TypeError:
+            cells += (repr(cell.cell_contents),)
+    return (code_id, cells)
+
+
+def _fingerprint(w: Workload) -> tuple:
+    return (w.family, w.expected_class, w.ai_ops_per_access,
+            w.instr_per_access, w.core_invariant, _gen_signature(w))
+
+
+# Schema version of the engine's cell-record store (``profile_store``).
+# Bump when SimResult gains fields or the digest recipe changes: old
+# records become unreachable and are simply recomputed.
+_CELL_SCHEMA = 1
+
+
+def _cell_digest(fp: tuple, key: CellKey) -> str:
+    """Content address of one simulation cell's *result*: the cell schema,
+    the workload fingerprint and the cell key.  No trace needs to be
+    generated to compute it, so a pool worker can recall a sibling's
+    finished cell without paying for the trace."""
+    h = key.hierarchy
+    text = repr((_CELL_SCHEMA, fp, key.workload, key.seed, key.cores,
+                 h.levels, h.prefetcher, h.prefetch_degree,
+                 h.prefetch_streams, h.name, h.shared_llc))
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+def _sim_to_record(sim: SimResult) -> dict:
+    return {
+        "schema": _CELL_SCHEMA,
+        "accesses": sim.accesses,
+        "instructions": sim.instructions,
+        "ai": sim.ai,
+        "level_hits": list(sim.level_hits),
+        "level_misses": list(sim.level_misses),
+        "lines": sim.lines_touched,
+        "pf": [sim.prefetch_issued, sim.prefetch_useful],
+    }
+
+
+def _record_to_sim(rec: dict, name: str) -> SimResult | None:
+    if not isinstance(rec, dict) or rec.get("schema") != _CELL_SCHEMA:
+        return None
+    try:
+        return SimResult(
+            name=name,
+            accesses=int(rec["accesses"]),
+            instructions=int(rec["instructions"]),
+            ai=float(rec["ai"]),
+            level_misses=tuple(int(m) for m in rec["level_misses"]),
+            level_hits=tuple(int(h) for h in rec["level_hits"]),
+            lines_touched=int(rec["lines"]),
+            prefetch_issued=int(rec["pf"][0]),
+            prefetch_useful=int(rec["pf"][1]),
+        )
+    except (KeyError, TypeError, ValueError, IndexError):
+        return None
 
 
 class SimEngine:
-    """Trace and simulation memo shared by the roster's consumers."""
+    """Memoized trace + simulation cache shared by all pipeline consumers.
 
-    def __init__(self, *, backend: str = "vectorized") -> None:
-        if backend not in cachesim.BACKENDS:
+    ``backend``: ``"vectorized"``, ``"reference"`` or ``None`` (resolved
+    per call by :func:`repro_torch.core.cachesim.default_backend`).
+    ``profile_store``: an optional cross-process cell cache (a
+    ``ResultStore``-shaped object with get/put); finished cells are
+    published as content-addressed records and recalled by digest before
+    any trace is generated, which is how process-pool workers share work.
+    """
+
+    def __init__(self, *, backend: str | None = None,
+                 profile_store=None) -> None:
+        if backend is not None and backend not in cachesim.BACKENDS:
             raise ValueError(
                 f"unknown backend {backend!r}; expected one of "
                 f"{cachesim.BACKENDS}")
         self.backend = backend
+        self.profile_store = profile_store
         self._traces: dict[tuple[str, int, int], TraceSpec] = {}
-        self._sims: dict[tuple, SimResult] = {}
+        self._sims: dict[CellKey, SimResult] = {}
+        self._fingerprints: dict[str, tuple] = {}
+        self.stats = EngineStats()
 
+    # ---- identity -------------------------------------------------------
+    def register(self, workload: Workload) -> None:
+        """Pin ``workload.name`` to this workload's parameters; raises
+        ``ValueError`` if a different workload already owns the name."""
+        fp = _fingerprint(workload)
+        prev = self._fingerprints.get(workload.name)
+        if prev is None:
+            self._fingerprints[workload.name] = fp
+        elif prev != fp:
+            raise ValueError(
+                f"workload name {workload.name!r} already registered with "
+                f"different parameters {prev} != {fp}; use distinct names "
+                f"or a fresh SimEngine")
+
+    # ---- memoized layers ------------------------------------------------
     @staticmethod
     def _trace_cores(workload: Workload, cores: int) -> int:
         return 1 if workload.core_invariant else cores
@@ -38,11 +195,114 @@ class SimEngine:
     def trace(self, workload: Workload, cores: int, *,
               seed: int = 0) -> TraceSpec:
         """Per-thread trace for one (workload, cores, seed), memoized."""
+        self.register(workload)
         key = (workload.name, self._trace_cores(workload, cores), seed)
         spec = self._traces.get(key)
         if spec is None:
             spec = self._traces[key] = workload.trace(cores, seed=seed)
+            self.stats.trace_runs += 1
+        else:
+            self.stats.trace_hits += 1
         return spec
+
+    def simulate(self, workload: Workload, cores: int,
+                 hierarchy: HierarchyConfig, *, seed: int = 0) -> SimResult:
+        """Run (or recall) one simulation cell."""
+        self.register(workload)
+        key = CellKey(workload.name, seed, cores, hierarchy)
+        sim = self._sims.get(key)
+        if sim is None:
+            spec = self.trace(workload, cores, seed=seed)
+            sim = self._sims[key] = cachesim.simulate(
+                spec.addresses,
+                hierarchy,
+                ai_ops_per_access=workload.ai_ops_per_access,
+                instr_per_access=workload.instr_per_access,
+                l3_factor=spec.l3_factor,
+                name=hierarchy.name,
+                backend=self.backend,
+            )
+            self.stats.sim_runs += 1
+        else:
+            self.stats.sim_hits += 1
+        return sim
+
+    def _run_group(self, workload: Workload, spec: TraceSpec,
+                   hierarchies: list[HierarchyConfig]) -> list[SimResult]:
+        """All of one trace's un-memoized cells in a single backend pass.
+        Writes nothing on the engine, so threads may run it concurrently."""
+        return cachesim.simulate_batch(
+            spec.addresses,
+            hierarchies,
+            ai_ops_per_access=workload.ai_ops_per_access,
+            instr_per_access=workload.instr_per_access,
+            l3_factor=spec.l3_factor,
+            backend=self.backend,
+        )
+
+    def simulate_cells(
+        self,
+        items: Iterable[tuple[Workload, int, HierarchyConfig]],
+        *,
+        seed: int = 0,
+    ) -> list[SimResult]:
+        """Run (or recall) cells spanning many workloads in one call.
+
+        Missing cells are first looked up in ``profile_store`` (when set)
+        and freshly-run cells are published back.  The rest are grouped
+        by trace and each group runs through one batched
+        :func:`~repro_torch.core.cachesim.simulate_batch` pass.  (The
+        reference hands all groups at once to ``simulate_many``, its
+        cross-trace segmented forest, which ROADMAP.md queue 1 item 4
+        ports; that function's contract is counter-identity with the
+        per-trace batch, so the cells, and every row built on them, are
+        the same.)  Results, memoization and stats equal per-cell
+        :meth:`simulate` calls.
+        """
+        items = list(items)
+        keys: list[CellKey] = []
+        for w, c, h in items:
+            self.register(w)
+            keys.append(CellKey(w.name, seed, c, h))
+
+        missing: dict[CellKey, tuple[Workload, int, HierarchyConfig]] = {}
+        hits = 0
+        for key, (w, c, h) in zip(keys, items):
+            if key in self._sims or key in missing:
+                hits += 1  # memoized, or a duplicate within this call
+            else:
+                missing[key] = (w, c, h)
+
+        if missing and self.profile_store is not None:
+            for key in list(missing):
+                w, _, h = missing[key]
+                rec = self.profile_store.get(
+                    _cell_digest(self._fingerprints[w.name], key))
+                sim = _record_to_sim(rec, h.name) if rec is not None else None
+                if sim is not None:
+                    self._sims[key] = sim
+                    del missing[key]
+                    hits += 1
+
+        if missing:
+            groups: dict[tuple, list] = {}
+            for key, (w, c, h) in missing.items():
+                gkey = (w.name, self._trace_cores(w, c))
+                groups.setdefault(gkey, []).append((key, w, c, h))
+            for batch in groups.values():
+                _, w, c, _ = batch[0]
+                spec = self.trace(w, c, seed=seed)
+                sims = self._run_group(w, spec, [h for *_, h in batch])
+                for (key, *_), sim in zip(batch, sims):
+                    self._sims[key] = sim
+            if self.profile_store is not None:
+                for key, (w, _, _) in missing.items():
+                    self.profile_store.put(
+                        _cell_digest(self._fingerprints[w.name], key),
+                        _sim_to_record(self._sims[key]))
+            self.stats.sim_runs += len(missing)
+        self.stats.sim_hits += hits
+        return [self._sims[key] for key in keys]
 
     def simulate_batch(
         self,
@@ -50,28 +310,98 @@ class SimEngine:
         cells: Iterable[tuple[int, HierarchyConfig]],
         *,
         seed: int = 0,
+        max_workers: int | None = None,
+        executor: Executor | None = None,
     ) -> list[SimResult]:
-        """Run (or recall) many ``(cores, hierarchy)`` cells of one
-        workload; the missing cells of each trace go to the backend in one
-        batched pass."""
+        """Run (or recall) many ``(cores, hierarchy)`` cells of one workload.
+
+        With no executor (the common case) this is :meth:`simulate_cells`
+        on a single workload.  With ``executor`` or ``max_workers`` the
+        per-trace groups are submitted to a thread pool (NumPy releases
+        the GIL in the backend's hot loops); only this thread writes the
+        memo.  Results, memoization and stats are identical either way.
+        """
+        self.register(workload)
         cells = list(cells)
-        keys = [(workload.name, seed, c, h) for c, h in cells]
-        groups: dict[int, list[tuple[tuple, HierarchyConfig]]] = {}
+        if executor is None and max_workers is None:
+            return self.simulate_cells(
+                [(workload, c, h) for c, h in cells], seed=seed)
+        keys = [CellKey(workload.name, seed, c, h) for c, h in cells]
+        specs = {c: self.trace(workload, c, seed=seed) for c, _ in cells}
+
+        missing: dict[CellKey, tuple[int, HierarchyConfig]] = {}
+        hits = 0
         for key, (c, h) in zip(keys, cells):
-            if key not in self._sims:
-                group = groups.setdefault(self._trace_cores(workload, c), [])
-                if key not in (k for k, _ in group):
-                    group.append((key, h))
-        for batch in groups.values():
-            spec = self.trace(workload, batch[0][0][2], seed=seed)
-            sims = cachesim.simulate_batch(
-                spec.addresses,
-                [h for _, h in batch],
-                ai_ops_per_access=workload.ai_ops_per_access,
-                instr_per_access=workload.instr_per_access,
-                l3_factor=spec.l3_factor,
-                backend=self.backend,
-            )
-            for (key, _), sim in zip(batch, sims):
-                self._sims[key] = sim
+            if key in self._sims or key in missing:
+                hits += 1
+            else:
+                missing[key] = (c, h)
+
+        if missing:
+            groups: dict[int, list[tuple[CellKey, HierarchyConfig]]] = {}
+            for key, (c, h) in missing.items():
+                groups.setdefault(c, []).append((key, h))
+            own_pool = executor is None
+            pool = executor if executor is not None else ThreadPoolExecutor(
+                max_workers=max_workers or min(os.cpu_count() or 1, 8))
+            try:
+                futures = [
+                    (batch, pool.submit(self._run_group, workload, specs[c],
+                                        [h for _, h in batch]))
+                    for c, batch in groups.items()
+                ]
+                for batch, fut in futures:
+                    for (key, _), sim in zip(batch, fut.result()):
+                        self._sims[key] = sim
+            finally:
+                if own_pool:
+                    pool.shutdown()
+            self.stats.sim_runs += len(missing)
+        self.stats.sim_hits += hits
         return [self._sims[key] for key in keys]
+
+    def sweep(
+        self,
+        workload: Workload,
+        cores: Iterable[int],
+        config_factory: Callable[[int], HierarchyConfig],
+        *,
+        seed: int = 0,
+    ) -> list[SimResult]:
+        """One simulation per core count — the shared Step-3 sweep loop."""
+        return [self.simulate(workload, c, config_factory(c), seed=seed)
+                for c in cores]
+
+    def sweep_parallel(
+        self,
+        workload: Workload,
+        cores: Iterable[int],
+        config_factory: Callable[[int], HierarchyConfig],
+        *,
+        seed: int = 0,
+        max_workers: int | None = None,
+        executor: Executor | None = None,
+    ) -> list[SimResult]:
+        """:meth:`sweep` as one :meth:`simulate_batch` call, its missing
+        cells fanned across ``executor`` or a thread pool of
+        ``max_workers`` when either is given; results, memo and stats
+        equal the sequential sweep's."""
+        return self.simulate_batch(
+            workload,
+            [(c, config_factory(c)) for c in cores],
+            seed=seed,
+            max_workers=max_workers,
+            executor=executor,
+        )
+
+    # ---- introspection --------------------------------------------------
+    @property
+    def cells(self) -> int:
+        """Distinct simulation cells materialized so far."""
+        return len(self._sims)
+
+    def clear(self) -> None:
+        self._traces.clear()
+        self._sims.clear()
+        self._fingerprints.clear()
+        self.stats = EngineStats()

@@ -25,7 +25,8 @@ from repro_torch.kernels.flash_attention.ops import launch_spec as flash_spec
 from repro_torch.kernels.stream import ops as stream_ops
 from repro_torch.kernels.stream.kernel import stream_cuda
 from repro_torch.kernels.token_gather import gather
-from repro_torch.suite.runner import SuiteRunner
+from repro_torch.suite import default_registry, registry_for
+from repro_torch.suite.__main__ import main as suite_main
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -59,15 +60,17 @@ def test_package_imports_and_runs_with_jax_blocked():
         "import pkgutil, importlib, repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "from repro_torch.suite.runner import SuiteRunner\n"
-        "r = SuiteRunner(CAPTURED_KERNELS[:1], cores=(1, 4), device='cpu')\n"
-        "print(r.roster().rows[0][4], 'repro' in sys.modules)\n"
-    ).replace("CAPTURED_KERNELS",
-              "__import__('repro_torch.capture.kernels', fromlist=['x'])"
-              ".CAPTURED_KERNELS")
+        "from repro_torch.suite import SuiteRunner, default_registry\n"
+        "r = SuiteRunner(default_registry(refs=2000, device='cpu'),\n"
+        "                cores=(1, 4), store=None)\n"
+        "rows, hist = r.roster().rows, r.histogram()\n"
+        "print(len(rows), rows[21][4], ','.join(hist.columns),\n"
+        "      'repro' in sys.modules)\n"
+    )
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, check=True)
-    assert out.stdout.split() == ["1a", "False"]
+    assert out.stdout.split() == ["45", "1a", "class,synthetic,captured,total",
+                                  "False"]
 
 
 def test_cuda_without_a_card_raises(monkeypatch):
@@ -75,7 +78,11 @@ def test_cuda_without_a_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="cuda"):
-        SuiteRunner(device="cuda")
+        default_registry()
+    with pytest.raises(RuntimeError, match="cuda"):
+        registry_for(sections=("serving",), device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        suite_main(["--fast", "--no-store"])
     with pytest.raises(RuntimeError, match="cuda"):
         CAPTURED_KERNELS[0].builder(1, np.random.default_rng(0), "cuda")
     assert resolve_device("cpu") == torch.device("cpu")
