@@ -12,8 +12,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    all started together); prints each kernel's ptxas registers/spills and
    counts the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions of
    the flash and MoE libraries with ``cuobjdump -sass``, failing if bf16
-   flash or bf16 MoE dispatch has no ``HGMMA``, or if the f32 flash kernel
-   or either scan spills;
+   flash or bf16 MoE dispatch has no ``HGMMA``, or if the f32 flash kernel,
+   either SSM scan or the simulator's window count spills;
 2. holds each kernel against its plain PyTorch version on the card at
    full width, in float32 and bf16: qwen2.5-14b for STREAM, gather, flash
    and paged decode (40 query heads, 8 KV heads, head_dim 128, vocab
@@ -22,7 +22,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    d_ff_expert 1408); one Zamba2-7B Mamba-2 layer's scans (T 4096, d_inner
    7168, ssm_state 64, chunk 128); f32 flash also on two causal launches
    its plan cuts into several kv ranges, some wholly above the diagonal;
-   the EMA scan also at T 1000, whose last ring stage is cut short;
+   the EMA scan also at T 1000, whose last ring stage is cut short; and
+   the simulator's window count (``window_scan``) on seeded rows, int32
+   and int64 (ragged spans, cold slots, windows ending at m - 1 and past
+   it), exactly;
 3. times each kernel at full width with CUDA events (median of 10 after
    3 warm-ups, L2 flushed before each), beside its plain version, the one
    PyTorch call that computes the same function where there is one, and
@@ -43,18 +46,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    own, here and in phase 8, and ``scripts/kernel_ab.py``
    times another checkout's kernels through the same functions on the same
    data;
-4. main path 1: sets every launch counter to 0, runs the 45-entry roster
+4. main path 1, traced with ``repro_torch.obs`` (as are paths 2 and 3):
+   sets every launch counter to 0, runs the 45-entry roster
    (``SuiteRunner(default_registry(device="cuda"), store=None)``: 21
    synthetic entries at ``DEFAULT_REFS`` and 24 captured ones, the full
    core sweep) on the card recording every launch's spec, reads the
    counters, prints the seconds of each source, checks 45/45 classes as
-   expected, all seven kernels launched, and rows equal to the roster run
-   on the CPU;
+   expected, all seven capture kernels launched, and rows equal to the
+   roster run on the CPU; prints its span split (seconds of simulation,
+   trace generation, trace walk, per-launch synchronize and entries, every
+   span and counter) and checks ``0 < profile.scan <= profile.geom``;
 5. main path 2: sets the counters to 0 again, runs ``measure_windows``
    for the 16 serving scenarios (``repro_torch.serving``) on the card,
    reads the counters, checks that flash attention, paged decode and MoE
    dispatch launched, and that every scenario's window traces, timeline
-   and whole-trace label equal the same run on the CPU;
+   and whole-trace label equal the same run on the CPU; its span split;
 6. holds each kernel against its plain version again at every distinct
    launch of both paths: its shapes and tiles, with its own index vectors
    (gather rows; page table, also reversed; MoE token order and expert
@@ -82,20 +88,36 @@ kernels as a fresh process does:
 10. main path 3: the same roster with the ``scalability`` and ``energy``
    sections, counters reset before and read after: every kernel
    launched, 45/45, its first 12 columns phase 4's rows, all of it equal
-   to the CPU run's;
+   to the CPU run's; its span split;
 11. main path 4: the serving section (``registry_for(sections=
    ("serving",), device="cuda")``), counters reset before and read after:
    flash, paged decode and MoE dispatch launched, 16/16, each
    ``phase_timeline`` phase 5's timeline, rows equal to the CPU run's;
 12. main path 5, at ``FAST_REFS``, in a temporary result store: a CPU run
    fills it and the card's first run recalls none of its rows (computes
-   45), a second runner recalls all 45 with no simulation, and two
-   spawned worker processes give the same rows;
-13. prints the kernels line (``launches`` summed over main paths 1 and 2,
-   as before, and ``launches_by_path`` for paths 1-4; flash's also split
-   by kernel; the f32 timings, and the bf16 ones as ``bf16_ms``,
-   ``bf16_bound_ms``, ``bf16_library_ms``) and, last,
-   ``{"ok": true, "device": ...}``.
+   45), a second runner recalls all 45 with no simulation (and counts
+   ``store.recall.warm`` 45, ``engine.sim.run`` 0), and two spawned
+   worker processes give the same rows;
+13. main paths 6 and 7: the roster through ``SuiteRunner.roster()`` with
+   the vectorized backend (its seconds and span split), then with
+   ``backend="cuda"``,
+   and the sections with ``backend="cuda"`` (beside phase 10's seconds),
+   each traced, counters reset before and read after: 45/45, rows equal
+   to the vectorized run's, ``scan.cuda`` > 0 and window-count launches
+   > 0, every window count recorded;
+14. the window count at every distinct (rows, chunk) of paths 6-7, on its
+   own recorded q and rows, exactly against the plain version; the three
+   largest timed beside the plain version, the same PyTorch expression
+   as the library yardstick, and its bytes bound;
+15. ``simulate_chunked`` over the reference tests' megaref trace at 10M
+   refs, with the NumPy scan and with ``scan="cuda"``: equal counters;
+   both equal the in-memory ``simulate`` on a 200 000-ref prefix;
+16. prints the kernels line (``launches`` summed over main paths 1 and 2,
+   as before, for the seven capture kernels and main path 6's for the
+   window count; ``launches_by_path`` for paths 1-4, 6 and 7; flash's
+   also split by kernel; the f32 (window count: int32) timings, and the
+   bf16 ones as ``bf16_ms``, ``bf16_bound_ms``, ``bf16_library_ms``) and,
+   last, ``{"ok": true, "device": ...}``.
 
 Tolerances: gather is exact, and so is the EMA scan in float32, which
 rounds op by op in the plain version's order.  STREAM's plain version
@@ -111,6 +133,8 @@ in float32 on the same bf16 inputs (the kernels compute in float32, bf16
 flash's P.V on two bf16 halves of P, and round once): rtol 1e-2, 2.5x the
 bf16 rounding of a value (2^-8), and atol 1e-3 of the output's rms.
 
+The window count is exact (integer counts).
+
 It exits non-zero without a result when no CUDA device is available, and
 when run outside a checkout (it imports the package from ``src/`` beside
 itself).
@@ -118,6 +142,7 @@ itself).
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import re
@@ -164,7 +189,14 @@ KERNEL_SITES = {
                      "src/repro/kernels/ssm_scan/kernel.py:59"),
     "ssm_chunked_scan": ("src/repro_torch/csrc/ssm_chunked_scan.cu",
                          "src/repro/kernels/ssm_scan/kernel.py:112"),
+    # not a pallas_call: the reference's jitted jax.numpy window count
+    "window_scan": ("src/repro_torch/csrc/window_scan.cu",
+                    "src/repro/core/cachesim_vec.py:307"),
 }
+
+# The simulator's window count launches only under backend="cuda" (main
+# paths 6-7), never on the captured kernels' paths.
+SCAN_KERNEL = "window_scan"
 
 
 def say(obj) -> None:
@@ -359,7 +391,8 @@ def ptxas_spills(log: str) -> dict[str, int]:
 # Kernels redesigned to keep every value in registers: a spill fails phase 1.
 NO_SPILL = {"flash_attention": "flash_fwd_kernel",
             "ssm_ema_scan": "ssm_ema_kernel",
-            "ssm_chunked_scan": "ssm_chunked_kernel"}
+            "ssm_chunked_scan": "ssm_chunked_kernel",
+            "window_scan": "window_count_kernel"}
 
 
 def stream_calls() -> dict:
@@ -1135,10 +1168,12 @@ def counted(K, drive) -> tuple[object, dict, float]:
     return out, K.launch_counts(), time.perf_counter() - t0
 
 
-def sections_phase(K, registry, cpu_registry, roster) -> dict:
+def sections_phase(K, registry, cpu_registry, roster, trace_dir: Path
+                   ) -> tuple[dict, object, float]:
     """Main path 3: the roster with the scalability and energy sections on
-    the card; every kernel launched, 45/45, its first 12 columns phase 4's
-    rows, all of it equal to the same roster on the CPU."""
+    the card, traced; every kernel launched, 45/45, its first 12 columns
+    phase 4's rows, all of it equal to the same roster on the CPU.
+    Returns the launches, the table and the seconds."""
     from repro_torch.suite import SuiteRunner
 
     sections = ("scalability", "energy")
@@ -1147,12 +1182,13 @@ def sections_phase(K, registry, cpu_registry, roster) -> dict:
         forget_captures()
         return SuiteRunner(registry, store=None, sections=sections).roster()
 
-    table, launches, secs = counted(K, drive)
+    with obs_trace(trace_dir, "sections"):
+        table, launches, secs = counted(K, drive)
     bad = [r for r in table.records() if not r["match"]]
     say({"phase": "sections", "sections": list(sections),
          "entries": len(table.rows), "matching": len(table.rows) - len(bad),
          "seconds": secs, "launches": launches})
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k, v in launches.items() if v <= 0 and k != SCAN_KERNEL]
     if len(table.rows) != 45 or bad or missing:
         raise AssertionError(f"sections: {len(table.rows)} rows, divergent "
                              f"{bad}, kernels not launched: {missing}")
@@ -1166,7 +1202,7 @@ def sections_phase(K, registry, cpu_registry, roster) -> dict:
                              "CPU run's")
     say({"phase": "sections-vs-cpu", "identical": True,
          "cpu_seconds": time.perf_counter() - t0})
-    return launches
+    return launches, table, secs
 
 
 def serving_section_phase(K, timelines: dict) -> dict:
@@ -1219,6 +1255,7 @@ def store_pool_phase(K) -> dict:
     the sequential rows."""
     import tempfile
 
+    from repro_torch import obs
     from repro_torch.suite import ResultStore, SuiteRunner, default_registry
     from repro_torch.suite.__main__ import FAST_REFS
 
@@ -1233,28 +1270,33 @@ def store_pool_phase(K) -> dict:
             forget_captures()
             first = SuiteRunner(registry, store=store)
             first.roster()
+            obs.reset_counters()
             second = SuiteRunner(registry, store=store)
             second.roster()
-            return first, second
+            return first, second, obs.counters()
 
-        (first, second), launches, secs = counted(K, drive)
+        (first, second, warm), launches, secs = counted(K, drive)
         say({"phase": "store", "refs": FAST_REFS, "seconds": secs,
              "cpu_run": cpu.stats.as_dict(),
              "card_first": first.stats.as_dict(),
              "card_second": second.stats.as_dict(),
              "card_second_engine": second.study.stats.as_dict(),
-             "launches": launches})
+             "card_second_counters": warm, "launches": launches})
         if cpu.stats.computed != 45 or first.stats.recalled != 0 \
                 or first.stats.computed != 45:
             raise AssertionError("store: a CPU-written record was recalled "
                                  "on the card, or the first run missed rows")
-        if second.stats.recalled != 45 or second.study.stats.sim_runs != 0:
-            raise AssertionError("store: the warm rerun simulated")
+        if (second.stats.recalled != 45 or second.study.stats.sim_runs != 0
+                or warm.get("store.recall.warm") != 45
+                or warm.get("engine.sim.run", 0) != 0):
+            raise AssertionError(f"store: the warm rerun simulated or did "
+                                 f"not recall 45 rows: {warm}")
         rows = first.roster().rows
         if not rows == second.roster().rows == cpu_rows:
             raise AssertionError("store: rows differ between the first run, "
                                  "the recall and the CPU run")
-        missing = [k for k, v in launches.items() if v <= 0]
+        missing = [k for k, v in launches.items()
+                   if v <= 0 and k != SCAN_KERNEL]
         if missing:
             raise AssertionError(f"store: the card run launched no "
                                  f"{missing}")
@@ -1279,10 +1321,257 @@ def store_pool_phase(K) -> dict:
     return launches
 
 
+# -- the simulator: spans, the window count and the cuda backend ------------
+
+# Span names whose totals the span split prints, per path.
+SPLIT_PREFIXES = ("sim.", "engine.", "capture.walk", "capture.sync",
+                  "suite.", "serving.")
+MEGAREF_REFS = 10_000_000   # simulate_chunked's megaref trace on the host
+MEGAREF_PREFIX = 200_000    # ... and the prefix held against simulate
+
+
+@contextlib.contextmanager
+def obs_trace(trace_dir: Path, path: str):
+    """Trace one main path into ``<trace_dir>/<path>.jsonl``, counters
+    zeroed first, so its span split reads that path alone."""
+    from repro_torch import obs
+
+    obs.reset_counters()
+    obs.enable(trace_dir / f"{path}.jsonl")
+    try:
+        yield
+    finally:
+        obs.disable()
+
+
+def span_split(trace_dir: Path, path: str, smi: str):
+    """Print one path's span split: seconds of simulation (``sim.many``
+    and ``sim.chunked``, which hold every other ``sim.*`` span), trace
+    generation (``engine.trace``, which holds the walk and the synchronize
+    of a captured entry), the trace walk (``capture.walk``), the
+    per-launch synchronize (``capture.sync``) and the entries
+    (``suite.entry``); every span total and count and every counter."""
+    from repro_torch.obs.report import aggregate
+
+    rep = aggregate([trace_dir / f"{path}.jsonl"])
+    row = {"phase": "span-split", "path": path, "wall_s": rep.wall_s,
+           "simulation_s": rep.span_total("sim.many")
+           + rep.span_total("sim.chunked"),
+           "trace_s": rep.span_total("engine.trace"),
+           "walk_s": rep.span_total("capture.walk"),
+           "sync_s": rep.span_total("capture.sync"),
+           "entry_s": rep.span_total("suite.entry"),
+           "spans": {n: [st.count, st.total_s]
+                     for n, st in sorted(rep.spans.items())
+                     if n.startswith(SPLIT_PREFIXES)},
+           "counters": rep.counters, "card": smi}
+    say(row)
+    return rep
+
+
+def window_rows(gen, m: int, n_rows: int, chunk: int, dtype: torch.dtype):
+    """Seeded q [m] (a set-local previous index or -1 for a cold slot) and
+    [3, R] (lo, thr, span) rows on the card: ragged spans in [0, chunk], a
+    quarter full, some windows ending at m - 1, some running past it."""
+    dev = torch.device("cuda")
+
+    def ints(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev)
+
+    q = ints(-1, max(m // 4, 1), m)
+    q[torch.rand(m, generator=gen, device=dev) < 0.2] = -1
+    lo, span = ints(0, m, n_rows), ints(0, chunk + 1, n_rows)
+    span[: n_rows // 4] = chunk
+    k = n_rows // 8
+    if k:
+        lo[-k:] = (m - span[-k:]).clamp(min=0)
+        lo[-2 * k:-k] = m - 1
+    thr = ints(-2, max(m // 4, 1), n_rows)
+    return q.to(dtype), torch.stack([lo, thr, span]).to(dtype).contiguous()
+
+
+def window_ref(q, rows, chunk: int):
+    """The plain version on the card, in row slices of at most 2^26
+    gathered slots (its [R, chunk] index is int64)."""
+    from repro_torch.kernels.window_scan import window_counts_ref
+
+    step = max(1, (1 << 26) // max(int(chunk), 1))
+    return torch.cat([window_counts_ref(q, rows[0, i:i + step],
+                                        rows[1, i:i + step],
+                                        rows[2, i:i + step], chunk)
+                      for i in range(0, rows.shape[1], step)])
+
+
+def window_scan_seeded(gen, errs: dict[str, float]) -> None:
+    """Phase 2's window-count check: seeded rows, int32 and int64 q,
+    exact against the plain version."""
+    from repro_torch.kernels.window_scan import window_count_cuda
+
+    for dtype in (torch.int32, torch.int64):
+        for m, n_rows, chunk in ((1 << 22, 1 << 16, 16), (1 << 22, 4096, 1024),
+                                 (5_000, 300, 8), (40, 33, 64), (1, 5, 8)):
+            q, rows = window_rows(gen, m, n_rows, chunk, dtype)
+            errs[SCAN_KERNEL] = max(errs[SCAN_KERNEL], check_close(
+                SCAN_KERNEL, f"seeded m={m} rows={n_rows} chunk={chunk}",
+                window_count_cuda(q, rows, chunk), window_ref(q, rows, chunk),
+                exact=True))
+
+
+def cuda_backend_phase(K, registry, path: str, sections: tuple, want_rows,
+                       vec_seconds: float, trace_dir: Path, smi: str
+                       ) -> tuple[dict, list]:
+    """Main paths 6-7: the roster (or its sections) with backend="cuda",
+    traced, counters set to 0 before and read after: 45/45, rows equal to
+    the vectorized run's, ``scan.cuda`` > 0 and window-count launches > 0.
+    Returns the launches and every window count made."""
+    from repro_torch.kernels import window_scan
+    from repro_torch.suite import SuiteRunner
+
+    def drive():
+        forget_captures()
+        return SuiteRunner(registry, store=None, sections=sections,
+                           backend="cuda").roster()
+
+    with obs_trace(trace_dir, f"{path}-cuda"), window_scan.record() as calls:
+        table, launches, secs = counted(K, drive)
+    rep = span_split(trace_dir, f"{path}-cuda", smi)
+    bad = [r for r in table.records() if not r["match"]]
+    say({"phase": f"{path}-cuda-backend", "entries": len(table.rows),
+         "matching": len(table.rows) - len(bad), "seconds": secs,
+         "vectorized_seconds": vec_seconds,
+         "scan_cuda": rep.counter("scan.cuda"), "window_counts": len(calls),
+         "launches": launches, "card": smi})
+    if len(table.rows) != 45 or bad:
+        raise AssertionError(f"{path} cuda backend: {len(bad)} divergent")
+    if table.rows != want_rows:
+        raise AssertionError(f"{path}: rows under backend='cuda' differ from "
+                             f"the vectorized backend's")
+    if rep.counter("scan.cuda") <= 0 or launches[SCAN_KERNEL] <= 0:
+        raise AssertionError(f"{path}: the cuda backend launched no window "
+                             f"count")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"{path} cuda backend launched no {missing}")
+    return launches, calls
+
+
+def window_scan_main_path(calls: list, smi: str, peaks: dict,
+                          errs: dict[str, float]) -> dict:
+    """The window count at every distinct (rows, chunk) the cuda paths
+    recorded, on each one's own q and rows, exact against the plain
+    version; then the three largest (rows x chunk) timed, beside the plain
+    version, the same PyTorch expression as the library yardstick, and the
+    bound: each window's slots read once (span capped at chunk) plus the
+    rows and the counts, over the card's memory rate.  Returns the largest
+    geometry's timing row."""
+    from repro_torch.kernels.window_scan import window_count_cuda
+
+    distinct: dict[tuple[int, int], tuple] = {}
+    for q, rows, chunk in calls:
+        distinct.setdefault((rows.shape[1], chunk), (q, rows, chunk))
+    t0 = time.perf_counter()
+    worst = 0.0
+    for (n_rows, chunk), (q, rows, _) in distinct.items():
+        worst = max(worst, check_close(
+            SCAN_KERNEL, f"main path rows={n_rows} chunk={chunk}",
+            window_count_cuda(q, rows, chunk), window_ref(q, rows, chunk),
+            exact=True, show=False))
+    errs[SCAN_KERNEL] = max(errs[SCAN_KERNEL], worst)
+    say({"phase": "main-path-parity-kernel", "kernel": SCAN_KERNEL,
+         "distinct_launches": len(distinct), "max_abs_err": worst,
+         "tolerance": "exact", "seconds": time.perf_counter() - t0,
+         "geometries": sorted(distinct), "ok": True})
+
+    bench = Bench(peaks)
+    largest = sorted(distinct.items(), key=lambda kv: kv[0][0] * kv[0][1],
+                     reverse=True)[:3]
+    first = None
+    for (n_rows, chunk), (q, rows, _) in largest:
+        slots = int(rows[2].clamp(min=0, max=chunk).sum().item())
+        row = timing_row(
+            bench, smi, SCAN_KERNEL, f"rows={n_rows} chunk={chunk} "
+            f"m={q.numel()}", q.dtype,
+            bench.ms(lambda: window_count_cuda(q, rows, chunk)),
+            bench.ms(lambda: window_ref(q, rows, chunk)),
+            bench.ms(lambda: window_ref(q, rows, chunk)),
+            (slots + 4 * n_rows) * q.element_size(), slots, "f32",
+            slots=slots)
+        first = first or row
+    del bench
+    torch.cuda.empty_cache()
+    return first
+
+
+def megaref_trace(n: int, seed: int = 0):
+    """The reference tests' megaref word stream (``_megaref_trace`` of
+    ``tests/test_cachesim_seg_stream.py``): strided sweeps over a bounded
+    footprint with a hot reuse set."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    footprint = 1 << 19
+    sweep = (np.arange(n, dtype=np.int64) * 3) % footprint
+    hot = rng.integers(0, 4_096, n, dtype=np.int64)
+    pick = rng.random(n) < 0.3
+    return np.where(pick, hot, sweep) * 8
+
+
+def sim_counts(sim) -> tuple:
+    return (sim.level_hits, sim.level_misses, sim.lines_touched,
+            sim.prefetch_issued, sim.prefetch_useful, sim.accesses)
+
+
+def megaref_phase(K, smi: str) -> None:
+    """``simulate_chunked`` over the megaref trace at ``MEGAREF_REFS``,
+    with the NumPy scan and with ``scan="cuda"``: equal counters; and on a
+    ``MEGAREF_PREFIX`` prefix both equal the in-memory ``simulate``."""
+    from repro_torch import obs
+    from repro_torch.core import cachesim
+    from repro_torch.core.cachesim_stream import simulate_chunked
+
+    addr = megaref_trace(MEGAREF_REFS)
+    cfg = cachesim.host_config(4)
+    runs = {}
+    for scan in (None, "cuda"):
+        obs.reset_counters()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        sim = simulate_chunked(addr, cfg, chunk=1 << 18,
+                               spill_bytes=8 * 2**20, scan=scan)
+        secs = time.perf_counter() - t0
+        c = obs.counters()
+        runs[scan or "numpy"] = sim
+        say({"phase": "megaref-chunked", "refs": MEGAREF_REFS,
+             "scan": scan or "numpy", "seconds": secs,
+             "counters": sim_counts(sim), "obs": c,
+             "window_counts": K.launch_counts()[SCAN_KERNEL], "card": smi})
+        if scan == "cuda" and (c.get("scan.cuda", 0) <= 0
+                               or K.launch_counts()[SCAN_KERNEL] <= 0):
+            raise AssertionError("megaref: scan='cuda' launched no window "
+                                 "count")
+    if sim_counts(runs["numpy"]) != sim_counts(runs["cuda"]) \
+            or runs["numpy"].accesses != MEGAREF_REFS:
+        raise AssertionError("megaref: scan='cuda' counters differ from the "
+                             "NumPy scan's")
+    prefix = addr[:MEGAREF_PREFIX]
+    want = sim_counts(cachesim.simulate(prefix.copy(), cfg,
+                                        backend="vectorized"))
+    got = {scan or "numpy": sim_counts(simulate_chunked(
+        prefix.copy(), cfg, chunk=1 << 14, scan=scan))
+        for scan in (None, "cuda")}
+    say({"phase": "megaref-prefix", "refs": MEGAREF_PREFIX,
+         "in_memory": want, "chunked": got})
+    if any(v != want for v in got.values()):
+        raise AssertionError("megaref prefix: simulate_chunked differs from "
+                             "the in-memory simulate")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
+    import tempfile
+
     import repro_torch
 
     if not Path(repro_torch.__file__).resolve().is_relative_to(ROOT):
@@ -1339,6 +1628,8 @@ def main() -> int:
             raise AssertionError(f"{fn_name} holds no HGMMA (wgmma) "
                                  f"instruction")
 
+    tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-obs-")
+    trace_dir = Path(tmp.name)      # one span/counter trace per main path
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     errs: dict[str, float] = dict.fromkeys(K.KERNELS, 0.0)
@@ -1474,13 +1765,18 @@ def main() -> int:
     del bench
     torch.cuda.empty_cache()
 
+    # -- 2. the simulator's window count on seeded rows (timed in phase 14,
+    # at the geometries the cuda backend's main paths give it) -------------
+    window_scan_seeded(gen, errs)
+    torch.cuda.empty_cache()
+
     # -- 4. main path 1: the 45-entry roster on the card -----------------------
     # Driven entry by entry (``row``, what ``roster`` runs after one batch of
     # the same cells) to time each source; ``roster`` then only reads.
     K.reset_launch_counts()
     t0 = time.perf_counter()
     by_source = {"synthetic": 0.0, "captured": 0.0}
-    with record_launches() as launched:
+    with obs_trace(trace_dir, "roster"), record_launches() as launched:
         registry = default_registry(device="cuda")
         registry_s = time.perf_counter() - t0
         runner = SuiteRunner(registry, store=None)
@@ -1504,7 +1800,8 @@ def main() -> int:
         say({"phase": "roster-row", **rec})
     if len(roster.rows) != 45 or bad:
         raise AssertionError(f"roster: {len(bad)} divergent entries: {bad}")
-    missing = [k for k, v in roster_launches.items() if v <= 0]
+    missing = [k for k, v in roster_launches.items()
+               if v <= 0 and k != SCAN_KERNEL]
     if missing:
         raise AssertionError(f"kernels not launched by the roster: {missing}")
     if len(launched) != sum(roster_launches.values()):
@@ -1518,12 +1815,16 @@ def main() -> int:
                              "of the plain versions on the CPU")
     say({"phase": "roster-vs-cpu", "identical": True,
          "cpu_seconds": time.perf_counter() - t0})
+    split = span_split(trace_dir, "roster", smi)
+    if not 0 < split.counter("profile.scan") <= split.counter("profile.geom"):
+        raise AssertionError("cold roster: profile.scan is not within "
+                             "(0, profile.geom]")
 
     # -- 5. main path 2: the serving roster on the card ------------------------
     K.reset_launch_counts()
     t0 = time.perf_counter()
     timelines = {}
-    with record_launches() as served:
+    with obs_trace(trace_dir, "serving"), record_launches() as served:
         for scen in SCENARIOS:
             t1, before = time.perf_counter(), K.launch_counts()
             tl = timelines[scen] = measure_windows(scen, device="cuda")
@@ -1562,6 +1863,7 @@ def main() -> int:
                                  f"card differ from the CPU run's")
     say({"phase": "serving-vs-cpu", "identical": True,
          "cpu_seconds": time.perf_counter() - t0})
+    span_split(trace_dir, "serving", smi)
 
     # -- 6. parity at every distinct launch of both paths -----------------------
     t0 = time.perf_counter()
@@ -1585,34 +1887,69 @@ def main() -> int:
     check_bad_index()
 
     # -- 10-12. the sections, the serving section, the store and the pool ------
-    sections_launches = sections_phase(K, registry, cpu_registry, roster)
+    sections_launches, sections_table, sections_s = sections_phase(
+        K, registry, cpu_registry, roster, trace_dir)
+    span_split(trace_dir, "sections", smi)
     serving_section_launches = serving_section_phase(K, timelines)
     store_pool_phase(K)
 
-    # -- 13. results --------------------------------------------------------
+    # -- 13. main paths 6-7: the roster and its sections with backend="cuda"
+    # (the vectorized roster first, through the same entry point) ----------
+    def drive_vectorized():
+        forget_captures()
+        return SuiteRunner(registry, store=None).roster()
+
+    with obs_trace(trace_dir, "roster-vectorized"):
+        vec_table, _, vec_s = counted(K, drive_vectorized)
+    span_split(trace_dir, "roster-vectorized", smi)
+    if vec_table.rows != roster.rows:
+        raise AssertionError("roster(): rows differ from phase 4's")
+    roster_cuda_launches, roster_calls = cuda_backend_phase(
+        K, registry, "roster", (), roster.rows, vec_s, trace_dir, smi)
+    sections_cuda_launches, sections_calls = cuda_backend_phase(
+        K, registry, "sections", ("scalability", "energy"),
+        sections_table.rows, sections_s, trace_dir, smi)
+
+    # -- 14. the window count at every distinct main-path geometry ---------
+    rows[SCAN_KERNEL, torch.int32] = window_scan_main_path(
+        roster_calls + sections_calls, smi, peaks, errs)
+    del roster_calls, sections_calls
+    torch.cuda.empty_cache()
+
+    # -- 15. simulate_chunked over a megaref trace on the card's host -------
+    megaref_phase(K, smi)
+
+    # -- 16. results --------------------------------------------------------
     kernels = []
     for kname, (source, replaces) in KERNEL_SITES.items():
-        r, r16 = rows[kname, torch.float32], rows[kname, torch.bfloat16]
+        scan = kname == SCAN_KERNEL
+        r = rows[kname, torch.int32 if scan else torch.float32]
         entry = {
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": roster_launches[kname] + serving_launches[kname],
+            "launches": (roster_cuda_launches[kname] if scan else
+                         roster_launches[kname] + serving_launches[kname]),
             "launches_by_path": {
                 "roster": roster_launches[kname],
                 "serving": serving_launches[kname],
                 "sections": sections_launches[kname],
-                "serving_section": serving_section_launches[kname]},
+                "serving_section": serving_section_launches[kname],
+                "roster_cuda": roster_cuda_launches[kname],
+                "sections_cuda": sections_cuda_launches[kname]},
             "max_abs_err": errs[kname], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "bf16_ms": r16["ms"], "bf16_bound_ms": r16["bound_ms"],
-            "bf16_library_ms": r16["library_ms"],
         }
+        if not scan:
+            r16 = rows[kname, torch.bfloat16]
+            entry.update(bf16_ms=r16["ms"], bf16_bound_ms=r16["bound_ms"],
+                         bf16_library_ms=r16["library_ms"])
         if kname == "flash_attention":
             entry["launches_by_kernel"] = {
                 k: roster_flash[k] + serving_flash[k] for k in roster_flash}
         kernels.append(entry)
     say({"kernels": kernels})
+    tmp.cleanup()
     say({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -24,6 +24,8 @@ from typing import Callable
 
 import numpy as np
 
+from repro_torch import obs
+
 __all__ = [
     "OperandSpec",
     "GridCapture",
@@ -174,6 +176,14 @@ def walk(cap: GridCapture, *, count_only: bool = False) -> CaptureResult:
     this step.  ``count_only`` returns the load/store/flop accounting
     with an empty address array.
     """
+    with obs.span("capture.walk", kernel=cap.name, count_only=count_only):
+        res = _walk(cap, count_only=count_only)
+    obs.count("capture.walk.calls")
+    obs.count("capture.walk.refs", res.refs)
+    return res
+
+
+def _walk(cap: GridCapture, *, count_only: bool) -> CaptureResult:
     base: dict[str, int] = {}
     cursor = 0
     for op in cap.operands:

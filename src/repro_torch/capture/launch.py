@@ -25,6 +25,8 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
+from repro_torch import obs
+
 from .grid import GridCapture, OperandSpec, elems_per_word
 
 __all__ = ["LaunchOperand", "LaunchSpec", "record", "emit", "capture_launch",
@@ -125,11 +127,13 @@ def emit(spec: LaunchSpec) -> None:
 def capture_launch(call: Callable[[], object],
                    device: torch.device) -> GridCapture:
     """Run one launcher call and convert the spec it launched.  On CUDA
-    the device is synchronized first, so a fault surfaces here."""
+    the device is synchronized first (span ``capture.sync``, the launch's
+    device time plus its round trip), so a fault surfaces here."""
     with record() as launched:
         call()
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        with obs.span("capture.sync"):
+            torch.cuda.synchronize(device)
     if len(launched) != 1:
         raise RuntimeError(f"expected one launch, recorded {len(launched)}")
     return launched[0].to_grid_capture()

@@ -16,9 +16,12 @@ are per-core constants, and shared-L3 contention is expressed through
 modeled thread (1.0 for a lone thread or fully shared data; ~1/cores for
 partitioned data).
 
-Two backends, counter-identical cell for cell: ``reference`` (the per-line
-loop in this module) and ``vectorized`` (:mod:`.cachesim_vec`, the
-default).  The simulator is host-side NumPy; it runs no kernel.
+Three backends, counter-identical cell for cell: ``reference`` (the
+per-line loop in this module), ``vectorized`` (:mod:`.cachesim_vec`, the
+default; host NumPy) and ``cuda`` (the vectorized backend with its window
+scan in the ``window_scan`` CUDA kernel; the counterpart of the
+reference's ``jax`` backend).  ``cuda`` raises without a card: it never
+falls back to NumPy.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import numpy as np
 LINE_BYTES = 64
 WORDS_PER_LINE = LINE_BYTES // 8
 
-BACKENDS = ("reference", "vectorized")
+BACKENDS = ("reference", "vectorized", "cuda")
 
 __all__ = [
     "CacheLevelConfig",
@@ -39,6 +42,7 @@ __all__ = [
     "SimResult",
     "simulate",
     "simulate_batch",
+    "simulate_many",
     "host_config",
     "ndp_config",
     "BACKENDS",
@@ -49,15 +53,15 @@ __all__ = [
 
 def default_backend() -> str:
     """Backend used when ``backend=None``: ``REPRO_SIM_BACKEND``
-    (``reference`` | ``vectorized``) overrides the built-in vectorized
-    default.  The reference package also takes ``jax``, its jitted window
-    scan; that scan is not ported yet, so asking for it raises rather
+    (``reference`` | ``vectorized`` | ``cuda``) overrides the built-in
+    vectorized default.  The reference package's ``jax`` (its jitted
+    window scan) is ``cuda`` here, so asking for ``jax`` raises rather
     than running another backend under its name."""
     backend = os.environ.get("REPRO_SIM_BACKEND", "vectorized")
     if backend == "jax":
         raise ValueError(
-            "REPRO_SIM_BACKEND='jax': the jitted window scan is not ported "
-            "yet (ROADMAP.md, queue 1 item 4); use 'vectorized' or "
+            "REPRO_SIM_BACKEND='jax': the port runs the window scan on the "
+            "card as backend 'cuda'; use 'cuda', 'vectorized' or "
             "'reference'")
     if backend not in BACKENDS:
         raise ValueError(
@@ -202,6 +206,35 @@ def _check_backend(backend: str | None) -> str:
     return backend
 
 
+def _scan(backend: str) -> str | None:
+    """The vectorized backend's window-scan option for ``backend``."""
+    return "cuda" if backend == "cuda" else None
+
+
+def simulate_many(requests, *, backend: str | None = None):
+    """Run many ``(addresses, configs, opts)`` requests in one call.
+
+    Each request is one trace with its hierarchy configs and the keyword
+    arguments of :func:`simulate_batch` as an ``opts`` dict.  On the
+    vectorized and cuda backends this is the cross-trace segmented forest
+    walk (:func:`repro_torch.core.cachesim_vec.simulate_many`): same-geometry
+    nodes from different traces share one stream-profile pass.  On the
+    reference backend each request runs through the per-config loop;
+    counters are identical either way.  Returns one ``list[SimResult]``
+    per request.
+    """
+    backend = _check_backend(backend)
+    if backend != "reference":
+        from . import cachesim_vec  # deferred: cachesim_vec imports us
+
+        return cachesim_vec.simulate_many(list(requests),
+                                          scan=_scan(backend))
+    return [
+        simulate_batch(addresses, configs, backend="reference", **opts)
+        for addresses, configs, opts in requests
+    ]
+
+
 def simulate_batch(
     addresses: np.ndarray,
     configs,
@@ -220,7 +253,7 @@ def simulate_batch(
     stay counter-identical cell for cell.
     """
     backend = _check_backend(backend)
-    if backend == "vectorized":
+    if backend != "reference":
         from . import cachesim_vec  # deferred: cachesim_vec imports us
 
         return cachesim_vec.simulate_batch(
@@ -230,6 +263,7 @@ def simulate_batch(
             instr_per_access=instr_per_access,
             l3_factor=l3_factor,
             names=names,
+            scan=_scan(backend),
         )
     configs = list(configs)
     factors = broadcast_l3_factor(l3_factor, len(configs))
@@ -321,7 +355,7 @@ def simulate(
     thread (contention model; ignored for NDP).
     """
     backend = _check_backend(backend)
-    if backend == "vectorized":
+    if backend != "reference":
         from . import cachesim_vec  # deferred: cachesim_vec imports us
 
         return cachesim_vec.simulate(
@@ -331,6 +365,7 @@ def simulate(
             instr_per_access=instr_per_access,
             l3_factor=l3_factor,
             name=name,
+            scan=_scan(backend),
         )
     addr = np.asarray(addresses, dtype=np.int64)
     lines = addr // WORDS_PER_LINE

@@ -13,17 +13,21 @@ plain version for CPU tensors, and raises otherwise) and ``capture.py``
 - ``paged_kv_decode`` — one decode step over a paged KV pool;
 - ``moe_dispatch``    — expert-sorted gather, per-expert GEMM, scatter;
 - ``ssm_scan``        — the gated EMA scan and the state-expanded scan
-  (two kernels, two sources).
+  (two kernels, two sources);
+- ``window_scan``     — the cache simulator's window count, the scan of its
+  ``cuda`` backend (``ref.py``, ``kernel.py`` and ``ops.py``; it launches
+  from the simulator, not from a captured entry, so it has no capture hook
+  and no launch spec).
 """
 
 from __future__ import annotations
 
 from . import (flash_attention, moe_dispatch, paged_kv_decode, ssm_scan,
-               stream, token_gather)
+               stream, token_gather, window_scan)
 
 __all__ = ["KERNELS", "launch_counts", "reset_launch_counts",
            "flash_attention", "moe_dispatch", "paged_kv_decode", "ssm_scan",
-           "stream", "token_gather"]
+           "stream", "token_gather", "window_scan"]
 
 # Kernel name (= csrc/<name>.cu) -> the wrapper that launches it.
 KERNELS = {
@@ -34,6 +38,7 @@ KERNELS = {
     "moe_dispatch": moe_dispatch.kernel.moe_grouped_gemm,
     "ssm_ema_scan": ssm_scan.kernel.ssm_ema_cuda,
     "ssm_chunked_scan": ssm_scan.kernel.ssm_chunked_cuda,
+    "window_scan": window_scan.kernel.window_count_cuda,
 }
 
 

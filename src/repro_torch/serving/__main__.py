@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import argparse
 
+from repro_torch import obs
 from repro_torch.core.sweep import CORE_SWEEP
 from repro_torch.study.cliutil import parse_cores
 
@@ -48,11 +49,26 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="where the kernels run: cuda (default; raises "
                          "without a card) or cpu (plain PyTorch versions)")
+    ap.add_argument("--trace", default=None, metavar="FILE",
+                    help="record a repro_torch.obs span/counter trace "
+                         "(JSONL); read it with `python -m repro_torch.obs "
+                         "report FILE`")
     return ap
 
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    if args.trace:
+        obs.enable(args.trace)
+    try:
+        with obs.span("serving.run", scenario=args.scenario):
+            return _main(args)
+    finally:
+        if args.trace:
+            obs.disable()
+
+
+def _main(args: argparse.Namespace) -> int:
     if args.list:
         for s in SCENARIOS.values():
             print(f"{s.name:28s} {s.kernel:9s} "

@@ -35,6 +35,7 @@ from concurrent.futures import Executor, ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Callable, Iterable
 
+from repro_torch import obs
 from repro_torch.core import cachesim
 from repro_torch.core.cachesim import HierarchyConfig, SimResult
 from repro_torch.core.tracegen import TraceSpec, Workload
@@ -199,9 +200,14 @@ class SimEngine:
         key = (workload.name, self._trace_cores(workload, cores), seed)
         spec = self._traces.get(key)
         if spec is None:
-            spec = self._traces[key] = workload.trace(cores, seed=seed)
+            obs.count("engine.trace.run")
+            with obs.span("engine.trace", workload=workload.name,
+                          cores=cores):
+                spec = workload.trace(cores, seed=seed)
+            self._traces[key] = spec
             self.stats.trace_runs += 1
         else:
+            obs.count("engine.trace.hit")
             self.stats.trace_hits += 1
         return spec
 
@@ -213,17 +219,22 @@ class SimEngine:
         sim = self._sims.get(key)
         if sim is None:
             spec = self.trace(workload, cores, seed=seed)
-            sim = self._sims[key] = cachesim.simulate(
-                spec.addresses,
-                hierarchy,
-                ai_ops_per_access=workload.ai_ops_per_access,
-                instr_per_access=workload.instr_per_access,
-                l3_factor=spec.l3_factor,
-                name=hierarchy.name,
-                backend=self.backend,
-            )
+            obs.count("engine.sim.run")
+            with obs.span("engine.cell", workload=workload.name,
+                          cores=cores):
+                sim = cachesim.simulate(
+                    spec.addresses,
+                    hierarchy,
+                    ai_ops_per_access=workload.ai_ops_per_access,
+                    instr_per_access=workload.instr_per_access,
+                    l3_factor=spec.l3_factor,
+                    name=hierarchy.name,
+                    backend=self.backend,
+                )
+            self._sims[key] = sim
             self.stats.sim_runs += 1
         else:
+            obs.count("engine.sim.hit")
             self.stats.sim_hits += 1
         return sim
 
@@ -248,15 +259,13 @@ class SimEngine:
     ) -> list[SimResult]:
         """Run (or recall) cells spanning many workloads in one call.
 
-        Missing cells are first looked up in ``profile_store`` (when set)
-        and freshly-run cells are published back.  The rest are grouped
-        by trace and each group runs through one batched
-        :func:`~repro_torch.core.cachesim.simulate_batch` pass.  (The
-        reference hands all groups at once to ``simulate_many``, its
-        cross-trace segmented forest, which ROADMAP.md queue 1 item 4
-        ports; that function's contract is counter-identity with the
-        per-trace batch, so the cells, and every row built on them, are
-        the same.)  Results, memoization and stats equal per-cell
+        Missing cells are first looked up in ``profile_store`` (when set;
+        ``store.profile.hit``/``miss`` counters) and freshly-run cells are
+        published back.  The rest are grouped by trace and all groups go
+        to :func:`~repro_torch.core.cachesim.simulate_many` at once, the
+        cross-trace segmented forest: one collapse + sort + capped window
+        scan per unique hierarchy geometry across the whole call instead
+        of one per trace.  Results, memoization and stats equal per-cell
         :meth:`simulate` calls.
         """
         items = list(items)
@@ -274,6 +283,7 @@ class SimEngine:
                 missing[key] = (w, c, h)
 
         if missing and self.profile_store is not None:
+            recalled = 0
             for key in list(missing):
                 w, _, h = missing[key]
                 rec = self.profile_store.get(
@@ -282,26 +292,46 @@ class SimEngine:
                 if sim is not None:
                     self._sims[key] = sim
                     del missing[key]
-                    hits += 1
+                    recalled += 1
+            if recalled:
+                obs.count("store.profile.hit", recalled)
+                hits += recalled
+            if missing:
+                obs.count("store.profile.miss", len(missing))
 
         if missing:
             groups: dict[tuple, list] = {}
             for key, (w, c, h) in missing.items():
                 gkey = (w.name, self._trace_cores(w, c))
                 groups.setdefault(gkey, []).append((key, w, c, h))
-            for batch in groups.values():
-                _, w, c, _ = batch[0]
-                spec = self.trace(w, c, seed=seed)
-                sims = self._run_group(w, spec, [h for *_, h in batch])
-                for (key, *_), sim in zip(batch, sims):
-                    self._sims[key] = sim
+            with obs.span("engine.cells", traces=len(groups),
+                          cells=len(missing)):
+                requests = []
+                for batch in groups.values():
+                    _, w, c, _ = batch[0]
+                    spec = self.trace(w, c, seed=seed)
+                    requests.append((
+                        spec.addresses,
+                        [h for *_, h in batch],
+                        {"ai_ops_per_access": w.ai_ops_per_access,
+                         "instr_per_access": w.instr_per_access,
+                         "l3_factor": spec.l3_factor},
+                    ))
+                results = cachesim.simulate_many(requests,
+                                                 backend=self.backend)
+                for batch, sims in zip(groups.values(), results):
+                    for (key, *_), sim in zip(batch, sims):
+                        self._sims[key] = sim
             if self.profile_store is not None:
                 for key, (w, _, _) in missing.items():
                     self.profile_store.put(
                         _cell_digest(self._fingerprints[w.name], key),
                         _sim_to_record(self._sims[key]))
             self.stats.sim_runs += len(missing)
+            obs.count("engine.sim.run", len(missing))
         self.stats.sim_hits += hits
+        if hits:
+            obs.count("engine.sim.hit", hits)
         return [self._sims[key] for key in keys]
 
     def simulate_batch(
@@ -341,15 +371,19 @@ class SimEngine:
             groups: dict[int, list[tuple[CellKey, HierarchyConfig]]] = {}
             for key, (c, h) in missing.items():
                 groups.setdefault(c, []).append((key, h))
+
+            def run(c: int, batch: list[tuple[CellKey, HierarchyConfig]]):
+                with obs.span("engine.batch", workload=workload.name,
+                              cores=c, cells=len(batch)):
+                    return self._run_group(workload, specs[c],
+                                           [h for _, h in batch])
+
             own_pool = executor is None
             pool = executor if executor is not None else ThreadPoolExecutor(
                 max_workers=max_workers or min(os.cpu_count() or 1, 8))
             try:
-                futures = [
-                    (batch, pool.submit(self._run_group, workload, specs[c],
-                                        [h for _, h in batch]))
-                    for c, batch in groups.items()
-                ]
+                futures = [(batch, pool.submit(run, c, batch))
+                           for c, batch in groups.items()]
                 for batch, fut in futures:
                     for (key, _), sim in zip(batch, fut.result()):
                         self._sims[key] = sim
@@ -357,7 +391,10 @@ class SimEngine:
                 if own_pool:
                     pool.shutdown()
             self.stats.sim_runs += len(missing)
+            obs.count("engine.sim.run", len(missing))
         self.stats.sim_hits += hits
+        if hits:
+            obs.count("engine.sim.hit", hits)
         return [self._sims[key] for key in keys]
 
     def sweep(

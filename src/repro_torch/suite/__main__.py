@@ -22,6 +22,10 @@ Examples::
     # best-mitigation columns
     python -m repro_torch.suite --sections serving --fast --check
 
+    # the window scans on the card, with a span/counter trace
+    python -m repro_torch.suite --fast --backend cuda --trace t.jsonl
+    python -m repro_torch.obs report t.jsonl
+
     # prune store records from old schema versions
     python -m repro_torch.suite --gc
 """
@@ -31,6 +35,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+from repro_torch import obs
 from repro_torch.core.cachesim import BACKENDS
 from repro_torch.core.sweep import CORE_SWEEP
 from repro_torch.core.tracegen import DEFAULT_REFS
@@ -103,6 +108,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="output path (default: stdout)")
     ap.add_argument("--stats", action="store_true",
                     help="print store/engine hit-miss stats to stderr")
+    ap.add_argument("--trace", default=None, metavar="FILE",
+                    help="record a repro_torch.obs span/counter trace "
+                         "(JSONL, appended; worker processes merge into the "
+                         "same file); read it with `python -m "
+                         "repro_torch.obs report FILE`")
     ap.add_argument("--device", default="cuda",
                     help="where the kernels run: cuda (default; raises "
                          "without a card) or cpu (plain PyTorch versions)")
@@ -113,7 +123,18 @@ def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     refs = args.refs if args.refs is not None else (
         FAST_REFS if args.fast else DEFAULT_REFS)
+    if args.trace:
+        # Before the runner exists: enable() exports REPRO_TORCH_TRACE, so
+        # --processes workers append to the same file.
+        obs.enable(args.trace)
+    try:
+        return _main(args, refs)
+    finally:
+        if args.trace:
+            obs.disable()  # flush counters, close the stream
 
+
+def _main(args: argparse.Namespace, refs: int) -> int:
     if args.gc:
         store = ResultStore(args.store)
         removed = store.prune(
@@ -122,8 +143,10 @@ def main(argv: list[str] | None = None) -> int:
               f"{len(store)} kept in {store.root}", file=sys.stderr)
         return 0
 
-    registry = registry_for(refs=refs, sections=args.sections,
-                            device=args.device)
+    with obs.span("suite.registry", refs=refs,
+                  sections=",".join(args.sections) or "-"):
+        registry = registry_for(refs=refs, sections=args.sections,
+                                device=args.device)
     if args.list:
         for e in registry:
             params = ", ".join(f"{k}={v}" for k, v in e.params)
@@ -138,8 +161,13 @@ def main(argv: list[str] | None = None) -> int:
     runner = SuiteRunner(registry, seed=args.seed, cores=args.cores,
                          backend=args.backend, store=store,
                          processes=args.processes, sections=args.sections)
-    emit_tables([runner.roster(), runner.histogram()], fmt=args.format,
-                out=args.out)
+    # suite.run is the CLI's end-to-end stage: the per-entry spans and the
+    # emission fall inside it.
+    with obs.span("suite.run", entries=len(registry),
+                  sections=",".join(args.sections) or "-",
+                  processes=args.processes):
+        emit_tables([runner.roster(), runner.histogram()], fmt=args.format,
+                    out=args.out)
 
     if args.stats:
         print(f"# store: {runner.stats.as_dict()} "

@@ -35,11 +35,13 @@ from __future__ import annotations
 import functools
 import multiprocessing
 import os
+import time
 from concurrent.futures import ProcessPoolExecutor
 from dataclasses import dataclass
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import cachesim, classify
 from repro_torch.core.scalability import sweep_configs
 from repro_torch.core.sweep import CORE_SWEEP
@@ -111,12 +113,25 @@ def _worker_runner(refs: int, seed: int, cores: tuple[int, ...],
 
 
 def _characterize_entry(task: tuple) -> tuple:
-    """Process-pool task: one entry's roster row, by name."""
+    """Process-pool task: one entry's roster row, by name.
+
+    Workers inherit the parent's trace sink through ``REPRO_TORCH_TRACE``
+    (set by :func:`repro_torch.obs.enable` before the pool spawns), so
+    their spans land in the same stream, pid-tagged.  Counters are flushed
+    per task, so pool busy time sums across workers however the pool is
+    torn down.
+    """
     name, refs, seed, cores, backend, sections, store_root, device = task
-    runner = _worker_runner(refs, seed, cores, backend, sections,
-                            store_root, device)
-    entry = next(e for e in runner.registry if e.name == name)
-    return runner._characterize(entry)
+    t0 = time.perf_counter()
+    with obs.span("suite.worker.entry", entry=name):
+        runner = _worker_runner(refs, seed, cores, backend, sections,
+                                store_root, device)
+        entry = next(e for e in runner.registry if e.name == name)
+        row = runner._characterize(entry)
+    obs.count("pool.tasks")
+    obs.count("pool.busy_s", time.perf_counter() - t0)
+    obs.flush()
+    return row
 
 
 class SuiteRunner:
@@ -173,6 +188,10 @@ class SuiteRunner:
 
     # ---- characterization ------------------------------------------------
     def _characterize(self, entry: SuiteEntry) -> tuple:
+        with obs.span("suite.entry", entry=entry.name, source=entry.source):
+            return self._characterize_inner(entry)
+
+    def _characterize_inner(self, entry: SuiteEntry) -> tuple:
         w = entry.workload
         spatial, temporal = self.study.locality(w)
         m = self.study.metrics(w)
@@ -255,10 +274,12 @@ class SuiteRunner:
                 and rec.get("columns") == list(self.columns)
                 and isinstance(rec.get("row"), list)
                 and len(rec["row"]) == len(self.columns)):
+            obs.count("store.recall.warm")
             row = tuple(rec["row"])
             self._rows[entry.name] = row
             self.stats.recalled += 1
             return row
+        obs.count("store.recall.cold")
         return None
 
     def _persist(self, entry: SuiteEntry, row: tuple) -> None:
@@ -330,12 +351,22 @@ class SuiteRunner:
             # spawn, not fork: a child forked after CUDA is initialised
             # cannot use the card.  Workers rebuild everything from the
             # pickled task tuple anyway.
+            # Spawned workers inherit REPRO_TORCH_TRACE from this process's
+            # environment, so their spans merge into its trace file.
             ctx = multiprocessing.get_context("spawn")
-            with ProcessPoolExecutor(max_workers=min(processes, len(remote)),
-                                     mp_context=ctx) as pool:
+            n_workers = min(processes, len(remote))
+            t0 = time.perf_counter()
+            with obs.span("suite.pool", entries=len(remote),
+                          processes=n_workers), \
+                    ProcessPoolExecutor(max_workers=n_workers,
+                                        mp_context=ctx) as pool:
                 for entry, row in zip(remote,
                                       pool.map(_characterize_entry, tasks)):
                     self._persist(entry, tuple(row))
+            # pool.busy_s (summed in the workers) over workers x wall is the
+            # pool's busy share
+            obs.count("pool.wall_s", time.perf_counter() - t0)
+            obs.count("pool.workers", n_workers)
         for entry in local:
             self._persist(entry, self._characterize(entry))
 
@@ -376,7 +407,9 @@ class SuiteRunner:
                     for c in self.cores
                 ]
         if items:
-            self.study.engine.simulate_cells(items, seed=self.seed)
+            with obs.span("suite.prewarm", entries=len(entries),
+                          cells=len(items)):
+                self.study.engine.simulate_cells(items, seed=self.seed)
 
     def _reconstructible(self, entry: SuiteEntry) -> bool:
         """Would a worker's rebuilt registry reproduce ``entry`` exactly?

@@ -17,17 +17,19 @@ apart from the reference's store, so a port run never recalls a row the
 reference computed.
 
 The store is a cache, so a damaged record is never fatal: a record that
-is truncated, unreadable, or not a JSON object is skipped (one warning
-line on stderr per record) and the entry recomputes.
+is truncated, unreadable, or not a JSON object is skipped (one
+``repro_torch.obs`` warning line per record and a ``store.corrupt``
+counter bump) and the entry recomputes.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import sys
 import tempfile
 from pathlib import Path
+
+from repro_torch import obs
 
 __all__ = ["ResultStore", "default_store_root"]
 
@@ -37,10 +39,6 @@ def default_store_root() -> Path:
     if env:
         return Path(env)
     return Path(os.path.expanduser("~")) / ".cache" / "repro-torch-suite"
-
-
-# Corrupt records already reported by this process.
-_WARNED: set[Path] = set()
 
 
 class ResultStore:
@@ -73,10 +71,10 @@ class ResultStore:
 
     @staticmethod
     def _corrupt(path: Path, why: str) -> None:
-        if path not in _WARNED:
-            _WARNED.add(path)
-            print(f"# repro_torch.suite: skipping corrupt store record "
-                  f"{path} ({why}); recomputing", file=sys.stderr)
+        obs.count("store.corrupt")
+        obs.warn_once(
+            f"store-corrupt:{path}",
+            f"skipping corrupt store record {path} ({why}); recomputing")
 
     def put(self, key: str, record: dict) -> None:
         path = self._path(key)

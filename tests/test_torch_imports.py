@@ -124,7 +124,7 @@ def test_build_helper_forms_the_sm90a_nvcc_line():
 def test_every_kernel_has_a_source_and_a_hashed_library_path():
     assert set(KERNELS) == {"stream", "token_gather", "flash_attention",
                             "paged_kv_decode", "moe_dispatch", "ssm_ema_scan",
-                            "ssm_chunked_scan"}
+                            "ssm_chunked_scan", "window_scan"}
     for name in KERNELS:
         assert (_build.CSRC / f"{name}.cu").is_file()
         lib = _build.library_path(name)

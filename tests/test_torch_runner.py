@@ -126,9 +126,9 @@ def test_hand_built_registry_refused_for_fan_out():
 
 def test_jax_backend_raises(monkeypatch):
     monkeypatch.setenv("REPRO_SIM_BACKEND", "jax")
-    with pytest.raises(ValueError, match="queue 1 item 4"):
+    with pytest.raises(ValueError, match="backend 'cuda'"):
         SuiteRunner(_tiny_registry(), cores=CORES)
-    with pytest.raises(ValueError, match="queue 1 item 4"):
+    with pytest.raises(ValueError, match="backend 'cuda'"):
         main(["--device", "cpu", "--refs", str(REFS), "--cores", "1,4",
               "--no-store"])
 

@@ -197,17 +197,17 @@ def test_backend_selection(monkeypatch):
     monkeypatch.setenv("REPRO_SIM_BACKEND", "reference")
     assert cachesim.default_backend() == "reference"
     monkeypatch.setenv("REPRO_SIM_BACKEND", "jax")
-    with pytest.raises(ValueError, match="queue 1 item 4"):
+    with pytest.raises(ValueError, match="backend 'cuda'"):
         cachesim.default_backend()
     w = tracegen.make_suite(refs=REFS)[0]
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="backend 'cuda'"):
         SimEngine().simulate(w, 1, cachesim.host_config(1))
     monkeypatch.setenv("REPRO_SIM_BACKEND", "bogus")
     with pytest.raises(ValueError, match="invalid"):
         cachesim.default_backend()
     with pytest.raises(ValueError, match="unknown backend"):
         SimEngine(backend="jax")
-    assert cachesim.BACKENDS == ("reference", "vectorized")
+    assert cachesim.BACKENDS == ("reference", "vectorized", "cuda")
 
 
 def test_study_result_round_trips(studies):
