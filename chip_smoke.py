@@ -25,7 +25,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    the EMA scan also at T 1000, whose last ring stage is cut short; and
    the simulator's window count (``window_scan``) on seeded rows, int32
    and int64 (ragged spans, cold slots, windows ending at m - 1 and past
-   it), exactly;
+   it), exactly, at every (lanes, steps) its plan picks (chunks 1-1024)
+   with a ragged last tile;
 3. times each kernel at full width with CUDA events (median of 10 after
    3 warm-ups, L2 flushed before each), beside its plain version, the one
    PyTorch call that computes the same function where there is one, and
@@ -99,25 +100,28 @@ kernels as a fresh process does:
    ``store.recall.warm`` 45, ``engine.sim.run`` 0), and two spawned
    worker processes give the same rows;
 13. main paths 6 and 7: the roster through ``SuiteRunner.roster()`` with
-   the vectorized backend (its seconds and span split), then with
-   ``backend="cuda"``,
-   and the sections with ``backend="cuda"`` (beside phase 10's seconds),
-   each traced, counters reset before and read after: 45/45, rows equal
-   to the vectorized run's, ``scan.cuda`` > 0 and window-count launches
-   > 0, every window count recorded;
+   the vectorized and the ``cuda`` backend in turns (vectorized, cuda,
+   cuda, vectorized), then the sections with ``backend="cuda"`` (beside
+   phase 10's seconds), each traced with its span split, counters reset
+   before and read after: 45/45, rows equal to the vectorized run's,
+   ``scan.cuda`` > 0 and window-count launches > 0 (one a chunk step),
+   the first cuda roster's and the sections' window counts recorded;
 14. the window count at every distinct (rows, chunk) of paths 6-7, on its
    own recorded q and rows, exactly against the plain version; the three
    largest timed beside the plain version, the same PyTorch expression
-   as the library yardstick, and its bytes bound;
+   as the library yardstick, and its bytes bound: each q slot that some
+   window reads, read once, plus each row's lo, thr, span and count (the
+   slots counted once a window, and both in 32-byte sectors, printed
+   beside it);
 15. ``simulate_chunked`` over the reference tests' megaref trace at 10M
    refs, with the NumPy scan and with ``scan="cuda"``: equal counters;
    both equal the in-memory ``simulate`` on a 200 000-ref prefix;
 16. prints the kernels line (``launches`` summed over main paths 1 and 2,
-   as before, for the seven capture kernels and main path 6's for the
-   window count; ``launches_by_path`` for paths 1-4, 6 and 7; flash's
-   also split by kernel; the f32 (window count: int32) timings, and the
-   bf16 ones as ``bf16_ms``, ``bf16_bound_ms``, ``bf16_library_ms``) and,
-   last, ``{"ok": true, "device": ...}``.
+   as before, for the seven capture kernels and main path 6's first
+   cuda run for the window count; ``launches_by_path`` for paths 1-4, 6
+   and 7; flash's also split by kernel; the f32 (window count: int32)
+   timings, and the bf16 ones as ``bf16_ms``, ``bf16_bound_ms``,
+   ``bf16_library_ms``) and, last, ``{"ok": true, "device": ...}``.
 
 Tolerances: gather is exact, and so is the EMA scan in float32, which
 rounds op by op in the plain version's order.  STREAM's plain version
@@ -1371,8 +1375,9 @@ def span_split(trace_dir: Path, path: str, smi: str):
 
 def window_rows(gen, m: int, n_rows: int, chunk: int, dtype: torch.dtype):
     """Seeded q [m] (a set-local previous index or -1 for a cold slot) and
-    [3, R] (lo, thr, span) rows on the card: ragged spans in [0, chunk], a
-    quarter full, some windows ending at m - 1, some running past it."""
+    [3, R] (lo, thr, span) rows on the card: ragged spans in [0, chunk + 3]
+    (the kernel caps them at chunk), a quarter full, some windows ending at
+    m - 1, some running past it."""
     dev = torch.device("cuda")
 
     def ints(lo, hi, n):
@@ -1380,7 +1385,7 @@ def window_rows(gen, m: int, n_rows: int, chunk: int, dtype: torch.dtype):
 
     q = ints(-1, max(m // 4, 1), m)
     q[torch.rand(m, generator=gen, device=dev) < 0.2] = -1
-    lo, span = ints(0, m, n_rows), ints(0, chunk + 1, n_rows)
+    lo, span = ints(0, m, n_rows), ints(0, chunk + 4, n_rows)
     span[: n_rows // 4] = chunk
     k = n_rows // 8
     if k:
@@ -1402,57 +1407,152 @@ def window_ref(q, rows, chunk: int):
                       for i in range(0, rows.shape[1], step)])
 
 
+# Chunks that give the window count's plan every (lanes, steps) it picks:
+# 1-4 one step of 1-4 lanes (3 is not a power of two), 8-32 four lanes in
+# 2-8 steps (17 a ragged last step), 64-256 32 lanes in 2-8 steps, 1024
+# the full-warp walk.
+WINDOW_CHUNKS = (1, 2, 3, 4, 8, 16, 17, 32, 64, 128, 256, 1024)
+
+
 def window_scan_seeded(gen, errs: dict[str, float]) -> None:
     """Phase 2's window-count check: seeded rows, int32 and int64 q,
-    exact against the plain version."""
+    exact against the plain version, at every (lanes, steps) of the plan
+    with a ragged last tile (50 000 + chunk rows), and at a few wide,
+    narrow and tiny geometries."""
     from repro_torch.kernels.window_scan import window_count_cuda
+    from repro_torch.kernels.window_scan.kernel import launch_plan
 
+    cases = [(1 << 20, 50_000 + c, c) for c in WINDOW_CHUNKS]
+    cases += [(1 << 22, (1 << 16) + 5, 16), (1 << 22, 4096, 1024),
+              (5_000, 300, 8), (40, 33, 64), (1, 5, 8)]
     for dtype in (torch.int32, torch.int64):
-        for m, n_rows, chunk in ((1 << 22, 1 << 16, 16), (1 << 22, 4096, 1024),
-                                 (5_000, 300, 8), (40, 33, 64), (1, 5, 8)):
+        for m, n_rows, chunk in cases:
             q, rows = window_rows(gen, m, n_rows, chunk, dtype)
+            plan = launch_plan(q, n_rows, chunk)
             errs[SCAN_KERNEL] = max(errs[SCAN_KERNEL], check_close(
-                SCAN_KERNEL, f"seeded m={m} rows={n_rows} chunk={chunk}",
+                SCAN_KERNEL, f"seeded m={m} rows={n_rows} chunk={chunk} "
+                f"lanes={plan['lanes']} steps={plan['steps']} "
+                f"tile={plan['rows_per_tile']}",
                 window_count_cuda(q, rows, chunk), window_ref(q, rows, chunk),
                 exact=True))
 
 
-def cuda_backend_phase(K, registry, path: str, sections: tuple, want_rows,
-                       vec_seconds: float, trace_dir: Path, smi: str
-                       ) -> tuple[dict, list]:
-    """Main paths 6-7: the roster (or its sections) with backend="cuda",
-    traced, counters set to 0 before and read after: 45/45, rows equal to
-    the vectorized run's, ``scan.cuda`` > 0 and window-count launches > 0.
-    Returns the launches and every window count made."""
+def roster_run(K, registry, path: str, sections: tuple, backend: str,
+               want_rows, trace_dir: Path, smi: str, *, record: bool
+               ) -> tuple[dict, list, float, object]:
+    """One run of ``SuiteRunner.roster()`` (capture memos dropped first),
+    traced, counters set to 0 before and read after: 45/45 and rows equal
+    to ``want_rows``; under ``backend="cuda"`` also ``scan.cuda`` > 0 and
+    window-count launches > 0.  Returns the launches, every window count
+    made (when ``record``), the seconds and the span split."""
     from repro_torch.kernels import window_scan
     from repro_torch.suite import SuiteRunner
 
     def drive():
         forget_captures()
         return SuiteRunner(registry, store=None, sections=sections,
-                           backend="cuda").roster()
+                           backend=backend).roster()
 
-    with obs_trace(trace_dir, f"{path}-cuda"), window_scan.record() as calls:
+    with obs_trace(trace_dir, path), contextlib.ExitStack() as stack:
+        calls = stack.enter_context(window_scan.record()) if record else []
         table, launches, secs = counted(K, drive)
-    rep = span_split(trace_dir, f"{path}-cuda", smi)
+    rep = span_split(trace_dir, path, smi)
     bad = [r for r in table.records() if not r["match"]]
-    say({"phase": f"{path}-cuda-backend", "entries": len(table.rows),
-         "matching": len(table.rows) - len(bad), "seconds": secs,
-         "vectorized_seconds": vec_seconds,
-         "scan_cuda": rep.counter("scan.cuda"), "window_counts": len(calls),
-         "launches": launches, "card": smi})
+    say({"phase": f"{path}-backend", "backend": backend,
+         "entries": len(table.rows), "matching": len(table.rows) - len(bad),
+         "seconds": secs, "sim_scan_s": rep.span_total("sim.scan"),
+         "scan_cuda": rep.counter("scan.cuda"),
+         "window_counts": launches[SCAN_KERNEL], "launches": launches,
+         "card": smi})
     if len(table.rows) != 45 or bad:
-        raise AssertionError(f"{path} cuda backend: {len(bad)} divergent")
+        raise AssertionError(f"{path}: {len(bad)} divergent")
     if table.rows != want_rows:
-        raise AssertionError(f"{path}: rows under backend='cuda' differ from "
-                             f"the vectorized backend's")
-    if rep.counter("scan.cuda") <= 0 or launches[SCAN_KERNEL] <= 0:
+        raise AssertionError(f"{path}: rows under backend={backend!r} differ "
+                             f"from the vectorized backend's")
+    if backend == "cuda" and (rep.counter("scan.cuda") <= 0
+                              or launches[SCAN_KERNEL] <= 0):
         raise AssertionError(f"{path}: the cuda backend launched no window "
                              f"count")
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k, v in launches.items() if v <= 0 and k != SCAN_KERNEL]
     if missing:
-        raise AssertionError(f"{path} cuda backend launched no {missing}")
-    return launches, calls
+        raise AssertionError(f"{path} launched no {missing}")
+    return launches, calls, secs, rep
+
+
+def roster_turns(K, registry, want_rows, trace_dir: Path, smi: str
+                 ) -> tuple[dict, list]:
+    """Main path 6: ``roster()`` with the vectorized and the cuda backend
+    in turns (vectorized, cuda, cuda, vectorized), each traced with its
+    span split; prints each side's seconds and ``sim.scan`` seconds.
+    Returns the first cuda run's launches and its window counts."""
+    secs: dict[str, list[float]] = {"vectorized": [], "cuda": []}
+    scan_s: dict[str, list[float]] = {"vectorized": [], "cuda": []}
+    first = None
+    for turn, backend in enumerate(("vectorized", "cuda", "cuda",
+                                    "vectorized")):
+        launches, calls, t, rep = roster_run(
+            K, registry, f"roster-{backend}-{turn}", (), backend, want_rows,
+            trace_dir, smi, record=backend == "cuda" and first is None)
+        secs[backend].append(t)
+        scan_s[backend].append(rep.span_total("sim.scan"))
+        if backend == "cuda" and first is None:
+            first = (launches, calls)
+    say({"phase": "roster-turns", "order": "vectorized, cuda, cuda, "
+         "vectorized", "seconds": secs, "sim_scan_s": scan_s,
+         "cuda_over_vectorized": sum(secs["cuda"]) / sum(secs["vectorized"]),
+         "card": smi})
+    return first
+
+
+def window_traffic(q, rows, chunk: int) -> dict:
+    """The q slots the rows' windows read, each window capped at chunk
+    and clipped at m (a window running past m - 1 reads slot m - 1):
+    ``slots`` counts each slot once (the union of the windows),
+    ``slots_per_window`` once a window; ``sectors`` and
+    ``sectors_per_window`` the same in 32-byte sectors of q."""
+    m, isz = q.numel(), q.element_size()
+    n = rows[2].long().clamp(min=0, max=chunk)
+    lo = rows[0].long()[n > 0]
+    end = torch.clamp(lo + n[n > 0], max=m)
+
+    def union(a, b, size: int) -> int:
+        edge = torch.zeros(size + 1, dtype=torch.int32, device=q.device)
+        one = torch.ones_like(a, dtype=torch.int32)
+        edge.index_add_(0, a, one)
+        edge.index_add_(0, b, -one)
+        return int((edge.cumsum(0)[:size] > 0).sum().item())
+
+    s_lo, s_hi = lo * isz // 32, (end - 1) * isz // 32 + 1
+    n_sectors = -(-m * isz // 32)
+    return {"slots": union(lo, end, m),
+            "slots_per_window": int((end - lo).sum().item()),
+            "sectors": union(s_lo, s_hi, n_sectors),
+            "sectors_per_window": int((s_hi - s_lo).sum().item())}
+
+
+def window_bound(q, rows, chunk: int) -> tuple:
+    """The window count's bound: each q slot some window reads, read once,
+    plus each row's lo, thr, span and count, over the memory rate (its
+    compares, one a window slot, over the f32 rate, are far below).
+    Returns (bytes, ops, traffic)."""
+    traffic = window_traffic(q, rows, chunk)
+    nbytes = (traffic["slots"] + 4 * rows.shape[1]) * q.element_size()
+    return nbytes, traffic["slots_per_window"], traffic
+
+
+def distinct_window_calls(calls: list) -> dict[tuple[int, int], tuple]:
+    """The first (q, rows, chunk) of each distinct (rows, chunk)."""
+    distinct: dict[tuple[int, int], tuple] = {}
+    for q, rows, chunk in calls:
+        distinct.setdefault((rows.shape[1], chunk), (q, rows, chunk))
+    return distinct
+
+
+def largest_window_calls(calls: list, n: int = 3) -> list:
+    """The ``n`` distinct (rows, chunk) of ``calls`` with the most rows x
+    chunk, each with its own (q, rows, chunk)."""
+    return sorted(distinct_window_calls(calls).items(),
+                  key=lambda kv: kv[0][0] * kv[0][1], reverse=True)[:n]
 
 
 def window_scan_main_path(calls: list, smi: str, peaks: dict,
@@ -1461,14 +1561,12 @@ def window_scan_main_path(calls: list, smi: str, peaks: dict,
     recorded, on each one's own q and rows, exact against the plain
     version; then the three largest (rows x chunk) timed, beside the plain
     version, the same PyTorch expression as the library yardstick, and the
-    bound: each window's slots read once (span capped at chunk) plus the
-    rows and the counts, over the card's memory rate.  Returns the largest
-    geometry's timing row."""
+    bound (:func:`window_bound`), with the slots and sectors the windows
+    read.  Returns the largest geometry's timing row."""
     from repro_torch.kernels.window_scan import window_count_cuda
+    from repro_torch.kernels.window_scan.kernel import launch_plan
 
-    distinct: dict[tuple[int, int], tuple] = {}
-    for q, rows, chunk in calls:
-        distinct.setdefault((rows.shape[1], chunk), (q, rows, chunk))
+    distinct = distinct_window_calls(calls)
     t0 = time.perf_counter()
     worst = 0.0
     for (n_rows, chunk), (q, rows, _) in distinct.items():
@@ -1483,19 +1581,17 @@ def window_scan_main_path(calls: list, smi: str, peaks: dict,
          "geometries": sorted(distinct), "ok": True})
 
     bench = Bench(peaks)
-    largest = sorted(distinct.items(), key=lambda kv: kv[0][0] * kv[0][1],
-                     reverse=True)[:3]
     first = None
-    for (n_rows, chunk), (q, rows, _) in largest:
-        slots = int(rows[2].clamp(min=0, max=chunk).sum().item())
+    for (n_rows, chunk), (q, rows, _) in largest_window_calls(calls):
+        nbytes, ops, traffic = window_bound(q, rows, chunk)
         row = timing_row(
             bench, smi, SCAN_KERNEL, f"rows={n_rows} chunk={chunk} "
             f"m={q.numel()}", q.dtype,
             bench.ms(lambda: window_count_cuda(q, rows, chunk)),
             bench.ms(lambda: window_ref(q, rows, chunk)),
             bench.ms(lambda: window_ref(q, rows, chunk)),
-            (slots + 4 * n_rows) * q.element_size(), slots, "f32",
-            slots=slots)
+            nbytes, ops, "f32", **traffic,
+            plan=launch_plan(q, n_rows, chunk))
         first = first or row
     del bench
     torch.cuda.empty_cache()
@@ -1893,22 +1989,15 @@ def main() -> int:
     serving_section_launches = serving_section_phase(K, timelines)
     store_pool_phase(K)
 
-    # -- 13. main paths 6-7: the roster and its sections with backend="cuda"
-    # (the vectorized roster first, through the same entry point) ----------
-    def drive_vectorized():
-        forget_captures()
-        return SuiteRunner(registry, store=None).roster()
-
-    with obs_trace(trace_dir, "roster-vectorized"):
-        vec_table, _, vec_s = counted(K, drive_vectorized)
-    span_split(trace_dir, "roster-vectorized", smi)
-    if vec_table.rows != roster.rows:
-        raise AssertionError("roster(): rows differ from phase 4's")
-    roster_cuda_launches, roster_calls = cuda_backend_phase(
-        K, registry, "roster", (), roster.rows, vec_s, trace_dir, smi)
-    sections_cuda_launches, sections_calls = cuda_backend_phase(
-        K, registry, "sections", ("scalability", "energy"),
-        sections_table.rows, sections_s, trace_dir, smi)
+    # -- 13. main paths 6-7: roster() with the vectorized and the cuda
+    # backend in turns, then the sections with backend="cuda" -------------
+    roster_cuda_launches, roster_calls = roster_turns(
+        K, registry, roster.rows, trace_dir, smi)
+    sections_cuda_launches, sections_calls, secs, _ = roster_run(
+        K, registry, "sections-cuda", ("scalability", "energy"), "cuda",
+        sections_table.rows, trace_dir, smi, record=True)
+    say({"phase": "sections-cuda-vs-vectorized", "cuda_seconds": secs,
+         "vectorized_seconds": sections_s, "card": smi})
 
     # -- 14. the window count at every distinct main-path geometry ---------
     rows[SCAN_KERNEL, torch.int32] = window_scan_main_path(

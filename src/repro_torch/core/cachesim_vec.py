@@ -48,13 +48,14 @@ resident bytes (``memo.bytes`` is its gauge).
 The window scan on the card (``scan="cuda"``)
 ---------------------------------------------
 The scan's inner step is a (rows x chunk) gather-compare-reduce.  Under
-``scan="cuda"`` (the ``cuda`` simulation backend) each chunk's window
-counts run in the ``window_scan`` CUDA kernel
-(:mod:`repro_torch.kernels.window_scan`): the set-major ``q`` array goes
-to the card once per scan, each step copies its rows' (lo, threshold,
-span) in and the counts out.  It replaces the reference's jitted
-``jax.numpy`` scan (``scan="jax"``).  There is no NumPy fallback: without
-a card the scan raises.  Counters equal the NumPy scan's.
+``scan="cuda"`` (the ``cuda`` simulation backend) the whole chunk loop
+runs on the card (:func:`repro_torch.kernels.window_scan.scan`): the
+set-major ``q`` array and the queries' (lo, threshold, hi) go over once
+per scan, each chunk step is one ``window_scan`` kernel launch over the
+live rows plus their compaction, and the counts come back once.  It
+replaces the reference's jitted ``jax.numpy`` scan (``scan="jax"``).
+There is no NumPy fallback: without a card the scan raises.  Counters
+equal the NumPy scan's.
 
 Prefetcher configs replay the L2 + prefetcher sequentially over the
 vectorized L1's miss stream (same algorithm, same order as the reference),
@@ -287,8 +288,10 @@ def _contested_sd(cl, sidx, prev, queries, sets, cap, skip_below,
     segment, and cold accesses inside the window (``q == -1``) count as
     window-first exactly as they should.
 
-    ``scan="cuda"`` runs each chunk's gather-compare-reduce in the
-    ``window_scan`` kernel on the card (no NumPy fallback: it raises
+    ``scan="cuda"`` runs the chunk loop on the card
+    (``window_scan.ops.scan``: the queries' windows go over once, each
+    chunk step is one ``window_scan`` kernel launch and the step's
+    compaction, the counts come back once; no NumPy fallback: it raises
     without a card); counts are identical either way.
     """
     m = int(cl.size)
@@ -320,17 +323,17 @@ def _contested_sd(cl, sidx, prev, queries, sets, cap, skip_below,
     win_lo = pos[prev[queries]] + 1
     win_hi = pos[queries]
 
-    sd = np.zeros(queries.size, dtype=np.int64)
-    # stack distance <= window length: windows below the smallest
-    # associativity hit everywhere without scanning
-    live = np.flatnonzero(win_hi - win_lo >= skip_below)
-
-    q_dev = None
     if scan == "cuda":
         from repro_torch.kernels.window_scan import ops as window_scan
 
         obs.count("scan.cuda")
-        q_dev = window_scan.to_device(q, _scan_device())
+        return window_scan.scan(window_scan.to_device(q, _scan_device()),
+                                win_lo, threshold, win_hi, skip_below, cap)
+
+    sd = np.zeros(queries.size, dtype=np.int64)
+    # stack distance <= window length: windows below the smallest
+    # associativity hit everywhere without scanning
+    live = np.flatnonzero(win_hi - win_lo >= skip_below)
 
     chunk = max(int(skip_below), 1)
     while live.size:
@@ -343,29 +346,20 @@ def _contested_sd(cl, sidx, prev, queries, sets, cap, skip_below,
             # the widest remainder), then the count is final
             lo = win_lo[enders]
             span = win_hi[enders] - lo
-            if q_dev is not None:
-                sd[enders] += window_scan.window_counts(
-                    q_dev, lo, threshold[enders], span, chunk)
-            else:
-                offs = np.arange(int(span.max()), dtype=np.int64)
-                idx = lo[:, None] + offs
-                first = ((np.take(q, idx, mode="clip")
-                          <= threshold[enders][:, None])
-                         & (offs < span[:, None]))
-                sd[enders] += first.sum(axis=1)
+            offs = np.arange(int(span.max()), dtype=np.int64)
+            idx = lo[:, None] + offs
+            first = ((np.take(q, idx, mode="clip")
+                      <= threshold[enders][:, None])
+                     & (offs < span[:, None]))
+            sd[enders] += first.sum(axis=1)
 
         live = live[~ending]
         if live.size:
             # full-chunk rows: no bounds mask needed (remaining > chunk)
-            if q_dev is not None:
-                sd[live] += window_scan.window_counts(
-                    q_dev, win_lo[live], threshold[live],
-                    np.full(live.size, chunk, dtype=np.int64), chunk)
-            else:
-                offs = np.arange(chunk, dtype=np.int64)
-                idx = win_lo[live][:, None] + offs
-                sd[live] += (np.take(q, idx, mode="clip")
-                             <= threshold[live][:, None]).sum(axis=1)
+            offs = np.arange(chunk, dtype=np.int64)
+            idx = win_lo[live][:, None] + offs
+            sd[live] += (np.take(q, idx, mode="clip")
+                         <= threshold[live][:, None]).sum(axis=1)
             win_lo[live] += chunk
             live = live[sd[live] < cap]   # monotone: >= cap is a miss at
         chunk *= 4                        # every requested associativity

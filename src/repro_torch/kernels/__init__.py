@@ -15,9 +15,10 @@ plain version for CPU tensors, and raises otherwise) and ``capture.py``
 - ``ssm_scan``        — the gated EMA scan and the state-expanded scan
   (two kernels, two sources);
 - ``window_scan``     — the cache simulator's window count, the scan of its
-  ``cuda`` backend (``ref.py``, ``kernel.py`` and ``ops.py``; it launches
-  from the simulator, not from a captured entry, so it has no capture hook
-  and no launch spec).
+  ``cuda`` backend (``ref.py``, ``plan.py``, ``kernel.py`` and ``ops.py``,
+  which also runs the scan's chunk loop on the card; it launches from the
+  simulator, not from a captured entry, so it has no capture hook and no
+  launch spec).
 """
 
 from __future__ import annotations

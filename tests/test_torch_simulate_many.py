@@ -217,20 +217,67 @@ def scan_on_cpu(monkeypatch):
                         lambda: torch.device("cpu"))
 
 
-def test_cuda_scan_loop_equals_numpy_scan(clean, scan_on_cpu):
+def _loop_steps(q, win_lo, threshold, win_hi, skip_below, cap):
+    """The chunk loop written out once more, one masked gather a step:
+    each step's (live rows, chunk), the counts, and how many rows stopped
+    at cap before their window ended."""
+    lo, sd = win_lo.astype(np.int64), np.zeros(win_lo.size, dtype=np.int64)
+    live = np.flatnonzero(win_hi - lo >= skip_below)
+    chunk, steps, capped = max(int(skip_below), 1), [], 0
+    while live.size:
+        steps.append((live.size, chunk))
+        rem = win_hi[live] - lo[live]
+        n = np.minimum(rem, chunk)
+        offs = np.arange(int(n.max()))
+        idx = np.minimum(lo[live][:, None] + offs, q.size - 1)
+        sd[live] += ((q[idx] <= threshold[live][:, None])
+                     & (offs < n[:, None])).sum(axis=1)
+        capped += int(((rem > chunk) & (sd[live] >= cap)).sum())
+        lo[live] += chunk
+        live = live[(rem > chunk) & (sd[live] < cap)]
+        chunk *= 4
+    return steps, sd, capped
+
+
+def _spied_scans(monkeypatch):
+    """Wrap the cuda scan's loop: each call's inputs (q as NumPy), its
+    counts and the (rows, chunk) of every window count it made."""
+    seen = []
+    real = window_scan.ops.scan
+
+    def spy(q, win_lo, threshold, win_hi, skip_below, cap):
+        args = (q.numpy().copy(), win_lo.copy(), threshold.copy(),
+                win_hi.copy(), skip_below, cap)
+        with window_scan.record() as calls:
+            sd = real(q, win_lo, threshold, win_hi, skip_below, cap)
+        seen.append((args, sd, [(r.shape[1], c) for _, r, c in calls]))
+        return sd
+
+    monkeypatch.setattr(window_scan.ops, "scan", spy)
+    return seen
+
+
+def test_cuda_scan_loop_equals_numpy_scan(clean, scan_on_cpu, monkeypatch):
     before = window_scan.window_count_cuda.launches
     reqs = _requests(cachesim, PORT_W)
     plain = cachesim_vec.simulate_many([(a.copy(), c, o) for a, c, o in reqs])
     numpy_counters = obs.counters()
     obs.reset_counters()
+    seen = _spied_scans(monkeypatch)
     with window_scan.record() as calls:
         scanned = cachesim_vec.simulate_many(reqs, scan="cuda")
     for ps, cs in zip(plain, scanned):
         assert [_counters(s) for s in ps] == [_counters(s) for s in cs]
     c = obs.counters()
-    assert c.pop("scan.cuda") > 0 and calls
+    assert c.pop("scan.cuda") == len(seen) > 0 and calls
     assert {k: v for k, v in c.items() if not k.startswith("memo.")} == \
         {k: v for k, v in numpy_counters.items() if not k.startswith("memo.")}
+    # one window count a chunk step, over that step's live rows
+    assert [(r.shape[1], k) for _, r, k in calls] == \
+        [step for _, _, steps in seen for step in steps]
+    for args, sd, steps in seen:
+        want_steps, want_sd, _ = _loop_steps(*args)
+        assert steps == want_steps and np.array_equal(sd, want_sd)
     assert all(rows.shape[1] > 0 and chunk >= 1 for _, rows, chunk in calls)
     assert window_scan.window_count_cuda.launches == before  # no card
 
@@ -245,6 +292,64 @@ def test_cuda_scan_counters_equal_the_reference_jax_scan(clean, scan_on_cpu):
     assert obs.counters()["scan.cuda"] == jax_obs.counters()["scan.jax"] > 0
     mine, theirs = _both_counters()
     assert mine == theirs
+
+
+def _stream(n: int, sets: int, lines_per_set: int, seed: int) -> np.ndarray:
+    """Seeded line stream: a hot set of lines and a wide tail, so windows
+    run from a few slots to thousands."""
+    rng = np.random.default_rng(seed)
+    hot = rng.integers(0, sets * 3, n)
+    wide = rng.integers(0, sets * lines_per_set, n)
+    return np.where(rng.random(n) < 0.6, hot, wide).astype(np.int64)
+
+
+# (sets, ways, segments): a one-byte and a two-byte set sort key, a
+# segmented profile, and ways 1-2 whose cap stops long windows early.
+LOOP_CASES = [(64, [2, 8], 1), (1_024, [4, 16], 1), (64, [2, 8], 3),
+              (16, [1, 2], 1)]
+
+
+@pytest.mark.parametrize("sets,ways,segments", LOOP_CASES)
+def test_cuda_loop_on_the_cpu_equals_the_numpy_and_jax_scans(
+        scan_on_cpu, monkeypatch, sets, ways, segments):
+    """The cuda scan's loop, its q on the CPU: every ``_contested_sd`` of
+    a ``_replay_ways`` gives the NumPy scan's counts and the reference's
+    ``scan="jax"`` counts, one window count a step."""
+    pytest.importorskip("jax")
+    lines = _stream(6_000, sets, 24, seed=sets + segments)
+    offsets = np.linspace(0, lines.size, segments, endpoint=False).astype(
+        np.int64) if segments > 1 else None
+    contested = []
+    real = cachesim_vec._contested_sd
+
+    def spy(*args, **kw):
+        sd = real(*args, **kw)
+        contested.append((args, kw, sd))
+        return sd
+
+    monkeypatch.setattr(cachesim_vec, "_contested_sd", spy)
+    seen = _spied_scans(monkeypatch)
+    prof = cachesim_vec.StreamProfile(lines, seg_offsets=offsets)
+    masks = cachesim_vec._replay_ways(prof, sets, ways, scan="cuda")
+    assert contested and len(seen) == len(contested)
+    for args, kw, sd in contested:
+        assert kw["scan"] == "cuda"
+        numpy_kw = dict(kw, scan=None)
+        assert np.array_equal(sd, real(*args, **numpy_kw))
+        assert np.array_equal(sd, jax_vec._contested_sd(
+            *args, **dict(kw, scan="jax")))
+    capped = 0
+    for args, sd, steps in seen:
+        want_steps, want_sd, n_capped = _loop_steps(*args)
+        assert steps == want_steps and np.array_equal(sd, want_sd)
+        assert [k for _, k in steps] == [max(args[4], 1) * 4 ** i
+                                         for i in range(len(steps))]
+        capped += n_capped
+    if ways == [1, 2]:
+        assert capped > 0          # rows stopped at cap, windows unfinished
+    jax_prof = jax_vec.StreamProfile(lines, seg_offsets=offsets)
+    want = jax_vec._replay_ways(jax_prof, sets, ways, scan="jax")
+    assert all(np.array_equal(masks[w], want[w]) for w in ways)
 
 
 # --------------------------------------------------------------------------

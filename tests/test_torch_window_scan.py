@@ -6,8 +6,9 @@ the reference's ``jax`` backend) and the NumPy scan's gather, exactly, on
 seeded rows: ragged spans, cold (-1) slots, rows whose window ends at
 m - 1 and rows whose window runs past it (the index clamps).  The ``cuda``
 backend raises without a card and never falls back to NumPy; ``jax``
-raises and names ``cuda``.  A test marked ``cuda`` holds the kernel
-against the plain version on a card; it skips here."""
+raises and names ``cuda``.  Tests marked ``cuda`` hold the kernel against
+the plain version on a card, at every (lanes, steps) its plan picks; they
+skip here."""
 
 import numpy as np
 import pytest
@@ -18,7 +19,7 @@ from repro_torch.core import cachesim, cachesim_vec, tracegen
 from repro_torch.kernels import window_scan
 from repro_torch.kernels.window_scan import (window_count_cuda,
                                              window_counts,
-                                             window_counts_ref)
+                                             window_counts_ref, window_plan)
 from repro_torch.study.engine import SimEngine
 from repro_torch.suite.__main__ import main as suite_main
 
@@ -84,22 +85,25 @@ def test_entry_point_on_cpu_runs_the_plain_version(qdtype):
     before = window_count_cuda.launches
     q_dev = window_scan.to_device(q.astype(qdtype), torch.device("cpu"))
     assert q_dev.dtype == (torch.int32 if qdtype == np.int32 else torch.int64)
+    rows = torch.from_numpy(np.stack([lo, thr, span])).to(q_dev.dtype)
     with window_scan.record() as calls:
-        got = window_counts(q_dev, lo, thr, span, 16)
-    assert got.dtype == np.int64
-    assert np.array_equal(got, _numpy_counts(q, lo, thr, span, 16))
-    (q_rec, rows, chunk), = calls
-    assert q_rec is q_dev and chunk == 16 and rows.shape == (3, 200)
-    assert rows.dtype == q_dev.dtype
+        got = window_counts(q_dev, rows, 16)
+    assert got.dtype == q_dev.dtype
+    assert np.array_equal(got.numpy(), _numpy_counts(q, lo, thr, span, 16))
+    (q_rec, rows_rec, chunk), = calls
+    assert q_rec is q_dev and rows_rec is rows and chunk == 16
     assert window_count_cuda.launches == before
 
 
 def test_no_rows_no_launch():
+    # every window shorter than skip_below: the scan makes no window count
     q_dev = window_scan.to_device(np.zeros(8, np.int32), torch.device("cpu"))
-    empty = np.zeros(0, dtype=np.int64)
+    lo = np.array([0, 2, 5], dtype=np.int64)
     with window_scan.record() as calls:
-        got = window_counts(q_dev, empty, empty, empty, 8)
-    assert got.shape == (0,) and calls == []
+        got = window_scan.scan(q_dev, lo, np.zeros(3, np.int32), lo + 1,
+                               skip_below=2, cap=4)
+    assert got.dtype == np.int64 and np.array_equal(got, np.zeros(3))
+    assert calls == []
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
@@ -170,12 +174,16 @@ def test_suite_cli_backend_cuda_raises_without_a_card(monkeypatch):
 # --------------------------------------------------------------------------
 # On the card
 # --------------------------------------------------------------------------
-@pytest.mark.cuda
-@pytest.mark.parametrize("qdtype", [torch.int32, torch.int64])
-def test_kernel_equals_plain_version_on_the_card(qdtype):
+def _needs_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the window_scan kernel has no "
                     "CPU build")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", [torch.int32, torch.int64])
+def test_kernel_equals_plain_version_on_the_card(qdtype):
+    _needs_card()
     dev = torch.device("cuda")
     for m, n_rows, chunk, seed in GEOMETRIES:
         q, lo, thr, span = _rows(m, n_rows, chunk, seed)
@@ -188,3 +196,24 @@ def test_kernel_equals_plain_version_on_the_card(qdtype):
         assert torch.equal(got, want)
         assert np.array_equal(got.cpu().numpy(),
                               _numpy_counts(q, lo, thr, span, chunk))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("chunk", [1, 2, 3, 4, 8, 16, 17, 32, 64, 128, 256,
+                                   1024])
+def test_kernel_at_every_lane_count_on_the_card(chunk, qdtype):
+    """Each (lanes, steps) the plan picks, chunks below and above 32, on
+    row counts that leave the last tile ragged and the grid several tiles
+    a block."""
+    _needs_card()
+    dev = torch.device("cuda")
+    plan = window_plan(1, chunk, qdtype.itemsize, n_sm=1)
+    for n_rows in (plan["rows_per_tile"] - 1, 40 * plan["rows_per_tile"] + 3,
+                   300_007):
+        q, lo, thr, span = _rows(50_000, n_rows, chunk, chunk + n_rows)
+        rows = torch.from_numpy(np.stack([lo, thr, span])).to(qdtype).to(dev)
+        q_dev = torch.from_numpy(q).to(qdtype).to(dev)
+        got = window_count_cuda(q_dev, rows, chunk)
+        assert torch.equal(got, window_counts_ref(q_dev, rows[0], rows[1],
+                                                  rows[2], chunk))
