@@ -116,10 +116,30 @@ kernels as a fresh process does:
 15. ``simulate_chunked`` over the reference tests' megaref trace at 10M
    refs, with the NumPy scan and with ``scan="cuda"``: equal counters;
    both equal the in-memory ``simulate`` on a 200 000-ref prefix;
-16. prints the kernels line (``launches`` summed over main paths 1 and 2,
+16. main paths 8 and 9: the benchmark driver (``repro_torch.benchmarks
+   .run``) in-process at ``DEFAULT_REFS`` on the card, once with the
+   default backend (the figure, case, table3, suite and serving sections)
+   and once with ``backend="cuda"`` (those and megaref and the two kernel
+   tables), each with the capture memos dropped, a fresh result store,
+   counters reset before and read after, its span split (a
+   ``bench.section`` span per section) and each section's seconds and
+   rows: every shared section equal between the two runs, table3 equal to
+   phase 4's rows (45/45), no window count under the default backend and
+   some under cuda, every capture kernel launched by both; megaref's host
+   row equal to phase 15's NumPy-scan counters and its ndp row to a
+   NumPy-scan run of it; the kernel tables (the port's STREAM and bf16
+   flash kernels beside their library calls and the card's roof): each
+   kernel held against its plain version on the tables' own inputs with
+   phase 2's tolerances, each row's error equal to that check's, the rows
+   printed with the card; then ``python -m repro_torch.study`` as four processes
+   at once: the suite substrate at 20 000 refs on the card against
+   ``--device cpu``, and the trace substrate's classify, metrics,
+   scalability and energy tables under ``--backend cuda`` against the
+   vectorized backend, each pair byte-identical;
+17. prints the kernels line (``launches`` summed over main paths 1 and 2,
    as before, for the seven capture kernels and main path 6's first
-   cuda run for the window count; ``launches_by_path`` for paths 1-4, 6
-   and 7; flash's also split by kernel; the f32 (window count: int32)
+   cuda run for the window count; ``launches_by_path`` for paths 1-4 and
+   6-9; flash's also split by kernel; the f32 (window count: int32)
    timings, and the bf16 ones as ``bf16_ms``, ``bf16_bound_ms``,
    ``bf16_library_ms``) and, last, ``{"ok": true, "device": ...}``.
 
@@ -149,34 +169,22 @@ from __future__ import annotations
 import contextlib
 import itertools
 import json
+import os
 import re
 import shutil
-import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import TYPE_CHECKING
 
 import torch
 
+if TYPE_CHECKING:   # imported from src/ at run time, after the path is set
+    from repro_torch.benchmarks.kernel_bench import CardBench as Bench
+
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
-
-WARMUP, REPS = 3, 10
-FLUSH_BYTES = 1 << 30   # > 50 MB L2, and long enough to hide the enqueue
-
-# Published dense peaks of the SXM parts (NVIDIA data sheets): HBM bytes/s,
-# bf16 tensor-core and f32 CUDA-core flop/s, keyed by what nvidia-smi calls
-# the card ("NVIDIA H100 80GB HBM3" is the H100 SXM).
-# ``f32_issue``: f32 lane-instructions a second (132 SMs x 128 lanes x the
-# 1.98 GHz boost clock), the floor of a kernel that may not fuse its
-# multiplies and adds (the state-expanded scan's op-by-op update).
-PEAKS = {
-    "H100 80GB HBM3": dict(bytes=3.35e12, bf16=989e12, f32=67e12,
-                           f32_issue=132 * 128 * 1.98e9),
-    "H200": dict(bytes=4.8e12, bf16=989e12, f32=67e12,
-                 f32_issue=132 * 128 * 1.98e9),
-}
 
 KERNEL_SITES = {
     "stream": ("src/repro_torch/csrc/stream.cu",
@@ -205,55 +213,6 @@ SCAN_KERNEL = "window_scan"
 
 def say(obj) -> None:
     print(json.dumps(obj) if not isinstance(obj, str) else obj, flush=True)
-
-
-def card_peaks(name: str) -> dict:
-    for key, peaks in PEAKS.items():
-        if key in name:
-            return peaks
-    raise RuntimeError(f"no published peaks for card {name!r}")
-
-
-class Bench:
-    """CUDA-event timing and the bound for one card."""
-
-    def __init__(self, peaks: dict) -> None:
-        self.peaks = peaks
-        self.flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-
-    def once(self, fn) -> float:
-        """ms of one run of ``fn`` after an L2 flush."""
-        self.flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end)
-
-    def ms(self, fn) -> float:
-        for _ in range(WARMUP):
-            fn()
-        torch.cuda.synchronize()
-        return statistics.median(self.once(fn) for _ in range(REPS))
-
-    def turns(self, calls: list[tuple[str, object]], rounds: int
-              ) -> dict[str, float]:
-        """Median ms of each named call, timed in turns: every round runs
-        the calls in the order given (a name may come twice)."""
-        for _, fn in calls:
-            fn()
-        times: dict[str, list[float]] = {name: [] for name, _ in calls}
-        for _ in range(rounds):
-            for name, fn in calls:
-                times[name].append(self.once(fn))
-        return {name: statistics.median(t) for name, t in times.items()}
-
-    def bound(self, nbytes: float, ops: float, rate: str) -> tuple[float, str]:
-        t_bytes = nbytes / self.peaks["bytes"] * 1e3
-        t_ops = ops / self.peaks[rate] * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 STREAM_ROUNDS = 15          # in-turns rounds of the STREAM timings
@@ -399,26 +358,6 @@ NO_SPILL = {"flash_attention": "flash_fwd_kernel",
             "window_scan": "window_count_kernel"}
 
 
-def stream_calls() -> dict:
-    """op -> (kernel, plain version, library call) on (a, b, q[, out])."""
-    from repro_torch.kernels.stream import ops, ref
-
-    return {
-        "copy": (lambda a, b, q: ops.stream_copy(a),
-                 lambda a, b, q: ref.copy_ref(a),
-                 lambda a, b, q, o: o.copy_(a)),
-        "scale": (lambda a, b, q: ops.stream_scale(a, q),
-                  lambda a, b, q: ref.scale_ref(a, q),
-                  lambda a, b, q, o: torch.mul(a, q, out=o)),
-        "add": (lambda a, b, q: ops.stream_add(a, b),
-                lambda a, b, q: ref.add_ref(a, b),
-                lambda a, b, q, o: torch.add(a, b, out=o)),
-        "triad": (lambda a, b, q: ops.stream_triad(a, b, q),
-                  lambda a, b, q: ref.triad_ref(a, b, q),
-                  lambda a, b, q, o: torch.add(a, b, alpha=q, out=o)),
-    }
-
-
 def hold_main_path(launched: list, randn, rand,
                    errs: dict[str, float]) -> int:
     """Hold each kernel against its plain version at every distinct launch
@@ -437,6 +376,8 @@ def hold_main_path(launched: list, randn, rand,
                                               ssm_ema_scan)
     from repro_torch.kernels.token_gather import gather, gather_rows_ref
 
+    from repro_torch.benchmarks.kernel_bench import stream_calls
+
     streams = stream_calls()
     held_by: dict[str, int] = {}
     path_err: dict[str, float] = {}
@@ -451,7 +392,7 @@ def hold_main_path(launched: list, randn, rand,
         dtype = spec.operands[-1].dtype
         if spec.name.startswith("stream_"):
             op = spec.name.removeprefix("stream_")
-            kern, plain, _ = streams[op]
+            kern, plain, _, _ = streams[op]
             rows, lanes = spec.operand("o").shape
             a, b = randn(rows * lanes, dtype=dtype), randn(rows * lanes,
                                                            dtype=dtype)
@@ -1329,7 +1270,7 @@ def store_pool_phase(K) -> dict:
 
 # Span names whose totals the span split prints, per path.
 SPLIT_PREFIXES = ("sim.", "engine.", "capture.walk", "capture.sync",
-                  "suite.", "serving.")
+                  "suite.", "serving.", "bench.")
 MEGAREF_REFS = 10_000_000   # simulate_chunked's megaref trace on the host
 MEGAREF_PREFIX = 200_000    # ... and the prefix held against simulate
 
@@ -1555,7 +1496,7 @@ def largest_window_calls(calls: list, n: int = 3) -> list:
                   key=lambda kv: kv[0][0] * kv[0][1], reverse=True)[:n]
 
 
-def window_scan_main_path(calls: list, smi: str, peaks: dict,
+def window_scan_main_path(calls: list, smi: str, bench: Bench,
                           errs: dict[str, float]) -> dict:
     """The window count at every distinct (rows, chunk) the cuda paths
     recorded, on each one's own q and rows, exact against the plain
@@ -1580,7 +1521,6 @@ def window_scan_main_path(calls: list, smi: str, peaks: dict,
          "tolerance": "exact", "seconds": time.perf_counter() - t0,
          "geometries": sorted(distinct), "ok": True})
 
-    bench = Bench(peaks)
     first = None
     for (n_rows, chunk), (q, rows, _) in largest_window_calls(calls):
         nbytes, ops, traffic = window_bound(q, rows, chunk)
@@ -1617,10 +1557,11 @@ def sim_counts(sim) -> tuple:
             sim.prefetch_issued, sim.prefetch_useful, sim.accesses)
 
 
-def megaref_phase(K, smi: str) -> None:
+def megaref_phase(K, smi: str):
     """``simulate_chunked`` over the megaref trace at ``MEGAREF_REFS``,
     with the NumPy scan and with ``scan="cuda"``: equal counters; and on a
-    ``MEGAREF_PREFIX`` prefix both equal the in-memory ``simulate``."""
+    ``MEGAREF_PREFIX`` prefix both equal the in-memory ``simulate``.
+    Returns the NumPy scan's result."""
     from repro_torch import obs
     from repro_torch.core import cachesim
     from repro_torch.core.cachesim_stream import simulate_chunked
@@ -1660,6 +1601,234 @@ def megaref_phase(K, smi: str) -> None:
     if any(v != want for v in got.values()):
         raise AssertionError("megaref prefix: simulate_chunked differs from "
                              "the in-memory simulate")
+    return runs["numpy"]
+
+
+# -- the benchmark driver and the study CLI -------------------------------
+
+# The driver's sections that both backends run (figures, cases, tables,
+# the roster and serving sections); the cuda run adds megaref and the
+# kernel tables.
+FIGURE_SECTIONS = ("fig1", "fig3", "fig4", "fig5", "fig5_nuca", "fig7",
+                   "fig18", "table3", "suite", "serving", "serving_warm",
+                   "case1", "case2", "case3", "case4")
+CUDA_ONLY_SECTIONS = ("megaref", "kernels_stream", "kernels_attention")
+SHOWN_ROWS = 20             # a section's rows are printed up to this many
+
+
+def driver_run(K, trace_dir: Path, smi: str, backend: str | None,
+               sections: tuple) -> tuple[dict, dict, object]:
+    """One in-process run of ``python -m repro_torch.benchmarks.run
+    --device cuda [--backend cuda] --only <sections>`` at ``DEFAULT_REFS``
+    (capture memos dropped, a fresh result store, its CSV into
+    ``trace_dir``), traced, counters set to 0 before and read after; its
+    perf record's meta names the card.  Prints each section's seconds and
+    rows and the run's span split.  Returns the sections, the launches
+    and the span split."""
+    from repro_torch.benchmarks import run as bench_run
+
+    label = f"figures-{backend or 'default'}"
+    record = trace_dir / f"{label}.json"
+    argv = ["--device", "cuda", "--only", ",".join(sections),
+            "--bench-json", str(record)]
+    if backend:
+        argv += ["--backend", backend]
+    args = bench_run.build_parser().parse_args(argv)
+    os.environ["REPRO_TORCH_SUITE_STORE"] = str(trace_dir / f"{label}-store")
+
+    def drive():
+        forget_captures()
+        with open(trace_dir / f"{label}.csv", "w") as out, \
+                contextlib.redirect_stdout(out):
+            return bench_run.run(args)
+
+    with obs_trace(trace_dir, label):
+        res, launches, secs = counted(K, drive)
+    bench_run.write_record(args, res)
+    (bucket,) = json.loads(record.read_text())["runs"].values()
+    for name, sec in res["sections"].items():
+        row = {"phase": "figures-section", "backend": backend or "default",
+               "section": name, "seconds": sec["seconds"],
+               "rows": len(sec["rows"]), "card": smi}
+        if len(sec["rows"]) <= SHOWN_ROWS:
+            row["header"] = sec["header"]
+            row["table"] = [list(r) for r in sec["rows"]]
+        say(row)
+    say({"phase": "figures", "backend": backend or "default",
+         "seconds": secs, "sections": len(res["sections"]),
+         "engine": res["study"].stats.as_dict(), "launches": launches,
+         "meta": bucket["meta"], "card": smi})
+    rep = span_split(trace_dir, label, smi)
+    if set(res["sections"]) != set(sections):
+        raise AssertionError(f"{label}: ran {list(res['sections'])}")
+    empty = [n for n, sec in res["sections"].items() if not sec["rows"]]
+    if empty:
+        raise AssertionError(f"{label}: sections without rows: {empty}")
+    if bucket["meta"].get("card") is None:
+        raise AssertionError(f"{label}: the perf record names no card")
+    return res["sections"], launches, rep
+
+
+def cli_tables(commands: dict[str, list[str]], trace_dir: Path
+               ) -> dict[str, str]:
+    """Run ``python -m repro_torch.study`` once per command, all at once,
+    each with a result store of its own; returns each one's stdout.  Every
+    process is waited for, and killed if this raises first."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    try:
+        for name, argv in commands.items():
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.study", *argv],
+                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True, env=dict(env, REPRO_TORCH_SUITE_STORE=str(
+                    trace_dir / f"cli-{name}-store")))
+        outs = {}
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                raise AssertionError(f"study CLI {name} exited "
+                                     f"{proc.returncode}: {err[-2000:]}")
+            outs[name] = out
+        return outs
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def hold_kernel_bench(sections: dict, errs: dict[str, float]) -> None:
+    """The kernel tables' kernels against their plain versions on the
+    tables' own seeded inputs, with phase 2's tolerances: STREAM exact,
+    bf16 flash within ``attn_tol`` of the float32 plain output (rtol 1e-2,
+    atol 1e-3 of its rms); each table row's ``max_abs_err`` must equal the
+    check's (both kernels are deterministic).  Prints the rows."""
+    from repro_torch.benchmarks import kernel_bench as kb
+    from repro_torch.kernels.flash_attention import attention_ref, mha
+
+    found = {}
+    a, b = kb.stream_inputs("cuda")
+    for op, (entry, plain, _, _) in kb.stream_calls().items():
+        found[f"stream_{op}"] = check_close(
+            "stream", f"kernel-bench {op} n={kb.STREAM_N}",
+            entry(a, b, kb.STREAM_Q), plain(a, b, kb.STREAM_Q), exact=True)
+        errs["stream"] = max(errs["stream"], found[f"stream_{op}"])
+    del a, b
+    for (bsz, s, h, g, d), q, k, v in kb.attention_inputs("cuda"):
+        want = attention_ref(q.float(), k.float(), v.float(), causal=True)
+        err = check_close(
+            "flash_attention", f"kernel-bench bf16 causal b={bsz} s={s} "
+            f"h={h} g={g} d={d}", mha(q, k, v, causal=True), want,
+            tol=attn_tol(torch.bfloat16, want))
+        found[f"attn_b{bsz}s{s}h{h}g{g}"] = err
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+    for sec in sections.values():
+        for r in sec["rows"]:
+            row = dict(zip(sec["header"], r))
+            say({"phase": "kernel-bench", **row})
+            if row["max_abs_err"] != found.pop(row["kernel"]):
+                raise AssertionError(f"kernel-bench {row['kernel']}: the "
+                                     f"table's error {row['max_abs_err']} "
+                                     f"is not the check's")
+    if found:
+        raise AssertionError(f"kernel-bench: no table row for {list(found)}")
+
+
+def figures_phase(K, trace_dir: Path, smi: str, roster_rows: list,
+                  megaref_host, errs: dict[str, float]) -> tuple[dict, dict]:
+    """Main paths 8-9: the benchmark driver's sections at ``DEFAULT_REFS``
+    on the card, once with the default backend and once with
+    ``backend="cuda"`` (which adds megaref and the kernel tables): every
+    figure, case, table, roster and serving section equal between the two,
+    table3 equal to phase 4's roster rows, the default run launching no
+    window count and the cuda run some, megaref's host row equal to phase
+    15's NumPy-scan counters and its ndp row to a NumPy-scan run of that
+    row alone; the kernel tables' kernels held against their plain
+    versions (:func:`hold_kernel_bench`) and the rows printed with the
+    card.  Then the study
+    CLI as subprocesses: the suite substrate on the card against
+    ``--device cpu``, and the trace substrate's classify, metrics,
+    scalability and energy tables under ``--backend cuda`` against the
+    vectorized backend.  Returns both runs' launches."""
+    from repro_torch.core import cachesim
+    from repro_torch.core.cachesim_stream import (DEFAULT_CHUNK,
+                                                  simulate_chunked)
+
+    default, default_launches, _ = driver_run(K, trace_dir, smi, None,
+                                              FIGURE_SECTIONS)
+    cuda, cuda_launches, rep = driver_run(
+        K, trace_dir, smi, "cuda", FIGURE_SECTIONS + CUDA_ONLY_SECTIONS)
+    differ = [n for n in FIGURE_SECTIONS
+              if (default[n]["header"], default[n]["rows"])
+              != (cuda[n]["header"], cuda[n]["rows"])]
+    if differ:
+        raise AssertionError(f"figures: sections differ between the default "
+                             f"and the cuda backend: {differ}")
+    if default["table3"]["rows"] != roster_rows:
+        raise AssertionError("figures: table3 differs from phase 4's roster")
+    matched = sum(r[5] for r in default["table3"]["rows"])
+    if default_launches[SCAN_KERNEL] != 0 or cuda_launches[SCAN_KERNEL] <= 0 \
+            or rep.counter("scan.cuda") <= 0:
+        raise AssertionError("figures: window counts launched "
+                             f"{default_launches[SCAN_KERNEL]} (default), "
+                             f"{cuda_launches[SCAN_KERNEL]} (cuda)")
+    missing = [k for k in KERNEL_SITES if k != SCAN_KERNEL
+               and (default_launches[k] <= 0 or cuda_launches[k] <= 0)]
+    if matched != 45 or missing:
+        raise AssertionError(f"figures: table3 {matched}/45, kernels not "
+                             f"launched: {missing}")
+    say({"phase": "figures-vs-backends", "identical": list(FIGURE_SECTIONS),
+         "table3_equals_roster": True, "table3_matching": matched,
+         "seconds": {"default": sum(default[n]["seconds"]
+                                    for n in FIGURE_SECTIONS),
+                     "cuda": sum(cuda[n]["seconds"]
+                                 for n in FIGURE_SECTIONS)},
+         "card": smi})
+
+    # megaref under cuda: host row against phase 15's NumPy-scan counters
+    # (the same trace), ndp row against a NumPy-scan run of it alone
+    host, ndp = cuda["megaref"]["rows"]
+    addr = megaref_trace(MEGAREF_REFS)
+    t0 = time.perf_counter()
+    ndp_sim = simulate_chunked(addr, cachesim.ndp_config(4),
+                               chunk=DEFAULT_CHUNK, name="megaref.ndp")
+    numpy_s = time.perf_counter() - t0
+    want = [(megaref_host.l1_misses, megaref_host.level_misses[-1],
+             round(megaref_host.lfmr, 4), round(megaref_host.mpki, 2)),
+            (ndp_sim.l1_misses, ndp_sim.level_misses[-1],
+             round(ndp_sim.lfmr, 4), round(ndp_sim.mpki, 2))]
+    got = [tuple(host[3:]), tuple(ndp[3:])]
+    say({"phase": "figures-megaref", "rows": [list(host), list(ndp)],
+         "numpy": [list(w) for w in want], "ndp_numpy_seconds": numpy_s,
+         "card": smi})
+    if got != want or host[1] != MEGAREF_REFS:
+        raise AssertionError(f"figures: megaref rows {got} differ from the "
+                             f"NumPy scan's {want}")
+    hold_kernel_bench({name: cuda[name] for name in
+                       ("kernels_stream", "kernels_attention")}, errs)
+    del addr
+
+    # the study CLI: the card against the CPU and the vectorized backend
+    t0 = time.perf_counter()
+    trace = ["--substrate", "trace", "--sections",
+             "classify,metrics,scalability,energy"]
+    outs = cli_tables({
+        "suite-cuda": ["--substrate", "suite", "--refs", "20000"],
+        "suite-cpu": ["--substrate", "suite", "--refs", "20000",
+                      "--device", "cpu"],
+        "trace-cuda": trace + ["--backend", "cuda"],
+        "trace-vectorized": trace}, trace_dir)
+    same = {"suite": outs["suite-cuda"] == outs["suite-cpu"],
+            "trace": outs["trace-cuda"] == outs["trace-vectorized"]}
+    say({"phase": "study-cli", "identical": same,
+         "lines": {k: len(v.splitlines()) for k, v in outs.items()},
+         "seconds": time.perf_counter() - t0, "card": smi})
+    if not all(same.values()) \
+            or len(outs["suite-cuda"].strip().splitlines()) != 2 + 45 \
+            or not outs["trace-cuda"].startswith("## classification"):
+        raise AssertionError(f"study CLI: tables differ {same}")
+    return default_launches, cuda_launches
 
 
 def main() -> int:
@@ -1674,6 +1843,8 @@ def main() -> int:
         raise RuntimeError(f"repro_torch imported from outside {ROOT}")
     from repro_torch import kernels as K
     from repro_torch.capture.launch import record as record_launches
+    from repro_torch.benchmarks.kernel_bench import (CardBench, card_identity,
+                                                     card_peaks, stream_calls)
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import attention_ref, mha
     from repro_torch.kernels.flash_attention.kernel import (
@@ -1688,10 +1859,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    smi = ", ".join(card_identity())   # nvidia-smi's csv line
     say(smi)
     name = torch.cuda.get_device_name(0)
     say({"torch": torch.__version__, "cuda": torch.version.cuda,
@@ -1730,7 +1898,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     errs: dict[str, float] = dict.fromkeys(K.KERNELS, 0.0)
     rows: dict[tuple[str, torch.dtype], dict] = {}   # timing rows
-    bench = Bench(peaks)
+    bench = CardBench(peaks)
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
@@ -1752,7 +1920,7 @@ def main() -> int:
     for dtype in (torch.float32, torch.bfloat16):
         a, b = randn(n, dtype=dtype), randn(n, dtype=dtype)
         o = torch.empty_like(a)
-        for op, (entry, plain, lib) in streams.items():
+        for op, (entry, plain, _, lib) in streams.items():
             spec = stream_ops.launch_spec(op, n, dtype)
             want = plain(a, b, q)
             check_close("stream", f"{op} full n=2^28 entry point",
@@ -1976,7 +2144,7 @@ def main() -> int:
     for case, geo in main_path_geometries()[0]:
         say({"phase": "paged-splits", "case": case, "geometry": geo,
              "n_splits": paged_splits(geo, 4)})
-    geometry_timings(Bench(peaks), smi, launched + served)
+    geometry_timings(CardBench(peaks), smi, launched + served)
     torch.cuda.empty_cache()
 
     # -- 9. out-of-range indices -------------------------------------------------
@@ -2001,14 +2169,20 @@ def main() -> int:
 
     # -- 14. the window count at every distinct main-path geometry ---------
     rows[SCAN_KERNEL, torch.int32] = window_scan_main_path(
-        roster_calls + sections_calls, smi, peaks, errs)
+        roster_calls + sections_calls, smi, CardBench(peaks), errs)
     del roster_calls, sections_calls
     torch.cuda.empty_cache()
 
     # -- 15. simulate_chunked over a megaref trace on the card's host -------
-    megaref_phase(K, smi)
+    megaref_host = megaref_phase(K, smi)
 
-    # -- 16. results --------------------------------------------------------
+    # -- 16. main paths 8-9: the benchmark driver's sections under both
+    # backends, and the study CLI --------------------------------------------
+    figures_launches, figures_cuda_launches = figures_phase(
+        K, trace_dir, smi, roster.rows, megaref_host, errs)
+    del megaref_host
+
+    # -- 17. results --------------------------------------------------------
     kernels = []
     for kname, (source, replaces) in KERNEL_SITES.items():
         scan = kname == SCAN_KERNEL
@@ -2024,7 +2198,9 @@ def main() -> int:
                 "sections": sections_launches[kname],
                 "serving_section": serving_section_launches[kname],
                 "roster_cuda": roster_cuda_launches[kname],
-                "sections_cuda": sections_cuda_launches[kname]},
+                "sections_cuda": sections_cuda_launches[kname],
+                "figures": figures_launches[kname],
+                "figures_cuda": figures_cuda_launches[kname]},
             "max_abs_err": errs[kname], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -9,7 +9,9 @@ not), ``chunked_full_width`` and ``ema_full_width``, phase 8's
 ``geometry_timings``: the same seeded inputs, CUDA events, L2 flushed
 before each run, median of 10 after 3 warm-ups) on the ``repro_torch``
 package found under ``--src``, so that two versions of the kernels can be
-compared on one card in one call, in turns::
+compared on one card in one call, in turns (the timer and the card's
+peaks come from the ``--src`` package's ``benchmarks/kernel_bench.py``, so
+``--src`` is a checkout that has it)::
 
     git archive <parent> | tar -x -C build/parent
     for side in parent change change parent; do
@@ -44,7 +46,6 @@ from __future__ import annotations
 
 import argparse
 import importlib
-import subprocess
 import sys
 import types
 from pathlib import Path
@@ -136,13 +137,11 @@ def main() -> int:
 
     if not Path(repro_torch.__file__).resolve().is_relative_to(src):
         raise RuntimeError(f"repro_torch imported from outside {src}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    from repro_torch.benchmarks.kernel_bench import CardBench, card_identity
+
+    smi = ", ".join(card_identity())
     chip_smoke.say(smi)
-    bench = chip_smoke.Bench(
-        chip_smoke.card_peaks(torch.cuda.get_device_name(0)))
+    bench = CardBench()
     only = set(args.only.split(","))
     cases = 0
     for dtype in (torch.float32, torch.bfloat16):

@@ -8,15 +8,28 @@
   each (workload, seed) x cores x hierarchy cell is simulated once per
   study and shared by every consumer;
 - :class:`StudyResult` — the columnar result table (``to_rows`` /
-  ``to_dict`` / ``to_csv`` / ``to_json``).
+  ``to_dict`` / ``to_csv`` / ``to_json``);
+- :class:`Substrate` protocol with two backends: :class:`TraceSubstrate`
+  (trace-driven cache simulation) and :class:`SuiteSubstrate` (the
+  registered roster, its captured entries launched on the card) —
+  ``--substrate trace|suite`` on the CLI.  The reference's ``hlo``
+  substrate waits for the cost substrate (ROADMAP.md queue 1 item 9).
 
-The reference's substrates (``TraceSubstrate``, ``HloSubstrate``) and its
-``python -m repro.study`` CLI are not ported yet (ROADMAP.md queue 1).
+CLI::
+
+    python -m repro_torch.study --substrate trace --refs 20000 \
+        --sections metrics,classify --format csv
 """
 
 from .engine import CellKey, EngineStats, SimEngine  # noqa: F401
 from .result import StudyResult  # noqa: F401
 from .study import Study  # noqa: F401
+from .substrate import (  # noqa: F401
+    Substrate,
+    SuiteSubstrate,
+    TraceSubstrate,
+    get_substrate,
+)
 
 __all__ = [
     "CellKey",
@@ -24,4 +37,8 @@ __all__ = [
     "SimEngine",
     "StudyResult",
     "Study",
+    "Substrate",
+    "TraceSubstrate",
+    "SuiteSubstrate",
+    "get_substrate",
 ]

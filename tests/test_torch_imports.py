@@ -1,7 +1,8 @@
 """The port stands alone and has no fallback.
 
 ``repro_torch`` imports neither jax nor any module of the reference
-package, and imports with jax blocked; CUDA is never silently replaced by
+package (nor the reference's top-level ``benchmarks`` package, which
+imports it), and imports with jax blocked; CUDA is never silently replaced by
 the CPU: asking for it without a card raises, and a kernel wrapper given
 tensors that are not on a card raises.
 """
@@ -26,6 +27,10 @@ from repro_torch.kernels.stream import ops as stream_ops
 from repro_torch.kernels.stream.kernel import stream_cuda
 from repro_torch.kernels.token_gather import gather
 from repro_torch.suite import default_registry, registry_for
+from repro_torch.benchmarks import kernel_bench, paper_figures
+from repro_torch.benchmarks.run import main as bench_main
+from repro_torch.study import SuiteSubstrate
+from repro_torch.study.__main__ import main as study_main
 from repro_torch.suite.__main__ import main as suite_main
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -50,6 +55,7 @@ def test_no_jax_and_no_reference_import(path):
         top = mod.split(".")[0]
         assert top != "jax", f"{path} imports {mod}"
         assert top != "repro", f"{path} imports {mod}"
+        assert top != "benchmarks", f"{path} imports {mod}"
 
 
 def test_package_imports_and_runs_with_jax_blocked():
@@ -85,6 +91,17 @@ def test_cuda_without_a_card_raises(monkeypatch):
         suite_main(["--fast", "--no-store"])
     with pytest.raises(RuntimeError, match="cuda"):
         CAPTURED_KERNELS[0].builder(1, np.random.default_rng(0), "cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        study_main(["--substrate", "suite", "--refs", "2000"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        SuiteSubstrate(refs=2000, store=None)
+    with pytest.raises(RuntimeError, match="cuda"):
+        bench_main(["--fast", "--only", "fig3", "--bench-json", ""])
+    with pytest.raises(RuntimeError, match="cuda"):
+        paper_figures.table3_suite_roster(refs=2000)
+    for rows in (kernel_bench.stream_rows, kernel_bench.attention_rows):
+        with pytest.raises(RuntimeError, match="cuda"):
+            rows()
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
