@@ -136,7 +136,33 @@ kernels as a fresh process does:
    ``--device cpu``, and the trace substrate's classify, metrics,
    scalability and energy tables under ``--backend cuda`` against the
    vectorized backend, each pair byte-identical;
-17. prints the kernels line (``launches`` summed over main paths 1 and 2,
+17. the LM stack and its serving engine (``repro_torch.models``,
+   ``repro_torch.serve``), after the earlier phases let go of the card's
+   memory, with true float32 products (TF32 off) and the launch counters
+   reset before it and read after (all 0: the LM's products are plain
+   einsums, as the reference's are): (a) the seven smoke configs of the
+   dense, MoE/MLA and VLM families in float32 on the card against the
+   same parameters on the CPU (forward logits and aux, loss, a padded
+   prefill, four decode steps, the caches; atol/rtol 1e-4, MoE top-k
+   indices equal); (b) qwen2.5-14b at full width and depth, one float32
+   parameter set (14.77 B, 55 GiB) drawn on the card: prefill plus 16
+   decode steps against one forward for two seeded prompts (|Δlogits| <=
+   1e-3 of the logits' rms), then the bf16 ``Engine`` (4 slots, max_len
+   1024, buckets 128 and 512) serving 8 seeded requests of 16 tokens over
+   the same parameters, with each prefill's seconds, the decode steps'
+   milliseconds beside the bytes a step must move over the card's rate,
+   and tokens per second; every served request's logits (its prefill's
+   and its slot's row of each decode step) against one bf16 forward of
+   its prompt and tokens at batch 1 (rms of the difference <= 0.05 of
+   the logits' rms); then five decode steps of 4 busy slots under
+   ``torch.profiler`` (device busy ms a step, kernels a step, the idle
+   share against the same steps untraced, the costliest kernels); each of
+   (b)-(d) does all of this; (c) deepseek-v2-lite-16b at full width, 4 of its
+   27 layers (``reduced``), the invariant at capacity 64, 4 requests at
+   the default capacity; (d) paligemma-3b at full width and depth, the
+   invariant with 256 patch embeddings, 8 requests (no patches, as the
+   reference's engine passes none);
+18. prints the kernels line (``launches`` summed over main paths 1 and 2,
    as before, for the seven capture kernels and main path 6's first
    cuda run for the window count; ``launches_by_path`` for paths 1-4 and
    6-9; flash's also split by kernel; the f32 (window count: int32)
@@ -167,6 +193,7 @@ itself).
 from __future__ import annotations
 
 import contextlib
+import gc
 import itertools
 import json
 import os
@@ -1831,6 +1858,465 @@ def figures_phase(K, trace_dir: Path, smi: str, roster_rows: list,
     return default_launches, cuda_launches
 
 
+
+# -- the LM stack and its serving engine ------------------------------------
+
+# The smoke configs of the dense, MoE/MLA and VLM families.
+LM_SMOKE = ("qwen2.5-14b", "phi4-mini-3.8b", "nemotron-4-340b", "granite-20b",
+            "deepseek-moe-16b", "deepseek-v2-lite-16b", "paligemma-3b")
+LM_TOL = dict(atol=1e-4, rtol=1e-4)    # tests/test_models.py's
+LM_INVARIANT = 1e-3    # prefill + decode against forward, of the logits' rms
+# The bf16 engine's logits against one bf16 forward of the same sequence
+# at batch 1: the rms of the difference over the logits' rms, at every
+# served position (tests/test_torch_models_vlm.py's bf16 bound; the two
+# sides round at the same points but multiply in other shapes, so cuBLAS
+# sums in other orders)
+LM_BF16_RMS = 0.05
+LM_SEED = 21
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Every MoE router call's top-k indices, in call order."""
+    from repro_torch.models import moe
+
+    route, seen = moe.route, []
+
+    def recording(*args, **kw):
+        out = route(*args, **kw)
+        seen.append(out[2].cpu())
+        return out
+    moe.route = recording
+    try:
+        yield seen
+    finally:
+        moe.route = route
+
+
+def lm_run(lm, tokens, labels, extra, padded, prompt_len, steps):
+    """forward (logits, aux), loss, a padded prefill and ``steps`` decode
+    steps of ``lm`` on its device; the tensors come back to the host."""
+    dev = lm.device
+
+    def on(x):
+        return None if x is None else x.to(dev)
+    batch = {"tokens": on(tokens), "labels": on(labels)}
+    if extra is not None:
+        batch["extra_embed"] = on(extra)
+    with torch.inference_mode():
+        logits, aux = lm(on(tokens), extra_embed=on(extra))
+        loss = lm.loss(batch)
+        lg, cache, pos = lm.prefill(on(padded), lm.init_cache(2, 48),
+                                    extra_embed=on(extra),
+                                    prompt_len=on(prompt_len))
+        out = {"logits": logits, "aux": aux, "loss": loss, "prefill": lg,
+               "next_pos": pos}
+        for i, tok in enumerate(steps):
+            lg, cache = lm.decode_step(on(tok), cache, pos)
+            pos = pos + 1
+            out[f"decode{i}"] = lg
+        out.update({f"cache.{k}": v for k, v in cache["attn"].items()})
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def lm_smoke_parity(smi: str) -> None:
+    """17a: each smoke config in float32 on the card against the same
+    parameters (one CPU init, copied across) on the CPU."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models import LM
+
+    for arch in LM_SMOKE:
+        cfg = configs.get_smoke(arch).replace(dtype="float32")
+        t0 = time.perf_counter()
+        cpu = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+        card = LM(cfg, device="cuda")
+        card.load_state_dict(cpu.state_dict())
+        g = torch.Generator().manual_seed(LM_SEED)
+        tokens = torch.randint(1, cfg.vocab, (2, 24), generator=g)
+        labels = torch.randint(0, cfg.vocab, (2, 24), generator=g)
+        labels[0, :5] = -1
+        extra = (0.1 * torch.randn(2, cfg.n_img_tokens, cfg.d_model,
+                                   generator=g)
+                 if cfg.family == "vlm" else None)
+        padded = torch.randint(1, cfg.vocab, (2, 16), generator=g)
+        prompt_len = torch.tensor([7, 16], dtype=torch.int32)
+        steps = [torch.randint(1, cfg.vocab, (2, 1), generator=g)
+                 for _ in range(4)]
+        with recorded_routes() as cpu_routes:
+            want = lm_run(cpu, tokens, labels, extra, padded, prompt_len,
+                          steps)
+        with recorded_routes() as card_routes:
+            got = lm_run(card, tokens, labels, extra, padded, prompt_len,
+                         steps)
+        errs = {}
+        for k, w in want.items():
+            np.testing.assert_allclose(got[k].numpy(), w.numpy(), **LM_TOL,
+                                       err_msg=f"{arch} {k}")
+            errs[k] = float((got[k].double() - w.double()).abs().max())
+        if len(card_routes) != len(cpu_routes) or not all(
+                torch.equal(a, b) for a, b in zip(card_routes, cpu_routes)):
+            raise AssertionError(f"{arch}: MoE top-k indices on the card "
+                                 f"differ from the CPU's")
+        say({"phase": "lm", "part": "a-smoke-parity", "arch": arch,
+             "tol": LM_TOL, "max_abs_err": errs,
+             "moe_routes_equal": len(card_routes),
+             "seconds": time.perf_counter() - t0, "card": smi})
+        del cpu, card
+
+
+def f32_invariant(lm, rng, n_extra: int = 0) -> dict:
+    """Two prompts of seeded lengths 100-400, each a batch of one: prefill
+    plus 16 decode steps against one forward over the whole sequence, in
+    float32 on the card."""
+    cfg = lm.cfg
+    errs, rel = [], []
+    for _ in range(2):
+        n = int(rng.integers(100, 401))
+        tokens = torch.from_numpy(
+            rng.integers(1, cfg.vocab, size=(1, n + 16))).to(lm.device)
+        extra = None
+        if n_extra:
+            g = torch.Generator(device=lm.device).manual_seed(n)
+            extra = 0.1 * torch.randn(1, n_extra, cfg.d_model, generator=g,
+                                      device=lm.device)
+        with torch.inference_mode():
+            full, _ = lm(tokens, extra_embed=extra)
+            lg, cache, pos = lm.prefill(
+                tokens[:, :n], lm.init_cache(1, n_extra + n + 16),
+                extra_embed=extra)
+            err = float((lg[:, 0] - full[:, n - 1]).abs().max())
+            for t in range(n, n + 16):
+                lg, cache = lm.decode_step(tokens[:, t:t + 1], cache, pos)
+                pos = pos + 1
+                err = max(err, float((lg[:, 0] - full[:, t]).abs().max()))
+            rms = float(full.double().pow(2).mean().sqrt())
+        errs.append({"prompt": n, "max_abs_err": err, "logits_rms": rms,
+                     "err_over_rms": err / rms})
+        del full, cache
+        if err > LM_INVARIANT * rms:
+            raise AssertionError(f"{cfg.name}: prefill + decode differ from "
+                                 f"forward by {err} > {LM_INVARIANT} x {rms}")
+    return {"prompts": errs, "bound": f"{LM_INVARIANT} x rms"}
+
+
+class TimedLM:
+    """The LM as the engine calls it, each prefill and decode step timed
+    between two synchronizes; the decode step's bound counts the bytes
+    it must move: the float32 weights read once and each slot's cache
+    rows up to its position."""
+
+    def __init__(self, lm, hbm_bytes_per_s: float):
+        self.lm = lm
+        self.rate = hbm_bytes_per_s
+        self.weight_bytes = sum(p.numel() * p.element_size()
+                                for p in lm.parameters())
+        cfg = lm.cfg
+        row = (cfg.kv_lora_rank + cfg.rope_head_dim if cfg.kv_lora_rank
+               else 2 * cfg.n_kv_heads * cfg.resolved_head_dim)
+        self.row_bytes = cfg.n_layers * row * lm.dtype.itemsize
+        self.prefill_s, self.prompt_tokens, self.decode_s, self.bound_s = \
+            [], [], [], []
+        # the last logits of each prefill, in admission order, and of the
+        # latest decode step (every slot's row)
+        self.prefill_logits, self.decode_logits = [], None
+
+    def init_cache(self, batch: int, max_len: int):
+        self.max_len = max_len
+        return self.lm.init_cache(batch, max_len)
+
+    def cache_axes(self):
+        return self.lm.cache_axes()
+
+    def _timed(self, fn, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def prefill(self, tokens, cache, *, prompt_len):
+        out, secs = self._timed(self.lm.prefill, tokens, cache,
+                                prompt_len=prompt_len)
+        self.prefill_s.append(secs)
+        self.prompt_tokens.append(int(prompt_len[0]))
+        self.prefill_logits.append(out[0][0, -1])
+        return out
+
+    def decode_step(self, tokens, cache, pos):
+        rows = int((pos.clamp(max=self.max_len - 1) + 1).sum())
+        out, secs = self._timed(self.lm.decode_step, tokens, cache, pos)
+        self.decode_s.append(secs)
+        self.bound_s.append((self.weight_bytes + rows * self.row_bytes)
+                            / self.rate)
+        self.decode_logits = out[0][:, 0]
+        return out
+
+
+def hold_served(lm, reqs, logits: dict) -> dict:
+    """Each served request's logits (its prefill's last, then its row of
+    every decode step) against one bf16 forward of its prompt and tokens
+    at batch 1 on the card; a slot that read another's cache, or a bf16
+    fault of the batched path, moves every position.  In an MoE a router
+    whose 6th and 7th choices lie within a bf16 step may choose another
+    expert when the products' shapes change, which moves that one
+    position (a third of the rms at smoke size): there the bound holds
+    each request's median position, elsewhere every position."""
+    import numpy as np
+
+    worst, median, gap = 0.0, 0.0, 0.0
+    for r in reqs:
+        n = len(r.prompt)
+        seq = torch.from_numpy(
+            np.concatenate([r.prompt, r.out_tokens[:-1]])[None]).to(lm.device)
+        with torch.inference_mode():
+            want = lm(seq)[0][0, n - 1:].float()            # [16, V]
+        got = torch.stack(logits[r.rid]).float()
+        if got.shape != want.shape:
+            raise AssertionError(f"{lm.cfg.name} request {r.rid}: "
+                                 f"{tuple(got.shape)} logits served for "
+                                 f"{tuple(want.shape)}")
+        rms = want.pow(2).mean(-1).sqrt()
+        rel = (got - want).pow(2).mean(-1).sqrt() / rms
+        tok = torch.tensor(r.out_tokens, device=lm.device)
+        if not torch.equal(got.argmax(-1), tok):
+            raise AssertionError(f"{lm.cfg.name} request {r.rid}: tokens "
+                                 f"are not the argmax of its logits")
+        # how far below the forward's top logit each served token lies
+        below = (want.max(-1).values - want.gather(1, tok[:, None])[:, 0])
+        worst = max(worst, float(rel.max()))
+        median = max(median, float(rel.median()))
+        gap = max(gap, float((below / rms).max()))
+        del want, got
+    held = median if lm.cfg.is_moe else worst
+    if held > LM_BF16_RMS:
+        raise AssertionError(f"{lm.cfg.name}: served logits differ from a "
+                             f"batch-1 forward by {held} x rms > "
+                             f"{LM_BF16_RMS}")
+    return {"served_vs_forward_rms_max": worst,
+            "served_vs_forward_rms_median": median,
+            "held": "median" if lm.cfg.is_moe else "max",
+            "bound": LM_BF16_RMS,
+            "served_token_below_top_over_rms": gap}
+
+
+def serve_bf16(lm, n_requests: int, rate: float, smi: str, *,
+               hold: bool = True) -> dict:
+    """The bf16 server: ``Engine(max_batch=4, max_len=1024,
+    prompt_buckets=(128, 512))`` over ``lm`` (float32 parameters, the
+    config's bf16 compute), ``n_requests`` seeded prompts of 64-500 tokens,
+    16 new tokens each; ``hold``: the served logits against a batch-1
+    forward (``hold_served``), which an MoE that drops tokens cannot meet:
+    its capacity counts the padded bucket and the batch's slots, as the
+    reference's does."""
+    import numpy as np
+
+    from repro_torch.serve import Engine, Request
+
+    timed = TimedLM(lm, rate)
+    rng = np.random.default_rng(LM_SEED + n_requests)
+    reqs = [Request(rid=i, prompt=rng.integers(
+                1, lm.cfg.vocab, size=int(rng.integers(64, 501))),
+                max_new_tokens=16)
+            for i in range(n_requests)]
+    engine = Engine(timed, max_batch=4, max_len=1024,
+                    prompt_buckets=(128, 512))
+    logits = {r.rid: [] for r in reqs}
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        # Engine.run's loop, admitting first so that each decode step's
+        # rows can be given to the requests in its slots
+        for r in reqs:
+            engine.submit(r)
+        while engine.queue or engine.active:
+            engine._admit()
+            slots = {slot: r.rid for slot, r in engine.active.items()}
+            engine.step()
+            for slot, rid in slots.items():
+                logits[rid].append(timed.decode_logits[slot])
+    secs = time.perf_counter() - t0
+    out = {r.rid: r.out_tokens for r in reqs}
+    for rid, first in enumerate(timed.prefill_logits):   # FIFO admission
+        logits[rid].insert(0, first)
+    bad = {rid: toks for rid, toks in out.items()
+           if len(toks) != 16 or not all(0 <= t < lm.cfg.vocab for t in toks)}
+    if bad:
+        raise AssertionError(f"{lm.cfg.name}: requests not served 16 tokens "
+                             f"inside the vocabulary: {bad}")
+    held = hold_served(lm, reqs, logits) if hold else {}
+    dec = sorted(timed.decode_s)
+    med = dec[len(dec) // 2]
+    bound = sorted(timed.bound_s)[len(dec) // 2]
+    del engine, logits
+    return {
+        **held,
+        "requests": n_requests, "slots": 4, "max_len": 1024,
+        "buckets": [128, 512], "new_tokens": 16 * n_requests,
+        "prompt_tokens": timed.prompt_tokens,
+        "prefill_s_per_request": timed.prefill_s,
+        "prefill_tokens_per_s": sum(timed.prompt_tokens) / sum(timed.prefill_s),
+        "decode_steps": len(dec), "decode_ms_median": 1e3 * med,
+        "decode_ms_min": 1e3 * dec[0], "decode_ms_max": 1e3 * dec[-1],
+        "decode_bound_ms": 1e3 * bound,
+        "decode_bound_share": bound / med,
+        "decode_weight_bytes": timed.weight_bytes,
+        "wall_s": secs, "tokens_per_s": 16 * n_requests / secs,
+        "first_tokens": {rid: toks[:4] for rid, toks in out.items()},
+        "card": smi}
+
+
+def profile_decode(lm, smi: str, steps: int = 5) -> dict:
+    """The bf16 engine's decode step under ``torch.profiler``: 4 slots
+    busy with seeded prompts of 64-500 tokens, ``steps`` steps timed on
+    the host clock between synchronizes, then the same number traced.
+    Device busy time is the union of the traced kernels' and copies'
+    intervals; the idle share sets it against the untraced steps'."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import Engine, Request
+
+    rng = np.random.default_rng(LM_SEED)
+    engine = Engine(lm, max_batch=4, max_len=1024, prompt_buckets=(128, 512))
+    for i in range(4):
+        engine.submit(Request(rid=i, prompt=rng.integers(
+            1, lm.cfg.vocab, size=int(rng.integers(64, 501))),
+            max_new_tokens=1 + 2 * (steps + 2)))
+    with torch.inference_mode():
+        for _ in range(2):                       # admit, warm
+            engine.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                engine.step()
+            torch.cuda.synchronize()
+    if len(engine.active) != 4:
+        raise AssertionError("profile: a slot retired inside the window")
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    del engine
+    if not dev:
+        return {"profiled_steps": steps, "wall_ms_per_step": 1e3 * wall,
+                "device_events": 0, "device_busy": "not measured",
+                "card": smi}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, end = 0.0, -1.0
+    for a, b in spans:                           # union, microseconds
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    copies = [e for e in dev if e.name.startswith(("Memcpy", "Memset"))]
+    by_name: dict = {}
+    for e in dev:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    busy_ms = busy / 1e3 / steps
+    return {"profiled_steps": steps, "wall_ms_per_step": 1e3 * wall,
+            "device_busy_ms_per_step": busy_ms,
+            "device_idle_share": 1 - busy_ms / (1e3 * wall),
+            "kernels_per_step": (len(dev) - len(copies)) / steps,
+            "copies_per_step": len(copies) / steps,
+            "top": [{"name": n[:100], "calls_per_step": c / steps,
+                     "ms_per_step": us / 1e3 / steps}
+                    for n, (c, us) in top],
+            "card": smi}
+
+
+def lm_full_width(arch: str, smi: str, rate: float, *, n_layers=None,
+                  n_extra: int = 0, n_requests: int = 8,
+                  invariant_changes=None) -> None:
+    """17b-d: ``arch`` at full width (depth cut to ``n_layers`` where
+    given), one float32 parameter set drawn on the card, its float32
+    invariant and its bf16 engine run over the same parameters.  Where
+    ``invariant_changes`` are given (an MoE made dropless), the engine
+    serves at the config's own settings and then again under the changes,
+    whose served logits are held against a batch-1 forward."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models import LM
+
+    cfg = configs.get(arch)
+    reduced = {}
+    if n_layers is not None:
+        reduced["n_layers"] = [cfg.n_layers, n_layers]
+        cfg = cfg.replace(n_layers=n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = LM(cfg.replace(dtype="float32"), device="cuda")
+    lm.init(torch.Generator(device=lm.device).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in lm.parameters())
+    t0 = time.perf_counter()
+    inv = f32_invariant(lm.with_config(lm.cfg.replace(
+        **(invariant_changes or {}))), np.random.default_rng(LM_SEED),
+        n_extra=n_extra)
+    inv_s = time.perf_counter() - t0
+    say({"phase": "lm", "part": "f32-invariant", "arch": arch,
+         "reduced": reduced, "params": n_params,
+         "param_gib": n_params * 4 / 2**30, "init_s": init_s,
+         "changes": invariant_changes or {}, "patch_embeddings": n_extra,
+         **inv, "seconds": inv_s, "card": smi})
+    served = serve_bf16(lm.with_config(cfg), n_requests, rate, smi,
+                        hold=not invariant_changes)
+    say({"phase": "lm", "part": "bf16-engine", "arch": arch,
+         "reduced": reduced, "dtype": cfg.dtype,
+         "capacity_factor": cfg.moe_capacity_factor if cfg.is_moe else None,
+         **served,
+         "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    if invariant_changes:
+        held = serve_bf16(lm.with_config(cfg.replace(**invariant_changes)),
+                          n_requests, rate, smi)
+        say({"phase": "lm", "part": "bf16-engine-held", "arch": arch,
+             "reduced": reduced, "changes": invariant_changes,
+             **{k: held[k] for k in ("served_vs_forward_rms_max",
+                                     "served_vs_forward_rms_median", "held",
+                                     "bound",
+                                     "served_token_below_top_over_rms",
+                                     "decode_ms_median", "card")}})
+    say({"phase": "lm", "part": "decode-profile", "arch": arch,
+         "reduced": reduced, **profile_decode(lm.with_config(cfg), smi)})
+    del lm
+    torch.cuda.empty_cache()
+
+
+def lm_phase(K, smi: str, rate: float) -> None:
+    """Phase 17: the LM stack and its engine.  Its matrix products are
+    the reference's plain einsums and products, so it launches none of
+    the port's kernels: the counters, reset before it, read 0 after."""
+    if torch.get_float32_matmul_precision() != "highest" \
+            or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("float32 products are not true float32 here")
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    lm_smoke_parity(smi)
+    # qwen2.5-14b at full width and depth: 14.77 B parameters, 55 GiB in
+    # float32, one copy only
+    lm_full_width("qwen2.5-14b", smi, rate, n_requests=8)
+    # deepseek-v2-lite at full width, 4 of its 27 layers; the invariant
+    # dropless (the reference test's capacity), the engine at the default
+    lm_full_width("deepseek-v2-lite-16b", smi, rate, n_layers=4,
+                  n_requests=4,
+                  invariant_changes={"moe_capacity_factor": 64.0})
+    # paligemma-3b at full width and depth, 256 patch embeddings in the
+    # invariant; the engine passes none, as the reference's does not
+    lm_full_width("paligemma-3b", smi, rate, n_extra=256, n_requests=8)
+    launches = K.launch_counts()
+    say({"phase": "lm", "part": "launches", "launches": launches,
+         "seconds": time.perf_counter() - t0})
+    if any(launches.values()):
+        raise AssertionError(f"the LM path launched a kernel: {launches}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2182,7 +2668,18 @@ def main() -> int:
         K, trace_dir, smi, roster.rows, megaref_host, errs)
     del megaref_host
 
-    # -- 17. results --------------------------------------------------------
+    # -- 17. the LM stack and its serving engine (after the earlier phases
+    # let go of the card's memory) ----------------------------------------
+    del launched, served, registry, cpu_registry, runner, roster, timelines
+    forget_captures()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say({"phase": "lm", "part": "memory-before",
+         "allocated_gib": torch.cuda.memory_allocated() / 2**30,
+         "reserved_gib": torch.cuda.memory_reserved() / 2**30})
+    lm_phase(K, smi, peaks["bytes"])
+
+    # -- 18. results --------------------------------------------------------
     kernels = []
     for kname, (source, replaces) in KERNEL_SITES.items():
         scan = kname == SCAN_KERNEL

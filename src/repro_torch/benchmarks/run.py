@@ -40,8 +40,8 @@ Sections, in the reference's order:
            card's roof (``kernel_bench.PEAKS``, by the card's name; an
            unknown card raises); on the CPU their plain versions
 
-The reference's ``models`` and ``models_sweep`` (the whole-model zoo,
-ROADMAP.md queue 1 item 7) and ``roofline`` (the cost substrate, item 9)
+The reference's ``models`` and ``models_sweep`` (ROADMAP.md's "the
+whole-model zoo") and ``roofline`` (its "the cost substrate")
 are not ported yet: ``--only`` naming one of them exits non-zero.
 
 Every run writes a machine-readable perf record (default
@@ -73,9 +73,9 @@ DEFAULT_BENCH_JSON = (Path(__file__).resolve().parents[3] / "build"
                       / "repro_torch_bench.json")
 # Sections of the reference's driver that wait for later slices.
 NOT_PORTED = {
-    "models": "the whole-model zoo, ROADMAP.md queue 1 item 7",
-    "models_sweep": "the whole-model zoo, ROADMAP.md queue 1 item 7",
-    "roofline": "the cost substrate, ROADMAP.md queue 1 item 9",
+    "models": "ROADMAP.md's \"the whole-model zoo\"",
+    "models_sweep": "ROADMAP.md's \"the whole-model zoo\"",
+    "roofline": "ROADMAP.md's \"the cost substrate\"",
 }
 
 

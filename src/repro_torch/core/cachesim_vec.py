@@ -66,6 +66,7 @@ shared by every LLC geometry behind the same prefetcher.
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import zlib
 
@@ -538,7 +539,7 @@ class _TraceMemo:
 # Memo pool budget: resident derived bytes, not entry count — a single
 # megaref trace's profile would blow any fixed entry cap's implied size
 # while a cap in entries would thrash hundreds of small roster traces.
-_MEMO_MAX_BYTES = 256 * 2**20
+_MEMO_MAX_BYTES = int(os.environ.get("REPRO_TORCH_MEMO_BYTES", 256 * 2**20))
 _MEMOS: list[_TraceMemo] = []
 _MEMOS_LOCK = threading.Lock()
 _MEMO_BYTES_LAST = 0    # last gauge value emitted to the memo.bytes counter

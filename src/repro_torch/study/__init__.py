@@ -13,7 +13,7 @@
   (trace-driven cache simulation) and :class:`SuiteSubstrate` (the
   registered roster, its captured entries launched on the card) —
   ``--substrate trace|suite`` on the CLI.  The reference's ``hlo``
-  substrate waits for the cost substrate (ROADMAP.md queue 1 item 9).
+  substrate waits for the cost substrate (ROADMAP.md's "the cost substrate").
 
 CLI::
 

@@ -21,7 +21,7 @@ Examples::
     python -m repro_torch.study --substrate suite --refs 20000
 
 The reference's ``--substrate hlo`` (XLA cost analysis against a TPU) has
-no port yet and exits non-zero naming ROADMAP.md queue 1 item 9.
+no port yet and exits non-zero naming ROADMAP.md's "the cost substrate".
 """
 
 from __future__ import annotations

@@ -39,7 +39,7 @@ __all__ = ["Substrate", "TraceSubstrate", "SuiteSubstrate", "get_substrate",
 
 HLO_NOT_PORTED = (
     "the 'hlo' substrate (XLA cost analysis against a TPU) is not ported "
-    "yet: it waits for the cost substrate, ROADMAP.md queue 1 item 9")
+    "yet: it waits for ROADMAP.md's \"the cost substrate\"")
 
 
 @runtime_checkable
@@ -129,7 +129,7 @@ class SuiteSubstrate:
 def get_substrate(name: str, *, study: Study | None = None,
                   refs: int | None = None) -> Substrate:
     """Factory behind the ``--substrate trace|suite`` CLI flag; ``hlo``
-    raises ``NotImplementedError`` (ROADMAP.md queue 1 item 9)."""
+    raises ``NotImplementedError`` (ROADMAP.md's "the cost substrate")."""
     if name == "trace":
         return TraceSubstrate(study if study is not None else Study())
     if name == "hlo":

@@ -32,6 +32,9 @@ from repro_torch.benchmarks.run import main as bench_main
 from repro_torch.study import SuiteSubstrate
 from repro_torch.study.__main__ import main as study_main
 from repro_torch.suite.__main__ import main as suite_main
+from repro_torch import configs
+from repro_torch.models import LM
+from repro_torch.serve.__main__ import main as serve_main
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -56,6 +59,34 @@ def test_no_jax_and_no_reference_import(path):
         assert top != "jax", f"{path} imports {mod}"
         assert top != "repro", f"{path} imports {mod}"
         assert top != "benchmarks", f"{path} imports {mod}"
+
+
+def test_the_lm_stack_is_among_the_checked_sources():
+    names = {p.relative_to(PKG).parts[0] for p in SOURCES if p.is_relative_to(PKG)}
+    assert {"models", "configs", "serve"} <= names
+
+
+def test_lm_stack_imports_and_serves_with_jax_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    code = (
+        "import sys; sys.modules['jax'] = None\n"
+        "import torch\n"
+        "from repro_torch import configs\n"
+        "from repro_torch.models import LM, convert\n"
+        "from repro_torch.serve import Engine, Request\n"
+        "lm = LM(configs.get_smoke('deepseek-v2-lite-16b'), device='cpu')\n"
+        "lm.init(torch.Generator().manual_seed(0))\n"
+        "lm = convert.from_reference(convert.to_reference(lm), lm.cfg,\n"
+        "                            device='cpu')\n"
+        "out = Engine(lm, max_batch=2, max_len=16, prompt_buckets=(8,)).run(\n"
+        "    [Request(rid=i, prompt=[1, 2, 3], max_new_tokens=3)\n"
+        "     for i in range(3)])\n"
+        "print(sorted(len(v) for v in out.values()), 'repro' in sys.modules)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.split() == ["[3,", "3,", "3]", "False"]
 
 
 def test_package_imports_and_runs_with_jax_blocked():
@@ -102,6 +133,10 @@ def test_cuda_without_a_card_raises(monkeypatch):
     for rows in (kernel_bench.stream_rows, kernel_bench.attention_rows):
         with pytest.raises(RuntimeError, match="cuda"):
             rows()
+    with pytest.raises(RuntimeError, match="cuda"):
+        LM(configs.get_smoke("qwen2.5-14b"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_main(["--requests", "1"])
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
@@ -152,3 +187,29 @@ def test_every_kernel_has_a_source_and_a_hashed_library_path():
 def test_launch_counters_reset():
     reset_launch_counts()
     assert launch_counts() == dict.fromkeys(KERNELS, 0)
+
+
+@pytest.mark.cuda
+def test_smoke_lm_on_the_card_equals_the_cpu():
+    """One smoke forward and prefill+decode on the card, in float32 with
+    TF32 off, against the same parameters on the CPU (atol/rtol 1e-4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the LM's default device is cuda")
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = configs.get_smoke("deepseek-v2-lite-16b").replace(dtype="float32")
+    cpu = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card = LM(cfg)
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.randint(1, cfg.vocab, (2, 12),
+                           generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        want, aux_w = cpu(tokens)
+        got, aux_g = card(tokens.cuda())
+        lw, cw, pw = cpu.prefill(tokens, cpu.init_cache(2, 16))
+        lg, cg, pg = card.prefill(tokens.cuda(), card.init_cache(2, 16))
+        dw, _ = cpu.decode_step(tokens[:, :1], cw, pw)
+        dg, _ = card.decode_step(tokens[:, :1].cuda(), cg, pg)
+    for a, b in ((got, want), (aux_g, aux_w), (lg, lw), (dg, dw)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                   atol=1e-4, rtol=1e-4)

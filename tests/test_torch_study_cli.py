@@ -131,9 +131,9 @@ def test_suite_substrate_writes_the_ports_store(tmp_path, capsys):
 def test_hlo_substrate_names_its_roadmap_item(capsys):
     with pytest.raises(SystemExit) as exc:
         main(["--substrate", "hlo"])
-    assert "ROADMAP.md queue 1 item 9" in str(exc.value.code)
+    assert "ROADMAP.md's \"the cost substrate\"" in str(exc.value.code)
     assert capsys.readouterr().out == ""
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="the cost substrate"):
         get_substrate("hlo")
 
 
