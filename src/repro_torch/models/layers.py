@@ -16,6 +16,8 @@ Attention implementations (``cfg.attn_impl``):
 
 Both are ``torch.einsum`` and ``softmax``, as the reference's are
 ``jnp.einsum``: the LM reaches no kernel of ``repro_torch.kernels``.
+Under autograd the chunked loop's body is rematerialized
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` is.
 
 The decode functions write their cache in place (the reference returns
 an updated copy) and return it; a write position past the cache is
@@ -33,11 +35,12 @@ import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 
 __all__ = [
-    "Init", "ParamTree", "compute_dtype",
+    "Init", "ParamTree", "compute_dtype", "remat",
     "rms_norm", "rms_norm_init",
     "apply_rope",
     "attention_init", "attention_fwd", "attention_decode",
@@ -56,6 +59,15 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return dt
 
 
+def remat(fn, *args):
+    """``fn(*args)``, rematerialized in the backward pass when autograd
+    records (``torch.utils.checkpoint``, non-reentrant): the port's
+    ``jax.checkpoint``.  Without autograd it is a plain call."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 # --------------------------------------------------------------------------
 # Parameters: the reference's init draws, and a module indexed like its
 # pytree
@@ -66,7 +78,8 @@ class Init:
 
     ``trunc`` is ``scale * truncated_normal(-2, 2)`` (``layers.py:_init``),
     ``normal`` is ``scale * normal`` (the embedding and the head), ``ones``
-    and ``zeros`` are constants (norm scales, biases)."""
+    and ``zeros`` are constants (norm scales, biases), ``a_log`` the SSM's
+    ``log(linspace(1, 16, h))``."""
 
     shape: tuple[int, ...]
     kind: str = "trunc"
@@ -82,6 +95,9 @@ class Init:
             t.fill_(1.0)
         elif self.kind == "zeros":
             t.zero_()
+        elif self.kind == "a_log":
+            from .ssm import a_log_init
+            t.copy_(torch.from_numpy(a_log_init(t.shape[0])))
         else:
             raise ValueError(f"unknown init {self.kind!r}")
 
@@ -89,16 +105,18 @@ class Init:
 class ParamTree(nn.Module):
     """A nested dict of :class:`Init` as a module whose parameters and
     children read by key (``p["wq"]``, ``p["shared"]["w_up"]``), so the
-    layer functions index it as the reference indexes its pytree.
+    layer functions index it as the reference indexes its pytree; a list
+    of such dicts (a stack of layers) becomes an ``nn.ModuleList``.
 
     Parameters are allocated uninitialized; ``LM.init`` fills them.  They
-    do not require grad: nothing in the port trains yet."""
+    are made not requiring grad (serving never needs it);
+    ``repro_torch.train`` turns it on."""
 
     def __init__(self, spec: Mapping, device: torch.device):
         super().__init__()
         for name, s in spec.items():
-            if isinstance(s, Mapping):
-                self.add_module(name, ParamTree(s, device))
+            if isinstance(s, (Mapping, list)):
+                self.add_module(name, _module(s, device))
             else:
                 self.register_parameter(name, nn.Parameter(
                     torch.empty(s.shape, dtype=torch.float32, device=device),
@@ -106,6 +124,12 @@ class ParamTree(nn.Module):
 
     def __getitem__(self, name: str):
         return getattr(self, name)
+
+
+def _module(spec, device: torch.device) -> nn.Module:
+    if isinstance(spec, list):
+        return nn.ModuleList(_module(s, device) for s in spec)
+    return ParamTree(spec, device)
 
 
 def _trunc(shape: tuple[int, ...], scale: float) -> Init:
@@ -221,8 +245,8 @@ def _sdpa_chunked(q, k, v, *, causal: bool, scale: float, chunk: int):
     m = torch.full((b, g, rep, sq), NEG_INF, dtype=f32, device=q.device)
     l = torch.zeros((b, g, rep, sq), dtype=f32, device=q.device)
     acc = torch.zeros((b, g, rep, sq, dv), dtype=f32, device=q.device)
-    for start in range(0, sk, chunk):
-        kc, vc = k[:, start:start + chunk], v[:, start:start + chunk]
+
+    def one_chunk(m, l, acc, kc, vc, start: int):
         s = torch.einsum("bsgrd,btgd->bgrst", qh, kc).to(f32) * scale
         if causal:
             s = s.masked_fill(
@@ -233,7 +257,11 @@ def _sdpa_chunked(q, k, v, *, causal: bool, scale: float, chunk: int):
         l = l * alpha + p_.sum(dim=-1)
         acc = acc * alpha[..., None] + torch.einsum(
             "bgrst,btgd->bgrsd", p_.to(q.dtype), vc).to(f32)
-        m = m_new
+        return m_new, l, acc
+
+    for start in range(0, sk, chunk):
+        m, l, acc = remat(one_chunk, m, l, acc, k[:, start:start + chunk],
+                          v[:, start:start + chunk], start)
     out = acc / torch.clamp(l[..., None], min=1e-30)
     out = out.to(q.dtype).permute(0, 3, 1, 2, 4)     # b s g r dv
     return out.reshape(b, sq, h, dv)
@@ -247,17 +275,27 @@ def _sdpa(cfg: ModelConfig, q, k, v, *, causal: bool, scale: float):
 
 
 def attention_fwd(p: Params, cfg: ModelConfig, x, positions, *,
-                  causal: bool = True, return_kv: bool = False):
+                  causal: bool = True, kv_override: tuple | None = None,
+                  return_kv: bool = False):
     """Full-sequence attention (forward / prefill).
 
+    ``kv_override``: (k, v) for cross-attention (encoder-decoder); RoPE is
+    skipped on the overridden K/V (the query still takes it), and the
+    naive path is taken whatever ``cfg.attn_impl`` says.
     ``return_kv``: also return the (roped) K/V for prefill cache writes.
-    The reference's ``kv_override`` (cross-attention) serves only the
-    audio family, which waits for ROADMAP.md's "LM stack, 1b".
     """
     dt = compute_dtype(cfg)
-    q, k, v = _project_qkv(p, cfg, x, positions)
-    out = _sdpa(cfg, q, k, v, causal=causal,
-                scale=cfg.resolved_head_dim ** -0.5)
+    scale = cfg.resolved_head_dim ** -0.5
+    if kv_override is None:
+        q, k, v = _project_qkv(p, cfg, x, positions)
+        out = _sdpa(cfg, q, k, v, causal=causal, scale=scale)
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+        if cfg.qkv_bias:
+            q = q + p["bq"].to(dt)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k, v = kv_override
+        out = _sdpa_naive(q, k, v, causal=causal, scale=scale)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
     if return_kv:
         return y, (k, v)

@@ -1,3 +1,3 @@
 """Serving substrate."""
 
-from .engine import Engine, Request  # noqa: F401
+from .engine import Engine, FramedLM, Request  # noqa: F401

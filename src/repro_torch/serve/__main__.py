@@ -6,13 +6,13 @@ smoke config's LM drawn from seed 0 (more requests than slots — slots
 recycle as requests finish), streams the tokens as they are emitted and
 prints each request's output.
 
-    python -m repro_torch.serve [--arch qwen2.5-14b] [--requests 6]
+    python -m repro_torch.serve [--arch mamba2-780m] [--requests 6]
         [--max-new 8] [--device cuda|cpu]
 
-The default ``--device cuda`` raises without a card.  The reference's
-default architecture, mamba2-780m, is of a family that waits for
-ROADMAP.md's "LM stack, 1b" (it raises ``NotImplementedError``); this one
-defaults to qwen2.5-14b.
+The default ``--device cuda`` raises without a card.  The audio family
+(whisper-large-v3) needs frame embeddings at prefill, which the engine
+does not pass (neither does the reference's): for it the CLI hands the
+engine an LM whose prefill takes seeded frames.
 """
 
 from __future__ import annotations
@@ -25,12 +25,12 @@ import torch
 from repro_torch import configs
 from repro_torch.models import LM
 
-from .engine import Engine, Request
+from .engine import Engine, FramedLM, Request
 
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.serve")
-    ap.add_argument("--arch", default="qwen2.5-14b", choices=configs.ARCHS)
+    ap.add_argument("--arch", default="mamba2-780m", choices=configs.ARCHS)
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--device", default="cuda",
@@ -40,7 +40,12 @@ def main(argv: list[str] | None = None) -> int:
     cfg = configs.get_smoke(args.arch)
     lm = LM(cfg, device=args.device)
     lm.init(torch.Generator(device=lm.device).manual_seed(0))
-    engine = Engine(lm, max_batch=4, max_len=64, prompt_buckets=(8, 16))
+    served = lm
+    if cfg.family == "audio":
+        g = torch.Generator(device=lm.device).manual_seed(0)
+        served = FramedLM(lm, 0.1 * torch.randn(
+            1, cfg.enc_ctx, cfg.d_model, generator=g, device=lm.device))
+    engine = Engine(served, max_batch=4, max_len=64, prompt_buckets=(8, 16))
 
     rng = np.random.default_rng(0)
     reqs = [

@@ -27,7 +27,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-__all__ = ["Request", "Engine"]
+__all__ = ["Request", "Engine", "FramedLM"]
 
 
 @dataclass
@@ -137,6 +137,24 @@ class Engine:
         while self.queue or self.active:
             self.step()
         return {r.rid: r.out_tokens for r in requests}
+
+
+class FramedLM:
+    """An audio-family LM as the engine calls it: each prefill is given
+    ``frames`` ([1, enc_ctx, d] frame embeddings) as its encoder input,
+    which the engine does not pass (nor does the reference's, whose
+    engine cannot serve that family).  Everything else is the LM's."""
+
+    def __init__(self, lm, frames: torch.Tensor):
+        self.lm = lm
+        self.frames = frames
+
+    def __getattr__(self, name):
+        return getattr(self.lm, name)
+
+    def prefill(self, tokens, cache, *, prompt_len=None):
+        return self.lm.prefill(tokens, cache, extra_embed=self.frames,
+                               prompt_len=prompt_len)
 
 
 def _leaves(tree: dict):

@@ -21,6 +21,8 @@ from repro_torch.models.convert import from_reference
 SMOKE_1A = ("qwen2.5-14b", "phi4-mini-3.8b", "nemotron-4-340b",
             "granite-20b", "deepseek-moe-16b", "deepseek-v2-lite-16b",
             "paligemma-3b")
+# The three of the SSM, hybrid and audio families.
+SMOKE_1B = ("mamba2-780m", "zamba2-7b", "whisper-large-v3")
 KEY = jax.random.PRNGKey(0)
 
 
@@ -54,11 +56,12 @@ def pair(arch: str, **changes):
 
 
 def extra_embed(cfg, rng, b: int):
-    """Seeded patch embeddings for the VLM, else None."""
-    if cfg.family != "vlm":
+    """Seeded patch embeddings for the VLM, frame embeddings for the audio
+    family's encoder, else None."""
+    n = {"vlm": cfg.n_img_tokens, "audio": cfg.enc_ctx}.get(cfg.family)
+    if n is None:
         return None
-    return (0.1 * rng.standard_normal((b, cfg.n_img_tokens, cfg.d_model))
-            ).astype(np.float32)
+    return (0.1 * rng.standard_normal((b, n, cfg.d_model))).astype(np.float32)
 
 
 def to_np(x) -> np.ndarray:
@@ -123,3 +126,30 @@ def seeded(rng, *shape, scale=1.0):
 
 def close(got, want, tol=LAYER_TOL, **kw):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol, **kw)
+
+
+# --------------------------------------------------------------------------
+# Training helpers
+# --------------------------------------------------------------------------
+# the port's gradients against jax.value_and_grad's: float32 sums in other
+# orders, relative to gradients down to 1e-7
+GRAD_TOL = dict(rtol=1e-3, atol=1e-6)
+
+
+def port_lm(arch: str):
+    """A fresh float32 port LM (not the cached one of ``pair``: training
+    changes it) holding the reference's smoke parameters."""
+    cfg = configs.get_smoke(arch).replace(dtype="float32")
+    return from_reference(ref_params(arch), cfg, device="cpu")
+
+
+def train_batch(cfg, seed: int, b: int = 2, s: int = 16) -> dict:
+    """A seeded batch of numpy arrays: tokens, their next-token labels and
+    the family's extra embeddings."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
+    batch = {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
+    e = extra_embed(cfg, rng, b)
+    if e is not None:
+        batch["extra_embed"] = e
+    return batch

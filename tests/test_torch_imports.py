@@ -2,7 +2,8 @@
 
 ``repro_torch`` imports neither jax nor any module of the reference
 package (nor the reference's top-level ``benchmarks`` package, which
-imports it), and imports with jax blocked; CUDA is never silently replaced by
+imports it), nor ``ml_dtypes`` (which the card's machine lacks), and
+imports, serves and trains with jax and ``ml_dtypes`` blocked; CUDA is never silently replaced by
 the CPU: asking for it without a card raises, and a kernel wrapper given
 tensors that are not on a card raises.
 """
@@ -35,6 +36,7 @@ from repro_torch.suite.__main__ import main as suite_main
 from repro_torch import configs
 from repro_torch.models import LM
 from repro_torch.serve.__main__ import main as serve_main
+from repro_torch.launch.train import main as train_main
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -59,11 +61,41 @@ def test_no_jax_and_no_reference_import(path):
         assert top != "jax", f"{path} imports {mod}"
         assert top != "repro", f"{path} imports {mod}"
         assert top != "benchmarks", f"{path} imports {mod}"
+        assert top != "ml_dtypes", f"{path} imports {mod}"
 
 
 def test_the_lm_stack_is_among_the_checked_sources():
     names = {p.relative_to(PKG).parts[0] for p in SOURCES if p.is_relative_to(PKG)}
     assert {"models", "configs", "serve"} <= names
+
+
+def test_the_training_path_is_among_the_checked_sources():
+    names = {p.relative_to(PKG).as_posix() for p in SOURCES
+             if p.is_relative_to(PKG)}
+    assert {"models/ssm.py", "train/step.py", "train/optimizer.py",
+            "train/compress.py", "data/pipeline.py", "checkpoint/store.py",
+            "launch/train.py"} <= names
+
+
+def test_training_path_trains_and_resumes_with_jax_blocked(tmp_path):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['ml_dtypes'] = None\n"
+        "from repro_torch.launch.train import main\n"
+        f"args = ['--arch', 'mamba2-780m', '--smoke', '--steps', '2',\n"
+        f"        '--batch', '2', '--seq', '16', '--device', 'cpu',\n"
+        f"        '--ckpt-dir', {str(tmp_path)!r}, '--save-every', '1']\n"
+        "main(args)\n"
+        "main(args[:4] + ['3'] + args[5:] + ['--resume'])\n"
+        "print('repro' in sys.modules)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, check=True)
+    assert "[resume] from step 2" in out.stdout
+    assert out.stdout.split()[-1] == "False"
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "step_00000001", "step_00000002", "step_00000003"]
 
 
 def test_lm_stack_imports_and_serves_with_jax_blocked():
@@ -137,6 +169,8 @@ def test_cuda_without_a_card_raises(monkeypatch):
         LM(configs.get_smoke("qwen2.5-14b"))
     with pytest.raises(RuntimeError, match="cuda"):
         serve_main(["--requests", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_main(["--arch", "mamba2-780m", "--smoke", "--steps", "1"])
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")

@@ -167,7 +167,8 @@ def _requests(make, vocab: int, n: int = 6, max_new: int = 8):
             for i in range(n)]
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-14b", "deepseek-v2-lite-16b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "deepseek-v2-lite-16b",
+                                  "mamba2-780m", "zamba2-7b"])
 def test_engine_emits_the_reference_engines_tokens(arch):
     rcfg = ref_configs.get_smoke(arch).replace(dtype="float32")
     ref = RefLM(rcfg)
@@ -201,6 +202,12 @@ def test_serve_cli_default_device_needs_a_card(monkeypatch):
         serve_main([])
 
 
-def test_serve_cli_names_the_next_slice_for_its_families():
-    with pytest.raises(NotImplementedError, match="LM stack, 1b"):
-        serve_main(["--device", "cpu", "--arch", "mamba2-780m"])
+def test_serve_cli_names_the_next_slice_for_its_families(capsys):
+    """The families of the "LM stack, 1b" slice serve now; mamba2-780m is
+    the default, as in the reference's example, and the hybrid and audio
+    families serve by name."""
+    for argv in (["--device", "cpu", "--requests", "2", "--max-new", "2"],
+                 ["--device", "cpu", "--arch", "zamba2-7b", "--requests",
+                  "2", "--max-new", "2"]):
+        assert serve_main(argv) == 0
+        assert "served 2 requests through 4 slots" in capsys.readouterr().out
