@@ -201,11 +201,37 @@ kernels as a fresh process does:
    feedback (its dequantized gradient plus its error buffer within 1e-2
    of the uncompressed step's gradient, every error within half a code,
    ``compress_rel_err`` < 0.2);
-19. prints the kernels line (``launches`` summed over main paths 1 and 2,
+19. the whole-model capture and zoo (``models_phase``), then the CI
+   gates (``gates_phase``): (a) one qwen2.5-14b smoke decode step
+   (batch 2, 256-token cache) captured with its LM on the card and again
+   on ``meta``: equal ops, FLOPs, footprint and walk; (b) main paths 10
+   and 11: the models roster of the driver's CI pair (qwen2.5-14b and
+   mamba2-780m, 51 entries, ``models_registry(only=..., device="cuda")``)
+   under the vectorized and the ``cuda`` backend, counters reset before
+   and read after, each traced with its span split (capture, walk,
+   simulation): 51/51 classes equal to the port's pins, rows equal, no
+   window count under the vectorized backend and some under cuda;
+   (c) main path 12: the driver's ``models_sweep`` (the bs64 decode
+   step streamed op by op into ``simulate_chunked``) under both
+   backends: equal rows, and ``perf_gate``'s counter gate
+   (``capture.model.concat == 0``, ``capture.model.stream_blocks > 0``)
+   over each run's trace; (d) qwen2.5-14b at full width and depth (48
+   layers, d_model 5120), one decode step at batch 1 against a 256-token
+   cache captured on ``meta``: its op census, footprint, whole-step refs
+   and counted FLOPs, its dense FLOPs within 1% of 2 x (non-embedding
+   parameters + head) + 4 H D cache L, and a centred 200 000-ref window
+   classified under both backends with equal rows; then
+   ``timing_smoke`` (a cold 250k-ref cell per family within 2 s under
+   both backends) and ``perf_gate``: ``python -m
+   repro_torch.benchmarks.run --fast`` in a fresh process on the card
+   against the committed ``src/repro_torch/benchmarks/baseline_h100.json``
+   (every section within 2x, the kernel-timing sections skipped);
+20. prints the kernels line (``launches`` summed over main paths 1 and 2,
    as before, for the seven capture kernels and main path 6's first
-   cuda run for the window count; ``launches_by_path`` for paths 1-4 and
-   6-9; flash's also split by kernel; the f32 (window count: int32)
-   timings, and the bf16 ones as ``bf16_ms``, ``bf16_bound_ms``,
+   cuda run for the window count; ``launches_by_path`` for paths 1-4,
+   6-9, ``models`` (path 11) and ``models_sweep`` (path 12's cuda run);
+   flash's also split by kernel; the f32 (window count: int32) timings,
+   and the bf16 ones as ``bf16_ms``, ``bf16_bound_ms``,
    ``bf16_library_ms``) and, last, ``{"ok": true, "device": ...}``.
 
 Tolerances: gather is exact, and so is the EMA scan in float32, which
@@ -2840,6 +2866,221 @@ def lm_1b_phase(K, smi: str, peaks: dict, tmp_dir: str) -> None:
         raise AssertionError(f"the LM-1b path launched a kernel: {launches}")
 
 
+MODELS_ONLY = ("qwen2.5-14b", "mamba2-780m")   # the driver's CI pair
+MODELS_ENTRIES = 51           # the pair's sweep points in the zoo
+
+
+def models_roster(K, path: str, backend: str, trace_dir: Path, smi: str
+                  ) -> tuple[object, dict]:
+    """The CI pair's models roster on the card under ``backend``, traced,
+    counters set to 0 before and read after: 51/51, each class its port
+    pin.  Returns the table and the launches."""
+    from repro_torch.suite import SuiteRunner, models_registry
+
+    def drive():
+        return SuiteRunner(models_registry(only=MODELS_ONLY, device="cuda"),
+                           store=None, sections=("models",),
+                           backend=backend).roster()
+
+    with obs_trace(trace_dir, path):
+        table, launches, secs = counted(K, drive)
+    rep = span_split(trace_dir, path, smi)
+    bad = [r["name"] for r in table.records() if not r["match"]]
+    say({"phase": "models-roster", "backend": backend,
+         "entries": len(table.rows), "matching": len(table.rows) - len(bad),
+         "seconds": secs, "capture_s": rep.span_total("capture.model.trace"),
+         "walk_s": rep.span_total("capture.walk"),
+         "simulation_s": rep.span_total("sim.many"),
+         "window_counts": launches[SCAN_KERNEL], "card": smi})
+    if len(table.rows) != MODELS_ENTRIES or bad:
+        raise AssertionError(f"{path}: {len(table.rows)} entries, "
+                             f"divergent {bad}")
+    return table, launches
+
+
+def full_width_step(smi: str) -> None:
+    """Part C: qwen2.5-14b at full width and depth, one decode step at bs1
+    against a 256-token cache, captured on ``meta``; its census, its dense
+    FLOPs within 1% of 2 x (non-embedding parameters + head) + attention's
+    4 H D cache L, and a centred 200 000-ref window classified under the
+    vectorized and the ``cuda`` backend with equal rows."""
+    from repro_torch.capture import zoo
+    from repro_torch.core import classify
+    from repro_torch.core.tracegen import TraceSpec, Workload
+    from repro_torch.study.study import Study
+
+    t0 = time.perf_counter()
+    lm = zoo.meta_lm("qwen2.5-14b", smoke=False)
+    mc = zoo.capture_decode(lm, 1, 256, name="qwen2.5-14b.full.decode.bs1")
+    capture_s = time.perf_counter() - t0
+    census = zoo.census(mc)
+    cfg = lm.cfg
+    hd = cfg.resolved_head_dim
+    params = cfg.n_layers * (cfg.d_model * cfg.n_heads * hd
+                             + 2 * cfg.d_model * cfg.n_kv_heads * hd
+                             + cfg.n_heads * hd * cfg.d_model
+                             + 3 * cfg.d_model * cfg.d_ff) \
+        + cfg.d_model * cfg.vocab
+    analytic = 2.0 * params + 4.0 * cfg.n_heads * hd * 256 * cfg.n_layers
+    dense = sum(op.capture.flops for op in mc.ops if op.kind == "dense")
+    t1 = time.perf_counter()
+    addr = mc.walk_window(200_000).addresses
+    window_s = time.perf_counter() - t1
+    ai = round(mc.flops / census[5], 3)
+    w = Workload(name="model.qwen2.5-14b.full.decode.bs1", family="model",
+                 expected_class="1b", ai_ops_per_access=ai,
+                 instr_per_access=ai + 2.0,
+                 gen=lambda cores, rng: TraceSpec(addr, 1.0, 8.0, False),
+                 core_invariant=True)
+    rows = {}
+    for backend in ("vectorized", "cuda"):
+        m = Study(suite=[w], backend=backend).metrics(w)
+        rows[backend] = (classify.classify(m), m.temporal, m.spatial,
+                         m.mpki, m.lfmr_by_cores)
+    say({"phase": "models-full-width", "model": "qwen2.5-14b",
+         "layers": cfg.n_layers, "d_model": cfg.d_model,
+         "ops": mc.op_kinds, "footprint_mib": census[4],
+         "whole_refs": census[5], "flops": mc.flops, "dense_flops": dense,
+         "analytic_flops": analytic, "ai": ai, "capture_s": capture_s,
+         "window_s": window_s, "class": rows["cuda"][0],
+         "mpki": rows["cuda"][3], "card": smi})
+    if abs(dense - analytic) > 0.01 * analytic:
+        raise AssertionError(f"full-width dense FLOPs {dense:.4e} not "
+                             f"within 1% of {analytic:.4e}")
+    if rows["vectorized"] != rows["cuda"]:
+        raise AssertionError(f"full-width window: {rows}")
+
+
+def models_phase(K, trace_dir: Path, smi: str) -> dict[str, dict]:
+    """Phase 19, the whole-model capture and zoo on the card: (a) one
+    smoke decode step captured with its LM on the card and on ``meta``
+    (equal ops, FLOPs and walk); (b) the CI pair's models roster under the
+    vectorized and the ``cuda`` backend (51/51, each class its pin, rows
+    equal, window counts launched under cuda); (c) the driver's
+    ``models_sweep`` under both (equal rows, ``capture.model.concat``
+    0, the counter gate of ``perf_gate``); (d) Part C's full-width step.
+    Returns each path's launches."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.benchmarks import perf_gate
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.capture import zoo
+    from repro_torch.models.model import LM
+
+    t_phase = time.perf_counter()
+    # (a) the same step on the card and on meta
+    name = "qwen2.5-14b"
+    lm = LM(configs.get_smoke(name), device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    card = zoo.capture_decode(lm, 2, 256, name="card")
+    meta = zoo.capture_decode(zoo.meta_lm(name), 2, 256, name="meta")
+    same_ops = [(o.kind, o.capture.name, o.capture.grid, o.bases)
+                for o in card.ops] == [(o.kind, o.capture.name,
+                                        o.capture.grid, o.bases)
+                                       for o in meta.ops]
+    same_walk = np.array_equal(card.walk().addresses, meta.walk().addresses)
+    say({"phase": "models-card-vs-meta", "entry": f"{name}.decode.bs2",
+         "ops": len(card.ops), "equal_ops": same_ops,
+         "equal_walk": same_walk, "flops": [card.flops, meta.flops]})
+    if not (same_ops and same_walk and card.flops == meta.flops
+            and card.footprint_words == meta.footprint_words):
+        raise AssertionError("the card's capture differs from meta's")
+    del lm, card, meta
+
+    # (b) the models roster, vectorized then cuda
+    vec, vec_launches = models_roster(K, "models-vectorized", "vectorized",
+                                      trace_dir, smi)
+    cud, cuda_launches = models_roster(K, "models-cuda", "cuda", trace_dir,
+                                       smi)
+    if vec.rows != cud.rows:
+        raise AssertionError("models roster: cuda rows differ from the "
+                             "vectorized backend's")
+    if vec_launches[SCAN_KERNEL] or cuda_launches[SCAN_KERNEL] <= 0:
+        raise AssertionError(f"models roster window counts: "
+                             f"{vec_launches[SCAN_KERNEL]} vectorized, "
+                             f"{cuda_launches[SCAN_KERNEL]} cuda")
+
+    # (c) models_sweep: the streamed step under both backends
+    sweep, sweep_launches = {}, {}
+    for backend in (None, "cuda"):
+        label = f"models-sweep-{backend or 'default'}"
+        argv = ["--device", "cuda", "--only", "models_sweep",
+                "--bench-json", ""]
+        if backend:
+            argv += ["--backend", backend]
+        args = bench_run.build_parser().parse_args(argv)
+        with obs_trace(trace_dir, label), \
+                contextlib.redirect_stdout(sys.stderr):
+            res, launches, secs = counted(K, lambda: bench_run.run(args))
+        rep = span_split(trace_dir, label, smi)
+        sweep[backend] = res["sections"]["models_sweep"]["rows"]
+        sweep_launches[backend] = launches
+        gate_rc = perf_gate.main(["--obs-trace",
+                                  str(trace_dir / f"{label}.jsonl"),
+                                  "--obs-require",
+                                  "capture.model.concat==0",
+                                  "--obs-require",
+                                  "capture.model.stream_blocks>0"])
+        say({"phase": "models-sweep", "backend": backend or "default",
+             "seconds": secs, "rows": sweep[backend],
+             "concat": rep.counter("capture.model.concat"),
+             "stream_blocks": rep.counter("capture.model.stream_blocks"),
+             "window_counts": launches[SCAN_KERNEL], "gate_rc": gate_rc,
+             "card": smi})
+        if gate_rc:
+            raise AssertionError(f"{label}: the counter gate failed")
+    if sweep[None] != sweep["cuda"] or sweep_launches["cuda"][
+            SCAN_KERNEL] <= 0:
+        raise AssertionError(f"models_sweep: {sweep}")
+
+    # (d) the full-width step
+    full_width_step(smi)
+    say({"phase": "models", "seconds": time.perf_counter() - t_phase,
+         "card": smi})
+    return {"models": cuda_launches, "models_sweep": sweep_launches["cuda"]}
+
+
+def gates_phase(smi: str, tmp_dir: str) -> None:
+    """The port's CI gates on the card: ``timing_smoke`` (a cold 250k-ref
+    cell per family under 2 s, vectorized and cuda) and ``perf_gate``: a
+    fresh ``python -m repro_torch.benchmarks.run --fast`` on the card
+    against the committed ``baseline_h100.json``, and its models_sweep
+    counter gate."""
+    from repro_torch.benchmarks import timing_smoke
+
+    t0 = time.perf_counter()
+    times = timing_smoke.time_cells(("vectorized", "cuda"))
+    rc = timing_smoke.verdict(times, ("vectorized", "cuda"), budget=2.0,
+                              compare=False, out=sys.stderr)
+    say({"phase": "timing-smoke", "rc": rc, "cells_s": times,
+         "seconds": time.perf_counter() - t0, "card": smi})
+    if rc:
+        raise AssertionError("timing_smoke failed")
+    record = Path(tmp_dir) / "bench-fast.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               REPRO_TORCH_SUITE_STORE=str(Path(tmp_dir) / "bench-store"))
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.benchmarks.run", "--fast",
+         "--bench-json", str(record)], env=env, cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    driver_s = time.perf_counter() - t0
+    if run.returncode:
+        raise AssertionError(f"the fast driver failed: {run.stderr[-2000:]}")
+    gate = subprocess.run(
+        [sys.executable, "-m", "repro_torch.benchmarks.perf_gate",
+         "--current", str(record)], env=env, cwd=ROOT,
+        capture_output=True, text=True, timeout=120)
+    (bucket,) = json.loads(record.read_text())["runs"].values()
+    say({"phase": "perf-gate", "rc": gate.returncode,
+         "driver_s": driver_s, "sections": bucket["sections"],
+         "meta": bucket["meta"], "report": gate.stdout.splitlines(),
+         "verdict": gate.stderr.strip().splitlines()[-1:], "card": smi})
+    if gate.returncode:
+        raise AssertionError(f"perf_gate failed: {gate.stderr[-2000:]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3207,7 +3448,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm_1b_phase(K, smi, peaks, tmp.name)
 
-    # -- 19. results --------------------------------------------------------
+    # -- 19. the whole-model capture and zoo, then the CI gates -------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    models_launches = models_phase(K, trace_dir, smi)
+    gates_phase(smi, tmp.name)
+
+    # -- 20. results --------------------------------------------------------
     kernels = []
     for kname, (source, replaces) in KERNEL_SITES.items():
         scan = kname == SCAN_KERNEL
@@ -3225,7 +3472,9 @@ def main() -> int:
                 "roster_cuda": roster_cuda_launches[kname],
                 "sections_cuda": sections_cuda_launches[kname],
                 "figures": figures_launches[kname],
-                "figures_cuda": figures_cuda_launches[kname]},
+                "figures_cuda": figures_cuda_launches[kname],
+                "models": models_launches["models"][kname],
+                "models_sweep": models_launches["models_sweep"][kname]},
             "max_abs_err": errs[kname], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -31,6 +31,17 @@ Sections, in the reference's order:
            engine, one result store)
 - serving / serving_warm — the 16 serving scenarios with phase-timeline
            columns: cold against a throwaway store, then recalled from it
+- models — the whole-model roster (``repro_torch.capture.zoo``): the CI
+           pair's sweep (qwen2.5-14b and mamba2-780m across decode /
+           prefill / eval / train x batch x geometry, 51 entries)
+           captured on ``meta``, windowed and classified cold against a
+           throwaway store; ``--backend cuda`` runs its window scans on
+           the card
+- models_sweep — the streamed whole-step path: the zoo's bs64 qwen2.5-14b
+           decode walked op by op (``ModelCapture.walk_stream``) into
+           ``cachesim_stream.simulate_chunked`` for host and NDP at 4
+           cores, never materializing a concatenated trace (the gate:
+           ``capture.model.concat == 0`` over this section)
 - megaref — ``cachesim_stream.simulate_chunked`` over one long
            bounded-footprint trace (2M refs fast / 10M full), always cold;
            ``--backend cuda`` runs its window scans on the card
@@ -40,9 +51,8 @@ Sections, in the reference's order:
            card's roof (``kernel_bench.PEAKS``, by the card's name; an
            unknown card raises); on the CPU their plain versions
 
-The reference's ``models`` and ``models_sweep`` (ROADMAP.md's "the
-whole-model zoo") and ``roofline`` (its "the cost substrate")
-are not ported yet: ``--only`` naming one of them exits non-zero.
+The reference's ``roofline`` (ROADMAP.md's "the cost substrate") is not
+ported yet: ``--only roofline`` exits non-zero.
 
 Every run writes a machine-readable perf record (default
 ``build/repro_torch_bench.json`` in the checkout; ``''`` disables):
@@ -73,10 +83,11 @@ DEFAULT_BENCH_JSON = (Path(__file__).resolve().parents[3] / "build"
                       / "repro_torch_bench.json")
 # Sections of the reference's driver that wait for later slices.
 NOT_PORTED = {
-    "models": "ROADMAP.md's \"the whole-model zoo\"",
-    "models_sweep": "ROADMAP.md's \"the whole-model zoo\"",
     "roofline": "ROADMAP.md's \"the cost substrate\"",
 }
+# The models section's CI pair and the streamed section's entry.
+MODELS_ONLY = ("qwen2.5-14b", "mamba2-780m")
+SWEEP_ENTRY = "model.qwen2.5-14b.decode.bs64"
 
 
 def emit(section: str, result) -> tuple[tuple, list[tuple]]:
@@ -209,6 +220,43 @@ def sections_for(args: argparse.Namespace, study: Study, refs: int) -> dict:
         res.name = section
         return res
 
+    # whole-model roster: cold capture + windowed trace + classify of the
+    # CI pair's sweep, against the throwaway store (stays cold).
+    def models_roster():
+        from repro_torch.suite import SuiteRunner, models_registry
+
+        runner = SuiteRunner(
+            models_registry(refs=refs, only=MODELS_ONLY, device=device),
+            store=_serving_store(), backend=args.backend,
+            sections=("models",))
+        res = runner.roster()
+        res.name = "models"
+        return res
+
+    # models_sweep: the bs64 decode step fed op by op from
+    # ModelCapture.walk_stream into simulate_chunked; no concatenated
+    # trace is materialized, so peak trace memory is the largest op.
+    def models_sweep_rows():
+        from repro_torch.capture.zoo import capture_for
+        from repro_torch.core import cachesim
+        from repro_torch.core.cachesim_stream import (DEFAULT_CHUNK,
+                                                      simulate_chunked)
+
+        mc = capture_for(SWEEP_ENTRY)
+        refs_whole = mc.walk(count_only=True).refs
+        header = ("name", "refs", "chunk", "l1_misses", "llc_misses",
+                  "lfmr", "mpki")
+        rows = []
+        for cfg in (cachesim.host_config(4), cachesim.ndp_config(4)):
+            sim = simulate_chunked(
+                mc.walk_stream(), cfg, chunk=DEFAULT_CHUNK,
+                name=f"{SWEEP_ENTRY}.{cfg.name}",
+                scan="cuda" if args.backend == "cuda" else None)
+            rows.append((sim.name, refs_whole, DEFAULT_CHUNK,
+                         sim.l1_misses, sim.level_misses[-1],
+                         round(sim.lfmr, 4), round(sim.mpki, 2)))
+        return rows, header
+
     # megaref: the chunk-streaming path over a single long trace with a
     # bounded footprint.  Deterministic synthetic stream so the section is
     # comparable across runs; always cold.
@@ -250,6 +298,8 @@ def sections_for(args: argparse.Namespace, study: Study, refs: int) -> dict:
         # warm must follow cold in dict order
         "serving": lambda: serving_roster("serving"),
         "serving_warm": lambda: serving_roster("serving_warm"),
+        "models": models_roster,
+        "models_sweep": models_sweep_rows,
         "megaref": megaref_rows,
         "case1": lambda: paper_figures.case1_noc(study),
         "case2": lambda: paper_figures.case2_accelerators(study),

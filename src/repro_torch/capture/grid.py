@@ -19,6 +19,7 @@ the stream walked here is byte-identical to the reference's.
 from __future__ import annotations
 
 import math
+import weakref
 from dataclasses import dataclass
 from typing import Callable
 
@@ -157,15 +158,32 @@ def _tile_words_batch(op: OperandSpec, idxs: np.ndarray,
     return base_word + words
 
 
-def _op_table(op: OperandSpec, steps: list[tuple[int, ...]]) -> np.ndarray:
-    """Per-step block-index table, ``(n_steps, block_rank)`` int64."""
+# index map -> (grid, table): a map walked again (a capture walked once
+# per core count, a model's op walked for its count and then for its
+# addresses) pays its per-step Python once.  Keyed weakly, so a map dies
+# with its capture.
+_OP_TABLES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _op_table(op: OperandSpec, grid: tuple[int, ...],
+              steps: list[tuple[int, ...]]) -> np.ndarray:
+    """Per-step block-index table, ``(n_steps, block_rank)`` int64,
+    memoized per index map and grid."""
+    cached = _OP_TABLES.get(op.index_map)
+    if cached is not None and cached[0] == grid:
+        return cached[1]
     rows = np.empty((len(steps), len(op.block_shape)), dtype=np.int64)
     for si, step in enumerate(steps):
         rows[si] = [int(x) for x in op.index_map(*step)]
+    try:
+        _OP_TABLES[op.index_map] = (tuple(grid), rows)
+    except TypeError:
+        pass                      # a map that takes no weak reference
     return rows
 
 
-def walk(cap: GridCapture, *, count_only: bool = False) -> CaptureResult:
+def walk(cap: GridCapture, *, count_only: bool = False,
+         bases: dict[str, int] | None = None) -> CaptureResult:
     """Replay the pipeline schedule and emit the word-address stream.
 
     Arrays are laid out back-to-back in HBM, line-aligned, in operand
@@ -175,31 +193,53 @@ def walk(cap: GridCapture, *, count_only: bool = False) -> CaptureResult:
     count), then write back every output block whose residency ends at
     this step.  ``count_only`` returns the load/store/flop accounting
     with an empty address array.
+
+    ``bases`` overrides the per-operand base word addresses (operand name
+    -> absolute base).  :mod:`repro_torch.capture.model` places every op
+    of a whole-model capture in one shared address space this way; its
+    allocator applies the same line-aligned sizing rule as the default
+    layout here, so a one-op model capture walks byte for byte like the
+    standalone walk.
     """
     with obs.span("capture.walk", kernel=cap.name, count_only=count_only):
-        res = _walk(cap, count_only=count_only)
+        res = _walk(cap, count_only=count_only, bases=bases)
     obs.count("capture.walk.calls")
     obs.count("capture.walk.refs", res.refs)
     return res
 
 
-def _walk(cap: GridCapture, *, count_only: bool) -> CaptureResult:
-    base: dict[str, int] = {}
-    cursor = 0
-    for op in cap.operands:
-        if op.name not in base:
-            base[op.name] = cursor
-            cursor += -(-op.words // _LINE_WORDS) * _LINE_WORDS + _LINE_WORDS
+def _walk(cap: GridCapture, *, count_only: bool,
+          bases: dict[str, int] | None) -> CaptureResult:
+    if bases is None:
+        base: dict[str, int] = {}
+        cursor = 0
+        for op in cap.operands:
+            if op.name not in base:
+                base[op.name] = cursor
+                cursor += (-(-op.words // _LINE_WORDS) * _LINE_WORDS
+                           + _LINE_WORDS)
+    else:
+        base = {op.name: bases[op.name] for op in cap.operands}
     footprint = sum({op.name: op.words for op in cap.operands}.values())
 
-    steps = list(np.ndindex(*cap.grid))
-    n_steps = len(steps)
+    n_steps = math.prod(cap.grid)
     if n_steps == 0:
         return CaptureResult(
             name=cap.name, addresses=np.empty(0, dtype=np.int64),
             loads=0, stores=0, footprint_words=footprint, grid_steps=0,
             flops=cap.flops)
-    tables = [_op_table(op, steps) for op in cap.operands]
+    if count_only and n_steps == 1:
+        # One-step launch (the whole-array ops of a model step): every
+        # input fetches once, every output writes back once.
+        loads = sum(op.block_words for op in cap.operands if op.role == "in")
+        stores = sum(op.block_words for op in cap.operands
+                     if op.role != "in")
+        return CaptureResult(
+            name=cap.name, addresses=np.empty(0, dtype=np.int64),
+            loads=loads, stores=stores, footprint_words=footprint,
+            grid_steps=1, flops=cap.flops)
+    steps = list(np.ndindex(*cap.grid))
+    tables = [_op_table(op, tuple(cap.grid), steps) for op in cap.operands]
 
     # Merged change masks per operand name (inputs consult the last index
     # written by ANY same-named operand, outputs included).

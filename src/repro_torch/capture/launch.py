@@ -108,9 +108,11 @@ _RECORDERS: contextvars.ContextVar[tuple[list, ...]] = contextvars.ContextVar(
 
 
 @contextlib.contextmanager
-def record() -> Iterator[list[LaunchSpec]]:
-    """Collect the specs of every launch made inside the block."""
-    sink: list[LaunchSpec] = []
+def record(into: list | None = None) -> Iterator[list[LaunchSpec]]:
+    """Collect the specs of every launch made inside the block, into a
+    new list or into ``into`` (a list whose ``append`` may act on each
+    spec as it is emitted, as the whole-model capture's does)."""
+    sink: list[LaunchSpec] = [] if into is None else into
     token = _RECORDERS.set(_RECORDERS.get() + (sink,))
     try:
         yield sink

@@ -281,8 +281,11 @@ def ssm_decode(p: Params, cfg: ModelConfig, x, cache: dict) -> tuple:
     cf = c[:, 0].to(f32)
 
     decay = torch.exp(dt * a[None, :])                         # [B,H]
+    # the reference's three-operand einsum as jax contracts it: (B ⊗ dt)
+    # first, then x (every product exact, so the values are its values)
+    bdt = torch.einsum("bn,bh->bnh", bf, dt)
     state = cache["state"] * decay[:, :, None, None] + torch.einsum(
-        "bh,bn,bhp->bhnp", dt, bf, xh)
+        "bnh,bhp->bhnp", bdt, xh)
     y = torch.einsum("bn,bhnp->bhp", cf, state)
     y = y + xh * p["d_skip"][None, :, None]
     y = y.reshape(bsz, 1, di).to(dt_)

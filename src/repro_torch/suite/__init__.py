@@ -3,7 +3,8 @@
 
 Binds the seven synthetic DAMOV access-pattern families (expanded into
 parameter grids) and the port's CUDA kernels (captured as HBM word streams
-walked from their launches) into one roster, characterized by one
+walked from their launches) into one roster, and the whole-model zoo into
+another (``--sections models``), each characterized by one
 methodology, with a content-addressed on-disk result store and a
 ``python -m repro_torch.suite`` CLI emitting the Table-3-style roster.
 """
@@ -13,6 +14,7 @@ from .registry import (  # noqa: F401
     SuiteEntry,
     SuiteRegistry,
     default_registry,
+    models_registry,
     registry_for,
     serving_registry,
 )
@@ -28,6 +30,7 @@ __all__ = [
     "SuiteRegistry",
     "default_registry",
     "serving_registry",
+    "models_registry",
     "registry_for",
     "SuiteRunner",
     "ResultStore",

@@ -22,6 +22,13 @@ Examples::
     # best-mitigation columns
     python -m repro_torch.suite --sections serving --fast --check
 
+    # the whole-model roster: end-to-end decode/prefill/eval/train steps
+    # of the 10-config model zoo, captured on meta (176 entries)
+    python -m repro_torch.suite --sections models --fast --check
+
+    # only two configs of the zoo (the CI pair)
+    python -m repro_torch.suite --sections models --filter qwen,mamba2 --fast
+
     # the window scans on the card, with a span/counter trace
     python -m repro_torch.suite --fast --backend cuda --trace t.jsonl
     python -m repro_torch.obs report t.jsonl
@@ -61,6 +68,14 @@ def parse_sections(text: str) -> tuple[str, ...]:
     return sections
 
 
+def parse_filter(text: str) -> tuple[str, ...]:
+    """Comma list of name substrings -> tuple (``--filter``)."""
+    subs = tuple(s.strip() for s in text.split(",") if s.strip())
+    if not subs:
+        raise argparse.ArgumentTypeError("empty --filter")
+    return subs
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.suite",
@@ -84,6 +99,13 @@ def build_parser() -> argparse.ArgumentParser:
                          f"{','.join(sorted(SECTION_COLUMNS))} (computed "
                          "from the same memoized engine cells; stored "
                          "under section-specific record keys)")
+    ap.add_argument("--filter", type=parse_filter, default=None,
+                    metavar="SUB[,SUB]",
+                    help="keep only entries whose name contains any of "
+                         "the comma-separated substrings (models roster "
+                         "only; never changes per-entry traces or store "
+                         "keys; with --check, filtered-out entries are not "
+                         "checked for divergence)")
     ap.add_argument("--processes", type=int, default=1, metavar="N",
                     help="fan whole entries across N worker processes "
                          "(0 = one per CPU; default 1 = in-process)")
@@ -99,7 +121,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--list", action="store_true",
                     help="print the roster entries without simulating")
     ap.add_argument("--check", action="store_true",
-                    help="exit 2 if any captured or serving entry's "
+                    help="exit 2 if any captured, serving or model entry's "
                          "assigned class diverges from its expected class")
     ap.add_argument("--format", choices=("csv", "json"), default="csv")
     ap.add_argument("--json", action="store_const", dest="format",
@@ -143,10 +165,18 @@ def _main(args: argparse.Namespace, refs: int) -> int:
               f"{len(store)} kept in {store.root}", file=sys.stderr)
         return 0
 
+    if args.filter and "models" not in args.sections:
+        print("# --filter only applies to the models roster "
+              "(--sections models)", file=sys.stderr)
+        return 2
+    if args.filter and args.check:
+        print("# note: --check only sees the filtered entries; "
+              "divergence in filtered-out zoo models goes unchecked",
+              file=sys.stderr)
     with obs.span("suite.registry", refs=refs,
                   sections=",".join(args.sections) or "-"):
         registry = registry_for(refs=refs, sections=args.sections,
-                                device=args.device)
+                                only=args.filter, device=args.device)
     if args.list:
         for e in registry:
             params = ", ".join(f"{k}={v}" for k, v in e.params)
@@ -174,7 +204,7 @@ def _main(args: argparse.Namespace, refs: int) -> int:
               f"engine: {runner.study.stats.as_dict()}", file=sys.stderr)
 
     if args.check:
-        bad = [rec for source in ("captured", "serving")
+        bad = [rec for source in ("captured", "serving", "model")
                for rec in runner.divergent(source=source)]
         for rec in bad:
             print(f"# DIVERGENT {rec['source']} entry {rec['name']}: "

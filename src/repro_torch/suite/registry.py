@@ -43,8 +43,8 @@ from repro_torch.core.tracegen import Workload
 from repro_torch.device import resolve_device
 
 __all__ = ["SuiteEntry", "SuiteRegistry", "default_registry",
-           "serving_registry", "registry_for", "SUITE_SCHEMA",
-           "LEGACY_SCHEMA"]
+           "serving_registry", "models_registry", "registry_for",
+           "SUITE_SCHEMA", "LEGACY_SCHEMA"]
 
 # Bumped whenever capture geometry or roster methodology changes in a way
 # that invalidates stored results.
@@ -54,7 +54,7 @@ SUITE_SCHEMA = 1
 # readers (and ``--gc``) treat a missing marker as this value.
 LEGACY_SCHEMA = 1
 
-SOURCES = ("synthetic", "captured", "serving")
+SOURCES = ("synthetic", "captured", "serving", "model")
 
 _L1_WORDS = 32 * 1024 // 8
 _MiB_WORDS = 2**20 // 8
@@ -66,7 +66,7 @@ class SuiteEntry:
 
     workload: Workload
     domain: str
-    source: str            # "synthetic" | "captured" | "serving"
+    source: str            # "synthetic" | "captured" | "serving" | "model"
     params: tuple[tuple[str, object], ...]   # sorted (key, value) pairs
     device: str = "cpu"    # device type of the registry that built it
 
@@ -133,6 +133,10 @@ class SuiteRegistry:
     entries: list[SuiteEntry] = field(default_factory=list)
     refs: int | None = None
     device: str = "cpu"
+    # The --filter applied when this registry was built (models roster
+    # only), carried so process-pool workers rebuild the *filtered*
+    # roster: filtering subsets a roster without changing any entry.
+    only: tuple[str, ...] | None = None
 
     def register(self, workload: Workload, *, domain: str, source: str,
                  **params: object) -> SuiteEntry:
@@ -261,12 +265,46 @@ def serving_registry(*, refs: int | None = None,
     return reg
 
 
+def models_registry(*, refs: int | None = None,
+                    only: tuple[str, ...] | None = None,
+                    device: str | torch.device = "cuda") -> SuiteRegistry:
+    """The whole-model roster: one entry per swept model-zoo point —
+    (config, mode, batch, cache/sequence geometry), 176 entries over the
+    10 smoke configs.
+
+    Every entry's AI and expected class are pinned in the zoo
+    declarations, so building the registry captures nothing; a step is
+    captured (abstractly, on ``meta``) when its trace is first simulated.
+    Model traces do not scale with ``refs`` (the marker is carried for
+    worker reconstruction).  ``device`` is where the roster runs (it keys
+    card rows, as the other rosters' do; raises without a card when it is
+    ``"cuda"``).  ``only`` keeps entries whose name contains any of the
+    substrings; filtering changes neither traces nor fingerprints, so
+    store rows recall across differently filtered runs.
+    """
+    from repro_torch.capture.zoo import model_workloads, select
+
+    refs = tracegen.DEFAULT_REFS if refs is None else refs
+    dev = resolve_device(device)
+    reg = SuiteRegistry(refs=refs, device=str(dev), only=only)
+    specs = select(only)
+    for spec, w in zip(specs, model_workloads(specs)):
+        reg.register(w, domain=spec.domain, source="model", **spec.params())
+    return reg
+
+
 def registry_for(*, refs: int | None = None,
                  sections: tuple[str, ...] = (),
+                 only: tuple[str, ...] | None = None,
                  device: str | torch.device = "cuda") -> SuiteRegistry:
     """The registry a roster request resolves to: the serving roster when
-    the ``serving`` section is requested, the default roster otherwise.
-    Both the CLI and the process-pool workers route through here."""
+    the ``serving`` section is requested, the whole-model roster for the
+    ``models`` section, the default roster otherwise.  Both the CLI and
+    the process-pool workers route through here; workers pass the parent
+    registry's ``only`` marker, which subsets the models roster without
+    changing any entry."""
     if "serving" in sections:
         return serving_registry(refs=refs, device=device)
+    if "models" in sections:
+        return models_registry(refs=refs, only=only, device=device)
     return default_registry(refs=refs, device=device)

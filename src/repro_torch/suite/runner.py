@@ -70,13 +70,18 @@ ROSTER_COLUMNS = (
 # ``serving``: phase structure (window count, distinct phases, dominant
 # phase, the per-window class timeline) and the best data-movement
 # mitigation with its speedup over the plain host at the top core count;
-# requesting it swaps the roster to the serving scenarios.  (The
-# reference's ``models`` section waits for the whole-model capture.)
+# requesting it swaps the roster to the serving scenarios.  ``models``: the
+# entry's swept axes (mode, batch, cache/sequence geometry) plus the
+# whole-step op census (total / dense / stream / pallas op counts and the
+# shared address-space footprint) from the zoo's capture census;
+# requesting it swaps the roster to the model zoo.
 SECTION_COLUMNS: dict[str, tuple[str, ...]] = {
     "scalability": ("host_speedup", "ndp_speedup"),
     "energy": ("host_mj", "ndp_mj", "ndp_energy_ratio"),
     "serving": ("windows", "phases", "dominant_phase", "phase_timeline",
                 "best_mitigation", "best_speedup"),
+    "models": ("mode", "batch", "geometry", "model_ops", "dense_ops",
+               "stream_ops", "pallas_ops", "footprint_mib"),
 }
 
 # A mitigation must beat the plain host by this factor before the roster
@@ -97,13 +102,16 @@ class RunStats:
 @functools.lru_cache(maxsize=1)
 def _worker_runner(refs: int, seed: int, cores: tuple[int, ...],
                    backend: str, sections: tuple[str, ...],
-                   store_root: str | None, device: str) -> "SuiteRunner":
+                   store_root: str | None, device: str,
+                   only: tuple[str, ...] | None = None) -> "SuiteRunner":
     """Per-process runner over the rebuilt registry (built on the first
-    task, reused for every entry the worker gets).  ``store_root``
+    task, reused for every entry the worker gets): the parent's roster,
+    the models roster with the parent's ``only`` filter included, so a
+    filtered run never rebuilds the whole zoo in a worker.  ``store_root``
     reconnects the worker to the shared cell store, so cells finished by
     any pool member are recalled instead of re-run."""
     runner = SuiteRunner(registry_for(refs=refs, sections=sections,
-                                      device=device),
+                                      only=only, device=device),
                          seed=seed, cores=cores, backend=backend,
                          store=None, sections=sections)
     if store_root is not None:
@@ -121,11 +129,12 @@ def _characterize_entry(task: tuple) -> tuple:
     per task, so pool busy time sums across workers however the pool is
     torn down.
     """
-    name, refs, seed, cores, backend, sections, store_root, device = task
+    (name, refs, seed, cores, backend, sections, store_root, device,
+     only) = task
     t0 = time.perf_counter()
     with obs.span("suite.worker.entry", entry=name):
         runner = _worker_runner(refs, seed, cores, backend, sections,
-                                store_root, device)
+                                store_root, device, only)
         entry = next(e for e in runner.registry if e.name == name)
         row = runner._characterize(entry)
     obs.count("pool.tasks")
@@ -210,6 +219,8 @@ class SuiteRunner:
         """Extra per-entry columns, from the same memoized engine cells."""
         if section == "serving":
             return self._serving_values(entry)
+        if section == "models":
+            return self._model_values(entry)
         r = self.study.scalability(entry.workload)
         host = r.points["host"]
         ndp = r.points["ndp"]
@@ -223,6 +234,16 @@ class SuiteRunner:
         ndp_mj = round(ndp[-1].energy.total_j * 1e3, 6)
         return (host_mj, ndp_mj,
                 round(ndp_mj / host_mj if host_mj else 0.0, 3))
+
+    def _model_values(self, entry: SuiteEntry) -> tuple:
+        """Swept axes + whole-step op census for a model entry
+        (placeholder columns on any other source)."""
+        if entry.source != "model":
+            return ("-", 0, "-", 0, 0, 0, 0, 0.0)
+        from repro_torch.capture.zoo import census_for
+
+        p = dict(entry.params)
+        return (p["mode"], p["batch"], p["geometry"]) + census_for(entry.name)
 
     def _serving_values(self, entry: SuiteEntry) -> tuple:
         """Phase timeline + best measured mitigation for a serving entry;
@@ -345,7 +366,7 @@ class SuiteRunner:
                 (e.name, self.registry.refs, self.seed, self.cores,
                  self.backend, self.sections,
                  str(self.store.root) if self.store is not None else None,
-                 self.device)
+                 self.device, self.registry.only)
                 for e in remote
             ]
             # spawn, not fork: a child forked after CUDA is initialised
@@ -431,6 +452,7 @@ class SuiteRunner:
                 e.name: e
                 for e in registry_for(refs=self.registry.refs,
                                       sections=self.sections,
+                                      only=self.registry.only,
                                       device=self.device)
             }
         return self._rebuilt

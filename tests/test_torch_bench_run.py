@@ -2,12 +2,14 @@
 
 One ``--fast --device cpu`` run: it prints the reference driver's
 sections in the reference's order (read from ``benchmarks/run.py``'s own
-section table), minus ``models``, ``models_sweep`` and ``roofline``, which
-wait for later slices; its perf record goes to the file it is given (by
-default one under ``build/``) and never to ``BENCH.json``.  Naming a
-waiting section fails with its ROADMAP item; the ``kernels_*`` sections on
-the CPU time the plain versions and carry no H100 column.  The figure and
-case rows themselves are held against the reference's in
+section table), minus ``roofline``, which waits for a later slice; its
+perf record goes to the file it is given (by default one under
+``build/``) and never to ``BENCH.json``.  Naming the waiting section
+fails with its ROADMAP item; the ``kernels_*`` sections on the CPU time
+the plain versions and carry no H100 column; the ``models`` section is
+the CI pair's 51 entries, each of its pinned class, and ``models_sweep``
+streams the reference's whole bs64 decode step.  The figure and case rows
+themselves are held against the reference's in
 ``tests/test_torch_paper_figures.py``."""
 
 import ast
@@ -23,7 +25,7 @@ import torch
 from repro_torch.benchmarks import kernel_bench, run
 
 ROOT = Path(__file__).resolve().parents[1]
-WAITING = ("models", "models_sweep", "roofline")
+WAITING = ("roofline",)
 
 
 def _reference_sections() -> list[str]:
@@ -147,7 +149,6 @@ def test_card_peaks_raise_for_a_card_without_published_peaks(name):
 
 
 @pytest.mark.parametrize("section,item", [
-    ("models", "the whole-model zoo"), ("models_sweep", "the whole-model zoo"),
     ("roofline", "the cost substrate"),
 ])
 def test_waiting_sections_fail_naming_their_item(section, item, capsys):
@@ -155,6 +156,38 @@ def test_waiting_sections_fail_naming_their_item(section, item, capsys):
         run.main(["--only", section, "--device", "cpu", "--bench-json", ""])
     assert item in str(exc.value.code) and "ROADMAP.md" in str(exc.value.code)
     assert capsys.readouterr().out == ""
+
+
+def test_models_sections_rows(fast_run):
+    from repro.capture.zoo import get_capture as jax_capture
+
+    secs = _sections(fast_run["out"])
+    header, *rows = secs["models"]
+    cols = header.split(",")
+    recs = [dict(zip(cols, r.split(","))) for r in rows]
+    assert len(recs) == 51
+    assert all(any(r["name"].startswith(f"model.{c}.")
+                   for c in run.MODELS_ONLY) for r in recs)
+    assert all(r["assigned"] == r["expected"] for r in recs)
+    header, *rows = secs["models_sweep"]
+    assert header == "name,refs,chunk,l1_misses,llc_misses,lfmr,mpki"
+    whole = jax_capture("qwen2.5-14b", "decode", 64).walk(
+        count_only=True).refs
+    assert [r.split(",")[0] for r in rows] == [
+        f"{run.SWEEP_ENTRY}.host", f"{run.SWEEP_ENTRY}.ndp"]
+    assert {int(r.split(",")[1]) for r in rows} == {whole}
+
+
+def test_models_sweep_materializes_no_trace(tmp_path, capsys):
+    from repro_torch import obs
+
+    obs.reset_counters()
+    assert run.main(["--fast", "--device", "cpu", "--only", "models_sweep",
+                     "--bench-json", ""]) == 0
+    capsys.readouterr()
+    c = obs.counters()
+    assert c.get("capture.model.concat", 0) == 0
+    assert c["capture.model.stream_blocks"] > 0
 
 
 def test_unknown_section_fails(capsys):

@@ -196,6 +196,45 @@ def test_ops_raise_on_a_device_without_a_path():
         gather(torch.zeros(4, 128, device="meta"), torch.tensor([0]))
 
 
+def test_entry_points_refuse_meta_and_only_the_capture_builds_there():
+    """``meta`` is the abstract capture's device, reached through
+    ``capture.zoo.meta_lm`` alone: every entry point's ``device=`` still
+    refuses it."""
+    from repro_torch.capture import zoo
+    from repro_torch.suite import models_registry
+
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        LM(configs.get_smoke("qwen2.5-14b"), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        models_registry(device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        bench_main(["--only", "models", "--device", "meta",
+                    "--bench-json", ""])
+    lm = zoo.meta_lm("qwen2.5-14b")
+    assert lm.device.type == "meta"
+    assert all(p.device.type == "meta" for p in lm.parameters())
+
+
+def test_model_zoo_captures_and_classifies_with_jax_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    code = (
+        "import sys; sys.modules['jax'] = None\n"
+        "from repro_torch.capture import zoo\n"
+        "from repro_torch.core import classify\n"
+        "from repro_torch.benchmarks import perf_gate, timing_smoke\n"
+        "(w,) = zoo.model_workloads(only=('mamba2-780m.decode.bs8.c4096',))\n"
+        "m = classify.measure(w, seed=0)\n"
+        "print(classify.classify(m), w.expected_class,\n"
+        "      zoo.census_for(w.name)[:3], 'repro' in sys.modules)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.split() == ["1b", "1b", "(17,", "13,", "4)", "False"]
+
+
 def test_build_helper_forms_the_sm90a_nvcc_line():
     cmd = _build.nvcc_command(Path("csrc/x.cu"), Path("build/libx.so"))
     assert cmd[0].endswith("nvcc")

@@ -94,7 +94,9 @@ def test_registry_errors():
     with pytest.raises(ValueError, match="source"):
         SuiteRegistry().register(w, domain="x", source="bogus")
     with pytest.raises(ValueError, match="source"):
-        SuiteEntry(workload=w, domain="x", source="model", params=())
+        SuiteEntry(workload=w, domain="x", source="models", params=())
+    assert SuiteEntry(workload=w, domain="x", source="model",
+                      params=()).source == "model"     # the zoo's source
     assert reg.refs is None and reg.entries[0].device == "cpu"
     card = SuiteRegistry(device="cuda:0")
     assert card.register(w, domain="x", source="synthetic").device == "cuda"

@@ -59,9 +59,9 @@ def test_sectioned_row_equals_reference(name, sectioned):
 
 def test_unknown_section_rejected(capsys):
     with pytest.raises(ValueError, match="unknown roster section"):
-        SuiteRunner(SuiteRegistry(), sections=("models",))
+        SuiteRunner(SuiteRegistry(), sections=("roofline",))
     with pytest.raises(SystemExit):
-        main(["--sections", "models", "--device", "cpu", "--no-store"])
+        main(["--sections", "roofline", "--device", "cpu", "--no-store"])
     assert "unknown section" in capsys.readouterr().err
 
 
