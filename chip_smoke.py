@@ -226,7 +226,24 @@ kernels as a fresh process does:
    repro_torch.benchmarks.run --fast`` in a fresh process on the card
    against the committed ``src/repro_torch/benchmarks/baseline_h100.json``
    (every section within 2x, the kernel-timing sections skipped);
-20. prints the kernels line (``launches`` summed over main paths 1 and 2,
+20. the cost substrate and the launch layer (``launch_phase``; no kernel
+   launches): (a) the ``hlo`` substrate's 64 rows against ``H100_SXM``,
+   counted by class and timed; (b) ``python -m repro_torch.launch.dryrun``
+   in three child processes at once, at full width on the production
+   meshes over a fake process group: qwen2.5-14b ``decode_32k`` on
+   2x16x16, deepseek-moe-16b ``train_4k`` and mamba2-780m ``prefill_32k``
+   on 16x16; each entry ``ok``, its argument bytes equal to the sum of
+   its leaves' local shard bytes as the phase computes them from the
+   abstract mesh, its per-card argument and temp GB printed against
+   80 GB with its collective bytes by op and its seconds; (c) mamba2-780m
+   ``decode_32k`` placed by ``build_cell`` on ``make_local_mesh()`` (one
+   rank, NCCL) on the card at full width: 48 layers, batch 128, bf16
+   weights and an f32 state of 9.7 GB drawn from seed 0; one decode step
+   against the same step of a plain ``LM`` on the same parameters (bit
+   for bit expected; at most 1e-5 of the logits' rms), then the median
+   of 5 steps against ``analytic.cell_cost``'s ``t_bound`` on
+   ``H100_SXM``, with their ratio;
+21. prints the kernels line (``launches`` summed over main paths 1 and 2,
    as before, for the seven capture kernels and main path 6's first
    cuda run for the window count; ``launches_by_path`` for paths 1-4,
    6-9, ``models`` (path 11) and ``models_sweep`` (path 12's cuda run);
@@ -2808,7 +2825,7 @@ def train_phase(smi: str, peaks: dict, tmp_dir: str) -> None:
             raise AssertionError("train: the restored state differs from "
                                  "the saved one")
         n_bytes = sum(v.numel() * v.element_size() for v in want.values())
-        n_leaves = len(want)
+        nleaves = len(want)
         del got, want, restored, rstate
         snapshots.clear()
         _, _, resumed = launch_train.train_loop(
@@ -2817,7 +2834,7 @@ def train_phase(smi: str, peaks: dict, tmp_dir: str) -> None:
         uninterrupted = losses[TRAIN_SAVE_AT:TRAIN_SAVE_AT + TRAIN_RESUMED]
         rel = [abs(a - b) / abs(b) for a, b in zip(resumed, uninterrupted)]
         say({"phase": "lm-1b", "part": "c-checkpoint", "arch": TRAIN_ARCH,
-             "saved_at": TRAIN_SAVE_AT, "leaves_bit_equal": n_leaves,
+             "saved_at": TRAIN_SAVE_AT, "leaves_bit_equal": nleaves,
              "bytes": n_bytes, "restore_s": load_s,
              "resumed_losses": resumed, "uninterrupted_losses": uninterrupted,
              "resumed_max_rel": max(rel), "tol_rel": TRAIN_RESUME_RTOL,
@@ -3079,6 +3096,214 @@ def gates_phase(smi: str, tmp_dir: str) -> None:
          "verdict": gate.stderr.strip().splitlines()[-1:], "card": smi})
     if gate.returncode:
         raise AssertionError(f"perf_gate failed: {gate.stderr[-2000:]}")
+
+
+LAUNCH_CELLS = (("qwen2.5-14b", "decode_32k", True),
+                ("deepseek-moe-16b", "train_4k", False),
+                ("mamba2-780m", "prefill_32k", False))
+CARD_GB = 80
+
+
+def cell_arg_bytes(arch: str) -> int:
+    """The argument bytes a card of a ``LAUNCH_CELLS`` cell, from the
+    published widths and the mesh arithmetic written out here, not from
+    the port's sharding rules: serving keeps bf16 weights sharded over
+    "model" (16) alone, training f32 weights also over the data axes
+    (FSDP) with bf16 AdamW moments and an int32 step count; a dimension
+    splits only where the mesh axis divides it."""
+    i32, bf16, f32 = 4, 2, 4
+    if arch == "qwen2.5-14b":
+        # Qwen2.5-14B: 48 layers, d 5120, 40 query / 8 kv heads of 128,
+        # d_ff 13824, vocab 152064, qkv biases; decode_32k, batch 128 x
+        # 32768 on 2x16x16: model 16, batch over pod x data = 32
+        n_l, d, h, g, hd, ff, v = 48, 5120, 40, 8, 128, 13824, 152064
+        model, data = 16, 32
+        # 40 and 8 heads do not split 16 ways: attention whole on each card
+        attn = 2 * d * h * hd + 2 * d * g * hd + h * hd + 2 * g * hd
+        mlp = 3 * d * ff // model                   # 13824 = 16 x 864
+        params = n_l * (attn + mlp + 2 * d) + 2 * v * d // model + d
+        # k and v: batch over pod x data, length over model (flash-decode)
+        cache = 2 * n_l * (128 // data) * (32768 // model) * g * hd
+        return bf16 * (params + cache) + i32 * 2 * (128 // data)
+    if arch == "deepseek-moe-16b":
+        # DeepSeek-MoE-16B: 28 layers, d 2048, 16 heads of 128, 64 routed
+        # experts of 1408 and 2 shared, vocab 102400; train_4k, batch 256
+        # x 4096 on 16x16: FSDP over data 16, heads/experts/ffn/vocab over
+        # model 16, the router [d, 64] over data alone, norms whole
+        n_l, d, h, hd, e, ff, v = 28, 2048, 16, 128, 64, 1408, 102400
+        model, data = 16, 16
+        both = model * data
+        layer = (4 * d * h * hd // both + d * e // data
+                 + 3 * e * d * ff // both + 3 * d * 2 * ff // both + 2 * d)
+        params = n_l * layer + 2 * v * d // both + d
+        return (f32 + 2 * bf16) * params + i32 + i32 * 2 * (256 // data) * 4096
+    if arch == "mamba2-780m":
+        # Mamba2-780m: 48 layers, d 1536, d_inner 3072, state 128, heads
+        # of 64, conv 4, vocab 50280 tied; prefill_32k, batch 32 x 32768
+        # on 16x16: model 16, batch over data 16
+        n_l, d, di, n, hp, k, v = 48, 1536, 3072, 128, 64, 4, 50280
+        model, data = 16, 16
+        h, ch = di // hp, di + 2 * n
+        layer = (d * (2 * di + 2 * n + h) // model    # 6448 = 16 x 403
+                 + k * ch + ch                         # the conv, whole
+                 + 3 * h // model + di // model + di * d // model + d)
+        # 50280 vocab rows do not split 16 ways: the embedding whole
+        params = n_l * layer + v * d + d
+        state = n_l * (32 // data) * (h // model) * n * hp
+        conv = n_l * (32 // data) * (k - 1) * (ch // model)
+        return (bf16 * params + f32 * state + bf16 * conv
+                + i32 * (32 // data) * 32768)
+    raise KeyError(arch)
+
+
+def launch_phase(smi: str, tmp_dir: str) -> None:
+    """Phase 20: the ``hlo`` substrate on ``H100_SXM``, three full-width
+    dry-run cells in child processes, and one placed decode cell stepped
+    on the card against the plain LM and its bound."""
+    import statistics
+
+    from repro_torch.core import analytic, hlo_analysis
+    from repro_torch.launch.cells import plan_for
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.specs import build_cell, plain_lm
+    from repro_torch.models.config import SHAPES
+    from repro_torch.study.substrate import HloSubstrate
+
+    t_phase = time.perf_counter()
+    # (a) the hlo substrate's rows
+    t0 = time.perf_counter()
+    res = HloSubstrate().characterize()
+    hlo_s = time.perf_counter() - t0
+    classes: dict[str, int] = {}
+    for row in res.to_rows():
+        classes[row[1]] = classes.get(row[1], 0) + 1
+    say({"phase": "launch-hlo", "rows": len(res.to_rows()),
+         "classes": classes, "hw": hlo_analysis.H100_SXM.name,
+         "seconds": hlo_s})
+    if len(res.to_rows()) != 64:
+        raise AssertionError(f"hlo substrate: {len(res.to_rows())} rows")
+
+    # (b) three full-width dry-run cells, one child process each
+    out_dir = Path(tmp_dir) / "dryrun"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    procs = []
+    for arch, shape, mp in LAUNCH_CELLS:
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                "--arch", arch, "--shape", shape, "--out", str(out_dir)]
+        procs.append(subprocess.Popen(
+            argv + (["--multi-pod"] if mp else []), env=env, cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outs = [p.communicate(timeout=900) for p in procs]
+    dry_s = time.perf_counter() - t0
+    for (arch, shape, mp), p, (out, err) in zip(LAUNCH_CELLS, procs, outs):
+        tag = f"{arch}__{shape}__{'2pod' if mp else '1pod'}"
+        path = out_dir / f"{tag}.json"
+        if p.returncode or not path.exists():
+            raise AssertionError(f"dry run {tag}: rc {p.returncode}: "
+                                 f"{err[-2000:]}")
+        e = json.loads(path.read_text())
+        if e["status"] != "ok":
+            raise AssertionError(f"dry run {tag}: {e.get('error')}: "
+                                 f"{e.get('traceback', '')[-1500:]}")
+        m = e["memory"]
+        want = cell_arg_bytes(arch)
+        say({"phase": "launch-dryrun", "cell": f"{arch}:{shape}",
+             "mesh": e["mesh"], "chips": e["chips"],
+             "arg_gb": m["argument_size_in_bytes"] / 1e9,
+             "temp_gb": m["temp_size_in_bytes"] / 1e9,
+             "out_gb": m["output_size_in_bytes"] / 1e9, "card_gb": CARD_GB,
+             "fits": (m["argument_size_in_bytes"]
+                      + m["temp_size_in_bytes"]) / 1e9 <= CARD_GB,
+             "arg_bytes_expected": want,
+             "collective_bytes": e["hlo_collective_bytes_per_iter"],
+             "collective_by_op": e["hlo_collective_by_op"],
+             "local_flops": e["hlo_cost_analysis"]["flops"],
+             "local_bytes": e["hlo_cost_analysis"]["bytes accessed"],
+             "ops": e["hlo_ops"], "class": e["class"],
+             "place_s": e["lower_s"], "step_s": e["compile_s"]})
+        if m["argument_size_in_bytes"] != want:
+            raise AssertionError(f"dry run {tag}: argument bytes "
+                                 f"{m['argument_size_in_bytes']} != {want}")
+        if not e["hlo_collective_bytes_per_iter"]:
+            raise AssertionError(f"dry run {tag}: no collective recorded")
+
+    # (c) one placed cell on the card against the plain LM
+    plan = plan_for("mamba2-780m", "decode_32k")
+    cfg = plan.cfg
+    with make_local_mesh() as mesh:
+        t0 = time.perf_counter()
+        fn, args, _, _, _ = build_cell(plan, mesh)
+        params, tokens, cache, pos = args
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+
+        def local(tree):
+            if isinstance(tree, dict):
+                return {k: local(v) for k, v in tree.items()}
+            return tree.to_local()
+
+        plain = plain_lm(cfg, params, "cuda")
+        plain_cache = {k: {n: t.clone() for n, t in v.items()}
+                       for k, v in local(cache).items()}
+        state_gb = sum(t.numel() * t.element_size() for v in
+                       plain_cache.values() for t in v.values()) / 1e9
+        with torch.no_grad():
+            want, want_cache = plain.decode_step(tokens.to_local(),
+                                                 plain_cache,
+                                                 pos.to_local())
+            got, got_cache = fn(*args)
+        got = got.to_local()
+        torch.cuda.synchronize()
+        # the logits and every cache leaf the step wrote (the SSM state
+        # and conv rows, through the mesh's copy_into), each against its
+        # own rms
+        pairs = {"logits": (got, want)}
+        for k in want_cache:
+            for n, a in local(got_cache)[k].items():
+                pairs[f"{k}.{n}"] = (a, want_cache[k][n])
+        errs, rmss = {}, {}
+        for n, (a, b) in pairs.items():
+            errs[n] = float((a.float() - b.float()).abs().max())
+            rmss[n] = float(b.float().pow(2).mean().sqrt())
+        err, rms = errs["logits"], rmss["logits"]
+        bit_equal = all(torch.equal(a, b) for a, b in pairs.values())
+        del pairs
+        del plain, plain_cache, want, want_cache, got, got_cache
+        torch.cuda.empty_cache()
+        times = []
+        with torch.no_grad():
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                fn(*args)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+        del fn, args, params, tokens, cache, pos
+    gc.collect()
+    torch.cuda.empty_cache()
+    c = analytic.cell_cost(cfg, SHAPES["decode_32k"], kind="decode",
+                           microbatches=1, data_shards=1, model_shards=1)
+    rt = hlo_analysis.RooflineTerms(
+        name="mamba2-780m:decode_32k@1", chips=1, hlo_flops=c.flops,
+        hlo_bytes=c.hbm_bytes, collective_bytes=c.collective_bytes,
+        hw=hlo_analysis.H100_SXM)
+    ms = statistics.median(times)
+    say({"phase": "launch-card-cell", "cell": plan.name,
+         "layers": cfg.n_layers, "batch": plan.shape.global_batch,
+         "cache_gb": state_gb, "place_s": place_s,
+         "bit_equal": bit_equal, "max_abs_err": err, "logits_rms": rms,
+         "leaf_max_abs_err": errs, "leaf_rms": rmss,
+         "step_ms": times, "median_ms": ms,
+         "bound_ms": rt.t_bound * 1e3, "bound_by": rt.dominant,
+         "ratio": ms / (rt.t_bound * 1e3), "card": smi})
+    bad = {n: (errs[n], rmss[n]) for n in errs
+           if not errs[n] <= 1e-5 * rmss[n]}
+    if bad:
+        raise AssertionError(f"placed decode step: max |diff| over 1e-5 x "
+                             f"rms in {bad}")
+    say({"phase": "launch", "dryrun_s": dry_s,
+         "seconds": time.perf_counter() - t_phase, "card": smi})
 
 
 def main() -> int:
@@ -3454,7 +3679,12 @@ def main() -> int:
     models_launches = models_phase(K, trace_dir, smi)
     gates_phase(smi, tmp.name)
 
-    # -- 20. results --------------------------------------------------------
+    # -- 20. the cost substrate and the launch layer --------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    launch_phase(smi, tmp.name)
+
+    # -- 21. results --------------------------------------------------------
     kernels = []
     for kname, (source, replaces) in KERNEL_SITES.items():
         scan = kname == SCAN_KERNEL

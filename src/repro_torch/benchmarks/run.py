@@ -46,13 +46,13 @@ Sections, in the reference's order:
            bounded-footprint trace (2M refs fast / 10M full), always cold;
            ``--backend cuda`` runs its window scans on the card
 - case1..case4 — §5 case studies
+- roofline — §Roofline: the launch layer's cells as three-term rooflines
+           against the H100 SXM (``roofline_table``: the dry run's
+           artifacts under ``build/dryrun``, else the analytic terms)
 - kernels_stream, kernels_attention — the port's STREAM and bf16 flash
            kernels timed on the card beside their library calls and the
            card's roof (``kernel_bench.PEAKS``, by the card's name; an
            unknown card raises); on the CPU their plain versions
-
-The reference's ``roofline`` (ROADMAP.md's "the cost substrate") is not
-ported yet: ``--only roofline`` exits non-zero.
 
 Every run writes a machine-readable perf record (default
 ``build/repro_torch_bench.json`` in the checkout; ``''`` disables):
@@ -76,15 +76,14 @@ from repro_torch.device import resolve_device
 from repro_torch.study import Study, StudyResult
 from repro_torch.suite import ResultStore
 
-from . import kernel_bench, paper_figures
+from . import kernel_bench, paper_figures, roofline_table
 
 FAST_REFS = 20_000
 DEFAULT_BENCH_JSON = (Path(__file__).resolve().parents[3] / "build"
                       / "repro_torch_bench.json")
-# Sections of the reference's driver that wait for later slices.
-NOT_PORTED = {
-    "roofline": "ROADMAP.md's \"the cost substrate\"",
-}
+# Sections that run nothing on a device: a run of these alone needs no
+# card and records its device as "none".
+DEVICE_FREE = ("roofline",)
 # The models section's CI pair and the streamed section's entry.
 MODELS_ONLY = ("qwen2.5-14b", "mamba2-780m")
 SWEEP_ENTRY = "model.qwen2.5-14b.decode.bs64"
@@ -305,10 +304,16 @@ def sections_for(args: argparse.Namespace, study: Study, refs: int) -> dict:
         "case2": lambda: paper_figures.case2_accelerators(study),
         "case3": lambda: paper_figures.case3_core_models(study),
         "case4": lambda: paper_figures.case4_offload(study),
+        "roofline": roofline_table.rows,
         "kernels_stream": lambda: kernel_bench.stream_rows(device),
         "kernels_attention": lambda: kernel_bench.attention_rows(device),
     }
     return sections
+
+
+def _needs_device(args: argparse.Namespace) -> bool:
+    only = [s for s in (args.only or "").split(",") if s]
+    return not only or any(s not in DEVICE_FREE for s in only)
 
 
 def run(args: argparse.Namespace) -> dict:
@@ -319,13 +324,9 @@ def run(args: argparse.Namespace) -> dict:
     ``repro_torch.obs``."""
     from repro_torch.core.tracegen import DEFAULT_REFS
 
-    resolve_device(args.device)   # raises for cuda without a card
     only = [s for s in (args.only or "").split(",") if s]
-    waiting = [s for s in only if s in NOT_PORTED]
-    if waiting:
-        raise SystemExit("error: " + "; ".join(
-            f"section {s!r} is not ported yet: it waits for {NOT_PORTED[s]}"
-            for s in waiting))
+    if _needs_device(args):
+        resolve_device(args.device)   # raises for cuda without a card
     refs = FAST_REFS if args.fast else DEFAULT_REFS
     study = Study(refs=refs, backend=args.backend)
     sections = sections_for(args, study, refs)
@@ -363,7 +364,8 @@ def write_record(args: argparse.Namespace, res: dict) -> str:
     from repro_torch.core.cachesim import default_backend
 
     backend = args.backend or default_backend()
-    device = resolve_device(args.device).type
+    device = resolve_device(args.device).type if _needs_device(args) \
+        else "none"
     config_key = (f"{'fast' if args.fast else 'full'}"
                   f"-refs{res['refs']}-{backend}-{device}")
     meta = {

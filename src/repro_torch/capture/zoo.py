@@ -457,19 +457,24 @@ _TRACES: _LRU = _LRU(48)
 _CENSUS: dict[str, tuple] = {}
 
 
-def meta_lm(config: str, *, smoke: bool = True):
-    """The LM of ``config`` (its smoke config, or the full one) on the
-    ``meta`` device: parameters that are shapes without memory, for an
-    abstract capture.  ``LM.__init__`` resolves its ``device=`` through
-    :func:`repro_torch.device.resolve_device`, which refuses ``meta`` for
-    every entry point; this builds the same module beside it."""
+def meta_lm(config, *, smoke: bool = True):
+    """The LM of ``config`` (an architecture's name: its smoke config, or
+    the full one; or a ``ModelConfig`` itself) on the ``meta`` device:
+    parameters that are shapes without memory, for an abstract capture or
+    the launch layer's dry run.  ``LM.__init__`` resolves its ``device=``
+    through :func:`repro_torch.device.resolve_device`, which refuses
+    ``meta`` for every entry point; this builds the same module beside
+    it."""
     import torch
 
     from repro_torch import configs
     from repro_torch.models import layers as L
     from repro_torch.models.model import LM, param_spec
 
-    cfg = configs.get_smoke(config) if smoke else configs.get(config)
+    if not isinstance(config, str):
+        cfg = config
+    else:
+        cfg = configs.get_smoke(config) if smoke else configs.get(config)
     lm = LM.__new__(LM)
     L.ParamTree.__init__(lm, param_spec(cfg), torch.device("meta"))
     lm.cfg = cfg

@@ -37,15 +37,16 @@ from torch import nn
 from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
+from . import shard_ops, sharding
 from .config import ModelConfig
 
 __all__ = [
     "Init", "ParamTree", "compute_dtype", "remat",
-    "rms_norm", "rms_norm_init",
+    "rms_norm", "rms_norm_init", "rms_norm_axes",
     "apply_rope",
-    "attention_init", "attention_fwd", "attention_decode",
-    "mla_init", "mla_fwd", "mla_decode",
-    "mlp_init", "mlp_fwd",
+    "attention_init", "attention_axes", "attention_fwd", "attention_decode",
+    "mla_init", "mla_axes", "mla_fwd", "mla_decode",
+    "mlp_init", "mlp_axes", "mlp_fwd",
 ]
 
 Params = Mapping[str, "torch.Tensor | Params"]
@@ -62,9 +63,11 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 def remat(fn, *args):
     """``fn(*args)``, rematerialized in the backward pass when autograd
     records (``torch.utils.checkpoint``, non-reentrant): the port's
-    ``jax.checkpoint``.  Without autograd it is a plain call."""
+    ``jax.checkpoint``.  Without autograd it is a plain call.  Under a
+    sharding context the recomputation runs under it too (autograd may
+    run the backward pass on a thread of its own)."""
     if torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(sharding.carried(fn), *args, use_reentrant=False)
     return fn(*args)
 
 
@@ -143,6 +146,10 @@ def rms_norm_init(d: int) -> dict:
     return {"scale": Init((d,), "ones")}
 
 
+def rms_norm_axes() -> dict:
+    return {"scale": ("embed",)}
+
+
 def rms_norm(x: torch.Tensor, p: Params, eps: float = 1e-6) -> torch.Tensor:
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
@@ -194,11 +201,40 @@ def attention_init(cfg: ModelConfig) -> dict:
     return p
 
 
+def attention_axes(cfg: ModelConfig) -> dict:
+    p = {
+        "wq": ("fsdp", "heads", None),
+        "wk": ("fsdp", "kv_heads", None),
+        "wv": ("fsdp", "kv_heads", None),
+        "wo": ("heads", None, "fsdp"),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = ("heads", None)
+        p["bk"] = ("kv_heads", None)
+        p["bv"] = ("kv_heads", None)
+    return p
+
+
+def _heads_layout(x, w, axis: str):
+    out = (x.shape[0], x.shape[1]) + tuple(w.shape[1:])
+    return ((("batch", None, None), (None, axis, None), None),
+            [(("batch", None, axis, None), out)])
+
+
+@shard_ops.shard_local(_heads_layout)
+def _project(x, w, axis: str):
+    """x [B, S, d] through w [d, H, K] -> [B, S, H, K].  On a mesh each
+    rank projects its own batch rows onto its own heads (``axis``, their
+    logical name): DTensor's own strategy may split the fused H*K columns
+    over a mesh axis that does not divide H."""
+    return torch.einsum("bsd,dhk->bshk", x, w)
+
+
 def _project_qkv(p: Params, cfg: ModelConfig, x, positions):
     dt = compute_dtype(cfg)
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+    q = _project(x, p["wq"].to(dt), "heads")
+    k = _project(x, p["wk"].to(dt), "kv_heads")
+    v = _project(x, p["wv"].to(dt), "kv_heads")
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
@@ -214,8 +250,10 @@ def _causal_mask(q_offset, sq: int, k_start: int, sk: int, device):
     return qpos[:, None] >= kpos[None, :]
 
 
+@shard_ops.head_local
 def _sdpa_naive(q, k, v, *, causal: bool, scale: float, q_offset=0):
-    """q,k: [B,S,*,D]; v: [B,Sk,G,Dv] (Dv may differ, e.g. MLA)."""
+    """q,k: [B,S,*,D]; v: [B,Sk,G,Dv] (Dv may differ, e.g. MLA).  On a
+    mesh each rank runs it on its own shard (``shard_ops.head_local``)."""
     b, sq, h, d = q.shape
     g = k.shape[2]
     dv = v.shape[-1]
@@ -230,10 +268,14 @@ def _sdpa_naive(q, k, v, *, causal: bool, scale: float, q_offset=0):
     return out.reshape(b, sq, h, dv)
 
 
+@shard_ops.head_local
 def _sdpa_chunked(q, k, v, *, causal: bool, scale: float, chunk: int):
     """Online softmax over KV chunks: the same math, bounded memory.  The
     chunks are the reference scan's ``sk // chunk`` full ones, then its
-    remainder."""
+    remainder.  On a mesh each rank runs the loop on its own shard, laid
+    out as the reference's hints at its chunk loop lay it out (batch over
+    the data axes, kv-head groups over the model axis when they divide:
+    ``shard_ops.head_local``)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     g = k.shape[2]
@@ -290,13 +332,13 @@ def attention_fwd(p: Params, cfg: ModelConfig, x, positions, *,
         q, k, v = _project_qkv(p, cfg, x, positions)
         out = _sdpa(cfg, q, k, v, causal=causal, scale=scale)
     else:
-        q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+        q = _project(x, p["wq"].to(dt), "heads")
         if cfg.qkv_bias:
             q = q + p["bq"].to(dt)
         q = apply_rope(q, positions, cfg.rope_theta)
         k, v = kv_override
         out = _sdpa_naive(q, k, v, causal=causal, scale=scale)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
+    y = shard_ops.merge_heads(out, p["wo"].to(dt))
     if return_kv:
         return y, (k, v)
     return y
@@ -307,7 +349,7 @@ def _write_rows(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor):
     last row as ``lax.dynamic_update_slice`` clamps its start."""
     rows = torch.arange(buf.shape[0], device=buf.device)
     at = pos.to(torch.int64).clamp(0, buf.shape[1] - 1)
-    buf[rows, at] = new[:, 0].to(buf.dtype)
+    shard_ops.write_rows(buf, rows, at, new[:, 0].to(buf.dtype))
     return buf
 
 
@@ -330,14 +372,18 @@ def attention_decode(p: Params, cfg: ModelConfig, x, cache: dict, pos):
     b, _, h, d = q.shape
     g = k_cache.shape[2]
     rep = h // g
-    qh = q.reshape(b, g, rep, d)
+    # on a mesh the cache's length is what shards over the model axis
+    # (flash-decode); the query's heads stay whole (made so before the
+    # view, which could not split heads sharded over the model axis)
+    qh = sharding.constrain(q, "batch", None, None, None).reshape(
+        b, g, rep, d)
     scores = torch.einsum("bgrd,btgd->bgrt", qh, k_cache).to(torch.float32)
     scores = scores * d ** -0.5
     valid = _valid(pos, k_cache.shape[1])
     scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
     w = torch.softmax(scores, dim=-1).to(dt)
     out = torch.einsum("bgrt,btgd->bgrd", w, v_cache).reshape(b, 1, h, d)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
+    y = shard_ops.merge_heads(out, p["wo"].to(dt))
     return y, {"k": k_cache, "v": v_cache}
 
 
@@ -355,6 +401,16 @@ def mla_init(cfg: ModelConfig) -> dict:
         "kv_norm": Init((r,), "ones"),
         "wkv_b": _trunc((r, h, dn + dv), r ** -0.5),
         "wo": _trunc((h, dv, d), (h * dv) ** -0.5),
+    }
+
+
+def mla_axes(cfg: ModelConfig) -> dict:
+    return {
+        "wq": ("fsdp", "heads", None),
+        "wkv_a": ("fsdp", "kv_lora"),
+        "kv_norm": ("kv_lora",),
+        "wkv_b": ("kv_lora", "heads", None),
+        "wo": ("heads", None, "fsdp"),
     }
 
 
@@ -446,6 +502,13 @@ def mlp_init(cfg: ModelConfig, d_ff: int | None = None) -> dict:
     }
     if cfg.mlp_kind == "swiglu":
         p["w_gate"] = _trunc((d, f), d ** -0.5)
+    return p
+
+
+def mlp_axes(cfg: ModelConfig) -> dict:
+    p = {"w_up": ("fsdp", "ffn"), "w_down": ("ffn", "fsdp")}
+    if cfg.mlp_kind == "swiglu":
+        p["w_gate"] = ("fsdp", "ffn")
     return p
 
 

@@ -34,7 +34,15 @@ of the hybrid, each encoder layer) with ``torch.utils.checkpoint`` where
 the reference wraps its scan bodies in ``jax.checkpoint``; the SSD chunk,
 the attention chunk and the loss chunk are always rematerialized, as in
 the reference.  Remat changes the memory a backward pass holds, not the
-values.  The reference's sharding hints have no counterpart.
+values.
+
+``axes()`` gives every parameter's logical axes in the module's own tree
+(per-layer lists, the reference's leading stack axes dropped), and the
+reference's sharding hints stand at its sites as
+``repro_torch.models.sharding.constrain`` calls: with parameters and
+inputs placed as DTensors under ``sharding.activate(mesh, rules)`` (the
+launch layer's cells) they redistribute the residual stream, the prefill
+K/V and the embedding; on plain tensors they return their input.
 """
 
 from __future__ import annotations
@@ -49,8 +57,11 @@ from . import layers as L
 from . import moe as M
 from . import ssm as S
 from .config import ModelConfig
+from .shard_ops import (copy_into, logsumexp_last, row_chunks, take_last,
+                        take_rows, write_block)
+from .sharding import constrain
 
-__all__ = ["LM", "FAMILIES"]
+__all__ = ["LM", "FAMILIES", "axes_spec"]
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 _DECODERS = ("dense", "moe", "vlm")
@@ -65,6 +76,13 @@ def _flat(spec, prefix: str = "") -> dict[str, L.Init]:
         else:
             out[prefix + str(name)] = s
     return out
+
+
+def _residual(x, y):
+    """``x + y`` with the block output ``y`` laid out as the residual
+    stream first (sequence-sharded: the reduce-scatter after a block's
+    output projection; no-op off a mesh)."""
+    return x + constrain(y, "batch", "seq_residual", None)
 
 
 def hybrid_layout(cfg: ModelConfig) -> tuple[int, int, int]:
@@ -120,6 +138,49 @@ def param_spec(cfg: ModelConfig) -> dict:
     return spec
 
 
+def axes_spec(cfg: ModelConfig) -> dict:
+    """The logical axes of :func:`param_spec`'s tree, leaf for leaf (the
+    reference's ``LM.axes()`` without its leading ``"layers"`` stack
+    axes)."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(cfg.family)
+    spec: dict = {"embed": ("vocab", "fsdp"), "ln_f": L.rms_norm_axes()}
+    if not cfg.tie_embeddings:
+        spec["head"] = ("fsdp", "vocab")
+
+    def tf_layer(cross: bool = False):
+        p = {
+            "ln1": L.rms_norm_axes(),
+            "attn": L.mla_axes(cfg) if cfg.kv_lora_rank else L.attention_axes(cfg),
+            "ln2": L.rms_norm_axes(),
+            "mixer": M.moe_axes(cfg) if cfg.is_moe else L.mlp_axes(cfg),
+        }
+        if cross:
+            p["ln_x"] = L.rms_norm_axes()
+            p["xattn"] = L.attention_axes(cfg)
+        return p
+
+    def ssm_layer():
+        return {"ln": L.rms_norm_axes(), "ssm": S.ssm_axes(cfg)}
+
+    if cfg.family in _DECODERS:
+        spec["layers"] = [tf_layer() for _ in range(cfg.n_layers)]
+    elif cfg.family == "ssm":
+        spec["layers"] = [ssm_layer() for _ in range(cfg.n_layers)]
+    elif cfg.family == "hybrid":
+        g, per, trailing = hybrid_layout(cfg)
+        spec["ssm_groups"] = [[ssm_layer() for _ in range(per)]
+                              for _ in range(g)]
+        spec["shared_attn"] = tf_layer()
+        if trailing:
+            spec["ssm_tail"] = [ssm_layer() for _ in range(trailing)]
+    else:                                              # audio
+        spec["enc_layers"] = [tf_layer() for _ in range(cfg.n_enc_layers)]
+        spec["enc_ln_f"] = L.rms_norm_axes()
+        spec["layers"] = [tf_layer(cross=True) for _ in range(cfg.n_layers)]
+    return spec
+
+
 def flat_spec(cfg: ModelConfig) -> dict[str, L.Init]:
     """``param_spec`` flattened to the module's parameter names."""
     return _flat(param_spec(cfg))
@@ -155,6 +216,10 @@ class LM(L.ParamTree):
                 spec[name].fill_(p, generator)
         return self
 
+    def axes(self) -> dict:
+        """Logical axes mirroring the parameter tree (:func:`axes_spec`)."""
+        return axes_spec(self.cfg)
+
     def with_config(self, cfg: ModelConfig) -> "LM":
         """The same parameters (shared, not copied) under another config
         that gives them the same shapes: another compute dtype, attention
@@ -177,25 +242,43 @@ class LM(L.ParamTree):
     def _tf_layer_fwd(self, p, x, positions, aux, *, causal=True,
                       cross_kv=None, return_kv=False):
         cfg = self.cfg
-        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+        # Residual stream sequence-sharded between layers (Megatron-SP);
+        # no-op when seq is indivisible (decode) or no mesh is active.
+        # Gathered along the sequence at each block's entry, each block's
+        # output scattered back (_residual).
+        x = constrain(x, "batch", "seq_residual", None)
+        h = constrain(L.rms_norm(x, p["ln1"], cfg.norm_eps),
+                      "batch", "seq", None)
         attn = L.mla_fwd if cfg.kv_lora_rank else L.attention_fwd
         y = attn(p["attn"], cfg, h, positions, causal=causal,
                  return_kv=return_kv)
         kv = None
         if return_kv:
             y, kv = y
-        x = x + y
+            # length-shard the prefill K/V like the (flash-decode-sharded)
+            # cache it is written into
+            if cfg.kv_lora_rank:
+                kv = tuple(constrain(t, "batch", "cache_len", None)
+                           for t in kv)
+            else:
+                kv = tuple(constrain(t, "batch", "cache_len", "kv_heads",
+                                     None) for t in kv)
+        x = _residual(x, y)
         if cross_kv is not None:
-            h = L.rms_norm(x, p["ln_x"], cfg.norm_eps)
-            x = x + L.attention_fwd(p["xattn"], cfg, h, positions,
-                                    causal=False, kv_override=cross_kv)
-        h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+            h = constrain(L.rms_norm(x, p["ln_x"], cfg.norm_eps),
+                          "batch", "seq", None)
+            x = _residual(x, L.attention_fwd(p["xattn"], cfg, h, positions,
+                                             causal=False,
+                                             kv_override=cross_kv))
+        h = constrain(L.rms_norm(x, p["ln2"], cfg.norm_eps),
+                      "batch", "seq", None)
         if cfg.is_moe:
             y, a = M.moe_fwd(p["mixer"], cfg, h)
-            x = x + y
+            x = _residual(x, y)
             aux = aux + a
         else:
-            x = x + L.mlp_fwd(p["mixer"], cfg, h)
+            x = _residual(x, L.mlp_fwd(p["mixer"], cfg, h))
+        x = constrain(x, "batch", "seq_residual", None)
         return x, aux, kv
 
     def _decode_tf_layer(self, p, x, cache, pos, cross_kv=None):
@@ -208,7 +291,8 @@ class LM(L.ParamTree):
             h = L.rms_norm(x, p["ln_x"], cfg.norm_eps)
             x = x + L.attention_fwd(p["xattn"], cfg, h, pos[:, None],
                                     causal=False, kv_override=cross_kv)
-        h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+        h = constrain(L.rms_norm(x, p["ln2"], cfg.norm_eps),
+                      "batch", "seq", None)
         if cfg.is_moe:
             y, _ = M.moe_fwd(p["mixer"], cfg, h)
             x = x + y
@@ -217,12 +301,15 @@ class LM(L.ParamTree):
         return x, new_cache
 
     def _ssm_layer_fwd(self, p, x, *, prompt_len=None, return_state=False):
-        h = L.rms_norm(x, p["ln"], self.cfg.norm_eps)
+        x = constrain(x, "batch", "seq_residual", None)
+        # the scan runs along the whole sequence: gathered at block entry
+        h = constrain(L.rms_norm(x, p["ln"], self.cfg.norm_eps),
+                      "batch", "seq", None)
         if return_state:
             y, st = S.ssm_fwd(p["ssm"], self.cfg, h, return_state=True,
                               prompt_len=prompt_len)
-            return x + y, st
-        return x + S.ssm_fwd(p["ssm"], self.cfg, h)
+            return _residual(x, y), st
+        return _residual(x, S.ssm_fwd(p["ssm"], self.cfg, h))
 
     def _decode_ssm_layer(self, p, x, state, conv):
         """One SSM block's decode step; writes its state and conv rows
@@ -230,21 +317,22 @@ class LM(L.ParamTree):
         h = L.rms_norm(x, p["ln"], self.cfg.norm_eps)
         y, new = S.ssm_decode(p["ssm"], self.cfg, h,
                               {"state": state, "conv": conv})
-        state.copy_(new["state"])
-        conv.copy_(new["conv"])
+        copy_into(state, new["state"])
+        copy_into(conv, new["conv"])
         return x + y
 
     def _cross_kv(self, p, y_enc):
         """The decoder layer's cross-attention K/V over the encoder's
         output (no bias and no RoPE, as in the reference)."""
         dt = y_enc.dtype
-        k = torch.einsum("bsd,dhk->bshk", y_enc, p["xattn"]["wk"].to(dt))
-        v = torch.einsum("bsd,dhk->bshk", y_enc, p["xattn"]["wv"].to(dt))
+        k = L._project(y_enc, p["xattn"]["wk"].to(dt), "kv_heads")
+        v = L._project(y_enc, p["xattn"]["wv"].to(dt), "kv_heads")
         return k, v
 
     def _embed(self, tokens):
         # a gather, then the cast: the reference's cast, then the gather
-        return self.embed[tokens].to(self.dtype)
+        return constrain(take_rows(self.embed, tokens).to(self.dtype),
+                         "batch", None, None)
 
     def _head(self):
         return self.embed.T if self.cfg.tie_embeddings else self.head
@@ -269,7 +357,9 @@ class LM(L.ParamTree):
         x = enc_embed
         for lp in self.enc_layers:
             x = self._maybe_remat(body, lp, x)
-        return L.rms_norm(x, self.enc_ln_f, self.cfg.norm_eps)
+        # every decoder layer reads the whole encoder sequence
+        return constrain(L.rms_norm(x, self.enc_ln_f, self.cfg.norm_eps),
+                         "batch", "seq", None)
 
     def _frames(self, x, extra_embed):
         if extra_embed is None:
@@ -337,38 +427,42 @@ class LM(L.ParamTree):
                               extra_embed=batch.get("extra_embed"),
                               return_hidden=True)
         b, s, d = x.shape
-        xf = x.reshape(b * s, d)
+        xf = constrain(x, "batch", "seq", None).reshape(b * s, d)
         lf = labels.reshape(b * s)
         chunk = min(8192, b * s)
         n_chunks = max(1, (b * s) // chunk)
-        w = self._head()
+        # on a mesh the head is gathered over its FSDP axes once, before
+        # the chunks (each chunk's logits stay sharded over the vocab)
+        w = constrain(self._head(), None, "vocab")
 
         def chunk_loss(xc, lc, w):
             logits = (xc @ w.to(xc.dtype)).to(torch.float32)
-            lse = torch.logsumexp(logits, dim=-1)
-            gold = torch.gather(logits, -1,
-                                torch.clamp(lc, min=0)[:, None].long())[:, 0]
+            lse = logsumexp_last(logits)
+            gold = take_last(logits, torch.clamp(lc, min=0).long())
             mask = (lc >= 0).to(torch.float32)
             return torch.sum((lse - gold) * mask)
 
         total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for c in range(n_chunks):
-            total = total + L.remat(chunk_loss, xf[c * chunk:(c + 1) * chunk],
-                                    lf[c * chunk:(c + 1) * chunk], w)
+        for xc, lc in row_chunks(xf, lf, chunk, n_chunks):
+            total = total + L.remat(chunk_loss, xc, lc, w)
         denom = torch.clamp((lf >= 0).sum(), min=1).to(torch.float32)
         return total / denom + aux
 
     # ------------------------------------------------------------------
     # KV / state caches, prefill and single-token decode
     # ------------------------------------------------------------------
-    def init_cache(self, batch: int, max_len: int, dtype=None) -> dict:
+    def init_cache(self, batch: int, max_len: int, dtype=None,
+                   device=None) -> dict:
+        """Zeroed caches on the LM's device (or ``device``: ``meta`` gives
+        their shapes and dtypes alone)."""
         cfg = self.cfg
         dt = getattr(torch, dtype) if isinstance(dtype, str) else (
             dtype or self.dtype)
         hd = cfg.resolved_head_dim
+        device = self.device if device is None else device
 
         def zeros(*shape, dtype=dt):
-            return torch.zeros(shape, dtype=dtype, device=self.device)
+            return torch.zeros(shape, dtype=dtype, device=device)
 
         def attn_cache(n: int) -> dict:
             if cfg.kv_lora_rank:
@@ -432,12 +526,14 @@ class LM(L.ParamTree):
         """The prefill's K/V of one attention layer into its cache rows
         [at][:, :s] (offset 0, as the reference's dynamic_update_slice)."""
         for name, new in zip(bufs, kv):
-            bufs[name][at][:, :s] = new.to(bufs[name].dtype)
+            new = new.to(bufs[name].dtype)
+            write_block(bufs[name][at], new)
 
     @staticmethod
     def _write_state(bufs: dict, at, st: dict) -> None:
         for name in ("state", "conv"):
-            bufs[name][at] = st[name].to(bufs[name].dtype)
+            new = st[name].to(bufs[name].dtype)
+            copy_into(bufs[name][at], new)
 
     def prefill(self, tokens, cache, *, extra_embed=None, prompt_len=None):
         """tokens: [B, S] -> (last_logits [B, 1, V], cache, next_pos [B]).

@@ -23,11 +23,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import shard_ops
 from .config import ModelConfig
 from .layers import Init, Params, compute_dtype, remat, rms_norm, silu
 
 __all__ = [
-    "ssm_init", "ssm_fwd", "ssm_decode", "ssd_chunked", "ssd_ref",
+    "ssm_init", "ssm_axes", "ssm_fwd", "ssm_decode", "ssd_chunked", "ssd_ref",
     "softplus", "a_log_init",
 ]
 
@@ -64,6 +65,19 @@ def ssm_init(cfg: ModelConfig) -> dict:
     }
 
 
+def ssm_axes(cfg: ModelConfig) -> dict:
+    return {
+        "w_in": ("fsdp", "ssm_inner"),
+        "conv_w": ("conv", None),
+        "conv_b": (None,),
+        "dt_bias": ("ssm_heads",),
+        "a_log": ("ssm_heads",),
+        "d_skip": ("ssm_heads",),
+        "norm": ("ssm_inner",),
+        "w_out": ("ssm_inner", "fsdp"),
+    }
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``, which is ``logaddexp(x, 0)``: max(x, 0) +
     log1p(exp(-|x|)) at every x (``F.softplus`` returns x itself above its
@@ -80,6 +94,13 @@ def _split_in(cfg: ModelConfig, proj):
     return z, xbc, dt
 
 
+def _conv_layout(xbc, w, b):
+    """On a mesh each rank convolves its own batch rows."""
+    rows = ("batch", None, None)
+    return (rows, (None, None), (None,)), [(rows, tuple(xbc.shape))]
+
+
+@shard_ops.shard_local(_conv_layout)
 def _causal_conv(xbc, w, b):
     """xbc: [B, S, C]; w: [K, C] depthwise causal conv."""
     k = w.shape[0]
@@ -155,6 +176,21 @@ def _chunk_body(r, xq, dtq, bq, cq, a, mask):
     return r_new, y_diag + y_off
 
 
+def _ssd_layout(x, dt, a, b, c, d_skip, chunk=None, *,
+                return_final_state: bool = False):
+    """On a mesh: batch over the data axes, heads over the model axis; B
+    and C, shared by every head, whole on each rank."""
+    heads = ("batch", None, "ssm_heads")
+    outs = [(heads + (None,), tuple(x.shape))]
+    if return_final_state:
+        bsz, _, h, p = x.shape
+        outs.append((("batch", "ssm_heads", None, None),
+                     (bsz, h, b.shape[-1], p)))
+    return (heads + (None,), heads, ("ssm_heads",), ("batch", None, None),
+            ("batch", None, None), ("ssm_heads",), None), outs
+
+
+@shard_ops.shard_local(_ssd_layout)
 def ssd_chunked(x, dt, a, b, c, d_skip, chunk: int, *,
                 return_final_state: bool = False):
     """Chunked SSD: [B,S,H,P] -> [B,S,H,P]; numerically matches ``ssd_ref``.
@@ -163,7 +199,8 @@ def ssd_chunked(x, dt, a, b, c, d_skip, chunk: int, *,
     chunk's body is rematerialized, as the reference's ``jax.checkpoint``
     does, so the backward pass never holds every chunk's [B, Q, Q, H]
     decay at once.  ``return_final_state``: also return the terminal
-    recurrent state [B, H, N, P] (the prefill -> decode handoff)."""
+    recurrent state [B, H, N, P] (the prefill -> decode handoff).  On a
+    mesh each rank runs the loop on its own shard (``_ssd_layout``)."""
     f32 = _acc(x)
     bsz, s, h, p = x.shape
     n = b.shape[-1]
@@ -214,7 +251,7 @@ def ssm_fwd(p: Params, cfg: ModelConfig, x, *, return_state: bool = False,
     dt_ = compute_dtype(cfg)
     f32 = _acc(x)
     di, n, h, hd = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
-    proj = x @ p["w_in"].to(dt_)
+    proj = shard_ops.pin(x @ p["w_in"].to(dt_))
     z, xbc_raw, dtr = _split_in(cfg, proj)
     xbc = _causal_conv(xbc_raw, p["conv_w"].to(dt_), p["conv_b"].to(dt_))
     xbc = silu(xbc)

@@ -9,11 +9,11 @@
   study and shared by every consumer;
 - :class:`StudyResult` — the columnar result table (``to_rows`` /
   ``to_dict`` / ``to_csv`` / ``to_json``);
-- :class:`Substrate` protocol with two backends: :class:`TraceSubstrate`
-  (trace-driven cache simulation) and :class:`SuiteSubstrate` (the
-  registered roster, its captured entries launched on the card) —
-  ``--substrate trace|suite`` on the CLI.  The reference's ``hlo``
-  substrate waits for the cost substrate (ROADMAP.md's "the cost substrate").
+- :class:`Substrate` protocol with three backends: :class:`TraceSubstrate`
+  (trace-driven cache simulation), :class:`HloSubstrate` (the launch
+  layer's cells as roofline terms against the H100 SXM) and
+  :class:`SuiteSubstrate` (the registered roster, its captured entries
+  launched on the card) — ``--substrate trace|hlo|suite`` on the CLI.
 
 CLI::
 
@@ -25,6 +25,7 @@ from .engine import CellKey, EngineStats, SimEngine  # noqa: F401
 from .result import StudyResult  # noqa: F401
 from .study import Study  # noqa: F401
 from .substrate import (  # noqa: F401
+    HloSubstrate,
     Substrate,
     SuiteSubstrate,
     TraceSubstrate,
@@ -39,6 +40,7 @@ __all__ = [
     "Study",
     "Substrate",
     "TraceSubstrate",
+    "HloSubstrate",
     "SuiteSubstrate",
     "get_substrate",
 ]

@@ -15,13 +15,14 @@ Examples::
     # restrict the core sweep / suite, add jittered variants
     python -m repro_torch.study --cores 1,4,16 --workloads STRCpy,CHAHsti
 
+    # the cost backend: per-(arch x shape x mesh) roofline classes
+    # against the H100 SXM (no card needed)
+    python -m repro_torch.study --substrate hlo --format csv
+
     # the registered benchmark suite (synthetic + traces of the port's
     # CUDA kernels launched on the card; --device cpu runs their plain
     # PyTorch versions)
     python -m repro_torch.study --substrate suite --refs 20000
-
-The reference's ``--substrate hlo`` (XLA cost analysis against a TPU) has
-no port yet and exits non-zero naming ROADMAP.md's "the cost substrate".
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from repro_torch.core.tracegen import DEFAULT_REFS
 from .cliutil import emit_tables, parse_cores
 from .result import StudyResult
 from .study import Study
-from .substrate import HLO_NOT_PORTED, SuiteSubstrate, get_substrate
+from .substrate import SuiteSubstrate, get_substrate
 
 SECTIONS = ("characterize", "metrics", "classify", "scalability", "energy")
 
@@ -50,9 +51,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     ap.add_argument("--substrate", choices=("trace", "hlo", "suite"),
                     default="trace",
-                    help="trace-driven cache simulation, or the registered "
-                         "benchmark suite (synthetic + traces of the port's "
-                         "CUDA kernels); 'hlo' is not ported yet")
+                    help="trace-driven cache simulation, the cost "
+                         "roofline backend against the H100 SXM, or the "
+                         "registered benchmark suite (synthetic + traces "
+                         "of the port's CUDA kernels)")
     ap.add_argument("--backend", choices=BACKENDS, default=None,
                     help="cache-simulation implementation; default: "
                          "$REPRO_SIM_BACKEND or 'vectorized' ('cuda' runs "
@@ -141,8 +143,9 @@ def _main(args: argparse.Namespace) -> int:
             f"{args.substrate!r} substrate does not take it")
 
     if args.substrate == "hlo":
-        raise SystemExit(f"error: {HLO_NOT_PORTED}")
-    if args.substrate == "suite":
+        tables = [get_substrate("hlo").characterize()]
+        stats = None
+    elif args.substrate == "suite":
         from repro_torch.suite import (ResultStore, SuiteRunner,
                                        default_registry)
 
@@ -169,7 +172,7 @@ def _main(args: argparse.Namespace) -> int:
 
     emit_tables(tables, fmt=args.format, out=args.out)
 
-    if args.stats:
+    if args.stats and stats is not None:
         print(f"# engine: {stats.as_dict()}", file=sys.stderr)
     return 0
 

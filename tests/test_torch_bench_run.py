@@ -2,10 +2,10 @@
 
 One ``--fast --device cpu`` run: it prints the reference driver's
 sections in the reference's order (read from ``benchmarks/run.py``'s own
-section table), minus ``roofline``, which waits for a later slice; its
-perf record goes to the file it is given (by default one under
-``build/``) and never to ``BENCH.json``.  Naming the waiting section
-fails with its ROADMAP item; the ``kernels_*`` sections on the CPU time
+section table); its perf record goes to the file it is given (by default
+one under ``build/``) and never to ``BENCH.json``.  ``--only roofline``
+needs no card and prints the cost substrate's table; the ``kernels_*``
+sections on the CPU time
 the plain versions and carry no H100 column; the ``models`` section is
 the CI pair's 51 entries, each of its pinned class, and ``models_sweep``
 streams the reference's whole bs64 decode step.  The figure and case rows
@@ -25,7 +25,6 @@ import torch
 from repro_torch.benchmarks import kernel_bench, run
 
 ROOT = Path(__file__).resolve().parents[1]
-WAITING = ("roofline",)
 
 
 def _reference_sections() -> list[str]:
@@ -75,7 +74,7 @@ def _sections(out: str) -> dict[str, list[str]]:
 
 
 def test_sections_in_the_reference_order(fast_run):
-    ref = [s for s in _reference_sections() if s not in WAITING]
+    ref = _reference_sections()
     ref.remove("fig18")            # --fast drops it, as the reference does
     assert list(_sections(fast_run["out"])) == ref
     timings = [line for line in fast_run["out"].splitlines()
@@ -148,14 +147,27 @@ def test_card_peaks_raise_for_a_card_without_published_peaks(name):
         kernel_bench.card_peaks(name)
 
 
-@pytest.mark.parametrize("section,item", [
-    ("roofline", "the cost substrate"),
-])
-def test_waiting_sections_fail_naming_their_item(section, item, capsys):
-    with pytest.raises(SystemExit) as exc:
-        run.main(["--only", section, "--device", "cpu", "--bench-json", ""])
-    assert item in str(exc.value.code) and "ROADMAP.md" in str(exc.value.code)
-    assert capsys.readouterr().out == ""
+@pytest.mark.parametrize("device", [[], ["--device", "cpu"]])
+def test_roofline_section_needs_no_card(device, tmp_path, capsys,
+                                        monkeypatch):
+    """``--only roofline`` runs without a card (its default device is
+    never resolved) and prints the cost substrate's table: the analytic
+    terms on the H100 SXM, as no dry-run artifact is in ``DRYRUN_DIR``;
+    its perf record files it under device ``none``."""
+    from repro_torch.benchmarks import roofline_table
+
+    monkeypatch.setattr(roofline_table, "RESULTS_DIR", str(tmp_path / "dry"))
+    record = tmp_path / "bench.json"
+    assert run.main(["--only", "roofline", "--bench-json", str(record)]
+                    + device) == 0
+    secs = _sections(capsys.readouterr().out)
+    header, *rows = secs["roofline"]
+    want, cols = roofline_table.rows(results_dir=str(tmp_path / "dry"))
+    assert header == ",".join(cols)
+    assert rows == [",".join(str(x) for x in r) for r in want]
+    assert len(rows) == 64 + 8
+    (bucket,) = json.loads(record.read_text())["runs"]
+    assert bucket.endswith("-none")
 
 
 def test_models_sections_rows(fast_run):

@@ -77,6 +77,37 @@ def test_the_training_path_is_among_the_checked_sources():
             "launch/train.py"} <= names
 
 
+def test_the_cost_substrate_and_launch_layer_are_among_the_checked_sources():
+    names = {p.relative_to(PKG).as_posix() for p in SOURCES
+             if p.is_relative_to(PKG)}
+    assert {"core/analytic.py", "core/hlo_analysis.py", "launch/cells.py",
+            "launch/mesh.py", "launch/specs.py", "launch/dryrun.py",
+            "models/sharding.py", "benchmarks/roofline_table.py",
+            "benchmarks/render_experiments.py", "quickstart.py"} <= names
+
+
+def test_quickstart_and_the_cost_substrate_run_with_jax_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    code = (
+        "import sys; sys.modules['jax'] = None\n"
+        "from repro_torch import quickstart\n"
+        "quickstart.main()\n"
+        "from repro_torch.study.__main__ import main\n"
+        "assert main(['--substrate', 'hlo']) == 0\n"
+        "from repro_torch.launch import dryrun, mesh, specs\n"
+        "from repro_torch.benchmarks import render_experiments, roofline_table\n"
+        "print('repro' in sys.modules, 'jax' in sys.modules and "
+        "sys.modules['jax'] is not None)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, check=True)
+    lines = out.stdout.splitlines()
+    assert lines[-1] == "False False"
+    assert any("class=collective" in line for line in lines)
+    assert sum("@16x16," in line for line in lines) == 32
+
+
 def test_training_path_trains_and_resumes_with_jax_blocked(tmp_path):
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src")

@@ -7,10 +7,13 @@ same bytes: every trace-substrate section at ``--refs 2000 --cores 1,4``
 in CSV and JSON, the ``--stats`` line, and the suite substrate on the CPU
 (the reference on its mirror capture path, as the port is held against
 it; each side's result store in its own temporary directory).  No
-tolerance: the NumPy pipeline is a copy.  ``--substrate hlo`` fails
-naming the ROADMAP item, and the trace-only flags are refused where the
-reference refuses them, with the same message."""
+tolerance: the NumPy pipeline is a copy.  ``--substrate hlo`` prints the
+reference's table byte for byte when the port's ``DEFAULT_HW`` is set to
+a spec equal to the reference's TPU, and its 64 rows on the H100 SXM
+otherwise; the trace-only flags are refused where the reference refuses
+them, with the same message."""
 
+import dataclasses
 import json
 
 import pytest
@@ -128,13 +131,38 @@ def test_suite_substrate_writes_the_ports_store(tmp_path, capsys):
 # --------------------------------------------------------------------------
 # Refusals
 # --------------------------------------------------------------------------
-def test_hlo_substrate_names_its_roadmap_item(capsys):
-    with pytest.raises(SystemExit) as exc:
-        main(["--substrate", "hlo"])
-    assert "ROADMAP.md's \"the cost substrate\"" in str(exc.value.code)
-    assert capsys.readouterr().out == ""
-    with pytest.raises(NotImplementedError, match="the cost substrate"):
-        get_substrate("hlo")
+@pytest.mark.parametrize("fmt", ["csv", "json"])
+def test_hlo_substrate_prints_the_references_table_on_a_tpu_spec(
+        fmt, capsys, monkeypatch):
+    from repro.core.hlo_analysis import TPU_V5E
+    from repro_torch.core.hlo_analysis import HardwareSpec
+    from repro_torch.study import substrate
+
+    monkeypatch.setattr(substrate, "DEFAULT_HW", HardwareSpec(
+        **dataclasses.asdict(TPU_V5E)))
+    argv = ["--substrate", "hlo", "--format", fmt, "--stats"]
+    assert main(argv) == 0
+    port = capsys.readouterr()
+    assert ref_main(argv) == 0
+    ref = capsys.readouterr()
+    assert port.out == ref.out and port.err == ref.err == ""
+    assert port.out.count("@16x16") == port.out.count("@2x16x16") == 32
+
+
+def test_hlo_substrate_takes_the_h100_by_default(capsys):
+    from repro_torch.core.hlo_analysis import H100_SXM
+    from repro_torch.study import HloSubstrate
+
+    sub = get_substrate("hlo")
+    assert isinstance(sub, HloSubstrate) and sub.hw is H100_SXM
+    assert isinstance(sub, Substrate) and len(sub.items()) == 64
+    assert main(["--substrate", "hlo"]) == 0
+    out = [line for line in capsys.readouterr().out.splitlines() if line]
+    assert out[0] == "## hlo_characterization" and len(out) == 2 + 64
+    rows = sub.characterize().to_rows()
+    assert [",".join(str(x) for x in r) for r in rows] == out[2:]
+    assert {r[1] for r in rows} <= {"compute", "hbm", "collective",
+                                    "latency"}
 
 
 @pytest.mark.parametrize("substrate", ["suite", "hlo"])
