@@ -23,7 +23,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    7168, ssm_state 64, chunk 128); f32 flash also on two causal launches
    its plan cuts into several kv ranges, some wholly above the diagonal;
    the EMA scan also at T 1000, whose last ring stage is cut short; and
-   the simulator's window count (``window_scan``) on seeded rows, int32
+   PaliGemma-3B's attention (8 query heads, one KV head, head_dim 256,
+   2048 tokens, causal) in both dtypes, and head_dims 16 and 96 there
+   (``flash_fwd_simple``); the simulator's window count (``window_scan``)
+   on seeded rows, int32
    and int64 (ragged spans, cold slots, windows ending at m - 1 and past
    it), exactly, at every (lanes, steps) its plan picks (chunks 1-1024)
    with a ragged last tile;
@@ -36,7 +39,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    both writing into one preallocated output, and its entry point, which
    allocates its output; each is first checked bit for bit against the
    plain version.  Flash is timed causal and not (f32 and bf16), beside
-   SDPA, the f32 rows with the plan's kv split.  Paged decode prints its
+   SDPA, the f32 rows with the plan's kv split, and at PaliGemma's
+   head_dim 256 (causal, both dtypes).  Paged decode prints its
    split count, the EMA scan its plan, the state-expanded scan its plan
    and its issue floor (4 N D T f32 lane-instructions, the update's
    multiplies and adds unfused);
@@ -243,11 +247,30 @@ kernels as a fresh process does:
    for bit expected; at most 1e-5 of the logits' rms), then the median
    of 5 steps against ``analytic.cell_cost``'s ``t_bound`` on
    ``H100_SXM``, with their ratio;
-21. prints the kernels line (``launches`` summed over main paths 1 and 2,
+21. training on a mesh (``mesh_train_phase``; no kernel launches): (a)
+   mamba2-780m at full width and depth as phase 18c trains it (bf16
+   compute, f32 master weights, batch 8 x 1024, 18c's optimizer), 12
+   steps through ``train_loop(mesh=make_local_mesh())`` (one rank, NCCL)
+   against phase 18c's own plain loop: every loss equal to 18c's same
+   step bit for bit (else within 1e-6, the largest difference printed),
+   the step-10 checkpoint byte for byte 18c's, and restored onto the
+   mesh resuming steps 11-12 as the uninterrupted run; ms a step against
+   18c's and one mesh step's idle share under ``torch.profiler``; (b) deepseek-moe-16b at full width cut to 2
+   of its 28 layers (batch 4 x 1024, int8 error feedback), 3 steps plain
+   and on the mesh: losses and error buffers bit for bit the plain ones
+   (else losses within rtol 1e-5, every buffer within a quarter code of
+   the plain one's and none shrunk below half its rms); (c) ``python -m
+   repro_torch.launch.perfvariants`` for ``ds_train_ep_int8`` and
+   ``zmb_long_nocachelen`` (cut from five to keep the script inside its
+   limit), two child processes started after (a)'s timed steps, each
+   ``ok``, printed with its class, three times, temp and argument GB
+   against 80 GB and collective bytes by op (recorded and analytic);
+22. prints the kernels line (``launches`` summed over main paths 1 and 2,
    as before, for the seven capture kernels and main path 6's first
    cuda run for the window count; ``launches_by_path`` for paths 1-4,
    6-9, ``models`` (path 11) and ``models_sweep`` (path 12's cuda run);
-   flash's also split by kernel; the f32 (window count: int32) timings,
+   flash's also split by kernel and with its head-width-256 timings as
+   ``d256``; the f32 (window count: int32) timings,
    and the bf16 ones as ``bf16_ms``, ``bf16_bound_ms``,
    ``bf16_library_ms``) and, last, ``{"ok": true, "device": ...}``.
 
@@ -274,6 +297,7 @@ itself).
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import gc
 import itertools
@@ -779,17 +803,22 @@ def moe_full_width(bench: Bench, smi: str, dtype: torch.dtype,
 # sequence, 40 query heads, 8 KV heads) and of the state-expanded scan (one
 # Zamba2-7B Mamba-2 layer: T 4096, d_inner 7168, ssm_state 64, chunk 128).
 FULL_FLASH = dict(b=1, s=4096, h=40, g=8)
+# PaliGemma-3B's attention at full width (8 query heads, one KV head,
+# head_dim 256; 2048 tokens), and the narrow widths flash_fwd_simple takes
+# (parity alone).
+PALIGEMMA_FLASH = dict(b=1, s=2048, h=8, g=1)
+NARROW_FLASH_DIMS = (16, 96)
 FULL_SCAN = dict(t=4096, d=2 * 3584, n=64, chunk=128)
 
 
-def flash_plan(b: int, h: int, sq: int, sk: int) -> dict:
+def flash_plan(b: int, h: int, sq: int, sk: int, d: int = 128) -> dict:
     """The f32 kernel's kv split at one launch on this card, or nothing for
     a checkout from before the split design."""
     try:
         from repro_torch.kernels.flash_attention.plan import split_plan
     except ImportError:
         return {}
-    per, n_splits = split_plan(b, h, sq, sk, n_sm=sm_count())
+    per, n_splits = split_plan(b, h, sq, sk, n_sm=sm_count(), d=d)
     return {"kv_rows_per_split": per, "n_splits": n_splits}
 
 
@@ -837,17 +866,20 @@ def flash_inputs(gen, b: int, sq: int, sk: int, h: int, g: int, d: int,
 
 
 def flash_full_width(bench: Bench, smi: str, dtype: torch.dtype, d: int,
-                     causal: bool, **extra) -> tuple[dict | None, float]:
-    """Flash attention at ``FULL_FLASH`` and head width ``d``: held against
-    its plain version (bf16 d 128 also prints SDPA's own error against the
-    same limit), then, at d 128, timed beside its plain version and SDPA.
-    Returns the timing row (printed, with ``extra``; None at d 64) and the
-    max abs error."""
+                     causal: bool, *, shape: dict | None = None,
+                     timed: bool | None = None,
+                     **extra) -> tuple[dict | None, float]:
+    """Flash attention at ``shape`` (default ``FULL_FLASH``) and head width
+    ``d``: held against its plain version (bf16 d 128 also prints SDPA's
+    own error against the same limit), then, when ``timed`` (by default at
+    d 128), timed beside its plain version and SDPA.  Returns the timing
+    row (printed, with ``extra``; None untimed) and the max abs error."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import attention_ref, mha
 
-    g = FULL_FLASH
+    g = shape or FULL_FLASH
+    timed = d == 128 if timed is None else timed
     gen = torch.Generator(device="cuda").manual_seed(TIMING_SEED)
     qq, kk, vv = flash_inputs(gen, g["b"], g["s"], g["s"], g["h"], g["g"], d,
                               dtype)
@@ -863,7 +895,7 @@ def flash_full_width(bench: Bench, smi: str, dtype: torch.dtype, d: int,
         return F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, scale=d ** -0.5, enable_gqa=True)
 
-    if dtype == torch.bfloat16 and d == 128:
+    if dtype == torch.bfloat16 and d == 128 and g is FULL_FLASH:
         # SDPA's own bf16 result against the same limit (for the record: it
         # rounds P to bf16 once).
         diff = (sdpa().transpose(1, 2).float() - want).abs()
@@ -873,13 +905,13 @@ def flash_full_width(bench: Bench, smi: str, dtype: torch.dtype, d: int,
                                   ).max().item()})
         del diff
     del want
-    if d != 128:
+    if not timed:
         return None, err
     s, pairs_per_head = g["s"], g["s"] * (g["s"] + 1) // 2
     if not causal:
         pairs_per_head = g["s"] * g["s"]
     if dtype == torch.float32:
-        extra = {**flash_plan(g["b"], g["h"], s, s), **extra}
+        extra = {**flash_plan(g["b"], g["h"], s, s, d), **extra}
     row = timing_row(
         bench, smi, "flash_attention", case, dtype,
         bench.ms(lambda: mha(qq, kk, vv, causal=causal)),
@@ -2690,7 +2722,7 @@ def train_first_steps(cfg, opt, smi: str, loop_first_loss: float) -> None:
                              f"largest error {code} half-codes")
 
 
-def train_phase(smi: str, peaks: dict, tmp_dir: str) -> None:
+def train_phase(smi: str, peaks: dict, tmp_dir: str) -> dict:
     """18c: mamba2-780m at full width and depth trained through
     ``repro_torch.launch.train.train_loop`` on the card: bf16 compute,
     float32 master weights, AdamW with bf16 moments, global batch 8 x
@@ -2698,7 +2730,9 @@ def train_phase(smi: str, peaks: dict, tmp_dir: str) -> None:
     an asynchronous checkpoint at step 10 (its host snapshot recorded),
     restored into a separately loaded LM (equal bit for bit) and resumed
     for two steps; the first steps of ``train_first_steps``; ms a step,
-    tokens/s and peak memory against the model-FLOP bound."""
+    tokens/s and peak memory against the model-FLOP bound.  Returns the
+    uninterrupted run's losses, optimizer, ms a step and its step-10
+    checkpoint's directory (phase 21's plain reference)."""
     import shutil
     import statistics
 
@@ -2844,6 +2878,9 @@ def train_phase(smi: str, peaks: dict, tmp_dir: str) -> None:
                                  f"{TRAIN_SAVE_AT + TRAIN_RESUMED} resumed "
                                  f"differ from the uninterrupted run by "
                                  f"{max(rel)}")
+        # the uninterrupted run's step-10 checkpoint, kept for phase 21
+        kept = os.path.join(tmp_dir, "train-plain-step")
+        os.rename(os.path.join(ckpt, f"step_{TRAIN_SAVE_AT:08d}"), kept)
     finally:
         launch_train.CheckpointManager = manager
         launch_train.build_train_step = build
@@ -2853,9 +2890,11 @@ def train_phase(smi: str, peaks: dict, tmp_dir: str) -> None:
     train_first_steps(cfg, opt, smi, losses[0])
     gc.collect()
     torch.cuda.empty_cache()
+    return {"losses": losses, "opt": opt, "ms_per_step": ms,
+            "checkpoint": kept}
 
 
-def lm_1b_phase(K, smi: str, peaks: dict, tmp_dir: str) -> None:
+def lm_1b_phase(K, smi: str, peaks: dict, tmp_dir: str) -> dict:
     """Phase 18: the SSM, hybrid and audio families and training, with
     the launch counters reset before and read after (all 0: the SSD is the
     reference's einsums, not the port's scan kernel)."""
@@ -2875,12 +2914,13 @@ def lm_1b_phase(K, smi: str, peaks: dict, tmp_dir: str) -> None:
     # whisper-large-v3: 32 + 32 layers over 1500 seeded frame embeddings
     lm_full_width("whisper-large-v3", smi, rate, n_extra=1500, n_requests=8,
                   phase="lm-1b", engine_invariant=True)
-    train_phase(smi, peaks, tmp_dir)
+    plain_train = train_phase(smi, peaks, tmp_dir)
     launches = K.launch_counts()
     say({"phase": "lm-1b", "part": "launches", "launches": launches,
          "seconds": time.perf_counter() - t0})
     if any(launches.values()):
         raise AssertionError(f"the LM-1b path launched a kernel: {launches}")
+    return plain_train
 
 
 MODELS_ONLY = ("qwen2.5-14b", "mamba2-780m")   # the driver's CI pair
@@ -3306,6 +3346,287 @@ def launch_phase(smi: str, tmp_dir: str) -> None:
          "seconds": time.perf_counter() - t_phase, "card": smi})
 
 
+# Phase 21: training on a mesh.  (a) mamba2-780m as phase 18c trains it,
+# on a one-rank NCCL mesh against 18c's own plain loop (its losses, its
+# step-10 checkpoint, its ms a step: the plain run is not repeated, to keep
+# the script inside its time limit); (b) deepseek-moe-16b at full width cut
+# to 2 of its 28 layers with int8 error feedback; (c) perf variants in
+# child processes.
+MESH_TRAIN_STEPS = 12        # 18c's first 12 steps, its checkpoint at 10
+MESH_TRAIN_RTOL = 1e-6       # if the placed step is not bit-equal
+MESH_MOE_ARCH, MESH_MOE_LAYERS = "deepseek-moe-16b", 2
+MESH_MOE_BATCH, MESH_MOE_SEQ, MESH_MOE_STEPS = 4, 1024, 3
+MESH_MOE_RTOL = 1e-5
+# The perf variants the script records: one of each cell the port can
+# step here, cut from five (the three deepseek-moe-16b and the two zamba2-7b
+# variants) to keep the script inside its time limit.  They start once
+# phase 21(a)'s timed steps are done, so that no timing the script keeps
+# shares the host with them, and run beside (a)'s resume and (b).
+PERF_VARIANTS = ("ds_train_ep_int8", "zmb_long_nocachelen")
+
+
+def start_perf_variants(tmp_dir: str) -> dict:
+    """``python -m repro_torch.launch.perfvariants --only TAG`` for each
+    of ``PERF_VARIANTS``, one child process each, its output in a file
+    (nothing waits on a pipe); returns {tag: (start time, process, log
+    path)}."""
+    out_dir = Path(tmp_dir) / "perf"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    started = {}
+    for tag in PERF_VARIANTS:
+        log = out_dir / f"{tag}.log"
+        with open(log, "w") as f:
+            started[tag] = (time.perf_counter(), subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.perfvariants",
+                 "--only", tag, "--out", str(out_dir)], env=env, cwd=ROOT,
+                stdout=f, stderr=subprocess.STDOUT), log)
+    atexit.register(_stop, [p for _, p, _ in started.values()])
+    return started
+
+
+def _stop(procs: list) -> None:
+    """Kill the children a failed phase left running."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def _same_step_files(a: str, b: str, chunk: int = 1 << 26) -> bool:
+    """Two checkpoint step directories hold the same files, byte for
+    byte (read in 64 MiB chunks)."""
+    names = sorted(os.listdir(a))
+    if names != sorted(os.listdir(b)):
+        return False
+    for n in names:
+        with open(os.path.join(a, n), "rb") as fa, \
+                open(os.path.join(b, n), "rb") as fb:
+            while True:
+                x, y = fa.read(chunk), fb.read(chunk)
+                if x != y:
+                    return False
+                if not x:
+                    break
+    return True
+
+
+def _timed_loop(launch_train, cfg, *, profiled: int | None = None, **kw):
+    """``train_loop(cfg, **kw)`` with each step timed between synchronizes
+    (and step ``profiled`` traced); returns (lm, state, losses, step
+    seconds, profile or None)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    build = launch_train.build_train_step
+    times, traced = [], []
+
+    def timing(lm, opt_cfg, **skw):
+        step = build(lm, opt_cfg, **skw)
+
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if len(times) == profiled:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    out = step(state, batch)
+                    torch.cuda.synchronize()
+                traced.append(prof)
+            else:
+                out = step(state, batch)
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    launch_train.build_train_step = timing
+    try:
+        lm, state, losses = launch_train.train_loop(cfg, **kw)
+    finally:
+        launch_train.build_train_step = build
+    return lm, state, losses, times, (traced[0] if traced else None)
+
+
+def mesh_train_phase(K, smi: str, tmp_dir: str, plain_train: dict) -> None:
+    """Phase 21: ``train_loop(mesh=...)`` on ``make_local_mesh()`` (one
+    rank, NCCL) against phase 18c's plain loop (``plain_train``, what
+    ``train_phase`` returns), a MoE step with int8 error feedback placed
+    on the mesh, and the records of the perf variants."""
+    import shutil
+    import statistics
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.convert import reference_key
+    from repro_torch.models.sharding import is_dtensor
+    from repro_torch.train import AdamWConfig
+
+    t_phase = time.perf_counter()
+    K.reset_launch_counts()
+
+    # (a) mamba2-780m: 12 steps on the mesh with 18c's optimizer, a
+    # checkpoint at step 10 as 18c's, then steps 11-12 resumed from it
+    cfg = configs.get(TRAIN_ARCH)
+    run = dict(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+               opt=plain_train["opt"], save_every=TRAIN_SAVE_AT,
+               log_every=MESH_TRAIN_STEPS)
+    plain = plain_train["losses"][:MESH_TRAIN_STEPS]
+    mesh_dir = os.path.join(tmp_dir, "mesh-train")
+    step_dir = f"step_{TRAIN_SAVE_AT:08d}"
+    gc.collect()
+    torch.cuda.empty_cache()
+    with make_local_mesh() as mesh:
+        lm, _, got, mesh_t, prof = _timed_loop(
+            launch_train, cfg, profiled=TRAIN_PROFILED,
+            steps=MESH_TRAIN_STEPS, ckpt_dir=mesh_dir, mesh=mesh, **run)
+        placed = all(is_dtensor(p) for p in lm.parameters())
+        del lm
+        variants = start_perf_variants(tmp_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        same_ckpt = _same_step_files(plain_train["checkpoint"],
+                                     os.path.join(mesh_dir, step_dir))
+        shutil.rmtree(plain_train["checkpoint"], ignore_errors=True)
+        # restore step 10 onto the mesh and resume steps 11-12
+        shutil.rmtree(os.path.join(mesh_dir, f"step_{MESH_TRAIN_STEPS:08d}"))
+        t0 = time.perf_counter()
+        _, _, resumed = launch_train.train_loop(
+            cfg, steps=MESH_TRAIN_STEPS, ckpt_dir=mesh_dir, resume=True,
+            mesh=mesh, **run)
+        resume_s = time.perf_counter() - t0
+    shutil.rmtree(mesh_dir, ignore_errors=True)
+    want = plain[TRAIN_SAVE_AT:]
+    diff = max(abs(a - b) / abs(b) for a, b in zip(got, plain))
+    steady = [i for i in range(MESH_TRAIN_STEPS)
+              if i not in (0, TRAIN_PROFILED)]
+    ms = 1e3 * statistics.median(mesh_t[i] for i in steady)
+    plain_ms = plain_train["ms_per_step"]
+    say({"phase": "mesh-train", "part": "a-mamba2", "arch": TRAIN_ARCH,
+         "mesh": "1x1 NCCL", "placed": placed, "dtype": cfg.dtype,
+         "master": "float32", "global_batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+         "steps": MESH_TRAIN_STEPS, "losses": got,
+         "plain_losses": plain, "plain": "phase 18c's uninterrupted run",
+         "bit_equal": got == plain, "max_rel_diff": diff,
+         "tol_rel_if_not_bit_equal": MESH_TRAIN_RTOL,
+         "checkpoint_byte_equal": {step_dir: same_ckpt},
+         "resumed_losses": resumed, "uninterrupted_losses": want,
+         "resume_s": resume_s, "ms_per_step": ms,
+         "plain_ms_per_step": plain_ms, "vs_plain": ms / plain_ms,
+         "ms_per_step_all": [1e3 * x for x in mesh_t], "card": smi})
+    say({"phase": "mesh-train", "part": "a-profile", "arch": TRAIN_ARCH,
+         "step": TRAIN_PROFILED + 1,
+         **profile_summary(prof, 1, ms / 1e3, smi)})
+    del prof
+    if not placed or len(got) != MESH_TRAIN_STEPS or not all(
+            np.isfinite(got)) or diff > MESH_TRAIN_RTOL:
+        raise AssertionError(f"mesh train: losses {got} against the plain "
+                             f"loop's {plain}")
+    if not same_ckpt:
+        raise AssertionError(f"mesh train: the step-{TRAIN_SAVE_AT} "
+                             f"checkpoint differs from the plain loop's")
+    if len(resumed) != len(want) or max(
+            abs(a - b) / abs(b) for a, b in zip(resumed, want)) \
+            > MESH_TRAIN_RTOL:
+        raise AssertionError(f"mesh train: resumed {resumed} against {want}")
+
+    # (b) deepseek-moe-16b, 2 of 28 layers, int8 error feedback, 3 steps
+    mcfg = configs.get(MESH_MOE_ARCH).replace(n_layers=MESH_MOE_LAYERS)
+    mopt = AdamWConfig(total_steps=MESH_MOE_STEPS, warmup_steps=1)
+    mrun = dict(steps=MESH_MOE_STEPS, global_batch=MESH_MOE_BATCH,
+                seq_len=MESH_MOE_SEQ, opt=mopt, compress="int8_ef",
+                log_every=MESH_MOE_STEPS)
+
+    def errors(state) -> dict:
+        return {n: (e.full_tensor() if is_dtensor(e) else e).cpu()
+                for n, e in state["err"].items()}
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lm, state, plain = launch_train.train_loop(mcfg, device="cuda", **mrun)
+    n_params = sum(p.numel() for p in lm.parameters())
+    want_err = errors(state)
+    del lm, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    with make_local_mesh() as mesh:
+        lm, state, got = launch_train.train_loop(mcfg, mesh=mesh, **mrun)
+        got_err = errors(state)
+        del lm, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_s = time.perf_counter() - t0
+    # the one-rank mesh computes what the plain loop does: its losses and
+    # error buffers bit for bit.  Failing that, each buffer within a
+    # quarter code of the plain one, measured against the largest plain
+    # error of its reference leaf (at most half the leaf's last scale), and
+    # holding at least half the plain buffer's rms (a round trip that was
+    # skipped or not written back leaves zeros)
+    bit_equal = got == plain and all(torch.equal(got_err[n], want_err[n])
+                                     for n in want_err)
+    groups: dict[str, list] = {}
+    for n in want_err:
+        groups.setdefault(reference_key(n)[0], []).append(n)
+    worst, lost = 0.0, []
+    for names in groups.values():
+        half_code = max(want_err[n].abs().max().item() for n in names)
+        d = max((got_err[n] - want_err[n]).abs().max().item() for n in names)
+        worst = max(worst, d / half_code if half_code else float(d > 0))
+        lost += [n for n in names if got_err[n].pow(2).mean().sqrt()
+                 < 0.5 * want_err[n].pow(2).mean().sqrt()]
+    mdiff = max(abs(a - b) / abs(b) for a, b in zip(got, plain))
+    say({"phase": "mesh-train", "part": "b-moe-int8", "arch": MESH_MOE_ARCH,
+         "layers": f"{MESH_MOE_LAYERS} of {configs.get(MESH_MOE_ARCH).n_layers}"
+                   " (reduced)", "params": n_params,
+         "global_batch": MESH_MOE_BATCH, "seq": MESH_MOE_SEQ,
+         "compress": "int8_ef", "losses": got, "plain_losses": plain,
+         "bit_equal": bit_equal, "max_rel_diff": mdiff,
+         "tol_rel_if_not_bit_equal": MESH_MOE_RTOL,
+         "err_leaves": len(want_err),
+         "err_worst_over_plain_max": worst, "err_leaves_lost": lost,
+         "seconds": moe_s, "card": smi})
+    del want_err, got_err
+    if len(got) != MESH_MOE_STEPS or not bit_equal and (
+            mdiff > MESH_MOE_RTOL or worst >= 0.5 or lost):
+        raise AssertionError(f"mesh train MoE: losses {got} against {plain}, "
+                             f"errors {worst} of the plain max, leaves with "
+                             f"too small a buffer: {lost}")
+
+    # (c) the perf variants' records, from the child processes started
+    # after (a)'s timed steps
+    out_dir = Path(tmp_dir) / "perf"
+    for _, p, _ in variants.values():
+        p.wait(timeout=900)
+    var_s = time.perf_counter() - min(t for t, _, _ in variants.values())
+    for tag, (_, p, log) in variants.items():
+        path = out_dir / f"{tag}.json"
+        e = json.loads(path.read_text()) if path.exists() else {}
+        if p.returncode or e.get("status") != "ok":
+            raise AssertionError(f"perf variant {tag}: rc {p.returncode}: "
+                                 f"{e.get('error')} "
+                                 f"{log.read_text()[-2000:]}")
+        say({"phase": "mesh-train", "part": "c-perfvariant", "tag": tag,
+             "arch": e["arch"], "shape": e["shape"], "mesh": e["mesh"],
+             "class": e["class"], "t_compute_s": e["t_compute_s"],
+             "t_memory_s": e["t_memory_s"],
+             "t_collective_s": e["t_collective_s"],
+             "analytic_collective_bytes": e["collective_bytes"],
+             "recorded_collective_bytes": e["hlo_collective_bytes_per_iter"],
+             "recorded_collective_by_op": e["hlo_collective_by_op"],
+             "temp_gb": e["temp_gb"], "arg_gb": e["arg_gb"],
+             "card_gb": CARD_GB, "seconds": e["compile_s"],
+             "hw": "H100_SXM"})
+    launches = K.launch_counts()
+    say({"phase": "mesh-train", "part": "done", "variants_seconds": var_s,
+         "launches": launches, "seconds": time.perf_counter() - t_phase})
+    if any(launches.values()):
+        raise AssertionError(f"the mesh training path launched a kernel: "
+                             f"{launches}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3451,6 +3772,18 @@ def main() -> int:
             errs["flash_attention"] = max(errs["flash_attention"], err)
             if row is not None and causal:
                 rows["flash_attention", dtype] = row
+        torch.cuda.empty_cache()
+    # PaliGemma's head width, 256, in both dtypes (timed, causal), and the
+    # narrow widths flash_fwd_simple takes (parity alone)
+    for dtype in (torch.float32, torch.bfloat16):
+        row, err = flash_full_width(bench, smi, dtype, 256, True,
+                                    shape=PALIGEMMA_FLASH, timed=True)
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        rows["flash_attention_d256", dtype] = row
+        for d in NARROW_FLASH_DIMS:
+            _, err = flash_full_width(bench, smi, dtype, d, True,
+                                      shape=PALIGEMMA_FLASH, timed=False)
+            errs["flash_attention"] = max(errs["flash_attention"], err)
         torch.cuda.empty_cache()
     # f32 launches the plan cuts into several kv ranges, causal, so that the
     # first q tiles' later ranges lie wholly above the diagonal.
@@ -3671,7 +4004,7 @@ def main() -> int:
     # -- 18. the SSM, hybrid and audio families, and training ---------------
     gc.collect()
     torch.cuda.empty_cache()
-    lm_1b_phase(K, smi, peaks, tmp.name)
+    plain_train = lm_1b_phase(K, smi, peaks, tmp.name)
 
     # -- 19. the whole-model capture and zoo, then the CI gates -------------
     gc.collect()
@@ -3679,12 +4012,17 @@ def main() -> int:
     models_launches = models_phase(K, trace_dir, smi)
     gates_phase(smi, tmp.name)
 
-    # -- 20. the cost substrate and the launch layer --------------------------
+    # -- 20. the cost substrate and the launch layer ------------------------
     gc.collect()
     torch.cuda.empty_cache()
     launch_phase(smi, tmp.name)
 
-    # -- 21. results --------------------------------------------------------
+    # -- 21. training on a mesh, int8 error feedback, the perf variants ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_train_phase(K, smi, tmp.name, plain_train)
+
+    # -- 22. results --------------------------------------------------------
     kernels = []
     for kname, (source, replaces) in KERNEL_SITES.items():
         scan = kname == SCAN_KERNEL
@@ -3716,6 +4054,16 @@ def main() -> int:
         if kname == "flash_attention":
             entry["launches_by_kernel"] = {
                 k: roster_flash[k] + serving_flash[k] for k in roster_flash}
+            # PaliGemma's head width (no main path launches it)
+            r, r16 = (rows["flash_attention_d256", dt]
+                      for dt in (torch.float32, torch.bfloat16))
+            entry["d256"] = {
+                "case": r["case"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"], "bf16_ms": r16["ms"],
+                "bf16_plain_ms": r16["plain_ms"],
+                "bf16_bound_ms": r16["bound_ms"],
+                "bf16_library_ms": r16["library_ms"]}
         kernels.append(entry)
     say({"kernels": kernels})
     tmp.cleanup()

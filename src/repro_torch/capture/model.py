@@ -39,10 +39,13 @@ applies inside, which makes the one-op gate byte-identical) on first
 touch, and a view reads its base's region at its storage offset — a
 layer's slice of a stacked KV cache lands at ``base + offset``, as the
 reference's unrolled ``scan`` slices its stacked operands.  The port's
-layer loops are Python loops, so a step arrives unrolled; each layer's
-weights are parameters of their own and get their own regions, in
-first-touch order.  Every storage touched stays referenced until the
-capture ends, so no storage is freed and its identity reused mid-step.
+layer loops are Python loops, so a step arrives unrolled, and each layer's
+weights are parameters of their own.  Named tensors handed in as
+``stacked`` (the LM's parameters, a train step's moments) are laid out as
+the reference's stacked leaves: every ``layers.{i}.X`` reads one region
+per reference leaf (``models.convert.reference_key``), sized for the
+whole stack, at word offset ``i * words(X)`` (the words a layer's first
+read takes), as the reference's scan reads slices of one stacked array.
 
 FLOPs come from :func:`repro_torch.capture.flops.eqn_flops` over every
 recorded op, the ones that emit no trace included.
@@ -62,6 +65,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
 from repro_torch import obs
+from repro_torch.models.convert import reference_key
 
 from . import launch as _launch
 from .flops import MATMUL, dot_geometry, eqn_flops, op_name
@@ -500,6 +504,10 @@ class _Walker(TorchDispatchMode):
         self._root_words: dict[int, int] = {}  # root -> its storage's words
         self._span: dict[int, int] = {}        # alias of a view -> words
         self._roots = 0
+        # a stacked layer's root -> (its leaf's key, flat layer, layers)
+        self._slot: dict[int, tuple[object, int, int]] = {}
+        self._slot_words: dict[object, int] = {}   # leaf -> a layer's words
+        self._stacks: list[dict] = []
         self._kernel_frame = None        # a launching wrapper's frame
         self._composite_codes = _composites()
         self._composite: list | None = None   # [frame, x, out]
@@ -533,6 +541,30 @@ class _Walker(TorchDispatchMode):
     def close(self) -> None:
         self._held.clear()
 
+    def stack(self, named: dict) -> None:
+        """Lay the stacked tensors of ``named`` ({LM parameter name:
+        tensor}) out as the reference's stacked leaves: every layer of one
+        leaf reads a slot of one region, the leaf's, at its flat layer
+        index times the slot's words.  The slot is as wide as the first
+        read of any layer (a bf16 copy of an f32 weight aliases it and
+        reads half its words), so the stack holds what the reference's
+        scan slices of it."""
+        leaves: dict[str, list] = {}
+        for name, t in named.items():
+            leaf, idx = reference_key(name)
+            if idx:
+                leaves.setdefault(leaf, []).append((idx, t))
+        group = len(self._stacks)
+        self._stacks.append(named)       # held: the storages stay alive
+        for leaf, members in leaves.items():
+            dims = tuple(max(idx[a] for idx, _ in members) + 1
+                         for a in range(len(members[0][0])))
+            for idx, t in members:
+                root, _ = self._ref(t)
+                self._slot[root] = ((group, leaf),
+                                    int(np.ravel_multi_index(idx, dims)),
+                                    math.prod(dims))
+
     def _ref(self, t: torch.Tensor) -> tuple[object, int]:
         st = t.untyped_storage()
         key = st._cdata
@@ -559,8 +591,14 @@ class _Walker(TorchDispatchMode):
         key = t.untyped_storage()._cdata
         size = self._root_words[root] if self._owner.get(root) == key \
             else self._span.get(key, 0)
-        return self.alloc.region(root, max(size, off + words),
-                                 _site()) + off
+        need = max(size, off + words)
+        slot = self._slot.get(root)
+        if slot is None:
+            return self.alloc.region(root, need, _site()) + off
+        leaf, i, n = slot           # a layer of a stacked leaf
+        stride = self._slot_words.setdefault(leaf, need)
+        return self.alloc.region(leaf, n * max(stride, need)) + i * stride \
+            + off
 
     # -- op emission ---------------------------------------------------------
     def _emit(self, kind: str, cap: GridCapture, bases: dict) -> None:
@@ -801,16 +839,22 @@ class _Sink(list):
 
 
 def capture_model(fn, args, *, name: str = "model",
-                  stream_min_elems: int = STREAM_MIN_ELEMS) -> ModelCapture:
+                  stream_min_elems: int = STREAM_MIN_ELEMS,
+                  stacked=()) -> ModelCapture:
     """Run ``fn(*args)`` under the recorder and capture its whole-step
     schedule.
 
     ``args`` are tensors (``meta`` ones for an abstract capture: no
-    memory, no arithmetic) or anything ``fn`` takes.  Returns the ops in
-    program order plus the counted FLOPs of every aten op;
-    ``ModelCapture.walk`` yields the concatenated word-address stream.
+    memory, no arithmetic) or anything ``fn`` takes.  ``stacked`` holds
+    dicts of tensors keyed by the LM's parameter names (its parameters,
+    an optimizer's moments), each laid out as the reference's stacked
+    leaves.  Returns the ops in program order plus the counted FLOPs of
+    every aten op; ``ModelCapture.walk`` yields the concatenated
+    word-address stream.
     """
     walker = _Walker(stream_min_elems)
+    for named in stacked:
+        walker.stack(named)
     # Regions are freed as storages die; with the cyclic collector off,
     # only reference counts free them, at the same point in every run.
     gc_was = gc.isenabled()

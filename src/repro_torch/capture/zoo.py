@@ -497,6 +497,12 @@ def _audio_embed(lm, batch: int, frames: int = _AUDIO_FRAMES):
     return _meta((batch, frames, lm.cfg.d_model))
 
 
+def _stacked(lm) -> tuple[dict]:
+    """The LM's parameters, laid out by the capture as the reference's
+    stacked leaves."""
+    return (dict(lm.named_parameters()),)
+
+
 def _no_grad(fn):
     import torch
 
@@ -517,7 +523,7 @@ def capture_decode(lm, batch: int, cache_len: int, *,
     pos = torch.zeros((batch,), dtype=torch.int32, device=lm.device)
     return capture_model(_no_grad(lm.decode_step),
                          (_tokens(batch, 1, lm.device), cache, pos),
-                         name=name)
+                         name=name, stacked=_stacked(lm))
 
 
 def _capture_decode(config: str, batch: int, cache_len: int) -> ModelCapture:
@@ -535,9 +541,10 @@ def _capture_prefill(config: str, batch: int, seq: int) -> ModelCapture:
         embed = _audio_embed(lm, batch, lm.cfg.enc_ctx)
         return capture_model(
             _no_grad(lambda t, c, e: lm.prefill(t, c, extra_embed=e)),
-            (_tokens(batch, seq), cache, embed), name=name)
+            (_tokens(batch, seq), cache, embed), name=name,
+            stacked=_stacked(lm))
     return capture_model(_no_grad(lm.prefill), (_tokens(batch, seq), cache),
-                         name=name)
+                         name=name, stacked=_stacked(lm))
 
 
 def _capture_eval(config: str, batch: int, seq: int) -> ModelCapture:
@@ -546,9 +553,11 @@ def _capture_eval(config: str, batch: int, seq: int) -> ModelCapture:
     if lm.cfg.family == "audio":
         return capture_model(
             _no_grad(lambda t, e: lm.forward(t, extra_embed=e)),
-            (_tokens(batch, seq), _audio_embed(lm, batch)), name=name)
+            (_tokens(batch, seq), _audio_embed(lm, batch)), name=name,
+            stacked=_stacked(lm))
     return capture_model(_no_grad(lambda t: lm.forward(t)),
-                         (_tokens(batch, seq),), name=name)
+                         (_tokens(batch, seq),), name=name,
+                         stacked=_stacked(lm))
 
 
 def _capture_train(config: str, batch: int, seq: int) -> ModelCapture:
@@ -567,7 +576,9 @@ def _capture_train(config: str, batch: int, seq: int) -> ModelCapture:
         batch_d["extra_embed"] = _audio_embed(lm, batch)
     with torch.enable_grad():
         return capture_model(step, (state, batch_d),
-                             name=f"{config}.train.bs{batch}.s{seq}")
+                             name=f"{config}.train.bs{batch}.s{seq}",
+                             stacked=(*_stacked(lm), state["adam"]["mu"],
+                                      state["adam"]["nu"]))
 
 
 _BUILDERS = {

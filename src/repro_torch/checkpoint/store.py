@@ -14,6 +14,14 @@ The port of ``repro.checkpoint.store``.  One directory per step::
 - **async**: ``CheckpointManager(async_save=True)`` copies every leaf to
   host memory, then writes on a background thread while training goes on.
 - **retention**: the ``keep`` newest checkpoints stay, the rest go.
+- **on a mesh**: leaves are global (``train.step.train_tree`` gathers each
+  DTensor first), and rank 0 alone writes, commits and collects; every
+  rank meets a barrier before the next save, at ``wait`` and before
+  ``latest_step``, so none reads a step rank 0 is still writing.
+- **elastic restore**: ``load_checkpoint(shardings=...)`` places each leaf
+  onto a mesh, each rank reading the memory-mapped ``.npy`` for its own
+  shard alone (``local_slice``), so a checkpoint written on any mesh (or
+  none, or by the reference) restores onto any other.
 
 Leaves are torch tensors (on any device), numpy arrays or numbers.
 numpy has no bfloat16 (the reference reaches for ``ml_dtypes``): bf16 and
@@ -33,9 +41,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 __all__ = ["save_checkpoint", "load_checkpoint", "latest_step",
-           "CheckpointManager"]
+           "CheckpointManager", "local_slice"]
 
 _COMMIT = "COMMIT"
 
@@ -153,11 +162,55 @@ def latest_step(directory: str) -> int | None:
     return max(steps) if steps else None
 
 
+def _multi_rank() -> bool:
+    return dist.is_available() and dist.is_initialized() \
+        and dist.get_world_size() > 1
+
+
+def _rank() -> int:
+    return dist.get_rank() if _multi_rank() else 0
+
+
+def local_slice(full: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's shard of the global tensor ``full`` under
+    ``placements`` on ``mesh``, as a view of it (a memory-mapped leaf is
+    read for these rows alone)."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    shape, offset = compute_local_shape_and_global_offset(
+        full.shape, mesh, placements)
+    return full[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+
+
+def _placed(full: torch.Tensor, ns) -> torch.Tensor:
+    """``full`` placed by ``ns`` (a ``models.sharding.NamedSharding``):
+    a DTensor whose local tensor is this rank's slice, copied to the
+    mesh's device."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.shard_ops import contiguous_stride
+    from repro_torch.models.sharding import mesh_device
+
+    mesh, pl = ns.mesh, ns.placements
+    local = local_slice(full, mesh, pl).to(mesh_device(mesh), copy=True)
+    shape = tuple(full.shape)
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
+
+
 def load_checkpoint(directory: str, step: int | None = None, *,
-                    device: str | torch.device | None = None
+                    device: str | torch.device | None = None,
+                    shardings: Any = None, mmap: bool = False
                     ) -> tuple[int, Any]:
     """Load (by default the latest) committed checkpoint as torch tensors,
-    moved to ``device`` when one is given."""
+    moved to ``device`` when one is given.  ``shardings``, a matching tree
+    of ``models.sharding.NamedSharding``, places each leaf onto its mesh
+    instead (the reference's elastic restore): every rank memory-maps the
+    ``.npy`` and keeps its own shard.  ``mmap`` leaves the leaves in host
+    memory, memory-mapped (copy on write), for a caller that slices
+    them."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -166,16 +219,21 @@ def load_checkpoint(directory: str, step: int | None = None, *,
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     flat = {}
+    lazy = mmap or shardings is not None
     for path, meta in manifest["leaves"].items():
-        arr = np.load(os.path.join(d, path.replace("/", ".") + ".npy"))
+        arr = np.load(os.path.join(d, path.replace("/", ".") + ".npy"),
+                      mmap_mode="c" if lazy else None)
         if meta["dtype"] in _EXTENDED:
             _, np_int, _ = _INT_OF_WIDTH[arr.dtype.itemsize]
             t = torch.from_numpy(arr.view(np_int)).view(
                 _EXTENDED[meta["dtype"]])
         else:
             t = torch.from_numpy(arr)
-        flat[path] = t if device is None else t.to(device)
-    return step, _unflatten(flat, manifest)
+        flat[path] = t if device is None or lazy else t.to(device)
+    tree = _unflatten(flat, manifest)
+    if shardings is not None:
+        tree = _zip_map(_placed, tree, shardings)
+    return step, tree
 
 
 class CheckpointManager:
@@ -190,9 +248,13 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
 
     def save(self, step: int, tree: Any) -> None:
+        """Save ``tree`` (global leaves) as ``step``; on a mesh every rank
+        calls it, rank 0 alone writes."""
+        self.wait()
+        if _rank() != 0:
+            return
         if self.async_save:
             host_tree = _map(_to_host, tree)
-            self.wait()
             self._thread = threading.Thread(
                 target=self._save_and_gc, args=(step, host_tree), daemon=True)
             self._thread.start()
@@ -204,14 +266,21 @@ class CheckpointManager:
         self._gc()
 
     def wait(self) -> None:
+        """The last save is committed, on every rank (a barrier)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if _multi_rank():
+            dist.barrier()
 
-    def restore_latest(self, device: str | torch.device | None = None):
-        return load_checkpoint(self.directory, device=device)
+    def restore_latest(self, device: str | torch.device | None = None, *,
+                       shardings: Any = None, mmap: bool = False):
+        self.wait()
+        return load_checkpoint(self.directory, device=device,
+                               shardings=shardings, mmap=mmap)
 
     def latest_step(self) -> int | None:
+        self.wait()
         return latest_step(self.directory)
 
     def _gc(self) -> None:
@@ -224,6 +293,14 @@ class CheckpointManager:
         for s in steps[: -self.keep]:
             shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"),
                           ignore_errors=True)
+
+
+def _zip_map(fn, tree: Any, other: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zip_map(fn, v, o) for v, o in zip(tree, other))
+    return fn(tree, other)
 
 
 def _map(fn, tree: Any) -> Any:

@@ -5,7 +5,9 @@
 // grid (b*h, n_q, n_kv) carries the online-softmax state (m, l, acc) in
 // VMEM scratch across the sequential kv axis.  On Hopper blocks run in no
 // order, so one block owns one (b*h, q tile) and loops the kv axis itself.
-// Two kernels sit behind flash_attention_launch, chosen by dtype:
+// Three kernels sit behind flash_attention_launch, chosen by dtype and head
+// width: at D in {64, 128, 256} the two tiled kernels below, by dtype; at
+// every other D % 8 == 0 up to 256, flash_fwd_simple (end of the file).
 //
 // bf16: flash_fwd_sm90, on the tensor cores.  Bound on the card:
 // operations, 4*D flops per unmasked (query, key) pair at 989 TFLOP/s
@@ -17,8 +19,9 @@
 // through a ring of two stages (mbarrier full/empty pairs), and two
 // consumers (registers raised to 240), each owning 64 q rows, the M of one
 // wgmma.  Tiles land in 128-byte-swizzled shared memory straight from the
-// [B*S, heads, D] layout (rank-3 tensor maps, box {64, 1, 128}; D = 128 is
-// two 64-column panels), so nothing is transposed.  S = Q K^T is
+// [B*S, heads, D] layout (rank-3 tensor maps, box {64, 1, rows}; D = 128 is
+// two 64-column panels), so nothing is transposed.  At D = 256 the K and V
+// tiles hold 64 rows (the Q tile alone is 64 KB; plan.sm90_kv_rows).  S = Q K^T is
 // wgmma m64n128k16 with both operands in shared memory and f32
 // accumulators; the online softmax runs in registers (a row lies across
 // one quad, so its max and sum take two xor-shuffles), with
@@ -37,8 +40,9 @@
 // f32: flash_fwd_kernel + flash_combine, on the CUDA cores, since one TF32
 // pass would not hold the f32 tolerance.  Bound: operations, 4*D f32
 // flops per unmasked pair at 67 TFLOP/s, so the design keeps the FMA pipe
-// fed.  A block (8 warps) holds a 128-row q tile of one head and walks one
-// range of the kv axis in 64-row chunks through a ring of 16-byte cp.async
+// fed.  A block (8 warps) holds a 128-row q tile of one head (64 at
+// D = 256) and walks one range of the kv axis in 64-row chunks (32 at
+// D = 256; plan.f32_tiles) through a ring of 16-byte cp.async
 // copies (2 stages at D = 128, where shared memory holds no third; 3 at
 // D = 64), so the next chunk loads while one is computed, with one block
 // barrier per chunk.  Both products are outer-product register tiles fed
@@ -79,11 +83,31 @@ namespace {
 namespace f32 {
 
 constexpr int kThreads = 256;  // 8 warps
-constexpr int kBQ = 128;       // q rows a block holds
-constexpr int kBK = 64;        // kv rows a ring stage holds
+constexpr int kTY = 16;        // row groups: kThreads / kTX
 constexpr int kTX = 16;        // lanes that share a score row
-constexpr int kRQ = 8;         // score and output rows a thread holds
 constexpr float kLog2e = 1.4426950408889634f;
+
+// Score and output rows a thread holds, and score columns: 8 x 4 up to
+// D = 128 (a 128-row q tile, 64-row kv chunks); 4 x 2 at D = 256, where a
+// 128-row Q tile alone would take 128 KB and 8 rows of 16 output float4s
+// would not fit in registers (a 64-row q tile, 32-row kv chunks).
+// plan.f32_tiles mirrors these.
+template <int D>
+__host__ __device__ constexpr int rows_a_thread() {
+  return D > 128 ? 4 : 8;
+}
+template <int D>
+__host__ __device__ constexpr int cols_a_thread() {
+  return D > 128 ? 2 : 4;
+}
+template <int D>
+__host__ __device__ constexpr int block_q() {  // q rows a block holds
+  return kTY * rows_a_thread<D>();
+}
+template <int D>
+__host__ __device__ constexpr int block_k() {  // kv rows a ring stage holds
+  return kTX * cols_a_thread<D>();
+}
 
 // A ring of 3 stages where shared memory holds one (D = 64), else 2.
 template <int D>
@@ -93,9 +117,9 @@ __host__ __device__ constexpr int stages() {
 
 template <int D>
 __host__ __device__ constexpr int smem_floats() {
-  return kBQ * D                        // Q tile
-         + 2 * stages<D>() * kBK * D    // K and V rings
-         + kBQ * kBK;                   // P, each warp's 16 rows its own
+  return block_q<D>() * D                        // Q tile
+         + 2 * stages<D>() * block_k<D>() * D    // K and V rings
+         + block_q<D>() * block_k<D>();          // P, each warp's rows its own
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -133,11 +157,12 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
   }
 }
 
-// One block: a 128-row q tile of one (b, h) against kv rows
-// [kv0, kv0 + per_split) of split `split`, in 64-row chunks.  Thread
-// (ty, tx) = (tid / 16, tid % 16) holds score rows 8ty..8ty+7 against
-// chunk columns 4tx..4tx+3, and output rows 8ty.. at columns 4tx + 64j
-// (+0..3).  A row's scores lie on the 16 lanes of one ty, so its max
+// One block: a kBQ-row q tile of one (b, h) against kv rows
+// [kv0, kv0 + per_split) of split `split`, in kBK-row chunks (128 and 64
+// up to D = 128).  Thread (ty, tx) = (tid / 16, tid % 16) holds score rows
+// kRQ ty..kRQ ty + kRQ - 1 against chunk columns kCols tx..kCols tx +
+// kCols - 1, and output rows kRQ ty.. at columns 4tx + 64j (+0..3).
+// A row's scores lie on the 16 lanes of one ty, so its max
 // takes four xor-shuffles; its sum is kept as a lane's share and reduced
 // once at the end.  Scores are taken in the log2 domain (scale * log2(e)
 // folded into one multiply), p = exp2(x - m).
@@ -148,6 +173,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  float* __restrict__ part, int Sq, int Sk, int H, int G,
                  int causal, float scale_log2, int per_split, int n_splits) {
   constexpr int kStages = stages<D>();
+  constexpr int kRQ = rows_a_thread<D>();
+  constexpr int kCols = cols_a_thread<D>();
+  constexpr int kBQ = block_q<D>();
+  constexpr int kBK = block_k<D>();
   constexpr int OC = D / (4 * kTX);  // float4 output columns a thread holds
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem;
@@ -181,7 +210,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   auto load_chunk = [&](int c) {
     const int st = c % kStages;
     const int64_t off = (kv0 + static_cast<int64_t>(c) * kBK) * kv_stride;
-    load_rows<D, 4, kBK>(sK + st * kBK * D, kb + off, kv_stride, tid);
+    load_rows<D, kCols, kBK>(sK + st * kBK * D, kb + off, kv_stride, tid);
     load_rows<D, 0, kBK>(sV + st * kBK * D, vb + off, kv_stride, tid);
   };
   if (n_chunks > 0) {
@@ -212,33 +241,34 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (c + kStages - 1 < n_chunks) load_chunk(c + kStages - 1);
     cp_async_commit();
 
-    const float* krow = sK + (c % kStages) * kBK * D + 4 * tx * D;
+    const float* krow = sK + (c % kStages) * kBK * D + kCols * tx * D;
     const float* vrow = sV + (c % kStages) * kBK * D + 4 * tx;
     const int k0 = kv0 + c * kBK;
 
-    // S = Q K^T: 8 x 4 a thread, 12 float4 reads per 128 FMAs.
-    float s[kRQ][4];
+    // S = Q K^T: kRQ x kCols a thread (8 x 4: 12 float4 reads per 128
+    // FMAs).
+    float s[kRQ][kCols];
 #pragma unroll
     for (int i = 0; i < kRQ; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
 #pragma unroll 1
     for (int d8 = 0; d8 < D; d8 += 32) {
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
-        float4 qv[kRQ], kv[4];
+        float4 qv[kRQ], kv[kCols];
 #pragma unroll
         for (int i = 0; i < kRQ; ++i)
           qv[i] = *reinterpret_cast<const float4*>(qrow + i * D + d8 +
                                                    4 * (u ^ fq));
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < kCols; ++j)
           kv[j] = *reinterpret_cast<const float4*>(krow + j * D + d8 +
                                                    4 * (u ^ fk));
 #pragma unroll
         for (int i = 0; i < kRQ; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
+          for (int j = 0; j < kCols; ++j) {
             s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
             s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
             s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
@@ -254,9 +284,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < kRQ; ++i) {
       float mx = REPRO_NEG_INF;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kCols; ++j) {
         float x = s[i][j] * scale_log2;
-        if (mask && q0 + r0 + i < k0 + 4 * tx + j) x = REPRO_NEG_INF;
+        if (mask && q0 + r0 + i < k0 + kCols * tx + j) x = REPRO_NEG_INF;
         s[i][j] = x;
         mx = fmaxf(mx, x);
       }
@@ -265,21 +295,31 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m[i], mx);
       alpha[i] = exp2f(m[i] - m_new);
-      float4 p;
-      p.x = exp2f(s[i][0] - m_new);
-      p.y = exp2f(s[i][1] - m_new);
-      p.z = exp2f(s[i][2] - m_new);
-      p.w = exp2f(s[i][3] - m_new);
-      l[i] = l[i] * alpha[i] + ((p.x + p.y) + (p.z + p.w));
+      // columns kCols tx.. of P row r0 + i, their 16-byte chunk swizzled
+      // like the Q rows
+      float* pdst = prow + i * kBK + 4 * (((kCols * tx) / 4) ^ fq) +
+                    (kCols * tx) % 4;
+      if constexpr (kCols == 4) {
+        float4 p;
+        p.x = exp2f(s[i][0] - m_new);
+        p.y = exp2f(s[i][1] - m_new);
+        p.z = exp2f(s[i][2] - m_new);
+        p.w = exp2f(s[i][3] - m_new);
+        l[i] = l[i] * alpha[i] + ((p.x + p.y) + (p.z + p.w));
+        *reinterpret_cast<float4*>(pdst) = p;
+      } else {
+        float2 p;
+        p.x = exp2f(s[i][0] - m_new);
+        p.y = exp2f(s[i][1] - m_new);
+        l[i] = l[i] * alpha[i] + (p.x + p.y);
+        *reinterpret_cast<float2*>(pdst) = p;
+      }
       m[i] = m_new;
-      // chunk tx of P row r0 + i, swizzled like the Q rows
-      *reinterpret_cast<float4*>(prow + i * kBK +
-                                 4 * (tx ^ fq)) = p;
     }
     __syncwarp();
 
-    // O = O * alpha + P V: 8 x 4*OC a thread; per k, OC float4 reads of V
-    // for 32 OC FMAs, and per 4 k, 8 float4 reads of P.
+    // O = O * alpha + P V: kRQ x 4*OC a thread; per k, OC float4 reads of
+    // V for 4 kRQ OC FMAs, and per 4 k, kRQ float4 reads of P.
 #pragma unroll
     for (int i = 0; i < kRQ; ++i)
 #pragma unroll
@@ -399,6 +439,12 @@ template <int D>
 int launch(const float* q, const float* k, const float* v, float* o,
            float* part, int B, int Sq, int Sk, int H, int G, int causal,
            float scale, int per_split, int n_splits, cudaStream_t stream) {
+  constexpr int kBQ = block_q<D>();
+  constexpr int kBK = block_k<D>();
+  if (Sq % kBQ || Sk % kBK || per_split <= 0 || per_split % kBK ||
+      n_splits != (Sk + per_split - 1) / per_split ||
+      (n_splits > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
   auto* kern = flash_fwd_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -427,35 +473,52 @@ int launch(const float* q, const float* k, const float* v, float* o,
 namespace sm90 {
 
 constexpr int kBQ = 128;           // q rows a block owns (two consumers x 64)
-constexpr int kBK = 128;           // kv rows a stage holds
 constexpr int kStages = 2;         // K/V ring depth
 constexpr int kThreads = 384;      // producer + two consumer warpgroups
-constexpr int kPanelBytes = 128 * 128;   // 128 rows x 64 bf16 columns
+constexpr int kQPanel = kBQ * 128; // one 64-column panel of the Q tile
 constexpr float kLog2e = 1.4426950408889634f;
 
+// Shared memory of one block at head width D with BK-row K and V tiles:
+// BK = 128 up to D = 128; at D = 256 the Q tile alone is 64 KB and two
+// stages of 128-row K and V tiles would not fit the 227 KB a block may
+// use, so BK = 64 (plan.sm90_kv_rows picks it from the same sum).
+template <int D, int BK>
+__host__ __device__ constexpr int smem_bytes() {
+  return 1024                           // alignment slack
+         + kBQ * D * 2                  // Q
+         + 2 * kStages * BK * D * 2     // K ring, V ring
+         + 8 * (1 + 3 * kStages);       // mbarriers
+}
+
+// S (+)= Q K^T for one 16-column k-step: m64n{BK}k16, both from shared
+// memory; k-step 0 overwrites S.
+template <int BK>
+__device__ __forceinline__ void wgmma_qk(float (&sc)[BK / 2], uint64_t da,
+                                         uint64_t db, int kk) {
+  if constexpr (BK == 128) {
+    if (kk == 0)
+      wgmma_ss_n128_init(sc, da, db);
+    else
+      wgmma_ss_n128(sc, da, db);
+  } else {
+    wgmma_ss_n64(sc, da, db, kk != 0);
+  }
+}
+
+// O += P V for one 16-row k-step: m64n{D}k16, P from registers.
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&acc)[D / 2], const uint32_t* a,
                                          uint64_t db) {
-  if constexpr (D == 128)
+  if constexpr (D == 256)
+    wgmma_rs_n256(acc, a, db, 1);
+  else if constexpr (D == 128)
     wgmma_rs_n128(acc, a, db, 1);
   else
     wgmma_rs_n64(acc, a, db, 1);
 }
 
-template <int D>
-__host__ __device__ constexpr int tile_bytes() {
-  return kBK * D * 2;  // one 128-row bf16 tile, D/64 panels
-}
-
-template <int D>
-__host__ __device__ constexpr int smem_bytes() {
-  return 1024                                   // alignment slack
-         + (1 + 2 * kStages) * tile_bytes<D>()  // Q, K ring, V ring
-         + 8 * (1 + 3 * kStages);               // mbarriers
-}
-
 // grid (B*H, Sq/128): blockIdx.x is the head, blockIdx.y the q tile.
-template <int D>
+template <int D, int BK>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
                const __grid_constant__ CUtensorMap tm_k,
@@ -463,13 +526,16 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
                __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H, int G,
                int causal, float scale_log2) {
   constexpr int kPanels = D / 64;
-  constexpr int kTile = tile_bytes<D>();
+  constexpr int kQTile = kBQ * D * 2;
+  constexpr int kKVTile = BK * D * 2;
+  constexpr int kKVPanel = BK * 128;  // one 64-column panel of a K/V tile
   constexpr int kAcc = D / 2;  // f32 accumulators a thread holds for 64 x D
+  constexpr int kSc = BK / 2;  // ... for the 64 x BK scores
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sQ = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* sK = sQ + kTile;
-  uint8_t* sV = sK + kStages * kTile;
-  uint64_t* full_q = reinterpret_cast<uint64_t*>(sV + kStages * kTile);
+  uint8_t* sK = sQ + kQTile;
+  uint8_t* sV = sK + kStages * kKVTile;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(sV + kStages * kKVTile);
   uint64_t* full_k = full_q + 1;
   uint64_t* full_v = full_k + kStages;
   uint64_t* empty = full_v + kStages;
@@ -482,8 +548,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
   const int h = bh % H;
   const int g = h / (H / G);
   const int q0 = qi * kBQ;
-  // Tiles ki with ki*bk <= q0 + bq - 1 are computed under the causal mask.
-  const int n_kv = causal ? min(Sk / kBK, qi + 1) : Sk / kBK;
+  // Tiles ki with ki*BK <= q0 + kBQ - 1 are computed under the causal mask.
+  const int n_kv = causal ? min(Sk / BK, (q0 + kBQ) / BK) : Sk / BK;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -502,22 +568,22 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
     if (tid == 0) {
       const int q_row = b * Sq + q0;
       const int kv_row = b * Sk;
-      mbar_expect_tx(full_q, kTile);
+      mbar_expect_tx(full_q, kQTile);
       for (int p = 0; p < kPanels; ++p)
-        tma_load(sQ + p * kPanelBytes, &tm_q, full_q, 64 * p, h, q_row);
+        tma_load(sQ + p * kQPanel, &tm_q, full_q, 64 * p, h, q_row);
       for (int j = 0; j < n_kv; ++j) {
         const int s = j % kStages;
         mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
-        uint8_t* k_dst = sK + s * kTile;
-        uint8_t* v_dst = sV + s * kTile;
-        mbar_expect_tx(&full_k[s], kTile);
+        uint8_t* k_dst = sK + s * kKVTile;
+        uint8_t* v_dst = sV + s * kKVTile;
+        mbar_expect_tx(&full_k[s], kKVTile);
         for (int p = 0; p < kPanels; ++p)
-          tma_load(k_dst + p * kPanelBytes, &tm_k, &full_k[s], 64 * p, g,
-                   kv_row + j * kBK);
-        mbar_expect_tx(&full_v[s], kTile);
+          tma_load(k_dst + p * kKVPanel, &tm_k, &full_k[s], 64 * p, g,
+                   kv_row + j * BK);
+        mbar_expect_tx(&full_v[s], kKVTile);
         for (int p = 0; p < kPanels; ++p)
-          tma_load(v_dst + p * kPanelBytes, &tm_v, &full_v[s], 64 * p, g,
-                   kv_row + j * kBK);
+          tma_load(v_dst + p * kKVPanel, &tm_v, &full_v[s], 64 * p, g,
+                   kv_row + j * BK);
       }
     }
     return;
@@ -533,11 +599,11 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
   const int q_first = q0 + 64 * c;              // position of row 0
 
   float acc[kAcc];
-  float sc[64];
+  float sc[kSc];
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+  for (int i = 0; i < kSc; ++i) sc[i] = 0.f;
   float m[2] = {REPRO_NEG_INF, REPRO_NEG_INF};
   float l[2] = {0.f, 0.f};  // this thread's columns only until the end
   const uint32_t q_addr = smem_u32(sQ) + 64 * c * 128;
@@ -546,8 +612,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
   for (int j = 0; j < n_kv; ++j) {
     const int s = j % kStages;
     const int parity = (j / kStages) & 1;
-    const uint32_t k_addr = smem_u32(sK + s * kTile);
-    const uint32_t v_addr = smem_u32(sV + s * kTile);
+    const uint32_t k_addr = smem_u32(sK + s * kKVTile);
+    const uint32_t v_addr = smem_u32(sV + s * kKVTile);
 
     // S = Q K^T over D in steps of 16 (32 bytes of one 128-byte row).
     mbar_wait(&full_k[s], parity);
@@ -555,13 +621,10 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
-      const uint64_t da = sw128_desc(q_addr + off, 16);
-      const uint64_t db = sw128_desc(k_addr + off, 16);
-      if (kk == 0)
-        wgmma_ss_n128_init(sc, da, db);
-      else
-        wgmma_ss_n128(sc, da, db);
+      const uint32_t col = (kk % 4) * 32;
+      const uint64_t da = sw128_desc(q_addr + (kk / 4) * kQPanel + col, 16);
+      const uint64_t db = sw128_desc(k_addr + (kk / 4) * kKVPanel + col, 16);
+      wgmma_qk<BK>(sc, da, db, kk);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -569,11 +632,11 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
 
     // Online softmax in the log2 domain.  sc[4n + e] is row row_lo + 8*(e/2),
     // column 8n + col_in + e%2 of the tile.
-    const int k0 = j * kBK;
-    const bool diag = causal && k0 + kBK - 1 > q_first;
+    const int k0 = j * BK;
+    const bool diag = causal && k0 + BK - 1 > q_first;
     float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < kSc; ++i) {
       float x = sc[i] * scale_log2;
       if (diag) {
         const int qpos = q_first + row_lo + 8 * ((i % 4) / 2);
@@ -592,7 +655,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
       m[r] = mx[r];
     }
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < kSc; ++i) {
       const float p = exp2f(sc[i] - m[(i % 4) / 2]);
       sc[i] = p;
       rsum[(i % 4) / 2] += p;
@@ -605,9 +668,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
     // P as wgmma A fragments: k-step kk (kv columns 16kk..16kk+15) is
     // sc[8kk .. 8kk+7] in the order the fragment wants; hi = bf16(p),
     // lo = bf16(p - hi).
-    uint32_t p_hi[32], p_lo[32];
+    uint32_t p_hi[kSc / 2], p_lo[kSc / 2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
+    for (int i = 0; i < kSc / 2; ++i) {
       const float x0 = sc[2 * i], x1 = sc[2 * i + 1];
       __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
       const float2 hf = __bfloat1622float2(hi);
@@ -615,13 +678,13 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
       p_lo[i] = pack_bf16(x0 - hf.x, x1 - hf.y);
     }
 
-    // O += P V over the 128 kv rows in steps of 16 (2048 bytes of V).
+    // O += P V over the BK kv rows in steps of 16 (2048 bytes of V).
     mbar_wait(&full_v[s], parity);
     reg_fence(acc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint64_t dv = sw128_desc(v_addr + kk * 16 * 128, kPanelBytes);
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t dv = sw128_desc(v_addr + kk * 16 * 128, kKVPanel);
       wgmma_pv<D>(acc, p_hi + 4 * kk, dv);
       wgmma_pv<D>(acc, p_lo + 4 * kk, dv);
     }
@@ -647,7 +710,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row_lo + 8 * r;
-      uint8_t* dst = sO + (n / 8) * kPanelBytes + row * 128 +
+      uint8_t* dst = sO + (n / 8) * kQPanel + row * 128 +
                      (((n % 8) ^ (row % 8)) * 16) + col_in * 2;
       *reinterpret_cast<uint32_t*>(dst) =
           pack_bf16(acc[4 * n + 2 * r] / lim[r], acc[4 * n + 2 * r + 1] / lim[r]);
@@ -659,16 +722,16 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
     const int row = i / kChunks;
     const int ch = i % kChunks;
     const uint4 val = *reinterpret_cast<const uint4*>(
-        sO + (ch / 8) * kPanelBytes + row * 128 + (((ch % 8) ^ (row % 8)) * 16));
+        sO + (ch / 8) * kQPanel + row * 128 + (((ch % 8) ^ (row % 8)) * 16));
     const int64_t pos = static_cast<int64_t>(b) * Sq + q_first + row;
     *reinterpret_cast<uint4*>(o + (pos * H + h) * D + ch * 8) = val;
   }
 }
 
 // Tensor map over a contiguous [rows, heads, D] bf16 array, boxes of
-// {64 columns, 1 head, 128 rows}, 128-byte swizzle.
+// {64 columns, 1 head, box_rows rows}, 128-byte swizzle.
 bool make_map(CUtensorMap* map, const void* base, int D, int heads,
-              int64_t rows) {
+              int64_t rows, int box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
@@ -676,7 +739,7 @@ bool make_map(CUtensorMap* map, const void* base, int D, int heads,
                               static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
                                  static_cast<cuuint64_t>(heads) * D * 2};
-  const cuuint32_t box[3] = {64, 1, static_cast<cuuint32_t>(kBK)};
+  const cuuint32_t box[3] = {64, 1, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                 const_cast<void*>(base), dims, strides, box, elem_strides,
@@ -685,16 +748,18 @@ bool make_map(CUtensorMap* map, const void* base, int D, int heads,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, int BK>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
            int Sk, int H, int G, int causal, float scale, cudaStream_t stream) {
+  static_assert(smem_bytes<D, BK>() <= 232448, "over a block's shared memory");
+  if (Sq % kBQ || Sk % BK) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, D, H, static_cast<int64_t>(B) * Sq) ||
-      !make_map(&tk, k, D, G, static_cast<int64_t>(B) * Sk) ||
-      !make_map(&tv, v, D, G, static_cast<int64_t>(B) * Sk))
+  if (!make_map(&tq, q, D, H, static_cast<int64_t>(B) * Sq, kBQ) ||
+      !make_map(&tk, k, D, G, static_cast<int64_t>(B) * Sk, BK) ||
+      !make_map(&tv, v, D, G, static_cast<int64_t>(B) * Sk, BK))
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int smem = smem_bytes<D>();
-  auto* kern = flash_fwd_sm90<D>;
+  constexpr int smem = smem_bytes<D, BK>();
+  auto* kern = flash_fwd_sm90<D, BK>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -707,47 +772,213 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
 
 }  // namespace sm90
 
+
+// ---------------------------------------------------------------------------
+// Other head widths: a simple CUDA-core kernel, both dtypes
+// ---------------------------------------------------------------------------
+//
+// The tiled kernels above are built for D in {64, 128, 256}; the reference's
+// mha runs its kernel at any D % 8 == 0 (the smoke configs' 16, for one).
+// flash_fwd_simple takes every such D up to 256 at run time, in f32 or bf16
+// (read into f32, accumulated in f32, rounded once at the end), and is
+// written to be right, not fast: a block (8 warps) holds a 32-row q tile
+// in shared memory and walks the kv axis in 32-row chunks; a warp owns 4 q
+// rows, lane j scores kv row j of the chunk (K rows padded to D + 1 floats,
+// so the lanes' reads fall in distinct banks), the row's max takes five
+// xor-shuffles, and P V broadcasts each p_j by shuffle while lane l holds
+// output columns l, l + 32, ...  Causal q tiles are numbered heaviest
+// first, and chunks wholly above the diagonal are skipped.
+
+namespace simple {
+
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kRows = 4;       // q rows a warp holds
+constexpr int kBQ = 32;        // q rows a block holds
+constexpr int kBK = 32;        // kv rows a chunk holds: one a lane
+constexpr int kCols = 8;       // output columns a lane holds: D <= 256
+constexpr float kLog2e = 1.4426950408889634f;
+
+inline int smem_bytes(int D) {
+  return static_cast<int>(sizeof(float)) *
+         (kBQ * D + kBK * (D + 1) + kBK * D);  // Q, padded K, V
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_simple(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
+                 int H, int G, int D, int causal, float scale_log2) {
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;                 // [kBQ][D]
+  float* sK = sQ + kBQ * D;         // [kBK][D + 1]
+  float* sV = sK + kBK * (D + 1);   // [kBK][D]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n_q = Sq / kBQ;
+  const int tile = static_cast<int>(blockIdx.x);
+  const int qi = causal ? n_q - 1 - tile : tile;  // heaviest first
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H, g = h / (H / G);
+  const int q0 = qi * kBQ;
+  const int64_t q_stride = static_cast<int64_t>(H) * D;
+  const int64_t kv_stride = static_cast<int64_t>(G) * D;
+  const T* qb = q + (static_cast<int64_t>(b) * Sq * H + h) * D;
+  const T* kb = k + (static_cast<int64_t>(b) * Sk * G + g) * D;
+  const T* vb = v + (static_cast<int64_t>(b) * Sk * G + g) * D;
+
+  for (int e = tid; e < kBQ * D; e += kThreads) {
+    const int r = e / D, col = e % D;
+    sQ[e] = to_f32(qb[(q0 + r) * q_stride + col]);
+  }
+  float m[kRows], l[kRows], acc[kRows][kCols];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    m[i] = REPRO_NEG_INF;
+    l[i] = 0.f;  // this lane's share until the end
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
+  }
+  const int kv_end = causal ? min(Sk, q0 + kBQ) : Sk;
+  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
+    __syncthreads();  // the last chunk read (and, first, Q written)
+    for (int e = tid; e < kBK * D; e += kThreads) {
+      const int r = e / D, col = e % D;
+      const int64_t src = (k0 + r) * kv_stride + col;
+      sK[r * (D + 1) + col] = to_f32(kb[src]);
+      sV[r * D + col] = to_f32(vb[src]);
+    }
+    __syncthreads();
+    const bool mask = causal && k0 + kBK - 1 > q0;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int row = warp * kRows + i;
+      const float* qr = sQ + row * D;
+      const float* kr = sK + lane * (D + 1);
+      float s = 0.f;
+      for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
+      float x = s * scale_log2;
+      if (mask && q0 + row < k0 + lane) x = REPRO_NEG_INF;
+      float mx = x;
+#pragma unroll
+      for (int off = 16; off; off /= 2)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = exp2f(m[i] - m_new);
+      const float p = exp2f(x - m_new);
+      l[i] = l[i] * alpha + p;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
+      for (int j = 0; j < kBK; ++j) {
+        const float pj = __shfl_sync(0xffffffffu, p, j);
+        const float* vr = sV + j * D + lane;
+#pragma unroll
+        for (int c = 0; c < kCols; ++c)
+          if (lane + 32 * c < D) acc[i][c] = fmaf(pj, vr[32 * c], acc[i][c]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    float sum = l[i];
+#pragma unroll
+    for (int off = 16; off; off /= 2)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    const float inv = 1.f / fmaxf(sum, 1e-30f);
+    const int row = warp * kRows + i;
+    T* orow = o + ((static_cast<int64_t>(b) * Sq + q0 + row) * H + h) * D;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c)
+      if (lane + 32 * c < D) orow[lane + 32 * c] = from_f32<T>(acc[i][c] * inv);
+  }
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+           int Sk, int H, int G, int D, int causal, float scale,
+           cudaStream_t stream) {
+  if (D < 8 || D % 8 || D > 32 * kCols || Sq % kBQ || Sk % kBK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = smem_bytes(D);
+  auto* kern = flash_fwd_simple<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(Sq / kBQ, B * H);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, G, D, causal,
+      scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace simple
+
 }  // namespace
 
-// Contract (checked by the Python wrapper): contiguous, 16-byte aligned
-// inputs, D in {64, 128}, Sq % bq == 0, Sk % bk == 0, H % G == 0, where bq
-// and bk are the reference's tiles, which neither kernel reads (the f32
-// kernel walks 128-row q tiles and 64-row kv chunks, flash_fwd_sm90 128-row
-// tiles of both).  f32 takes Sq % 128 == 0 and Sk % 64 == 0, with the kv
-// axis cut into n_splits ranges of per_split rows (a multiple of 64;
-// plan.py), and part holding n_splits * B*Sq*H * (D + 2) floats when
-// n_splits > 1; bf16 takes Sq and Sk multiples of 128 and one split.
+// Contract (checked by the Python wrapper, kernel.py): contiguous, 16-byte
+// aligned inputs, D % 8 == 0 and 8 <= D <= 256, Sq % bq == 0, Sk % bk == 0,
+// H % G == 0, where bq and bk are the reference's tiles, which no kernel
+// reads.  tile_k is the kv rows a stage of the chosen kernel holds, as
+// plan.py gives it (checked here against the instantiation):
+// - D in {64, 128, 256}, f32: flash_fwd_kernel, 128 x 64 tiles (64 x 32 at
+//   D = 256), the kv axis cut into n_splits ranges of per_split rows (a
+//   multiple of tile_k); part holds n_splits * B*Sq*H * (D + 2) floats when
+//   n_splits > 1;
+// - D in {64, 128, 256}, bf16: flash_fwd_sm90, 128-row q tiles and tile_k
+//   (128, or 64 at D = 256) kv rows, one split;
+// - any other D: flash_fwd_simple, 32 x 32 tiles, one split.
 REPRO_EXPORT int flash_attention_launch(int dtype, const void* q, const void* k,
                                         const void* v, void* o, void* part,
                                         int B, int Sq, int Sk, int H, int G,
                                         int D, int bq, int bk, int causal,
                                         float scale, int per_split,
-                                        int n_splits, void* stream) {
-  if (bq <= 0 || Sq % bq || bk <= 0 || Sk % bk || H % G || (D != 64 && D != 128))
+                                        int n_splits, int tile_k,
+                                        void* stream) {
+  if (bq <= 0 || Sq % bq || bk <= 0 || Sk % bk || G <= 0 || H % G ||
+      D < 8 || D % 8 || D > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == REPRO_F32) {
-    if (Sq % f32::kBQ || Sk % f32::kBK || per_split <= 0 ||
-        per_split % f32::kBK || n_splits != (Sk + per_split - 1) / per_split ||
-        (n_splits > 1 && part == nullptr))
+  const bool tiled = D == 64 || D == 128 || D == 256;
+  if (!tiled) {
+    if (n_splits != 1 || tile_k != simple::kBK)
       return static_cast<int>(cudaErrorInvalidValue);
+    if (dtype == REPRO_F32)
+      return simple::launch<float>(q, k, v, o, B, Sq, Sk, H, G, D, causal,
+                                   scale, s);
+    if (dtype == REPRO_BF16)
+      return simple::launch<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, G, D,
+                                           causal, scale, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (dtype == REPRO_F32) {
     const auto* qf = static_cast<const float*>(q);
     const auto* kf = static_cast<const float*>(k);
     const auto* vf = static_cast<const float*>(v);
     auto* of = static_cast<float*>(o);
     auto* pf = static_cast<float*>(part);
-    return D == 64 ? f32::launch<64>(qf, kf, vf, of, pf, B, Sq, Sk, H, G,
-                                     causal, scale, per_split, n_splits, s)
-                   : f32::launch<128>(qf, kf, vf, of, pf, B, Sq, Sk, H, G,
-                                      causal, scale, per_split, n_splits, s);
+    if (D == 64 && tile_k == f32::block_k<64>())
+      return f32::launch<64>(qf, kf, vf, of, pf, B, Sq, Sk, H, G, causal,
+                             scale, per_split, n_splits, s);
+    if (D == 128 && tile_k == f32::block_k<128>())
+      return f32::launch<128>(qf, kf, vf, of, pf, B, Sq, Sk, H, G, causal,
+                              scale, per_split, n_splits, s);
+    if (D == 256 && tile_k == f32::block_k<256>())
+      return f32::launch<256>(qf, kf, vf, of, pf, B, Sq, Sk, H, G, causal,
+                              scale, per_split, n_splits, s);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == REPRO_BF16) {
-    if (Sq % sm90::kBQ || Sk % sm90::kBK || n_splits != 1)
-      return static_cast<int>(cudaErrorInvalidValue);
-    return D == 64 ? sm90::launch<64>(q, k, v, o, B, Sq, Sk, H, G, causal,
-                                      scale, s)
-                   : sm90::launch<128>(q, k, v, o, B, Sq, Sk, H, G, causal,
-                                       scale, s);
+    if (n_splits != 1) return static_cast<int>(cudaErrorInvalidValue);
+    if (D == 64 && tile_k == 128)
+      return sm90::launch<64, 128>(q, k, v, o, B, Sq, Sk, H, G, causal, scale,
+                                   s);
+    if (D == 128 && tile_k == 128)
+      return sm90::launch<128, 128>(q, k, v, o, B, Sq, Sk, H, G, causal,
+                                    scale, s);
+    if (D == 256 && tile_k == 64)
+      return sm90::launch<256, 64>(q, k, v, o, B, Sq, Sk, H, G, causal, scale,
+                                   s);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -9,8 +9,16 @@ byte for byte (both draw them with numpy):
   needs no loader state beyond the step counter.
 - **Process sharding**: each process makes only its ``global_batch /
   world_size`` slice (``torch.distributed``'s world size and rank when it
-  is initialized, else 1 and 0).  Assembling the slices into one global
-  array across cards waits for ROADMAP.md's multi-card queue item.
+  is initialized, else 1 and 0), or, given ``data_shards``, its
+  ``global_batch / data_shards`` slice; :meth:`SyntheticTokens.
+  global_arrays` assembles the slices into one DTensor a key.
+- **The same draw on every process**, as the reference's: a slice is the
+  first rows of step ``i``'s Philox stream, whatever the process (the
+  process index is not in the draw), so the assembled global batch is one
+  slice repeated.  The reference divides by the process count; on a mesh
+  whose "model" axis is wider than 1 that would assemble fewer rows than
+  ``global_batch``, so the port's mesh path divides by the data shards,
+  the ranks of one shard holding equal slices (ROADMAP.md queue 3).
 - **Prefetch**: a background thread keeps ``prefetch`` batches ready.
 
 The "dataset" is a token stream with a power-law unigram distribution and
@@ -27,7 +35,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["SyntheticTokens", "make_batch_specs", "BatchSpec"]
+__all__ = ["SyntheticTokens", "make_batch_specs", "BatchSpec",
+           "batch_shards"]
 
 
 class BatchSpec(NamedTuple):
@@ -71,11 +80,13 @@ class SyntheticTokens:
     extra_embed_len: int = 0     # VLM patch / audio frame stand-ins
     d_model: int = 0
     zipf_a: float = 1.2
+    data_shards: int = 0         # 0: split by the process count
 
     def __post_init__(self):
         self._procs, self._pid = _process_grid()
-        assert self.global_batch % self._procs == 0
-        self._local_batch = self.global_batch // self._procs
+        split = self.data_shards or self._procs
+        assert self.global_batch % split == 0
+        self._local_batch = self.global_batch // split
         self._q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         self._thread: threading.Thread | None = None
         self._stop = threading.Event()
@@ -130,3 +141,47 @@ class SyntheticTokens:
             else:
                 _, batch = self._q.get()
                 yield batch
+
+    def global_arrays(self, batch: dict, mesh, batch_spec) -> dict:
+        """Assemble this rank's slices into global DTensors on ``mesh``:
+        each key's leading axis sharded as ``batch_spec``'s first entry
+        (a ``models.sharding`` spec, e.g. ``logical_to_spec(mesh,
+        ("batch", None))``), its other axes whole; the global batch has
+        ``global_batch`` rows."""
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.models import sharding
+        from repro_torch.models.shard_ops import contiguous_stride
+
+        dev = sharding.mesh_device(mesh)
+        out = {}
+        for k, v in batch.items():
+            spec = tuple(batch_spec[:1])     # () on a trivial mesh
+            pl = sharding.placements(mesh, spec)
+            rows = v.shape[0] * batch_shards(mesh, spec)
+            if rows != self.global_batch:
+                raise ValueError(
+                    f"{k}: {v.shape[0]} rows on each of "
+                    f"{batch_shards(mesh, spec)} data shards assemble "
+                    f"{rows}, not the global batch of {self.global_batch}")
+            shape = (rows, *v.shape[1:])
+            local = torch.from_numpy(v).to(dev, non_blocking=True)
+            out[k] = DTensor.from_local(local, mesh, pl, run_check=False,
+                                        shape=torch.Size(shape),
+                                        stride=contiguous_stride(shape))
+        return out
+
+
+def batch_shards(mesh, spec) -> int:
+    """How many slices the leading axis of ``spec`` cuts a batch into:
+    the product of the mesh axes its first entry names."""
+    from repro_torch.models.sharding import mesh_axes
+
+    entry = spec[0] if spec else None
+    names = () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
+    sizes = mesh_axes(mesh)
+    n = 1
+    for name in names:
+        n *= sizes[name]
+    return n

@@ -6,8 +6,8 @@ axis, grid ``(b*h, n_q, n_kv)`` with the kv axis innermost, ``[1, bq, D]``
 q/o tiles mapped on ``qi`` and ``[1, bk, D]`` k/v tiles mapped on ``ki``
 (query head ``h`` reads kv head ``h // (H/G)``), ``bq = min(block_q, Sq)``
 and ``bk = min(block_k, Sk)``.  The reference's ``mha`` guard (sequence
-lengths multiples of 128, a head width the kernel takes) decides between
-kernel and oracle on the TPU; here a CUDA tensor outside it raises, and
+lengths multiples of 128, D % 8 == 0) decides between kernel and oracle on
+the TPU; here a CUDA tensor outside it, or with D above 256, raises, and
 the plain version serves CPU tensors only.
 """
 
@@ -18,7 +18,7 @@ import torch
 from repro_torch.capture.launch import LaunchOperand, LaunchSpec, emit
 
 from .. import _build
-from .kernel import HEAD_DIMS, flash_attention
+from .kernel import flash_attention, head_dim_ok
 from .ref import attention_ref
 
 __all__ = ["mha", "launch_spec", "SOFTMAX_OPS_PER_SCORE"]
@@ -76,9 +76,10 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        block_k=block_k)
     emit(spec)
     if _build.on_card(q, k, v):
-        if sq % 128 or sk % 128 or d not in HEAD_DIMS:
+        if sq % 128 or sk % 128 or not head_dim_ok(d):
             raise ValueError(
                 f"flash attention on CUDA needs Sq and Sk multiples of 128 "
-                f"and D in {HEAD_DIMS}; got Sq={sq}, Sk={sk}, D={d}")
+                f"and D % 8 == 0 up to 256 (wider heads: ROADMAP.md, queue "
+                f"2); got Sq={sq}, Sk={sk}, D={d}")
         return flash_attention(spec, q, k, v, causal=causal)
     return attention_ref(q, k, v, causal=causal)

@@ -1,4 +1,5 @@
-"""How the f32 flash kernel cuts the kv axis over blocks.
+"""How the flash kernels tile a launch and how the f32 one cuts the kv
+axis over blocks.
 
 ``flash_fwd_kernel`` (``csrc/flash_attention.cu``) takes one 128-row q tile
 of one (batch, head) a block; alone, that grid is ``B * H * Sq / 128``
@@ -13,34 +14,73 @@ kernel's 64-row chunks, so the K and V it reads (2 x 64 rows x D floats at
 least) are about as many bytes as the partials it writes (128 rows x
 (D + 2) floats).  A grid that already fills the card gets one range,
 which writes the output itself in one launch.
+
+Both tiled kernels are instantiated for D in ``TILED_HEAD_DIMS``; their
+tiles shrink at D = 256, where the tiles of D = 128 do not fit a block's
+shared memory (:func:`f32_tiles`, :func:`sm90_kv_rows`).  Every other
+``D % 8 == 0`` up to ``MAX_HEAD_DIM`` runs ``flash_fwd_simple`` on
+``SIMPLE_TILE`` x ``SIMPLE_TILE`` tiles.
 """
 
 from __future__ import annotations
 
-__all__ = ["split_plan", "BLOCK_Q", "KV_CHUNK", "SPLITS_PER_SM"]
+__all__ = ["split_plan", "f32_tiles", "sm90_kv_rows", "sm90_smem_bytes",
+           "BLOCK_Q", "KV_CHUNK", "SPLITS_PER_SM", "TILED_HEAD_DIMS",
+           "MAX_HEAD_DIM", "SIMPLE_TILE", "SMEM_PER_BLOCK"]
 
-BLOCK_Q = 128        # q rows one block holds
-KV_CHUNK = 64        # kv rows one stage of the block's ring holds
+BLOCK_Q = 128        # q rows one block holds (D <= 128)
+KV_CHUNK = 64        # kv rows one stage of the block's ring holds (D <= 128)
 SPLITS_PER_SM = 2
+TILED_HEAD_DIMS = (64, 128, 256)   # widths the tiled kernels are built for
+MAX_HEAD_DIM = 256
+SIMPLE_TILE = 32     # q and kv rows flash_fwd_simple's block walks
+SMEM_PER_BLOCK = 232_448   # bytes of shared memory a block may use
+SM90_BLOCK_Q = 128
+SM90_STAGES = 2
+
+
+def f32_tiles(d: int) -> tuple[int, int]:
+    """(q rows a block holds, kv rows a stage holds) of ``flash_fwd_kernel``
+    at head width ``d``: 16 row groups of 8 rows and 16 lanes of 4 columns,
+    or 4 rows and 2 columns at D = 256, where a 128-row f32 Q tile alone
+    takes 128 KB."""
+    return (64, 32) if d > 128 else (BLOCK_Q, KV_CHUNK)
+
+
+def sm90_smem_bytes(d: int, kv_rows: int) -> int:
+    """``flash_fwd_sm90``'s shared memory: alignment slack, the bf16 Q tile,
+    two stages of K and V tiles, the mbarriers."""
+    return (1024 + SM90_BLOCK_Q * d * 2 + 2 * SM90_STAGES * kv_rows * d * 2
+            + 8 * (1 + 3 * SM90_STAGES))
+
+
+def sm90_kv_rows(d: int) -> int:
+    """K/V tile rows of ``flash_fwd_sm90`` at head width ``d``: 128 where
+    the buffers fit a block's shared memory, else 64 (D = 256)."""
+    for rows in (128, 64):
+        if sm90_smem_bytes(d, rows) <= SMEM_PER_BLOCK:
+            return rows
+    raise ValueError(f"flash_fwd_sm90 fits no K/V tile at D={d}")
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def split_plan(b: int, h: int, sq: int, sk: int, *,
-               n_sm: int) -> tuple[int, int]:
+def split_plan(b: int, h: int, sq: int, sk: int, *, n_sm: int,
+               d: int = 128) -> tuple[int, int]:
     """kv rows per range and the number of ranges for one launch over
-    ``b * h`` heads of ``sq`` query and ``sk`` kv rows (multiples of 128 and
-    64) on a card of ``n_sm`` SMs.  Every range but the last holds exactly
-    ``rows per range`` rows, a multiple of ``KV_CHUNK``, and none is
-    empty."""
-    if sq < 1 or sq % BLOCK_Q or sk < 1 or sk % KV_CHUNK:
-        raise ValueError(f"flash f32 kernel takes Sq a multiple of {BLOCK_Q} "
-                         f"and Sk of {KV_CHUNK}; got Sq={sq}, Sk={sk}")
-    blocks = b * h * (sq // BLOCK_Q)
+    ``b * h`` heads of ``sq`` query and ``sk`` kv rows (multiples of the
+    head width's tiles, :func:`f32_tiles`: 128 and 64 up to D = 128) on a
+    card of ``n_sm`` SMs.  Every range but the last holds exactly ``rows
+    per range`` rows, a multiple of the kv tile, and none is empty."""
+    block_q, chunk = f32_tiles(d)
+    if sq < 1 or sq % block_q or sk < 1 or sk % chunk:
+        raise ValueError(f"flash f32 kernel takes Sq a multiple of {block_q} "
+                         f"and Sk of {chunk}; got Sq={sq}, Sk={sk}")
+    blocks = b * h * (sq // block_q)
     if blocks >= n_sm:
         return sk, 1
     want = _cdiv(SPLITS_PER_SM * n_sm, blocks)
-    per = min(_cdiv(_cdiv(sk, want), KV_CHUNK) * KV_CHUNK, sk)
+    per = min(_cdiv(_cdiv(sk, want), chunk) * chunk, sk)
     return per, _cdiv(sk, per)

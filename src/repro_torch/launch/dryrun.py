@@ -175,11 +175,13 @@ def _local(tree) -> list[torch.Tensor]:
             for t in leaves(tree)]
 
 
-def record_step(plan, mesh) -> dict:
+def record_step(plan, mesh, *, compress: str | None = None) -> dict:
     """Place ``plan`` on ``mesh`` (a fake-group mesh), run its step once
-    under a :class:`Recorder`; returns the entry's measured fields."""
+    under a :class:`Recorder`; returns the entry's measured fields.
+    ``compress`` is ``build_cell``'s (a train cell's int8 error
+    feedback)."""
     t0 = time.time()
-    fn, args, _, _, _ = build_cell(plan, mesh)
+    fn, args, _, _, _ = build_cell(plan, mesh, compress=compress)
     t_build = time.time() - t0
     arg_bytes = local_bytes(args)
     rec = Recorder(_local(args))

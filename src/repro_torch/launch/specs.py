@@ -36,6 +36,7 @@ from repro_torch.train import AdamWConfig, build_train_step
 from .cells import CellPlan
 
 __all__ = ["build_cell", "input_specs", "rules_for", "InputSpec",
+           "place_parameters",
            "is_abstract", "local_bytes", "plain_lm", "leaves", "flat_axes"]
 
 
@@ -168,6 +169,29 @@ def flat_axes(tree, prefix: str = "") -> dict[str, tuple]:
     return out
 
 
+def place_parameters(lm: LM, mesh, rules, dtype: torch.dtype, *,
+                     placer: _Placer | None = None) -> dict:
+    """Replace every parameter of ``lm`` by a DTensor parameter laid out
+    by its logical axes (``LM.axes()``) through ``rules``, its float32
+    ones in ``dtype``; returns {name: NamedSharding}.  Real parameters are
+    sliced on each rank, with no communication (every rank holds the same
+    ones); ``placer`` on an abstract mesh gives empty ``meta`` shards."""
+    placer = placer or _Placer(mesh, lm.device)
+    axes = flat_axes(lm.axes())
+    shardings = {}
+    with torch.no_grad():
+        for name, p in list(lm.named_parameters()):
+            ns = sharding.named_sharding(mesh, axes[name], tuple(p.shape),
+                                         rules)
+            shardings[name] = ns
+            d = placer.place(None if placer.abstract else p, tuple(p.shape),
+                             dtype if p.dtype == torch.float32 else p.dtype,
+                             ns)
+            mod, leaf = _module_of(lm, name)
+            setattr(mod, leaf, torch.nn.Parameter(d, requires_grad=False))
+    return shardings
+
+
 def _place_lm(plan: CellPlan, mesh, rules, placer: _Placer) -> tuple[LM, dict]:
     """The cell's LM with every parameter replaced by a DTensor parameter
     laid out by its axes; returns (lm, {name: NamedSharding})."""
@@ -180,18 +204,7 @@ def _place_lm(plan: CellPlan, mesh, rules, placer: _Placer) -> tuple[LM, dict]:
         lm = LM(cfg, device=placer.device).init(placer.gen)
     # serving loads bf16 weights (half the HBM and gather bytes)
     dt = torch.float32 if plan.kind == "train" else getattr(torch, cfg.dtype)
-    axes = flat_axes(lm.axes())
-    shardings = {}
-    with torch.no_grad():
-        for name, p in list(lm.named_parameters()):
-            ns = sharding.named_sharding(mesh, axes[name], tuple(p.shape),
-                                         rules)
-            shardings[name] = ns
-            d = placer.place(None if placer.abstract else p, tuple(p.shape),
-                             dt if p.dtype == torch.float32 else p.dtype, ns)
-            mod, leaf = _module_of(lm, name)
-            setattr(mod, leaf, torch.nn.Parameter(d, requires_grad=False))
-    return lm, shardings
+    return lm, place_parameters(lm, mesh, rules, dt, placer=placer)
 
 
 def _batch_shardings(mesh, specs, rules):
@@ -224,7 +237,7 @@ def _cache(lm: LM, placer: _Placer, mesh, rules, batch: int, max_len: int):
 
 
 def build_cell(plan: CellPlan, mesh, *, opt_cfg: AdamWConfig | None = None,
-               rules: dict | None = None):
+               rules: dict | None = None, compress: str | None = None):
     """Return ``(fn, args, shardings, donate, rules)`` for one cell:
     ``fn(*args)`` runs the cell's step once under
     ``sharding.activate(mesh, rules)`` and DTensor's
@@ -234,14 +247,16 @@ def build_cell(plan: CellPlan, mesh, *, opt_cfg: AdamWConfig | None = None,
 
     The LM holds the parameters: ``args[0]`` is its parameter dict (the
     same tensors).  A train step updates them, and the optimizer state,
-    in place; prefill and decode write the cache in place."""
+    in place; prefill and decode write the cache in place.  ``compress=
+    "int8_ef"`` gives a train cell its error-feedback buffers, placed like
+    the parameters, and a step that compresses (as the reference's
+    ``launch.perfvariants`` patches its cell)."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     cfg = plan.cfg
     rules = rules_for(plan.kind, rules or dict(plan.rules_override))
     device = torch.device("meta") if is_abstract(mesh) else \
-        torch.device(mesh.device_type, torch.cuda.current_device()
-                     if mesh.device_type == "cuda" else None)
+        sharding.mesh_device(mesh)
     placer = _Placer(mesh, device)
     lm, param_sh = _place_lm(plan, mesh, rules, placer)
     params = dict(lm.named_parameters())
@@ -268,8 +283,14 @@ def build_cell(plan: CellPlan, mesh, *, opt_cfg: AdamWConfig | None = None,
                 for n, p in params.items()} for m in ("mu", "nu")}}
         opt_state["adam"]["step"] = placer.tensor(
             (), torch.int32, opt_sh["adam"]["step"], "zeros")
+        if compress == "int8_ef":
+            opt_sh["err"] = param_sh
+            opt_state["err"] = {
+                n: placer.tensor(tuple(p.shape), torch.float32, param_sh[n],
+                                 "zeros") for n, p in params.items()}
         batch = _batch(placer, specs, batch_sh, cfg.vocab, s)
-        step = build_train_step(lm, opt_cfg, microbatches=plan.microbatches)
+        step = build_train_step(lm, opt_cfg, microbatches=plan.microbatches,
+                                compress=compress)
 
         def train(params, opt_state, batch):
             return step(opt_state, batch)

@@ -24,7 +24,7 @@ from .sharding import (DEFAULT_RULES, active, is_dtensor, logical_to_spec,
                        placements, suspended)
 
 __all__ = [
-    "contiguous_stride", "pin", "write_rows", "write_block",
+    "contiguous_stride", "pin", "write_rows", "write_block", "like",
     "copy_into", "to_layout", "batch_only", "local_window", "take_last",
     "take_rows", "logsumexp_last", "row_chunks", "whole", "local_partial",
     "on_heads", "on_shards", "head_local", "shard_local", "merge_heads",
@@ -157,6 +157,19 @@ def copy_into(dst: torch.Tensor, src: torch.Tensor) -> None:
     if is_dtensor(dst):
         src = to_layout(src, dst.device_mesh, tuple(dst.placements))
     dst.copy_(src)
+
+
+def like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``x`` laid out as ``ref`` before an elementwise op with it (a
+    gradient DTensor's backward left a partial sum, beside a buffer
+    sharded like its parameter): DTensor's own strategy would move the
+    sharded ``ref`` to a partial sum, which torch 2.11 cannot
+    (``redistribute from S(1) to P(sum)``).  No-op unless both are
+    DTensors laid out otherwise."""
+    if not is_dtensor(x) or not is_dtensor(ref) \
+            or tuple(x.placements) == tuple(ref.placements):
+        return x
+    return x.redistribute(ref.device_mesh, tuple(ref.placements))
 
 
 def to_layout(x, mesh, want: tuple):

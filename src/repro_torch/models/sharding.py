@@ -41,6 +41,7 @@ from typing import Any, Sequence
 import torch
 
 __all__ = [
+    "mesh_device",
     "DEFAULT_RULES",
     "INFER_RULES",
     "logical_to_spec",
@@ -109,6 +110,12 @@ def mesh_axes(mesh) -> dict[str, int]:
     if isinstance(shape, Mapping):
         return dict(shape)
     return dict(zip(mesh.mesh_dim_names, shape))
+
+
+def mesh_device(mesh) -> torch.device:
+    """The device this rank's shards of ``mesh`` live on."""
+    return torch.device(mesh.device_type, torch.cuda.current_device()
+                        if mesh.device_type == "cuda" else None)
 
 
 def _mesh_axes_size(axes_of: dict[str, int], axes: Any) -> int:

@@ -3,10 +3,13 @@
 The port of ``repro.train.compress`` (the 1-bit-Adam / EF-SGD family):
 each gradient is quantized to int8 with a per-tensor scale, and the
 quantization residual is carried in a float32 error-feedback buffer so
-the compression bias telescopes away over steps.  On one card there is
-no all-reduce to shrink; the round trip and its buffers are what
-``build_train_step(compress="int8_ef")`` runs and the tests hold to the
-reference.
+the compression bias telescopes away over steps.  The round trip and its
+buffers are what ``build_train_step(compress="int8_ef")`` runs and the
+tests hold to the reference.  On a mesh the buffers are DTensors placed
+like their parameters and each leaf's scale is the max over all its
+shards; DTensor has already reduced the gradients in the backward pass,
+so, as in the reference's compiled step, the round trip shrinks no
+collective (``launch.perfvariants`` carries the payload analytically).
 """
 
 from __future__ import annotations
@@ -16,14 +19,15 @@ from collections.abc import Mapping
 import torch
 
 from repro_torch.models.convert import reference_key
+from repro_torch.models.shard_ops import like, whole
 
-from .optimizer import leaves
+from .optimizer import leaves, zeros_like_param
 
 __all__ = ["init_error_buffers", "compress_decompress"]
 
 
 def init_error_buffers(params: Mapping) -> dict:
-    return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return {n: zeros_like_param(p, torch.float32)
             for n, p in leaves(params)}
 
 
@@ -44,13 +48,16 @@ def compress_decompress(grads: Mapping, err: Mapping
 
     The scale is per tensor of the reference's tree: a stacked leaf's
     layers (``layers.{i}.ssm.w_in`` for every i) share one, the max over
-    all of them.  Returns (new grads in the gradients' dtype, ``err``
-    overwritten in place with e', {"compress_rel_err": |e'| / |g|})."""
+    all of them and, on a mesh, over every shard of each.  Returns (new
+    grads in the gradients' dtype, ``err`` overwritten in place with e',
+    {"compress_rel_err": |e'| / |g|})."""
     new_g = {}
     for members in _by_reference_leaf(grads):
-        amax = torch.stack([torch.max(torch.abs(g.to(torch.float32)
-                                                + err[n]))
-                            for n, g in members]).max()
+        # each gradient laid out as its buffer; a leaf's max over every
+        # shard of every layer
+        members = [(n, like(g, err[n])) for n, g in members]
+        amax = torch.stack([whole(torch.max(torch.abs(
+            g.to(torch.float32) + err[n]))) for n, g in members]).max()
         scale = torch.clamp(amax, min=1e-12) / 127.0
         for name, g in members:
             gf = g.to(torch.float32) + err[name]

@@ -26,6 +26,7 @@ import torch
 from repro_torch.models.convert import tree_order
 
 __all__ = ["AdamWConfig", "init_opt_state", "opt_state_axes",
+           "zeros_like_param",
            "apply_updates", "cosine_schedule", "global_norm", "leaves"]
 
 
@@ -68,13 +69,20 @@ def cosine_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * frac
 
 
+def zeros_like_param(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Zeros of ``p``'s shape in ``dtype``: on a DTensor parameter, a
+    DTensor with its placements (each rank allocates its own shard), as
+    ``train.step.train_state_axes`` lays the state out."""
+    return torch.zeros_like(p, dtype=dtype, requires_grad=False,
+                            memory_format=torch.contiguous_format)
+
+
 def init_opt_state(params: Mapping, cfg: AdamWConfig) -> dict:
     dt = getattr(torch, cfg.state_dtype)
     items = leaves(params)
 
     def zeros():
-        return {n: torch.zeros(p.shape, dtype=dt, device=p.device)
-                for n, p in items}
+        return {n: zeros_like_param(p, dt) for n, p in items}
     device = items[0][1].device if items else None
     return {"mu": zeros(), "nu": zeros(),
             "step": torch.zeros((), dtype=torch.int32, device=device)}

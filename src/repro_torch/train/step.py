@@ -121,12 +121,22 @@ def build_eval_step(lm: LM) -> Callable:
     return eval_step
 
 
+def _gathered(named: dict) -> dict:
+    """Each DTensor leaf's global tensor (``full_tensor``, a collective
+    every rank issues in the same leaf order), plain leaves as they are."""
+    from repro_torch.models.shard_ops import whole
+
+    return {n: whole(t) for n, t in O.leaves(named)}
+
+
 def train_tree(lm: LM, opt_state: dict) -> dict:
     """The training state in the reference's checkpoint layout, in new
     host tensors (a later step does not change it).  Each leaf is copied
     once, straight into its place in the stacked result, so no stacked
     copy is made on the card; a card's layers go to page-locked memory,
-    each copy issued without waiting and all waited for once."""
+    each copy issued without waiting and all waited for once.  On a mesh
+    every DTensor leaf is first gathered into its global tensor, on this
+    thread, in the reference's leaf order (every rank must run this)."""
     dev = torch.device("cpu")
     pinned = lm.device.type == "cuda"
 
@@ -142,7 +152,7 @@ def train_tree(lm: LM, opt_state: dict) -> dict:
     def joined(named: dict) -> dict:
         return join_tree({n: t.detach() if reference_key(n)[1]
                           else t.detach().to(dev, copy=True)  # not stacked
-                          for n, t in named.items()}, stack)
+                          for n, t in _gathered(named).items()}, stack)
     adam = opt_state["adam"]
     opt = {"adam": {"mu": joined(adam["mu"]), "nu": joined(adam["nu"]),
                     "step": adam["step"].detach().to(dev, copy=True)}}
@@ -157,8 +167,15 @@ def train_tree(lm: LM, opt_state: dict) -> dict:
 @torch.no_grad()
 def load_train_tree(lm: LM, opt_state: dict, tree: dict) -> None:
     """Copy a tree in the reference's checkpoint layout (torch tensors or
-    numpy arrays) into the LM's parameters and ``opt_state``, in place;
-    a leaf missing or left over raises ``KeyError``."""
+    numpy arrays, global leaves: from any mesh or none) into the LM's
+    parameters and ``opt_state``, in place; a leaf missing or left over
+    raises ``KeyError``.  Into a DTensor each rank copies only its own
+    shard's slice of the global leaf (``checkpoint.store.local_slice``),
+    which never puts the global leaf on the card: a memory-mapped
+    checkpoint is read for that slice alone."""
+    from repro_torch.checkpoint.store import local_slice
+    from repro_torch.models.sharding import is_dtensor
+
     cfg = lm.cfg
 
     def load(dst: dict, sub: dict) -> None:
@@ -169,7 +186,11 @@ def load_train_tree(lm: LM, opt_state: dict, tree: dict) -> None:
             if tuple(v.shape) != tuple(t.shape) or v.dtype != t.dtype:
                 raise ValueError(f"{name}: {v.dtype}{list(v.shape)} does "
                                  f"not fit {t.dtype}{list(t.shape)}")
-            t.copy_(v)
+            if is_dtensor(t):
+                t._local_tensor.copy_(local_slice(v, t.device_mesh,
+                                                  t.placements))
+            else:
+                t.copy_(v)
 
     load(train_params(lm), tree["params"])
     adam, opt = opt_state["adam"], tree["opt"]

@@ -13,7 +13,8 @@ writes acc / max(l, 1e-30) itself.  The emulation is held to the reference
 Pallas kernel in interpret mode and to the port's plain version at the f32
 tolerance ``chip_smoke.py`` holds the kernel to (atol 2e-5, rtol 1e-4):
 causal launches whose later ranges lie wholly above the diagonal for the
-first q tiles, extreme logits, D 64 and 128.
+first q tiles, extreme logits, D 64, 128 and 256 (whose tiles are 64 q
+rows and 32 kv rows, ``plan.f32_tiles``).
 """
 
 import math
@@ -28,7 +29,7 @@ from repro_torch.capture import kernels as cap
 from repro_torch.kernels.flash_attention import attention_ref
 from repro_torch.kernels.flash_attention.plan import (BLOCK_Q, KV_CHUNK,
                                                       SPLITS_PER_SM,
-                                                      split_plan)
+                                                      f32_tiles, split_plan)
 from repro_torch.serving import scenario as srv
 
 F32 = dict(atol=2e-5, rtol=1e-4)
@@ -37,38 +38,46 @@ NEG_INF = -1e30
 LANES = 16       # lanes that share one score row (4 columns each)
 
 
-def _range(q0: int, kv0: int, per: int, sk: int, causal: bool) -> range:
+def _range(q0: int, kv0: int, per: int, sk: int, causal: bool,
+           d: int = 128) -> range:
     """The chunk starts one block walks: kv rows [kv0, kv0 + per), cut at
     the end of the q tile's diagonal when causal."""
+    block_q, chunk = f32_tiles(d)
     kv1 = min(sk, kv0 + per)
     if causal:
-        kv1 = min(kv1, q0 + BLOCK_Q)
-    return range(kv0, max(kv0, kv1), KV_CHUNK)
+        kv1 = min(kv1, q0 + block_q)
+    return range(kv0, max(kv0, kv1), chunk)
 
 
 def split_partials(qt, kt, vt, q0: int, kv0: int, per: int, sk: int,
                    causal: bool):
-    """One block's (m, l, acc) in f32 for a [128, D] q tile against kv rows
+    """One block's (m, l, acc) in f32 for a [block_q, D] q tile
+    (``plan.f32_tiles``: 128 rows, 64 at D = 256) against kv rows
     [kv0, kv0 + per) of one head: m in the log2 domain, l the 16 lanes'
-    shares added at the end."""
-    d = qt.shape[1]
+    shares (4 columns each, 2 at D = 256) added at the end."""
+    block_q, d = qt.shape
+    chunk = f32_tiles(d)[1]
     scale_log2 = d ** -0.5 * math.log2(math.e)
-    rows = torch.arange(BLOCK_Q)
-    m = torch.full((BLOCK_Q, 1), NEG_INF)
-    l_lane = torch.zeros(BLOCK_Q, LANES)
-    acc = torch.zeros(BLOCK_Q, d)
-    for k0 in _range(q0, kv0, per, sk, causal):
-        s = (qt @ kt[k0:k0 + KV_CHUNK].T) * scale_log2
-        if causal and k0 + KV_CHUNK - 1 > q0:
-            keep = (q0 + rows)[:, None] >= (k0 + torch.arange(KV_CHUNK))[None]
+    rows = torch.arange(block_q)
+    m = torch.full((block_q, 1), NEG_INF)
+    l_lane = torch.zeros(block_q, LANES)
+    acc = torch.zeros(block_q, d)
+    for k0 in _range(q0, kv0, per, sk, causal, d):
+        s = (qt @ kt[k0:k0 + chunk].T) * scale_log2
+        if causal and k0 + chunk - 1 > q0:
+            keep = (q0 + rows)[:, None] >= (k0 + torch.arange(chunk))[None]
             s = torch.where(keep, s, torch.tensor(NEG_INF))
         m_new = torch.maximum(m, s.amax(dim=1, keepdim=True))
         alpha = torch.exp2(m - m_new)
         p = torch.exp2(s - m_new)
-        quad = p.reshape(BLOCK_Q, LANES, 4)
-        l_lane = l_lane * alpha + ((quad[..., 0] + quad[..., 1])
-                                   + (quad[..., 2] + quad[..., 3]))
-        acc = acc * alpha + p @ vt[k0:k0 + KV_CHUNK]
+        quad = p.reshape(block_q, LANES, chunk // LANES)
+        if quad.shape[-1] == 4:
+            share = (quad[..., 0] + quad[..., 1]) + (quad[..., 2]
+                                                     + quad[..., 3])
+        else:
+            share = quad[..., 0] + quad[..., 1]
+        l_lane = l_lane * alpha + share
+        acc = acc * alpha + p @ vt[k0:k0 + chunk]
         m = m_new
     while l_lane.shape[1] > 1:                        # xor 1, 2, 4, 8
         l_lane = l_lane[:, 0::2] + l_lane[:, 1::2]
@@ -81,29 +90,30 @@ def kernel_emulation(q, k, v, *, causal: bool, per: int) -> torch.Tensor:
     b, sq, h, d = q.shape
     _, sk, g, _ = k.shape
     rep = h // g
+    block_q = f32_tiles(d)[0]
     out = torch.empty_like(q)
     for bi in range(b):
         for hi in range(h):
             kt, vt = k[bi, :, hi // rep], v[bi, :, hi // rep]
-            for q0 in range(0, sq, BLOCK_Q):
-                qt = q[bi, q0:q0 + BLOCK_Q, hi]
+            for q0 in range(0, sq, block_q):
+                qt = q[bi, q0:q0 + block_q, hi]
                 parts = [split_partials(qt, kt, vt, q0, kv0, per, sk, causal)
                          for kv0 in range(0, sk, per)]
                 if len(parts) == 1:
                     _, l, acc = parts[0]
-                    out[bi, q0:q0 + BLOCK_Q, hi] = acc / torch.clamp(
+                    out[bi, q0:q0 + block_q, hi] = acc / torch.clamp(
                         l, min=1e-30)
                     continue
                 big_m = parts[0][0]
                 for m, _, _ in parts[1:]:
                     big_m = torch.maximum(big_m, m)
                 big_l = torch.zeros_like(big_m)
-                o = torch.zeros(BLOCK_Q, d)
+                o = torch.zeros(block_q, d)
                 for m, l, acc in parts:        # in range order
                     w = torch.exp2(m - big_m)
                     big_l = big_l + l * w
                     o = o + acc * w
-                out[bi, q0:q0 + BLOCK_Q, hi] = o / torch.clamp(big_l,
+                out[bi, q0:q0 + block_q, hi] = o / torch.clamp(big_l,
                                                                min=1e-30)
     return out
 
@@ -190,6 +200,8 @@ CASES = [
     (2, 128, 256, 2, 1, 128, False, 1.0),
     (1, 128, 128, 1, 1, 64, True, 30.0),    # extreme logits, causal
     (1, 128, 256, 1, 1, 128, False, 30.0),  # extreme logits, D = 128
+    (1, 128, 256, 2, 1, 256, True, 1.0),    # D = 256: 64 x 32 tiles
+    (1, 128, 256, 1, 1, 256, False, 10.0),  # D = 256, logits ~ 100
 ]
 
 
@@ -204,14 +216,14 @@ def _inputs(case):
 
 @pytest.mark.parametrize("case", CASES)
 def test_split_combine_matches_reference(case):
-    b, sq, sk, h, _, _, causal, _ = case
+    b, sq, sk, h, _, d, causal, _ = case
     q, k, v = _inputs(case)
     want_jax = np.asarray(jax_flash(*(jnp.asarray(x) for x in (q, k, v)),
                                     causal=causal, interpret=True))
     tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
     want = attention_ref(tq, tk, tv, causal=causal).numpy()
-    plan_per, _ = split_plan(b, h, sq, sk, n_sm=H100_SMS)
-    for per in sorted({plan_per, KV_CHUNK, 128, sk}):
+    plan_per, _ = split_plan(b, h, sq, sk, n_sm=H100_SMS, d=d)
+    for per in sorted({plan_per, f32_tiles(d)[1], 128, sk}):
         got = kernel_emulation(tq, tk, tv, causal=causal, per=per).numpy()
         assert np.isfinite(got).all()
         np.testing.assert_allclose(got, want, **F32)

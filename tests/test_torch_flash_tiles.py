@@ -2,7 +2,8 @@
 bf16 tensor-core kernel) emulated in PyTorch on the CPU, and the wrapper's
 choice of kernel.
 
-The emulation walks 128 x 128 tiles as the kernel does: S = Q K^T in f32
+The emulation walks 128-row q tiles and ``plan.sm90_kv_rows`` kv rows
+(128, or 64 at D = 256) as the kernel does: S = Q K^T in f32
 from bf16 inputs; the online softmax in the log2 domain with
 ``scale * log2(e)`` folded into one multiply of the dot; scores masked to
 -1e30 on the tile that crosses the diagonal and kv tiles above it skipped;
@@ -29,6 +30,7 @@ from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro_torch.kernels.flash_attention import attention_ref
 from repro_torch.kernels.flash_attention.kernel import (SM90_BLOCK,
                                                         kernel_path)
+from repro_torch.kernels.flash_attention.plan import sm90_kv_rows
 
 BLOCK = 128
 NEG_INF = -1e30
@@ -47,6 +49,8 @@ def sm90_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale_log2 = d ** -0.5 * math.log2(math.e)
     out = torch.empty_like(q)
     rows = torch.arange(BLOCK)
+    bk = sm90_kv_rows(d)          # 128, or 64 at D = 256
+    cols = torch.arange(bk)
     for bi in range(b):
         for hi in range(h):
             for q0 in range(0, sq, BLOCK):
@@ -54,14 +58,14 @@ def sm90_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 m = torch.full((BLOCK, 1), NEG_INF)
                 l = torch.zeros(BLOCK, 1)
                 acc = torch.zeros(BLOCK, d)
-                for k0 in range(0, sk, BLOCK):
+                for k0 in range(0, sk, bk):
                     if causal and k0 > q0 + BLOCK - 1:
                         break
-                    kt = k[bi, k0:k0 + BLOCK, hi // rep].float()
-                    vt = v[bi, k0:k0 + BLOCK, hi // rep].float()
+                    kt = k[bi, k0:k0 + bk, hi // rep].float()
+                    vt = v[bi, k0:k0 + bk, hi // rep].float()
                     s = (qt @ kt.T) * scale_log2
-                    if causal and k0 + BLOCK - 1 > q0:
-                        keep = (q0 + rows)[:, None] >= (k0 + rows)[None, :]
+                    if causal and k0 + bk - 1 > q0:
+                        keep = (q0 + rows)[:, None] >= (k0 + cols)[None, :]
                         s = torch.where(keep, s, torch.tensor(NEG_INF))
                     m_new = torch.maximum(m, s.amax(dim=1, keepdim=True))
                     alpha = torch.exp2(m - m_new)
@@ -87,6 +91,8 @@ CASES = [
     (2, 256, 384, 4, 2, 128, True, 1.0),     # Sq != Sk, causal, batch 2
     (1, 128, 128, 2, 2, 64, True, 30.0),     # extreme logits, causal
     (1, 128, 256, 2, 1, 128, False, 30.0),   # extreme logits, D = 128
+    (1, 256, 256, 4, 1, 256, True, 1.0),     # D = 256 (64-row kv tiles)
+    (1, 128, 384, 2, 2, 256, False, 1.0),    # D = 256, Sq != Sk
 ]
 
 
@@ -152,14 +158,32 @@ def test_one_bf16_rounding_of_p_misses_the_card_tolerance(case):
     (torch.bfloat16, 64, 128, 256, "flash_fwd_sm90"),
     (torch.float32, 128, 256, 128, "flash_fwd_kernel"),
     (torch.float32, 128, 128, 48, "flash_fwd_kernel"),
+    # D = 256 (PaliGemma's heads) on the tiled kernels, with smaller tiles
+    (torch.bfloat16, 256, 128, 128, "flash_fwd_sm90"),
+    (torch.float32, 256, 128, 128, "flash_fwd_kernel"),
+    # other widths on the simple kernel, both dtypes
+    (torch.bfloat16, 96, 128, 128, "flash_fwd_simple"),
+    (torch.float32, 16, 128, 128, "flash_fwd_simple"),
 ])
 def test_kernel_path_names_the_kernel(dtype, d, bq, bk, path):
     assert kernel_path(dtype, d, bq, bk) == path
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", range(8, 257, 8))
+def test_kernel_path_takes_every_width_a_multiple_of_8_up_to_256(dtype, d):
+    # the reference's mha runs its kernel at any D % 8 == 0; the port has a
+    # hand-written kernel at each of them up to 256
+    path = kernel_path(dtype, d, 128, 128)
+    tiled = "flash_fwd_kernel" if dtype == torch.float32 else "flash_fwd_sm90"
+    assert path == (tiled if d in (64, 128, 256) else "flash_fwd_simple")
+
+
 @pytest.mark.parametrize("dtype,d,bq,bk,match", [
-    (torch.bfloat16, 96, 128, 128, "D in"),
-    (torch.float32, 256, 128, 128, "D in"),
+    (torch.bfloat16, 264, 128, 128, "D % 8 == 0 up to 256"),
+    (torch.float32, 512, 128, 128, "D % 8 == 0 up to 256"),
+    (torch.float32, 20, 128, 128, "D % 8 == 0 up to 256"),
+    (torch.bfloat16, 4, 128, 128, "D % 8 == 0 up to 256"),
     (torch.float16, 128, 128, 128, "takes"),
 ])
 def test_kernel_path_refuses_what_no_kernel_takes(dtype, d, bq, bk, match):

@@ -86,6 +86,32 @@ def test_the_cost_substrate_and_launch_layer_are_among_the_checked_sources():
             "benchmarks/render_experiments.py", "quickstart.py"} <= names
 
 
+def test_training_on_a_mesh_is_among_the_checked_sources():
+    names = {p.relative_to(PKG).as_posix() for p in SOURCES
+             if p.is_relative_to(PKG)}
+    assert {"launch/perfvariants.py", "train_lm.py", "launch/train.py",
+            "data/pipeline.py", "checkpoint/store.py"} <= names
+
+
+def test_mesh_training_modules_import_with_jax_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['ml_dtypes'] = None\n"
+        "from repro_torch.launch import perfvariants, train\n"
+        "from repro_torch import train_lm\n"
+        "from repro_torch.data.pipeline import SyntheticTokens\n"
+        "from repro_torch.checkpoint.store import local_slice\n"
+        "assert len(perfvariants.VARIANTS) == 7\n"
+        "assert hasattr(SyntheticTokens, 'global_arrays')\n"
+        "assert 'mesh' in train.train_loop.__code__.co_varnames\n"
+        "print('repro' in sys.modules)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.split() == ["False"]
+
+
 def test_quickstart_and_the_cost_substrate_run_with_jax_blocked():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src")

@@ -33,9 +33,10 @@ from repro_torch.suite.__main__ import main
 # (ROADMAP.md queue 3 lists them).
 DIVERGENT = {
     "model.phi4-mini-3.8b.decode.bs8.c1024":
-        "MPKI 11.0 against the reference's 11.2, a hair under the 1a line: "
-        "the port's per-layer weight regions and site reuse lay the 1024-"
-        "token step out otherwise",
+        "MPKI 10.99 against the reference's 11.2, a hair under the 1a line; "
+        "the stacked weight layout leaves it as the per-layer one did, so "
+        "the port's reuse of freed buffers by program site (not by scan "
+        "variable) lays the 1024-token step out otherwise",
 }
 
 
