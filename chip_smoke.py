@@ -40,7 +40,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    allocates its output; each is first checked bit for bit against the
    plain version.  Flash is timed causal and not (f32 and bf16), beside
    SDPA, the f32 rows with the plan's kv split, and at PaliGemma's
-   head_dim 256 (causal, both dtypes).  Paged decode prints its
+   shape with head_dims 256, 16 and 96 (causal, both dtypes).  Paged decode prints its
    split count, the EMA scan its plan, the state-expanded scan its plan
    and its issue floor (4 N D T f32 lane-instructions, the update's
    multiplies and adds unfused);
@@ -207,8 +207,11 @@ kernels as a fresh process does:
    ``compress_rel_err`` < 0.2);
 19. the whole-model capture and zoo (``models_phase``), then the CI
    gates (``gates_phase``): (a) one qwen2.5-14b smoke decode step
-   (batch 2, 256-token cache) captured with its LM on the card and again
-   on ``meta``: equal ops, FLOPs, footprint and walk; (b) main paths 10
+   (batch 2, 256-token cache), one mamba2-780m smoke prefill (batch 1,
+   128 tokens: the SSD's chunks) and one mamba2-780m smoke train step
+   (batch 4, 128 tokens: the backward pass, its regions keyed by the
+   forward layer) captured with their LM on the card and again on
+   ``meta``: equal ops, FLOPs, footprint and walk; (b) main paths 10
    and 11: the models roster of the driver's CI pair (qwen2.5-14b and
    mamba2-780m, 51 entries, ``models_registry(only=..., device="cuda")``)
    under the vectorized and the ``cuda`` backend, counters reset before
@@ -269,8 +272,8 @@ kernels as a fresh process does:
    as before, for the seven capture kernels and main path 6's first
    cuda run for the window count; ``launches_by_path`` for paths 1-4,
    6-9, ``models`` (path 11) and ``models_sweep`` (path 12's cuda run);
-   flash's also split by kernel and with its head-width-256 timings as
-   ``d256``; the f32 (window count: int32) timings,
+   flash's also split by kernel and with its head-width 256, 16 and 96
+   timings as ``d256``, ``d16`` and ``d96``; the f32 (window count: int32) timings,
    and the bf16 ones as ``bf16_ms``, ``bf16_bound_ms``,
    ``bf16_library_ms``) and, last, ``{"ok": true, "device": ...}``.
 
@@ -805,7 +808,7 @@ def moe_full_width(bench: Bench, smi: str, dtype: torch.dtype,
 FULL_FLASH = dict(b=1, s=4096, h=40, g=8)
 # PaliGemma-3B's attention at full width (8 query heads, one KV head,
 # head_dim 256; 2048 tokens), and the narrow widths flash_fwd_simple takes
-# (parity alone).
+# at the same shape (each held and timed).
 PALIGEMMA_FLASH = dict(b=1, s=2048, h=8, g=1)
 NARROW_FLASH_DIMS = (16, 96)
 FULL_SCAN = dict(t=4096, d=2 * 3584, n=64, chunk=128)
@@ -3009,10 +3012,10 @@ def full_width_step(smi: str) -> None:
 
 
 def models_phase(K, trace_dir: Path, smi: str) -> dict[str, dict]:
-    """Phase 19, the whole-model capture and zoo on the card: (a) one
-    smoke decode step captured with its LM on the card and on ``meta``
-    (equal ops, FLOPs and walk); (b) the CI pair's models roster under the
-    vectorized and the ``cuda`` backend (51/51, each class its pin, rows
+    """Phase 19, the whole-model capture and zoo on the card: (a) a smoke
+    decode step, prefill and train step captured with their LM on the
+    card and on ``meta`` (equal ops, FLOPs, footprint and walk); (b) the
+    CI pair's models roster under the vectorized and the ``cuda`` backend (51/51, each class its pin, rows
     equal, window counts launched under cuda); (c) the driver's
     ``models_sweep`` under both (equal rows, ``capture.model.concat``
     0, the counter gate of ``perf_gate``); (d) Part C's full-width step.
@@ -3026,24 +3029,35 @@ def models_phase(K, trace_dir: Path, smi: str) -> dict[str, dict]:
     from repro_torch.models.model import LM
 
     t_phase = time.perf_counter()
-    # (a) the same step on the card and on meta
-    name = "qwen2.5-14b"
-    lm = LM(configs.get_smoke(name), device="cuda").init(
-        torch.Generator(device="cuda").manual_seed(0))
-    card = zoo.capture_decode(lm, 2, 256, name="card")
-    meta = zoo.capture_decode(zoo.meta_lm(name), 2, 256, name="meta")
-    same_ops = [(o.kind, o.capture.name, o.capture.grid, o.bases)
-                for o in card.ops] == [(o.kind, o.capture.name,
-                                        o.capture.grid, o.bases)
-                                       for o in meta.ops]
-    same_walk = np.array_equal(card.walk().addresses, meta.walk().addresses)
-    say({"phase": "models-card-vs-meta", "entry": f"{name}.decode.bs2",
-         "ops": len(card.ops), "equal_ops": same_ops,
-         "equal_walk": same_walk, "flops": [card.flops, meta.flops]})
-    if not (same_ops and same_walk and card.flops == meta.flops
-            and card.footprint_words == meta.footprint_words):
-        raise AssertionError("the card's capture differs from meta's")
-    del lm, card, meta
+    # (a) the same steps on the card and on meta
+    for name, mode, batch, geom, capture in (
+            ("qwen2.5-14b", "decode", 2, 256, zoo.capture_decode),
+            ("mamba2-780m", "prefill", 1, 128, zoo.capture_prefill),
+            ("mamba2-780m", "train", 4, 128, zoo.capture_train)):
+        t0 = time.perf_counter()
+        lm = LM(configs.get_smoke(name), device="cuda").init(
+            torch.Generator(device="cuda").manual_seed(0))
+        card = capture(lm, batch, geom, name="card")
+        meta = capture(zoo.meta_lm(name), batch, geom, name="meta")
+        same_ops = [(o.kind, o.capture.name, o.capture.grid, o.bases)
+                    for o in card.ops] == [(o.kind, o.capture.name,
+                                            o.capture.grid, o.bases)
+                                           for o in meta.ops]
+        same_walk = np.array_equal(card.walk().addresses,
+                                   meta.walk().addresses)
+        say({"phase": "models-card-vs-meta",
+             "entry": f"{name}.{mode}.bs{batch}.{geom}",
+             "ops": len(card.ops), "kinds": card.op_kinds,
+             "equal_ops": same_ops, "equal_walk": same_walk,
+             "flops": [card.flops, meta.flops],
+             "footprint_words": [card.footprint_words,
+                                 meta.footprint_words],
+             "s": time.perf_counter() - t0})
+        if not (same_ops and same_walk and card.flops == meta.flops
+                and card.footprint_words == meta.footprint_words):
+            raise AssertionError(f"{name} {mode}: the card's capture "
+                                 f"differs from meta's")
+        del lm, card, meta
 
     # (b) the models roster, vectorized then cuda
     vec, vec_launches = models_roster(K, "models-vectorized", "vectorized",
@@ -3773,17 +3787,14 @@ def main() -> int:
             if row is not None and causal:
                 rows["flash_attention", dtype] = row
         torch.cuda.empty_cache()
-    # PaliGemma's head width, 256, in both dtypes (timed, causal), and the
-    # narrow widths flash_fwd_simple takes (parity alone)
+    # PaliGemma's head width, 256, and the narrow widths flash_fwd_simple
+    # takes, in both dtypes (timed, causal)
     for dtype in (torch.float32, torch.bfloat16):
-        row, err = flash_full_width(bench, smi, dtype, 256, True,
-                                    shape=PALIGEMMA_FLASH, timed=True)
-        errs["flash_attention"] = max(errs["flash_attention"], err)
-        rows["flash_attention_d256", dtype] = row
-        for d in NARROW_FLASH_DIMS:
-            _, err = flash_full_width(bench, smi, dtype, d, True,
-                                      shape=PALIGEMMA_FLASH, timed=False)
+        for d in (256,) + NARROW_FLASH_DIMS:
+            row, err = flash_full_width(bench, smi, dtype, d, True,
+                                        shape=PALIGEMMA_FLASH, timed=True)
             errs["flash_attention"] = max(errs["flash_attention"], err)
+            rows[f"flash_attention_d{d}", dtype] = row
         torch.cuda.empty_cache()
     # f32 launches the plan cuts into several kv ranges, causal, so that the
     # first q tiles' later ranges lie wholly above the diagonal.
@@ -4054,16 +4065,18 @@ def main() -> int:
         if kname == "flash_attention":
             entry["launches_by_kernel"] = {
                 k: roster_flash[k] + serving_flash[k] for k in roster_flash}
-            # PaliGemma's head width (no main path launches it)
-            r, r16 = (rows["flash_attention_d256", dt]
-                      for dt in (torch.float32, torch.bfloat16))
-            entry["d256"] = {
-                "case": r["case"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": r["library_ms"], "bf16_ms": r16["ms"],
-                "bf16_plain_ms": r16["plain_ms"],
-                "bf16_bound_ms": r16["bound_ms"],
-                "bf16_library_ms": r16["library_ms"]}
+            # PaliGemma's head width and the narrow ones (no main path
+            # launches them)
+            for d in (256,) + NARROW_FLASH_DIMS:
+                r, r16 = (rows[f"flash_attention_d{d}", dt]
+                          for dt in (torch.float32, torch.bfloat16))
+                entry[f"d{d}"] = {
+                    "case": r["case"], "ms": r["ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                    "bf16_ms": r16["ms"], "bf16_plain_ms": r16["plain_ms"],
+                    "bf16_bound_ms": r16["bound_ms"],
+                    "bf16_library_ms": r16["library_ms"]}
         kernels.append(entry)
     say({"kernels": kernels})
     tmp.cleanup()

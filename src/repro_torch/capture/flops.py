@@ -34,6 +34,8 @@ aten op                                    jax primitives it stands for
 ``embedding`` ``slice`` ``select``         (zero)
 ``index_put`` ``scatter`` ``index_add``    ``scatter``/``scatter-add``
 ``index_copy`` ``slice_scatter``           ``dynamic_update_slice`` (zero)
+``slice_backward`` ``select_backward``     ``pad`` ``dynamic_update_slice``
+                                           (zero)
 ``sum`` ``amax`` ``amin`` ``prod``         ``reduce_sum`` ``reduce_max`` ...
 ``cumsum`` ``cumprod``                     (input elements)
 ``mean``                                   ``reduce_sum`` + ``div``
@@ -84,6 +86,7 @@ _ZERO = frozenset({
     "index_put", "index_put_", "_index_put_impl", "scatter", "scatter_",
     "scatter_add", "index_add", "index_copy", "index_copy_", "slice_scatter",
     "select_scatter", "diagonal_scatter", "masked_scatter",
+    "slice_backward", "select_backward", "index_select_backward",
     "where", "masked_fill", "fill", "fill_", "zero", "zero_", "zeros",
     "zeros_like", "ones", "ones_like", "full", "full_like", "empty",
     "empty_like", "empty_strided", "new_empty", "new_empty_strided",

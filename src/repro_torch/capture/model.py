@@ -32,20 +32,34 @@ concatenating the per-op walks in program order:
   and in-place cache writes (``copy_`` or ``index_copy_`` into a slice),
   as the reference drops ``dynamic_update_slice`` traffic.
 
-Regions.  Where the reference keys its region allocator by jaxpr
-variable, the port keys it by the tensor's storage: a storage gets one
-line-aligned region (the sizing rule :func:`~repro_torch.capture.grid.walk`
-applies inside, which makes the one-op gate byte-identical) on first
-touch, and a view reads its base's region at its storage offset — a
-layer's slice of a stacked KV cache lands at ``base + offset``, as the
-reference's unrolled ``scan`` slices its stacked operands.  The port's
-layer loops are Python loops, so a step arrives unrolled, and each layer's
-weights are parameters of their own.  Named tensors handed in as
-``stacked`` (the LM's parameters, a train step's moments) are laid out as
-the reference's stacked leaves: every ``layers.{i}.X`` reads one region
-per reference leaf (``models.convert.reference_key``), sized for the
-whole stack, at word offset ``i * words(X)`` (the words a layer's first
-read takes), as the reference's scan reads slices of one stacked array.
+Regions.  The reference keys its region allocator by jaxpr variable: a
+scan walks one body with the same variables every iteration, so they
+take the same regions, alive or not, and nothing is freed.  The port's
+loops are Python loops, so a step arrives unrolled; it stands for a
+variable by *what made it*: the op's site (the lines of the step's
+frames, torch's and the capture's excepted) and its place among that
+site's ops within the same calls (``_Walker._op_key``).  Iteration
+i + 1 calls the layer (or the SSD chunk) afresh and so takes iteration
+i's keys; a loop inside one call, or the step's top level, makes new
+ones.  A backward op has no frame: it takes its forward op's site
+through the autograd node's sequence number, so layer i's backward
+reuses layer i + 1's regions, as the reference's transposed scan does.
+A storage's first read sizes its region (line-aligned, the rule
+:func:`~repro_torch.capture.grid.walk` applies inside, which makes the
+one-op gate byte-identical); a view reads its base's region at its
+offset.  Regions are laid out once the step has run, in the order ops
+touch them, so what the step does later can place a value: a write into
+a stacked cache's slot puts the value at that slot of the stack's
+output, as the reference's scan writes its ys; a value the backward
+pass reads after its call returned is a residual, a region per
+iteration, as the reference stacks a scan's residuals.  Named tensors
+handed in as ``stacked`` (the LM's parameters, a train step's moments)
+are laid out as the reference's stacked leaves: every ``layers.{i}.X``
+reads one region per reference leaf (``models.convert.reference_key``),
+sized for the whole stack, at word offset ``i * words(X)`` (the words a
+layer's first read takes), as the reference's scan reads slices of one
+stacked array; the gradients the optimizer reads are laid out the same
+way.
 
 FLOPs come from :func:`repro_torch.capture.flops.eqn_flops` over every
 recorded op, the ones that emit no trace included.
@@ -53,7 +67,6 @@ recorded op, the ones that emit no trace included.
 
 from __future__ import annotations
 
-import gc
 import math
 import sys
 from dataclasses import dataclass
@@ -65,6 +78,10 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
 from repro_torch import obs
+from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
+from repro_torch.models import shard_ops as SO
+from repro_torch.models import ssm as S
 from repro_torch.models.convert import reference_key
 
 from . import launch as _launch
@@ -250,49 +267,31 @@ class ModelCapture:
 
 
 # --------------------------------------------------------------------------
-# Region allocator, keyed by storage (or by a fresh key for a kernel's
-# operands).  A ref is (root key, word offset inside the root's region).
+# Region allocator.  A storage's root reads the region of its variable key
+# (what stands for the reference's jaxpr variable, see ``_Walker._op_key``)
+# or, with none, a region of its own.  A ref is (root, word offset inside
+# the root's region).
 # --------------------------------------------------------------------------
 class _Alloc:
-    """Line-aligned regions.  A freed region is kept for its *site* — the
-    program location whose op first touched it — and the next request of
-    that size from the same site takes it back: the next layer's op at the
-    same line reuses the last layer's buffer, as the reference's unrolled
-    ``scan`` reuses a body variable's region on every iteration, while a
-    step's one-off values keep regions of their own, as its top-level
-    variables do."""
+    """Line-aligned regions keyed as the reference keys them by jaxpr
+    variable: a key's region is taken again whenever it is big enough,
+    whether or not the value last held there is still alive, and nothing is
+    ever freed."""
 
     def __init__(self) -> None:
         self.cursor = 0
-        self.regions: dict[object, tuple[int, int, object]] = {}
-        self._free: dict[tuple, list[int]] = {}
+        self.regions: dict[object, tuple[int, int]] = {}
 
-    @staticmethod
-    def _stride(words: int) -> int:
-        # the line-aligned rule of walk()'s own layout: the one-op
-        # byte-identity depends on it
-        return -(-words // _LINE_WORDS) * _LINE_WORDS + _LINE_WORDS
-
-    def region(self, key, words: int, site=None) -> int:
+    def region(self, key, words: int) -> int:
         got = self.regions.get(key)
         if got is not None and got[1] >= words:
             return got[0]
-        stride = self._stride(words)
-        free = self._free.get((site, stride))
-        if free:
-            base = free.pop()
-        else:
-            base = self.cursor
-            self.cursor += stride
-        self.regions[key] = (base, words, site)
+        # the line-aligned rule of walk()'s own layout: the one-op
+        # byte-identity depends on it
+        base = self.cursor
+        self.cursor += -(-words // _LINE_WORDS) * _LINE_WORDS + _LINE_WORDS
+        self.regions[key] = (base, words)
         return base
-
-    def free(self, key) -> None:
-        got = self.regions.pop(key, None)
-        if got is not None:
-            base, words, site = got
-            self._free.setdefault((site, self._stride(words)), []).append(
-                base)
 
 
 def _tile(n: int, cap: int = 128) -> int:
@@ -302,8 +301,10 @@ def _tile(n: int, cap: int = 128) -> int:
     return t
 
 
-def _whole_spec(name: str, role: str, t: torch.Tensor) -> OperandSpec | None:
-    """Whole-array one-step operand (conv / stream lowering)."""
+def _whole_spec(name: str, role: str, t: torch.Tensor,
+                dtype=None) -> OperandSpec | None:
+    """Whole-array one-step operand (conv / stream lowering), read as
+    ``dtype`` if given."""
     shape = tuple(int(d) for d in t.shape)
     if not shape or 0 in shape:
         return None  # scalars and empties move no words
@@ -311,7 +312,18 @@ def _whole_spec(name: str, role: str, t: torch.Tensor) -> OperandSpec | None:
     return OperandSpec(
         name=name, role=role, shape=shape, block_shape=shape,
         index_map=lambda *s, _r=rank: (0,) * _r,
-        elems_per_word=elems_per_word(_np_dtype(t.dtype), shape[-1]))
+        elems_per_word=elems_per_word(_np_dtype(dtype or t.dtype),
+                                      shape[-1]))
+
+
+# backward nodes of the reductions jax differentiates through a location
+# indicator (``_reduce_chooser_jvp_rule``)
+_CHOOSERS = ("AmaxBackward", "AminBackward", "MaxBackward", "MinBackward")
+
+# reductions whose ``keepdim`` output jax's ``reduce_*`` never keeps
+_KEEPDIM = frozenset({"sum", "mean", "amax", "amin", "max", "min", "prod",
+                      "nansum", "norm", "linalg_vector_norm", "var", "std",
+                      "any", "all"})
 
 
 def _lower_dot(name: str, g: int, m: int, n: int, k: int, lhs_dtype,
@@ -411,15 +423,33 @@ def _einsum_call() -> tuple[str, tuple] | None:
 _EINSUM_CODE = torch.functional.einsum.__code__
 
 
-def _composites() -> dict:
-    """Port functions that spell one jax primitive chain in elementary
-    torch ops (so that their values are the reference's bit for bit),
-    captured as the reference's primitives: code -> chain (see
-    :data:`_CHAINS`) over the function's argument ``x`` and result
-    ``out``."""
-    from repro_torch.models import layers as L
+# Port functions that spell a jitted jax function (``jax.nn.silu`` and its
+# transpose, ``jax.nn.softplus``).  jax traces a jitted function once for
+# each signature and every call reuses that jaxpr, variables and all, so
+# its values take one region for every call with the same shapes.
+_JITTED = frozenset({L.silu.__code__, L._Silu.backward.__code__,
+                     S.softplus.__code__})
 
-    return {L.silu.__code__: "silu"}
+
+# aten ops that the reference reaches through a jitted ``jnp`` function
+# (``_where``, ``cumsum``, ``_pad``, ``tril``, ``relu``, ``_take``,
+# ``take_along_axis``): keyed by their signature alone, for the same reason.
+_JITTED_OPS = frozenset({"where", "masked_fill", "cumsum", "constant_pad_nd",
+                         "tril", "relu", "index", "gather"})
+
+
+def _signature(values) -> tuple:
+    return tuple((tuple(t.shape), t.dtype) for t in values
+                 if isinstance(t, torch.Tensor))
+
+
+# Port functions that spell one jax primitive chain in elementary torch
+# ops (so that their values are the reference's bit for bit), captured as
+# the reference's primitives: code -> chain (see :data:`_CHAINS`) over the
+# function's argument ``x`` and result ``out``.
+_COMPOSITES = {L.silu.__code__: "silu", L.cube.__code__: "cube",
+               MOE.scatter_rows.__code__: "scatter_add",
+               SO.logsumexp_rows.__code__: "logsumexp"}
 
 
 # jax primitive chains that one port function or one aten op stands for:
@@ -430,6 +460,8 @@ def _composites() -> dict:
 _CHAINS = {
     "silu": (("logistic", ("x",), "t", "x"),          # jax.nn.silu
              ("mul", ("x", "t"), "out", "x")),
+    "cube": (("integer_pow", ("x",), "out", "x"),),   # x ** 3
+    "scatter_add": (),          # moves no words and counts no flops
     "_softmax": (("reduce_max", ("x",), "m", "red"),  # jax.nn.softmax
                  ("max", ("m",), "m1", "red"),
                  ("broadcast_in_dim", ("m1",), "mk", "keep"),
@@ -450,6 +482,7 @@ _CHAINS = {
                   ("add", ("s3", "m1"), "out", "red")),
 }
 _REDUCTIONS = ("reduce_max", "reduce_sum")
+_ELEM_COST = {"integer_pow": 2}     # a chain's x ** 3: |y| - 1 multiplies
 # aten ops captured as a chain, and where each takes its axis
 _ATEN_CHAIN_DIM = {"_softmax": lambda args: args[1],
                    "logsumexp": lambda args: args[1][0],
@@ -457,33 +490,36 @@ _ATEN_CHAIN_DIM = {"_softmax": lambda args: args[1],
 
 
 _HERE = Path(__file__).resolve().parent
-_PACKAGE = str(_HERE.parent)
+_TORCH = str(Path(torch.__file__).resolve().parent)
 _OPTIMIZER = str(_HERE.parent / "train" / "optimizer.py")
 _HERE = str(_HERE)
 
 
-def _site():
-    """The program location of the op being captured: the lines of the
-    port's own frames on the stack (the capture's excepted), and the
-    autograd node running it in a backward pass.  The optimizer's update
-    runs leaf by leaf in a Python loop where the reference maps it over
-    its parameter tree at trace time, each leaf's values variables of
-    their own: an op under it is a site of its own."""
-    node = torch._C._current_autograd_node()
-    out: list = [node.name() if node is not None else None]
-    f = sys._getframe(2)
-    while f is not None:
+_ENGINE = torch.autograd.graph._engine_run_backward.__code__
+# the functions a nested scan's loop calls for each step (an attention
+# chunk, an SSD chunk)
+_SCAN_BODIES = frozenset({L.remat.__code__, S._chunk_body.__code__})
+
+
+def _stack(top):
+    """The step's own frames on the stack of the op being captured, below
+    ``top`` (the capture's caller), outermost first: torch's and the
+    capture's excepted.  Under the optimizer's update, its frame alone
+    (see ``_Walker._op_key``).  In the backward pass only the frames above
+    the autograd engine count (a recomputation's): the engine may run on a
+    thread of its own, where the caller of ``backward`` is not on the
+    stack."""
+    frames = []
+    f = sys._getframe(1)
+    while f is not None and f is not top and f.f_code is not _ENGINE:
         fn = f.f_code.co_filename
-        if fn.startswith(_PACKAGE) and not fn.startswith(_HERE):
+        if not fn.startswith(_HERE) and not fn.startswith(_TORCH):
             if fn == _OPTIMIZER:
-                return object()
-            out.append((fn, f.f_lineno))
+                return f
+            frames.append(f)
         f = f.f_back
-    return tuple(out)
-
-
-def _use_count(key: int) -> int:
-    return torch._C._storage_Use_Count(key)
+    frames.reverse()
+    return tuple(frames)
 
 
 class _Walker(TorchDispatchMode):
@@ -495,51 +531,243 @@ class _Walker(TorchDispatchMode):
         self.ops: list[ModelOp] = []
         self.flops = 0.0
         self.stream_min_elems = stream_min_elems
-        # storage key -> (root key, word offset); a root's region lives
-        # while any storage that reads it does
+        # storage key -> (root, word offset); every storage seen is held to
+        # the end of the capture, so no later storage takes its address
         self._alias: dict[int, tuple[object, int]] = {}
-        self._live: dict[object, int] = {}
         self._held: dict[int, object] = {}     # key -> its storage
         self._owner: dict[int, int] = {}       # own root -> storage key
         self._root_words: dict[int, int] = {}  # root -> its storage's words
         self._span: dict[int, int] = {}        # alias of a view -> words
         self._roots = 0
+        # variable keys: a new storage's, until it becomes a root; a root's
+        self._named: dict[int, object] = {}
+        self._var: dict[int, object] = {}
+        self._occ: dict[tuple, int] = {}       # (site, calls) -> ops so far
+        self._calls: dict[int, tuple] = {}     # id -> (frame, its number)
+        self._forward: dict[int, tuple] = {}   # autograd node -> (site, calls)
+        # a split's view (and the views of it) -> (view, root, the split)
+        self._splits: dict[int, tuple] = {}
+        # a loop's slice (and its views) -> (view, root, offset, i, n, slice)
+        self._scans: dict[int, tuple] = {}
+        self._stacked_names: dict[str, int] = {}   # layer tensor -> layers
+        # the current op's (iterations, innermost call); a root's, when made
+        self._now: tuple = ((), None)
+        self._now_calls: tuple = ()
+        self._born: dict[int, tuple] = {}
+        self._kids: dict[tuple, dict] = {}   # (call, line) -> {call: index}
+        self._residual: set = set()
+        self._params = None        # (group, named), until the optimizer
+        self._layers = 1           # the current op's stack of layers
+        self._ys: dict[int, tuple] = {}        # root -> (stacked root, offset)
+        self._bound: list[tuple] = []          # (kind, capture, operands)
         # a stacked layer's root -> (its leaf's key, flat layer, layers)
         self._slot: dict[int, tuple[object, int, int]] = {}
         self._slot_words: dict[object, int] = {}   # leaf -> a layer's words
         self._stacks: list[dict] = []
         self._kernel_frame = None        # a launching wrapper's frame
-        self._composite_codes = _composites()
-        self._composite: list | None = None   # [frame, x, out]
+        self.top = None                  # the frame that runs the step
+        self._composite: list | None = None   # [frame, x, out, op key]
         self._seq = 0
         self._swapped_operands: set = set()
+
+    # -- variable keys -------------------------------------------------------
+    def _call_numbers(self, frames: tuple) -> tuple:
+        """A number for each frame's call, given when the frame is first
+        seen (every frame seen is held, so no new frame takes a seen one's
+        address; a generator's frame keeps its number across its
+        resumptions)."""
+        out = []
+        for f in frames:
+            got = self._calls.get(id(f))
+            if got is None:
+                got = self._calls[id(f)] = (f, len(self._calls))
+            out.append(got[1])
+        return tuple(out)
+
+    def _op_key(self, func, args, kwargs):
+        """What stands for the reference's jaxpr variables of this op: its
+        *site* and its occurrence among the ops at that site within the same
+        calls of every frame on the stack.  The port's layer loops (and a
+        scan's chunk loop) call a function each iteration, so iteration
+        i + 1's ops take iteration i's keys, as the reference's unrolled
+        ``scan`` walks one body with the same variables; a loop inside one
+        call (unrolled at trace time in the reference too) and the step's
+        one-off values take new ones.
+
+        - A forward op's site is the lines of the step's frames.  Its
+          node, if it makes one, is remembered by sequence number.
+        - An autograd node's own op in the backward pass has no frame: its
+          site is the node's name and its forward op's site, counted within
+          the forward op's calls, so layer i's backward ops take layer
+          i + 1's keys, as the reference's transposed scan reuses its body's.
+        - An op recomputed for a rematerialized layer has the frames of the
+          layer's function, marked as the backward pass's.
+        - An op of the optimizer's update has a key of its own.
+        - An op inside a port function that spells a jitted jax function
+          (:data:`_JITTED`) counts from that function's call, its site
+          that function's lines and its arguments' signature; an op that
+          the reference reaches through a jitted ``jnp`` function
+          (:data:`_JITTED_OPS`) is keyed by its name and signature."""
+        frames = _stack(self.top)
+        self._layers = 1
+        if not isinstance(frames, tuple):
+            self._now, self._now_calls = ((), None), ()
+            return self._optimizer_key(frames)
+        calls = self._now_calls = self._call_numbers(frames)
+        self._now = (self._iterations(frames, calls),
+                     calls[-1] if calls else None)
+        name = op_name(func)
+        if name in _JITTED_OPS:
+            return "jit", name, _signature(_tensors((args, kwargs)))
+        for d, f in enumerate(frames):
+            if f.f_code in _JITTED:
+                code = f.f_code
+                sig = _signature(f.f_locals[v] for v in
+                                 code.co_varnames[:code.co_argcount])
+                site = ("jit", sig) + tuple((g.f_code, g.f_lineno)
+                                             for g in frames[d:])
+                return self._count(site, self._call_numbers(frames[d:]))
+        node = torch._C._current_autograd_node()
+        if node is not None and not frames:
+            fwd = self._forward.get(node._sequence_nr())
+            site = ("bwd", node.name(), fwd and fwd[0])
+            calls = fwd[1] if fwd else ()
+        else:
+            site = tuple((f.f_code, f.f_lineno) for f in frames)
+            if node is not None:
+                site = ("recompute",) + site
+            elif torch.is_grad_enabled():
+                # a node this op made has the last sequence number taken
+                self._forward.setdefault(
+                    torch._C._autograd._get_sequence_nr() - 1, (site, calls))
+        return self._count(site, calls)
+
+    def _iterations(self, frames: tuple, calls: tuple) -> tuple:
+        """Which iteration each frame's call is of the loop around it: its
+        place among the calls its caller made from the same line."""
+        out = []
+        for k in range(1, len(frames)):
+            kids = self._kids.setdefault(
+                (calls[k - 1], frames[k - 1].f_lineno), {})
+            out.append(kids.setdefault(calls[k], len(kids)))
+        return tuple(out)
+
+    def _residuals(self, tensors, calls) -> None:
+        """Tensors read in the backward pass by an op outside the call that
+        made them (a backward node, or the recomputation of a later step)
+        are a scan's residuals: the reference stacks them over the scan's
+        iterations, so each iteration's takes a region of its own."""
+        for t in tensors:
+            root, _ = self._ref(t)
+            born = self._born.get(root)
+            if born is not None and born[1] is not None \
+                    and born[1] not in calls:
+                self._residual.add(root)
+
+    def _count(self, site, calls) -> tuple:
+        n = self._occ.get((site, calls), 0)
+        self._occ[(site, calls)] = n + 1
+        return site, n
+
+    def _optimizer_key(self, frame) -> object:
+        """The optimizer updates one layer's tensor at a time in a Python
+        loop where the reference maps its update over its stacked leaves:
+        an op's values are variables of their own (a key of its own), it
+        is a stream op when the whole stack's would be (``_layers``), and
+        the gradients it reads are laid out as the reference's stacked
+        gradient leaves."""
+        self._layers = self._stacked_names.get(frame.f_locals.get("name"), 1)
+        if self._params is not None:
+            group, named = self._params
+            self._params = None
+            for t in named.values():
+                root, _ = self._ref(t)
+                slot = self._slot.get(root)
+                if t.grad is not None and slot is not None:
+                    (_, leaf), i, n = slot
+                    groot, _ = self._ref(t.grad)
+                    self._slot.setdefault(groot, (("grad", leaf), i, n))
+        return object()
+
+    def _name(self, tensors, key, taken=()) -> None:
+        """Give each tensor's storage, if it is new (not one of ``taken``,
+        the op's inputs'), the variable key ``(key, i)``."""
+        for i, t in enumerate(tensors):
+            st = t.untyped_storage()
+            k = st._cdata
+            if k not in self._alias and k not in self._named \
+                    and k not in taken:
+                self._named[k] = (key, i, self._now)
+                self._held[k] = st
+
+    def _split(self, func, args, kwargs, out, key) -> None:
+        """A slice along the last axis (a fused projection split into its
+        parts), any slice of a layer's parameter (a row of a conv kernel)
+        and any slice of a value made in a call still running (a padded
+        input's windows) is a ``slice`` of its own in the reference, whose
+        output is a variable of its own; in torch it is a view of its
+        source's storage.  Such a view, and every view of it, reads a
+        region of its own, laid out as the split made contiguous.  (A
+        loop's slice of a stacked buffer, or of a value handed to the loop,
+        stays at its offset, as the reference's scan slices its stacked
+        operands.)"""
+        src = args[0]
+        name = op_name(func)
+        if name in ("slice", "select"):
+            dim = args[1] if len(args) > 1 else kwargs.get("dim", 0)
+            last = dim % src.dim() == src.dim() - 1 \
+                and out.shape[-1] < src.shape[-1]
+            root = self._ref(src)[0]
+            made = self._born.get(root, (None, None))[1]
+            if (name == "slice" and last) or (
+                    out.numel() < src.numel()
+                    and (root in self._slot or made in self._now_calls)):
+                self._roots += 1
+                self._var[self._roots] = (key, "split")
+                self._born[self._roots] = self._now
+                self._root_words[self._roots] = -(
+                    -out.numel() * out.element_size() // 8)
+                self._splits[id(out)] = (out, self._roots, out)
+                return
+        if out is src or out.untyped_storage()._cdata \
+                != src.untyped_storage()._cdata:
+            return
+        for views in (self._splits, self._scans):
+            got = views.get(id(src))
+            if got is not None:
+                views[id(out)] = (out,) + got[1:]
+
+    def _unbound(self, src: torch.Tensor, outs) -> None:
+        """``unbind`` is a loop's xs (the SSD's chunks): as the reference's
+        scan slices its stacked operand, slice i reads the stack's region
+        at i times the words its reader takes, the region sized for all of
+        them."""
+        root, off = self._ref(src)
+        for i, t in enumerate(outs):
+            self._scans[id(t)] = (t, root, off, i, len(outs), t)
+
+    @staticmethod
+    def _split_offset(t: torch.Tensor, split: torch.Tensor) -> int:
+        """Words from the start of ``split``, made contiguous, to ``t``."""
+        rest = t.storage_offset() - split.storage_offset()
+        at = 0
+        for size, stride, inner in sorted(
+                zip(split.shape, split.stride(),
+                    torch.empty(split.shape, device="meta").stride()),
+                key=lambda d: -d[1]):
+            if stride and size > 1:
+                at += (rest // stride) * inner
+                rest %= stride
+        return at * t.element_size() // 8
 
     # -- regions -------------------------------------------------------------
     def _track(self, st, key: int, root, off: int) -> None:
         self._alias[key] = (root, off)
-        self._live[root] = self._live.get(root, 0) + 1
         self._held[key] = st
-
-    def _sweep(self) -> None:
-        """Free the storages only the walker still holds: a storage's key
-        may then be reused by a new one, and its root's region is freed
-        with the root's last reader.  Run before each op, so frees land at
-        the same point of the program on every device."""
-        dead = [k for k in self._held if _use_count(k) <= 1]
-        for key in dead:
-            del self._held[key]
-            self._span.pop(key, None)
-            root, _ = self._alias.pop(key)
-            if self._owner.get(root) == key:
-                del self._owner[root]      # the key may now be reused
-            self._live[root] -= 1
-            if not self._live[root]:
-                del self._live[root]
-                del self._root_words[root]
-                self.alloc.free(root)
 
     def close(self) -> None:
         self._held.clear()
+        self._calls.clear()
 
     def stack(self, named: dict) -> None:
         """Lay the stacked tensors of ``named`` ({LM parameter name:
@@ -556,6 +784,8 @@ class _Walker(TorchDispatchMode):
                 leaves.setdefault(leaf, []).append((idx, t))
         group = len(self._stacks)
         self._stacks.append(named)       # held: the storages stay alive
+        if self._params is None and not self._stacked_names:
+            self._params = (group, named)   # the first: the parameters
         for leaf, members in leaves.items():
             dims = tuple(max(idx[a] for idx, _ in members) + 1
                          for a in range(len(members[0][0])))
@@ -564,70 +794,144 @@ class _Walker(TorchDispatchMode):
                 self._slot[root] = ((group, leaf),
                                     int(np.ravel_multi_index(idx, dims)),
                                     math.prod(dims))
+        for name, t in named.items():
+            leaf, idx = reference_key(name)
+            if idx:
+                self._stacked_names.setdefault(
+                    name, self._slot[self._ref(t)[0]][2])
 
     def _ref(self, t: torch.Tensor) -> tuple[object, int]:
+        split = self._splits.get(id(t))
+        if split is not None:
+            return split[1], self._split_offset(t, split[2])
         st = t.untyped_storage()
         key = st._cdata
         if key not in self._alias:
-            # a root of its own: a number, not the storage's address, which
-            # a later storage may reuse while this root's region lives on
+            # a root of its own, reading its variable's region if it has one
             self._roots += 1
+            if key in self._named:
+                var, i, born = self._named.pop(key)
+                self._var[self._roots] = (var, i)
+                self._born[self._roots] = born
             self._owner[self._roots] = key
             self._root_words[self._roots] = -(-st.nbytes() // 8)
             self._track(st, key, self._roots, 0)
         root, off = self._alias[key]
         return root, off + (t.storage_offset() * t.element_size()) // 8
 
-    def _base(self, t: torch.Tensor, words: int) -> int:
-        """The base word of ``t``'s operand: its root's region at ``t``'s
-        offset.  A storage's own region is sized for the whole storage (a
-        layer's slice of a stacked cache sizes the stack, as the
-        reference's scan slices size their stacked parent); an alias is
-        sized by the words read through it, as the reference sizes a
-        variable's region at first touch, unless it copies a view of a
-        larger storage (a slice made contiguous for a product), which
-        sizes that storage."""
+    def _key(self, root) -> object:
+        """The region key of a root: its variable's, once per iteration if
+        it is a residual, or the root itself."""
+        key = self._var.get(root, root)
+        if root in self._residual:
+            key = (key, self._born[root][0])
+        return key
+
+    def _bind(self, t: torch.Tensor, words: int) -> tuple:
+        """``(root, offset, words needed)`` of ``t``'s operand (a loop's
+        slice: ``("scan", ...)``): its root's region at ``t``'s offset,
+        taken at the end of the capture (:meth:`_base`).  A storage's own
+        region is sized for the whole storage (a layer's slice of a stacked
+        cache sizes the stack, as the reference's scan slices size their
+        stacked parent); an alias for the whole of it, or for the storage
+        whose view it copies (a slice made contiguous for a product)."""
+        scan = self._scans.get(id(t))
+        if scan is not None:
+            _, root, off, i, n, piece = scan
+            return "scan", root, off + self._split_offset(t, piece), i, n, \
+                words
         root, off = self._ref(t)
-        key = t.untyped_storage()._cdata
-        size = self._root_words[root] if self._owner.get(root) == key \
-            else self._span.get(key, 0)
-        need = max(size, off + words)
+        st = t.untyped_storage()
+        key = st._cdata
+        if id(t) in self._splits or self._owner.get(root) == key:
+            size = self._root_words[root]
+        else:           # an alias: the whole of it, or the view it copies
+            size = max(self._span.get(key, 0),
+                       self._alias[key][1] + -(-st.nbytes() // 8))
+        return root, off, max(size, off + words)
+
+    def _base(self, bind: tuple) -> int:
+        """The base word of a bound operand, once the capture has seen
+        every op (a value written into a stacked buffer later on is known
+        by then)."""
+        if bind[0] == "scan":
+            _, root, off, i, n, words = bind
+            return self.alloc.region(self._key(root), n * words) \
+                + off + i * words
+        root, off, need = bind
+        if root is None:                 # a kernel's operand
+            return self.alloc.region(object(), need)
+        ys = self._ys.get(root)
+        if ys is not None:
+            dst, at = ys
+            return self.alloc.region(("ys", dst), self._root_words[dst]) \
+                + at + off
         slot = self._slot.get(root)
         if slot is None:
-            return self.alloc.region(root, need, _site()) + off
+            return self.alloc.region(self._key(root), need) + off
         leaf, i, n = slot           # a layer of a stacked leaf
         stride = self._slot_words.setdefault(leaf, need)
         return self.alloc.region(leaf, n * max(stride, need)) + i * stride \
             + off
 
+    def _copied(self, dst: torch.Tensor, src: torch.Tensor) -> None:
+        """``dst.copy_(src)``: a value written whole into a slot of another
+        buffer (a layer's state or K/V into a stacked cache) is the
+        reference's layer scan writing a variable of its stacked output,
+        whose region that slot of the output's is.  A value made inside a
+        nested scan (a remat'd chunk loop) keeps the region of that scan's
+        carry, as the reference's does."""
+        st = src.untyped_storage()
+        if src.storage_offset() \
+                or src.numel() * src.element_size() != st.nbytes():
+            return
+        root, off = self._ref(src)
+        var = self._var.get(root)
+        if off or not isinstance(var, tuple) \
+                or not isinstance(var[0], tuple) \
+                or any(isinstance(x, tuple) and x[0] in _SCAN_BODIES
+                       for x in var[0][0]):
+            return
+        droot, doff = self._ref(dst)
+        if droot != root and droot not in self._slot:
+            self._ys[root] = (droot, doff)
+
+    def finish(self) -> None:
+        """Lay out every op's operands in program order."""
+        self.finish_composite()
+        for kind, cap, binds in self._bound:
+            self._seq += 1
+            self.ops.append(ModelOp(
+                name=f"{self._seq:04d}.{cap.name}", kind=kind, capture=cap,
+                bases={name: self._base(b) for name, b in binds.items()}))
+        self._bound.clear()
+
     # -- op emission ---------------------------------------------------------
-    def _emit(self, kind: str, cap: GridCapture, bases: dict) -> None:
-        if len(self.ops) >= _MAX_OPS:
+    def _emit(self, kind: str, cap: GridCapture, binds: dict) -> None:
+        if len(self._bound) >= _MAX_OPS:
             raise ValueError(
                 f"whole-model capture exceeded {_MAX_OPS} ops; raise "
                 f"stream_min_elems or cut the traced config")
-        self._seq += 1
-        self.ops.append(ModelOp(name=f"{self._seq:04d}.{cap.name}",
-                                kind=kind, capture=cap, bases=bases))
+        self._bound.append((kind, cap, binds))
 
     def _emit_bound(self, kind: str, cap: GridCapture, tensors) -> None:
         """Bind the capture's operands to regions in operand order (the
         order walk() itself lays out, so a lone op reproduces the
         standalone layout)."""
-        bases = {spec.name: self._base(t, spec.words)
+        binds = {spec.name: self._bind(t, spec.words)
                  for spec, t in zip(cap.operands, tensors)}
-        self._emit(kind, cap, bases)
+        self._emit(kind, cap, binds)
 
     def launched(self, spec: _launch.LaunchSpec) -> None:
         """A kernel wrapper emitted ``spec``: capture it as a ``pallas``
         op and treat the aten ops its frame runs next as its body."""
         cap = spec.to_grid_capture()
-        bases: dict[str, int] = {}
+        binds: dict[str, tuple] = {}
         for op in cap.operands:
-            if op.name not in bases:
-                bases[op.name] = self.alloc.region(object(), op.words)
+            if op.name not in binds:
+                binds[op.name] = (None, 0, op.words)
         self.flops += cap.flops
-        self._emit("pallas", cap, bases)
+        self._emit("pallas", cap, binds)
         self._kernel_frame = sys._getframe(3)   # append <- emit <- wrapper
 
     def _in_kernel(self) -> bool:
@@ -647,17 +951,28 @@ class _Walker(TorchDispatchMode):
         out = func(*args, **kwargs)
         if self._in_kernel():
             return out
+        key = self._op_key(func, args, kwargs)
+        outs = _tensors(out)
+        ins = _tensors((args, kwargs))
+        self._name(outs, key, {t.untyped_storage()._cdata for t in ins})
+        if torch._C._current_autograd_node() is not None:
+            self._residuals(ins, self._now_calls)
+        if outs and args and isinstance(args[0], torch.Tensor):
+            if op_name(func) == "unbind":
+                self._unbound(args[0], outs)
+            else:
+                self._split(func, args, kwargs, outs[0], key)
         frame = self._composite_frame()
         if frame is not None:
             if self._composite is None or self._composite[0] is not frame:
                 self.finish_composite()
-                self._composite = [frame, frame.f_locals["x"], None]
-            self._composite[2] = _tensors(out)[0]
+                self._composite = [frame, frame.f_locals["x"], None, key]
+            self._composite[2] = outs[0]
             return out
         self.finish_composite()
         name = op_name(func)
         if name in _ATEN_CHAIN_DIM and args[0].dim() > 0:
-            self.chain(name, args[0], _tensors(out)[0],
+            self.chain(name, args[0], outs[0], key,
                        _ATEN_CHAIN_DIM[name](args))
             return out
         self.op(func, args, kwargs, out)
@@ -666,7 +981,7 @@ class _Walker(TorchDispatchMode):
     def _composite_frame(self):
         f = sys._getframe(2)
         while f is not None:
-            if f.f_code in self._composite_codes:
+            if f.f_code in _COMPOSITES:
                 return f
             f = f.f_back
         return None
@@ -675,15 +990,16 @@ class _Walker(TorchDispatchMode):
         """Lower the composite call that just ended as its primitives."""
         if self._composite is None:
             return
-        frame, x, out = self._composite
+        frame, x, out, key = self._composite
         self._composite = None
-        self.chain(self._composite_codes[frame.f_code], x, out)
+        self.chain(_COMPOSITES[frame.f_code], x, out, key)
 
-    def chain(self, which: str, x: torch.Tensor, out: torch.Tensor,
+    def chain(self, which: str, x: torch.Tensor, out: torch.Tensor, key,
               dim: int = -1) -> None:
         """Capture ``out = which(x)`` as the reference's primitive chain,
-        its intermediates on ``meta`` (regions of their own, freed after
-        the chain as the reference's scan-body variables are reused)."""
+        its intermediates on ``meta``, each keyed by the op key ``key`` of
+        the op that ran the chain and its name, as the chain's variables
+        would be the reference's."""
         d = dim % x.dim()
         shapes = {"x": tuple(x.shape),
                   "red": tuple(x.shape[:d]) + tuple(x.shape[d + 1:]),
@@ -693,11 +1009,12 @@ class _Walker(TorchDispatchMode):
             if o not in env:
                 env[o] = torch.empty(shapes[shape], dtype=x.dtype,
                                      device="meta")
+                self._name([env[o]], (key, o))
             ins_t, outs = [env[i] for i in ins], [env[o]]
             if prim == "broadcast_in_dim":
                 continue
             flops = float((ins_t[0] if prim in _REDUCTIONS
-                           else outs[0]).numel())
+                           else outs[0]).numel() * _ELEM_COST.get(prim, 1))
             self.flops += flops
             if self._wants_stream(flops, ins_t, outs):
                 self._stream(prim, ins_t, outs, flops)
@@ -705,16 +1022,21 @@ class _Walker(TorchDispatchMode):
                 self._alias_to(outs[0], ins_t)
 
     def op(self, func, args, kwargs, out) -> None:
-        self._sweep()
         name = op_name(func)
         outs = _tensors(out)
         flops = eqn_flops(func, args, kwargs, out)
         self.flops += flops
         if name in MATMUL and name != "convolution":
             a = args[1:] if name in ("addmm", "baddbmm") else args
+            call = _einsum_call()
+            if call is not None:
+                self._einsum_dense(name, call, a, outs[0], flops)
+                return
             self._dense(name, dot_geometry(func, args), a[0], a[1], outs[0],
-                        flops, self._swap(a[0], a[1]))
+                        flops, self._backward_swap(a[0], a[1]))
             return
+        if name == "copy_":
+            self._copied(args[0], args[1])
         if name == "mul" and self._outer_product(outs, flops):
             return
         ins = _tensors((args, kwargs))
@@ -755,32 +1077,55 @@ class _Walker(TorchDispatchMode):
         of it in the backward pass has the same)."""
         return self._ref(t) + (tuple(sorted(t.shape)),)
 
-    def _swap(self, a: torch.Tensor, b: torch.Tensor) -> bool:
-        """Lower this matmul as jax's ``dot_general(b, a)``?  Inside a
-        two-operand einsum, by jax's rule; in the backward pass, when it
-        reads an operand of a swapped forward product (jax's transposes of
-        a swapped ``dot_general`` are swapped too: both gradients' M and N
+    def _einsum_dense(self, name, call, args, out, flops) -> None:
+        """A product inside a two-operand ``torch.einsum``: lowered as jax's
+        ``dot_general`` of the einsum's own operands, its geometry and
+        operand order read from the equation by jax's rule (torch may hand
+        ``bmm`` the operands the other way round).  A swapped product's
+        operands are remembered, for its backward pass."""
+        eq, (a, b) = call
+        swap = jax_swaps(eq)
+        if swap:
+            self._swapped_operands.update((self._tag(args[0]),
+                                           self._tag(args[1])))
+        self._dense(name, _einsum_dims(eq, a, b), a, b, out, flops, swap)
+
+    def _backward_swap(self, a: torch.Tensor, b: torch.Tensor) -> bool:
+        """Lower this backward matmul as ``dot_general(b, a)``?  When it
+        reads an operand of a swapped forward product: jax's transposes of
+        a swapped ``dot_general`` are swapped too (both gradients' M and N
         trade places against autograd's)."""
-        call = _einsum_call()
-        if call is not None:
-            swap = jax_swaps(call[0])
-            if swap:
-                self._swapped_operands.update((self._tag(a), self._tag(b)))
-            return swap
         if torch._C._current_autograd_node() is not None:
             return (self._tag(a) in self._swapped_operands
                     or self._tag(b) in self._swapped_operands)
         return False
 
     def _stream(self, name, ins, outs, flops) -> None:
+        """One whole-array op, as the reference's primitive reads it: an
+        input of another dtype than the result is read converted (jnp
+        converts it first, and the conversion aliases its input), and a
+        reduction's kept axes are dropped."""
         operands: list[OperandSpec] = []
         tensors: list[torch.Tensor] = []
         seen: list[int] = []
+        result = outs[0].dtype if outs and outs[0].is_floating_point() \
+            else None
+        node = torch._C._current_autograd_node()
+        if node is not None and node.name().startswith(_CHOOSERS) and outs:
+            # jax transposes a max by broadcasting the cotangent to the
+            # operand's shape first (broadcast_in_dim): read at full size
+            ins = [t.expand(outs[0].shape) if t.dim() == outs[0].dim()
+                   else t for t in ins]
+        if name in _KEEPDIM and ins and outs \
+                and outs[0].dim() == ins[0].dim() > 0:
+            kept = [d for d in range(outs[0].dim())
+                    if outs[0].shape[d] == 1 != ins[0].shape[d]]
+            outs = [outs[0].squeeze(kept)] + list(outs[1:])
         for i, t in enumerate(ins):
             if id(t) in seen:
                 continue
             seen.append(id(t))
-            spec = _whole_spec(f"in{i}", "in", t)
+            spec = _whole_spec(f"in{i}", "in", t, result)
             if spec is not None:
                 operands.append(spec)
                 tensors.append(t)
@@ -800,13 +1145,17 @@ class _Walker(TorchDispatchMode):
         if not outs or flops <= 0.0:
             return False
         moved = sum(t.numel() for t in ins) + sum(t.numel() for t in outs)
-        return moved >= self.stream_min_elems
+        return moved * self._layers >= self.stream_min_elems
 
     def _maybe_alias(self, func, name, ins, outs) -> None:
         """Transparent elementwise: a fresh output aliases a same-size
-        input's region (an in-place op keeps its own)."""
+        input's region (an in-place op keeps its own).  A select aliases
+        its predicate or nothing: ``jnp.where`` broadcasts the predicate
+        to the output's shape, and ``select_n`` aliases that."""
         if name not in _TRANSPARENT or not outs or func._schema.is_mutable:
             return
+        if name in ("where", "masked_fill"):
+            ins = ins[:1] if name == "where" else ins[1:2]
         self._alias_to(outs[0], ins)
 
     def _alias_to(self, o: torch.Tensor, ins) -> None:
@@ -818,8 +1167,9 @@ class _Walker(TorchDispatchMode):
                     root, off = self._ref(t)
                     self._track(st, st._cdata, root, off - (
                         o.storage_offset() * o.element_size()) // 8)
-                    if t.numel() * t.element_size() \
-                            < t.untyped_storage().nbytes():
+                    src = t.untyped_storage()
+                    if t.numel() * t.element_size() < src.nbytes() \
+                            or src._cdata in self._span:
                         self._span[st._cdata] = self._root_words.get(root,
                                                                      0)
                 return
@@ -853,21 +1203,16 @@ def capture_model(fn, args, *, name: str = "model",
     word-address stream.
     """
     walker = _Walker(stream_min_elems)
+    walker.top = sys._getframe()
     for named in stacked:
         walker.stack(named)
-    # Regions are freed as storages die; with the cyclic collector off,
-    # only reference counts free them, at the same point in every run.
-    gc_was = gc.isenabled()
-    gc.disable()
     try:
         with obs.span("capture.model.trace", model=name):
             with _launch.record(into=_Sink(walker)), walker:
                 fn(*args)
-            walker.finish_composite()
+            walker.finish()
     finally:
         walker.close()
-        if gc_was:
-            gc.enable()
     obs.count("capture.model.captures")
     obs.count("capture.model.ops", len(walker.ops))
     return ModelCapture(name=name, ops=tuple(walker.ops), flops=walker.flops,

@@ -205,7 +205,7 @@ _PINS: dict[str, tuple[float, str]] = {
     "model.phi4-mini-3.8b.decode.bs16": (15.349, "1b"),
     "model.phi4-mini-3.8b.decode.bs32": (14.14, "1b"),
     "model.phi4-mini-3.8b.decode.bs64": (14.366, "1b"),
-    "model.phi4-mini-3.8b.decode.bs8.c1024": (8.197, "1b"),
+    "model.phi4-mini-3.8b.decode.bs8.c1024": (8.197, "1a"),
     "model.phi4-mini-3.8b.decode.bs8.c4096": (6.829, "1a"),
     "model.phi4-mini-3.8b.decode.bs8.c16384": (6.473, "1a"),
     "model.nemotron-4-340b.decode.bs1": (9.849, "1b"),
@@ -227,23 +227,23 @@ _PINS: dict[str, tuple[float, str]] = {
     "model.granite-20b.decode.bs8.c4096": (10.182, "1b"),
     "model.granite-20b.decode.bs8.c16384": (9.548, "1b"),
     "model.granite-20b.decode.bs8.c65536": (9.387, "1b"),
-    "model.deepseek-moe-16b.decode.bs1": (7.93, "1b"),
-    "model.deepseek-moe-16b.decode.bs4": (12.554, "1b"),
-    "model.deepseek-moe-16b.decode.bs8": (18.568, "1b"),
-    "model.deepseek-moe-16b.decode.bs16": (20.132, "1b"),
-    "model.deepseek-moe-16b.decode.bs32": (21.502, "1b"),
-    "model.deepseek-moe-16b.decode.bs64": (21.423, "1b"),
-    "model.deepseek-moe-16b.decode.bs8.c1024": (8.533, "1a"),
-    "model.deepseek-moe-16b.decode.bs8.c4096": (6.126, "1a"),
+    "model.deepseek-moe-16b.decode.bs1": (7.928, "1b"),
+    "model.deepseek-moe-16b.decode.bs4": (12.549, "1b"),
+    "model.deepseek-moe-16b.decode.bs8": (18.561, "1b"),
+    "model.deepseek-moe-16b.decode.bs16": (20.125, "1b"),
+    "model.deepseek-moe-16b.decode.bs32": (21.495, "1b"),
+    "model.deepseek-moe-16b.decode.bs64": (21.416, "1b"),
+    "model.deepseek-moe-16b.decode.bs8.c1024": (8.531, "1a"),
+    "model.deepseek-moe-16b.decode.bs8.c4096": (6.125, "1a"),
     "model.deepseek-moe-16b.decode.bs8.c16384": (5.428, "1a"),
-    "model.deepseek-v2-lite-16b.decode.bs1": (9.302, "1b"),
-    "model.deepseek-v2-lite-16b.decode.bs4": (17.773, "1b"),
-    "model.deepseek-v2-lite-16b.decode.bs8": (28.127, "1b"),
-    "model.deepseek-v2-lite-16b.decode.bs16": (28.677, "1b"),
-    "model.deepseek-v2-lite-16b.decode.bs32": (30.968, "1b"),
-    "model.deepseek-v2-lite-16b.decode.bs64": (30.839, "1b"),
-    "model.deepseek-v2-lite-16b.decode.bs8.c1024": (16.194, "1b"),
-    "model.deepseek-v2-lite-16b.decode.bs8.c4096": (14.438, "1b"),
+    "model.deepseek-v2-lite-16b.decode.bs1": (9.3, "1b"),
+    "model.deepseek-v2-lite-16b.decode.bs4": (17.768, "1b"),
+    "model.deepseek-v2-lite-16b.decode.bs8": (28.118, "1b"),
+    "model.deepseek-v2-lite-16b.decode.bs16": (28.668, "1b"),
+    "model.deepseek-v2-lite-16b.decode.bs32": (30.959, "1b"),
+    "model.deepseek-v2-lite-16b.decode.bs64": (30.83, "1b"),
+    "model.deepseek-v2-lite-16b.decode.bs8.c1024": (16.191, "1b"),
+    "model.deepseek-v2-lite-16b.decode.bs8.c4096": (14.437, "1b"),
     "model.deepseek-v2-lite-16b.decode.bs8.c16384": (13.912, "1b"),
     "model.deepseek-v2-lite-16b.decode.bs8.c65536": (13.774, "1b"),
     "model.zamba2-7b.decode.bs1": (5.433, "1b"),
@@ -290,77 +290,77 @@ _PINS: dict[str, tuple[float, str]] = {
     "model.paligemma-3b.decode.bs8.c16384": (9.481, "1b"),
     "model.paligemma-3b.decode.bs8.c65536": (9.37, "1b"),
     "model.qwen2.5-14b.prefill.bs1": (39.646, "1b"),
-    "model.qwen2.5-14b.prefill.bs8": (28.28, "1b"),
-    "model.qwen2.5-14b.prefill.bs1.s512": (18.528, "1b"),
-    "model.qwen2.5-14b.prefill.bs8.s512": (18.083, "1b"),
+    "model.qwen2.5-14b.prefill.bs8": (27.979, "1b"),
+    "model.qwen2.5-14b.prefill.bs1.s512": (18.482, "1b"),
+    "model.qwen2.5-14b.prefill.bs8.s512": (18.017, "1b"),
     "model.phi4-mini-3.8b.prefill.bs1": (27.145, "1b"),
-    "model.phi4-mini-3.8b.prefill.bs8": (21.008, "1b"),
+    "model.phi4-mini-3.8b.prefill.bs8": (21.014, "1b"),
     "model.nemotron-4-340b.prefill.bs1": (48.22, "1b"),
-    "model.nemotron-4-340b.prefill.bs8": (39.885, "1b"),
+    "model.nemotron-4-340b.prefill.bs8": (39.493, "1b"),
     "model.granite-20b.prefill.bs1": (41.191, "1b"),
-    "model.granite-20b.prefill.bs8": (30.689, "1b"),
-    "model.deepseek-moe-16b.prefill.bs1": (59.711, "1b"),
-    "model.deepseek-moe-16b.prefill.bs8": (48.94, "1b"),
-    "model.deepseek-moe-16b.prefill.bs1.s512": (28.168, "1b"),
-    "model.deepseek-moe-16b.prefill.bs8.s512": (27.882, "1b"),
-    "model.deepseek-v2-lite-16b.prefill.bs1": (61.018, "1b"),
-    "model.deepseek-v2-lite-16b.prefill.bs8": (51.61, "1b"),
-    "model.zamba2-7b.prefill.bs1": (29.771, "1b"),
-    "model.zamba2-7b.prefill.bs8": (18.133, "1b"),
-    "model.zamba2-7b.prefill.bs1.s512": (22.256, "1b"),
-    "model.zamba2-7b.prefill.bs8.s512": (16.868, "1b"),
-    "model.mamba2-780m.prefill.bs1": (27.84, "1b"),
-    "model.mamba2-780m.prefill.bs8": (16.662, "1b"),
-    "model.mamba2-780m.prefill.bs1.s512": (25.033, "1b"),
-    "model.mamba2-780m.prefill.bs8.s512": (16.424, "1b"),
-    "model.whisper-large-v3.prefill.bs1": (35.596, "1b"),
-    "model.whisper-large-v3.prefill.bs8": (23.298, "1b"),
-    "model.whisper-large-v3.prefill.bs1.s512": (17.077, "1b"),
-    "model.whisper-large-v3.prefill.bs8.s512": (16.745, "1b"),
-    "model.paligemma-3b.prefill.bs1": (27.262, "1b"),
-    "model.paligemma-3b.prefill.bs8": (20.676, "1b"),
+    "model.granite-20b.prefill.bs8": (30.469, "1b"),
+    "model.deepseek-moe-16b.prefill.bs1": (59.685, "1b"),
+    "model.deepseek-moe-16b.prefill.bs8": (49.189, "1b"),
+    "model.deepseek-moe-16b.prefill.bs1.s512": (28.225, "1b"),
+    "model.deepseek-moe-16b.prefill.bs8.s512": (27.937, "1b"),
+    "model.deepseek-v2-lite-16b.prefill.bs1": (60.992, "1b"),
+    "model.deepseek-v2-lite-16b.prefill.bs8": (52.314, "1b"),
+    "model.zamba2-7b.prefill.bs1": (26.936, "1b"),
+    "model.zamba2-7b.prefill.bs8": (17.857, "1b"),
+    "model.zamba2-7b.prefill.bs1.s512": (20.851, "1b"),
+    "model.zamba2-7b.prefill.bs8.s512": (16.67, "1b"),
+    "model.mamba2-780m.prefill.bs1": (24.787, "1b"),
+    "model.mamba2-780m.prefill.bs8": (16.413, "1b"),
+    "model.mamba2-780m.prefill.bs1.s512": (22.549, "1b"),
+    "model.mamba2-780m.prefill.bs8.s512": (16.183, "1b"),
+    "model.whisper-large-v3.prefill.bs1": (36.409, "1b"),
+    "model.whisper-large-v3.prefill.bs8": (23.389, "1b"),
+    "model.whisper-large-v3.prefill.bs1.s512": (17.078, "1b"),
+    "model.whisper-large-v3.prefill.bs8.s512": (16.754, "1b"),
+    "model.paligemma-3b.prefill.bs1": (28.066, "1b"),
+    "model.paligemma-3b.prefill.bs8": (20.985, "1b"),
     "model.qwen2.5-14b.eval.bs1": (48.996, "1b"),
-    "model.qwen2.5-14b.eval.bs8": (34.095, "1b"),
-    "model.qwen2.5-14b.eval.bs1.s512": (20.82, "1b"),
-    "model.qwen2.5-14b.eval.bs8.s512": (20.318, "1b"),
+    "model.qwen2.5-14b.eval.bs8": (33.75, "1b"),
+    "model.qwen2.5-14b.eval.bs1.s512": (20.77, "1b"),
+    "model.qwen2.5-14b.eval.bs8.s512": (20.245, "1b"),
     "model.phi4-mini-3.8b.eval.bs1": (34.688, "1b"),
-    "model.phi4-mini-3.8b.eval.bs8": (26.266, "1b"),
+    "model.phi4-mini-3.8b.eval.bs8": (26.274, "1b"),
     "model.nemotron-4-340b.eval.bs1": (56.239, "1b"),
-    "model.nemotron-4-340b.eval.bs8": (45.554, "1b"),
+    "model.nemotron-4-340b.eval.bs8": (45.127, "1b"),
     "model.granite-20b.eval.bs1": (50.279, "1b"),
-    "model.granite-20b.eval.bs8": (36.492, "1b"),
-    "model.deepseek-moe-16b.eval.bs1": (65.39, "1b"),
-    "model.deepseek-moe-16b.eval.bs8": (52.516, "1b"),
-    "model.deepseek-moe-16b.eval.bs1.s512": (30.035, "1b"),
-    "model.deepseek-moe-16b.eval.bs8.s512": (29.72, "1b"),
-    "model.deepseek-v2-lite-16b.eval.bs1": (66.629, "1b"),
-    "model.deepseek-v2-lite-16b.eval.bs8": (55.171, "1b"),
-    "model.zamba2-7b.eval.bs1": (32.891, "1b"),
-    "model.zamba2-7b.eval.bs8": (19.916, "1b"),
-    "model.zamba2-7b.eval.bs1.s512": (24.065, "1b"),
-    "model.zamba2-7b.eval.bs8.s512": (18.292, "1b"),
-    "model.mamba2-780m.eval.bs1": (38.69, "1b"),
-    "model.mamba2-780m.eval.bs8": (22.707, "1b"),
-    "model.mamba2-780m.eval.bs1.s512": (33.492, "1b"),
-    "model.mamba2-780m.eval.bs8.s512": (22.436, "1b"),
-    "model.whisper-large-v3.eval.bs1": (38.767, "1b"),
-    "model.whisper-large-v3.eval.bs8": (25.797, "1b"),
-    "model.whisper-large-v3.eval.bs1.s512": (19.105, "1b"),
-    "model.whisper-large-v3.eval.bs8.s512": (18.569, "1b"),
-    "model.paligemma-3b.eval.bs1": (36.236, "1b"),
-    "model.paligemma-3b.eval.bs8": (26.783, "1b"),
-    "model.qwen2.5-14b.train.bs4": (24.85, "1b"),
-    "model.qwen2.5-14b.train.bs16": (25.435, "1b"),
-    "model.qwen2.5-14b.train.bs4.s512": (17.429, "1b"),
-    "model.deepseek-moe-16b.train.bs4": (29.628, "1b"),
-    "model.deepseek-moe-16b.train.bs16": (36.798, "1b"),
-    "model.deepseek-moe-16b.train.bs4.s512": (23.882, "1b"),
-    "model.mamba2-780m.train.bs4": (15.501, "1b"),
-    "model.mamba2-780m.train.bs16": (15.499, "1b"),
-    "model.mamba2-780m.train.bs4.s512": (14.018, "1b"),
-    "model.zamba2-7b.train.bs4": (15.213, "1b"),
-    "model.zamba2-7b.train.bs16": (15.112, "1b"),
-    "model.zamba2-7b.train.bs4.s512": (13.475, "1b"),
+    "model.granite-20b.eval.bs8": (36.244, "1b"),
+    "model.deepseek-moe-16b.eval.bs1": (65.364, "1b"),
+    "model.deepseek-moe-16b.eval.bs8": (52.777, "1b"),
+    "model.deepseek-moe-16b.eval.bs1.s512": (30.095, "1b"),
+    "model.deepseek-moe-16b.eval.bs8.s512": (29.779, "1b"),
+    "model.deepseek-v2-lite-16b.eval.bs1": (66.604, "1b"),
+    "model.deepseek-v2-lite-16b.eval.bs8": (55.901, "1b"),
+    "model.zamba2-7b.eval.bs1": (29.768, "1b"),
+    "model.zamba2-7b.eval.bs8": (19.609, "1b"),
+    "model.zamba2-7b.eval.bs1.s512": (22.558, "1b"),
+    "model.zamba2-7b.eval.bs8.s512": (18.074, "1b"),
+    "model.mamba2-780m.eval.bs1": (34.491, "1b"),
+    "model.mamba2-780m.eval.bs8": (22.354, "1b"),
+    "model.mamba2-780m.eval.bs1.s512": (30.323, "1b"),
+    "model.mamba2-780m.eval.bs8.s512": (22.092, "1b"),
+    "model.whisper-large-v3.eval.bs1": (39.427, "1b"),
+    "model.whisper-large-v3.eval.bs8": (25.852, "1b"),
+    "model.whisper-large-v3.eval.bs1.s512": (19.107, "1b"),
+    "model.whisper-large-v3.eval.bs8.s512": (18.576, "1b"),
+    "model.paligemma-3b.eval.bs1": (37.283, "1b"),
+    "model.paligemma-3b.eval.bs8": (27.166, "1b"),
+    "model.qwen2.5-14b.train.bs4": (23.938, "1b"),
+    "model.qwen2.5-14b.train.bs16": (25.46, "1b"),
+    "model.qwen2.5-14b.train.bs4.s512": (17.099, "1b"),
+    "model.deepseek-moe-16b.train.bs4": (30.535, "1b"),
+    "model.deepseek-moe-16b.train.bs16": (38.243, "1b"),
+    "model.deepseek-moe-16b.train.bs4.s512": (23.928, "1b"),
+    "model.mamba2-780m.train.bs4": (16.422, "1b"),
+    "model.mamba2-780m.train.bs16": (16.76, "1b"),
+    "model.mamba2-780m.train.bs4.s512": (17.171, "1b"),
+    "model.zamba2-7b.train.bs4": (15.946, "1b"),
+    "model.zamba2-7b.train.bs16": (16.117, "1b"),
+    "model.zamba2-7b.train.bs4.s512": (15.558, "1b"),
 }
 
 
@@ -481,12 +481,6 @@ def meta_lm(config, *, smoke: bool = True):
     return lm
 
 
-def _meta(shape, dtype=None):
-    import torch
-
-    return torch.empty(shape, dtype=dtype or torch.float32, device="meta")
-
-
 def _tokens(batch: int, seq: int, device="meta"):
     import torch
 
@@ -494,7 +488,9 @@ def _tokens(batch: int, seq: int, device="meta"):
 
 
 def _audio_embed(lm, batch: int, frames: int = _AUDIO_FRAMES):
-    return _meta((batch, frames, lm.cfg.d_model))
+    import torch
+
+    return torch.zeros((batch, frames, lm.cfg.d_model), device=lm.device)
 
 
 def _stacked(lm) -> tuple[dict]:
@@ -531,20 +527,47 @@ def _capture_decode(config: str, batch: int, cache_len: int) -> ModelCapture:
                           name=f"{config}.decode.bs{batch}.c{cache_len}")
 
 
-def _capture_prefill(config: str, batch: int, seq: int) -> ModelCapture:
-    lm = meta_lm(config)
+def capture_prefill(lm, batch: int, seq: int, *, name: str) -> ModelCapture:
+    """One prefill of ``lm`` pushing a ``seq``-token prompt at ``batch``
+    through its cache write path, on the LM's device."""
     cache = lm.init_cache(batch, seq)
-    name = f"{config}.prefill.bs{batch}.s{seq}"
+    tok = _tokens(batch, seq, lm.device)
     if lm.cfg.family == "audio":
         # The cross-KV cache holds enc_ctx encoder outputs and the smoke
         # encoder does not downsample, so prefill frames == enc_ctx.
         embed = _audio_embed(lm, batch, lm.cfg.enc_ctx)
         return capture_model(
             _no_grad(lambda t, c, e: lm.prefill(t, c, extra_embed=e)),
-            (_tokens(batch, seq), cache, embed), name=name,
-            stacked=_stacked(lm))
-    return capture_model(_no_grad(lm.prefill), (_tokens(batch, seq), cache),
-                         name=name, stacked=_stacked(lm))
+            (tok, cache, embed), name=name, stacked=_stacked(lm))
+    return capture_model(_no_grad(lm.prefill), (tok, cache), name=name,
+                         stacked=_stacked(lm))
+
+
+def capture_train(lm, batch: int, seq: int, *, name: str) -> ModelCapture:
+    """One AdamW update of ``lm`` (forward, backward and optimizer) on a
+    ``batch`` x ``seq`` batch, on the LM's device (a real device runs the
+    step, and the update changes its parameters)."""
+    import torch
+
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import step as T
+
+    opt_cfg = O.AdamWConfig()
+    step = T.build_train_step(lm, opt_cfg, microbatches=1)
+    state = T.init_train_state(lm, opt_cfg)
+    tok = _tokens(batch, seq, lm.device)
+    batch_d = {"tokens": tok, "labels": tok}
+    if lm.cfg.family == "audio":
+        batch_d["extra_embed"] = _audio_embed(lm, batch)
+    with torch.enable_grad():
+        return capture_model(step, (state, batch_d), name=name,
+                             stacked=(*_stacked(lm), state["adam"]["mu"],
+                                      state["adam"]["nu"]))
+
+
+def _capture_prefill(config: str, batch: int, seq: int) -> ModelCapture:
+    return capture_prefill(meta_lm(config), batch, seq,
+                           name=f"{config}.prefill.bs{batch}.s{seq}")
 
 
 def _capture_eval(config: str, batch: int, seq: int) -> ModelCapture:
@@ -561,24 +584,8 @@ def _capture_eval(config: str, batch: int, seq: int) -> ModelCapture:
 
 
 def _capture_train(config: str, batch: int, seq: int) -> ModelCapture:
-    import torch
-
-    from repro_torch.train import optimizer as O
-    from repro_torch.train import step as T
-
-    lm = meta_lm(config)
-    opt_cfg = O.AdamWConfig()
-    step = T.build_train_step(lm, opt_cfg, microbatches=1)
-    state = T.init_train_state(lm, opt_cfg)
-    tok = _tokens(batch, seq)
-    batch_d = {"tokens": tok, "labels": tok}
-    if lm.cfg.family == "audio":
-        batch_d["extra_embed"] = _audio_embed(lm, batch)
-    with torch.enable_grad():
-        return capture_model(step, (state, batch_d),
-                             name=f"{config}.train.bs{batch}.s{seq}",
-                             stacked=(*_stacked(lm), state["adam"]["mu"],
-                                      state["adam"]["nu"]))
+    return capture_train(meta_lm(config), batch, seq,
+                         name=f"{config}.train.bs{batch}.s{seq}")
 
 
 _BUILDERS = {

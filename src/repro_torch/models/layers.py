@@ -152,7 +152,8 @@ def rms_norm_axes() -> dict:
 
 def rms_norm(x: torch.Tensor, p: Params, eps: float = 1e-6) -> torch.Tensor:
     xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    # jnp.mean: a sum, then a division of the reduced rows
+    var = torch.sum(xf * xf, dim=-1, keepdim=True) / xf.shape[-1]
     out = xf * torch.rsqrt(var + eps) * p["scale"]
     return out.to(x.dtype)
 
@@ -519,7 +520,26 @@ def mlp_axes(cfg: ModelConfig) -> dict:
 # (``F.silu`` and ``F.gelu`` keep the whole function in float32 and round
 # once, which moves a third of bfloat16 sigmoids by a step).
 def silu(x: torch.Tensor) -> torch.Tensor:
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Silu.apply(x)
     return x * (1 / (1 + torch.exp(-x)))
+
+
+class _Silu(torch.autograd.Function):
+    """``x * s``, s = 1 / (1 + exp(-x)), with ``jax.nn.silu``'s gradient:
+    from s and s (1 - s), where autograd would differentiate each step of
+    the expansion."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return g * s + x * g * (s * (1 - s))
 
 
 @functools.lru_cache(maxsize=None)
@@ -529,10 +549,16 @@ def _in_dtype(value: float, dtype: torch.dtype) -> float:
     return torch.tensor(value, dtype=dtype).item()
 
 
+def cube(x: torch.Tensor) -> torch.Tensor:
+    """``x ** 3`` as XLA expands the reference's ``integer_pow``: two
+    multiplies, each rounded to the input's dtype."""
+    return x * x * x
+
+
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     c = _in_dtype(float(np.sqrt(2 / np.pi)), x.dtype)
     k = _in_dtype(0.044715, x.dtype)
-    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * cube(x)))))
 
 
 def mlp_fwd(p: Params, cfg: ModelConfig, x) -> torch.Tensor:

@@ -148,8 +148,14 @@ def _combine(out, gate, flat_e, slot, keep, cap: int, n: int, k: int, dt):
     order)."""
     y_rep = out[flat_e, torch.clamp(slot, max=cap - 1)]            # [nk, d]
     w = (gate.reshape(-1) * keep.to(torch.float32)).to(dt)
-    contrib = (y_rep * w[:, None]).reshape(n, k, y_rep.shape[-1])
-    y = torch.zeros((n, y_rep.shape[-1]), dtype=dt, device=out.device)
-    for j in range(k):
-        y = y + contrib[:, j]
+    return scatter_rows((y_rep * w[:, None]).reshape(n, k, y_rep.shape[-1]))
+
+
+def scatter_rows(x: torch.Tensor) -> torch.Tensor:
+    """[n, k, d] -> [n, d]: each token's k replicas added into a zero row
+    in choice order, as the reference's scatter-add (``.at[tok].add``)
+    adds them."""
+    y = torch.zeros((x.shape[0], x.shape[2]), dtype=x.dtype, device=x.device)
+    for j in range(x.shape[1]):
+        y = y + x[:, j]
     return y

@@ -253,19 +253,30 @@ def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         stride=contiguous_stride(shape))
 
 
+def logsumexp_rows(x: torch.Tensor) -> torch.Tensor:
+    """``torch.logsumexp(x, -1)`` as ATen composes it (max, exp of the
+    shifted rows, sum, log, add back), the max a constant as in
+    ``jax.nn.logsumexp``: autograd then differentiates it as jax does,
+    the cotangent over the sum, broadcast, times the forward's exp(x -
+    max), where ``torch.logsumexp``'s gradient recomputes that
+    exponential."""
+    m = x.detach().amax(dim=-1, keepdim=True)
+    return torch.log(torch.exp(x - m).sum(dim=-1)) + m[..., 0]
+
+
 def logsumexp_last(x: torch.Tensor) -> torch.Tensor:
-    """``torch.logsumexp(x, -1)``.  On a DTensor sharded along its last
-    dimension (vocab-parallel logits) the max and the sum are reduced
-    across the shards (the max taken as a constant, which leaves the
-    gradient exact), where DTensor's own strategy gathers the whole
-    dimension first."""
+    """``torch.logsumexp(x, -1)`` (:func:`logsumexp_rows`).  On a DTensor
+    sharded along its last dimension (vocab-parallel logits) the max and
+    the sum are reduced across the shards (the max taken as a constant,
+    which leaves the gradient exact), where DTensor's own strategy gathers
+    the whole dimension first."""
     if not is_dtensor(x):
-        return torch.logsumexp(x, dim=-1)
+        return logsumexp_rows(x)
     from torch.distributed.tensor import DTensor, Partial, Shard
 
     last = x.dim() - 1
     if not any(isinstance(p, Shard) and p.dim == last for p in x.placements):
-        return torch.logsumexp(x, dim=-1)
+        return logsumexp_rows(x)
     mesh = x.device_mesh
     pl = tuple(_replicate() if p.is_partial() else p for p in x.placements)
     x = to_layout(x, mesh, pl)

@@ -25,7 +25,8 @@ import torch
 
 from . import shard_ops
 from .config import ModelConfig
-from .layers import Init, Params, compute_dtype, remat, rms_norm, silu
+from .einsum_path import contract_path, einsum3
+from .layers import Init, Params, compute_dtype, rms_norm, silu
 
 __all__ = [
     "ssm_init", "ssm_axes", "ssm_fwd", "ssm_decode", "ssd_chunked", "ssd_ref",
@@ -102,13 +103,12 @@ def _conv_layout(xbc, w, b):
 
 @shard_ops.shard_local(_conv_layout)
 def _causal_conv(xbc, w, b):
-    """xbc: [B, S, C]; w: [K, C] depthwise causal conv."""
+    """xbc: [B, S, C]; w: [K, C] depthwise causal conv, summed from 0 as
+    the reference's ``sum`` does (its first add is an op of its own)."""
     k = w.shape[0]
     s = xbc.shape[1]
     pad = torch.nn.functional.pad(xbc, (0, 0, k - 1, 0))
-    out = pad[:, 0:s, :] * w[0]
-    for i in range(1, k):
-        out = out + pad[:, i: i + s, :] * w[i]
+    out = sum(pad[:, i: i + s, :] * w[i] for i in range(k))
     return out + b
 
 
@@ -141,42 +141,146 @@ def ssd_ref(x, dt, a, b, c, d_skip):
     return y.to(x.dtype)
 
 
-def _chunk_body(r, xq, dtq, bq, cq, a, mask):
+def _decay(cs, mask):
+    """exp of the masked segment sums cs_i - cs_j, [B, i, j, H] as the
+    reference's, laid out head-major in memory, so that a product reads
+    it (and what is made from it elementwise) as [B, H, i, j] with no
+    copy."""
+    csm = cs.transpose(1, 2).contiguous().transpose(1, 2)
+    seg = csm[:, :, None, :] - csm[:, None, :, :]
+    return torch.exp(torch.where(mask[None, :, :, None], seg, -float("inf")))
+
+
+_Y_OFF = "bqn,bqh,bhnp->bqhp"     # the incoming state's contribution
+_STATE = "bqh,bqn,bqhp->bhnp"     # the chunk's share of the next state
+
+
+def _chunk_paths(bsz: int, q: int, h: int, n: int, p: int) -> tuple:
+    """jax's pairwise order for the chunk's two einsums at these sizes."""
+    return (contract_path(_Y_OFF, (bsz, q, n), (bsz, q, h), (bsz, h, n, p)),
+            contract_path(_STATE, (bsz, q, h), (bsz, q, n), (bsz, q, h, p)))
+
+
+def _chunk_body(r, xq, dtq, bq, cq, a, mask, paths):
     """One chunk: the state ``r`` [B,H,N,P] in, (new state, y [B,Q,H,P])
     out; every tensor float32 (float64 for the yardstick).
 
-    The reference's products in another layout and contraction order:
-    the [B, Q, Q, H] intra-chunk tensors are kept as [B, H, Q, Q], so the
-    diagonal block is one batched product with no copy, and the
-    three-operand einsums contract their matrix product first (``y_off``
-    scales ``C r`` by exp(cs); the state update scales x before
-    contracting with B), never forming the [B, Q, N, H] outer products.
-    The values differ only by rounding."""
+    The reference's body, op for op and in its shapes: the intra-chunk
+    tensors are [B, i, j, H] (:func:`_decay`), and its two three-operand
+    einsums contract pair by pair in the order jax picks at these shapes
+    (``paths``, :func:`_chunk_paths` of the whole, unsharded shapes, as
+    jax traces them).  At a smoke width that forms the [B, Q, H, N] and
+    [B, Q, N, H] outer products; at mamba2-780m's width ``y_off``
+    contracts C with ``r`` first and then scales by exp(cs), and ``sc``
+    scales x first, each scaling one product that contracts nothing."""
     da = dtq * a[None, None, :]                      # [B,Q,H]
     cs = torch.cumsum(da, dim=1)                     # inclusive
     total = cs[:, -1, :]                             # [B,H]
 
-    # intra-chunk (diagonal block), heads outside the chunk axes
-    csh = cs.transpose(1, 2)                         # [B,H,Q]
-    seg = csh[:, :, :, None] - csh[:, :, None, :]    # [B,H,i,j]
-    seg = seg.masked_fill(~mask, -float("inf"))
-    decay = torch.exp(seg)
+    # intra-chunk (diagonal block)
+    decay = _decay(cs, mask)                         # [B,i,j,H]
     cb = torch.einsum("bin,bjn->bij", cq, bq)
-    w = cb[:, None] * decay * dtq.transpose(1, 2)[:, :, None, :]
-    y_diag = torch.matmul(w, xq.transpose(1, 2)).transpose(1, 2)
+    w = cb[..., None] * decay * dtq[:, None, :, :]
+    y_diag = torch.einsum("bijh,bjhp->bihp", w, xq)
 
     # off-diagonal: the incoming state's contribution
-    y_off = torch.einsum("bqn,bhnp->bqhp", cq, r) * torch.exp(cs)[..., None]
+    y_off = einsum3(_Y_OFF, cq, torch.exp(cs), r, path=paths[0])
 
     # the chunk's terminal state
     decay_state = torch.exp(total[:, None, :] - cs)  # [B,Q,H]
-    sc = torch.einsum("bqn,bqhp->bhnp", bq,
-                      xq * (decay_state * dtq)[..., None])
+    sc = einsum3(_STATE, decay_state * dtq, bq, xq, path=paths[1])
     r_new = r * torch.exp(total)[:, :, None, None] + sc
     return r_new, y_diag + y_off
 
 
-def _ssd_layout(x, dt, a, b, c, d_skip, chunk=None, *,
+class _Chunk(torch.autograd.Function):
+    """:func:`_chunk_body` with the reference's gradient.  jax
+    differentiates the remat'd chunk by recomputing only what its
+    transposes read (C B, the two outer products and the decays, not the
+    products whose outputs only feed the chunk's results) and then
+    transposing every product, the state's included; a checkpoint would
+    recompute the whole body.  Saves the inputs alone, as a checkpoint
+    does.  The transposes are those of the smoke widths' order (the
+    outer products first, the zoo's shapes); at another order the
+    gradient is the same, the products paired otherwise."""
+
+    @staticmethod
+    def forward(ctx, r, xq, dtq, bq, cq, a, mask, paths):
+        ctx.save_for_backward(r, xq, dtq, bq, cq, a, mask)
+        return _chunk_body(r, xq, dtq, bq, cq, a, mask, paths)
+
+    @staticmethod
+    def backward(ctx, g_r, g_y):
+        return _chunk_vjp(*ctx.saved_tensors, g_r, g_y) + (None, None)
+
+
+def _chunk_vjp(r, xq, dtq, bq, cq, a, mask, g_r, g_y):
+    """The transpose of :func:`_chunk_body` in the reference's order (its
+    jaxpr under ``jax.grad``): cotangents of (r, xq, dtq, bq, cq, a)."""
+    a_b = a[None, None, :]
+    cs = torch.cumsum(dtq * a_b, dim=1)
+    total = cs[:, -1, :]
+    decay = _decay(cs, mask)
+    cb = torch.einsum("bin,bjn->bij", cq, bq)[..., None]
+    wc = cb * decay
+    dt_j = dtq[:, None, :, :]
+    w = wc * dt_j
+    ecs = torch.exp(cs)
+    t = torch.einsum("bqh,bqn->bqhn", ecs, cq)
+    ds = torch.exp(total[:, None, :] - cs)
+    sd = ds * dtq
+    cu = torch.einsum("bqn,bqh->bqnh", bq, sd)
+    et = torch.exp(total)
+
+    # r_new = r exp(total) + sc, sc = cu . xq over q
+    d_total = (r * g_r).sum(dim=(2, 3)) * et
+    d_r = g_r * et[:, :, None, None]
+    d_xq = torch.einsum("bhnp,bqnh->bhpq", g_r, cu).permute(0, 3, 1, 2)
+    d_cu = torch.einsum("bhnp,bqhp->bhnq", g_r, xq).permute(0, 3, 2, 1)
+    d_sd = torch.einsum("bqnh,bqn->bqh", d_cu, bq)
+    d_bq = torch.einsum("bqnh,bqh->bqn", d_cu, sd)
+    d_dtq = ds * d_sd
+    d_arg = d_sd * dtq * ds
+    d_total = d_total + d_arg.sum(dim=1)
+    d_cs = -d_arg
+
+    # y = y_diag + y_off; y_off = t . r over n
+    g_hq = g_y.permute(0, 2, 1, 3)
+    d_r = d_r + torch.einsum("bhqp,bqhn->bhpn", g_hq, t).transpose(2, 3)
+    d_t = torch.einsum("bhqp,bhnp->bhqn", g_hq, r).permute(0, 2, 1, 3)
+    d_cq = torch.einsum("bqhn,bqh->bqn", d_t, ecs)
+    d_cs = d_cs + torch.einsum("bqhn,bqn->bqh", d_t, cq) * ecs
+
+    # y_diag = w . xq over j
+    g_hp = g_y.permute(0, 2, 3, 1)
+    d_w = torch.einsum("bhpi,bjhp->bhij", g_hp, xq).permute(0, 2, 3, 1)
+    d_xq = d_xq + torch.einsum("bhpi,bijh->bhpj", g_hp, w).permute(
+        0, 3, 1, 2)
+    d_dtq = d_dtq + (wc * d_w).sum(dim=1)
+    d_wc = d_w * dt_j
+    d_decay = cb * d_wc
+    d_cb = (d_wc * decay).sum(dim=3)
+    d_bq = d_bq + torch.einsum("bij,bin->bjn", d_cb, cq)
+    d_cq = d_cq + torch.einsum("bij,bjn->bin", d_cb, bq)
+    d_seg = torch.where(mask[None, :, :, None], d_decay * decay, 0.0)
+    d_cs = d_cs + (-d_seg).sum(dim=1)
+    d_cs = d_cs + d_seg.sum(dim=2)
+    last = torch.zeros_like(d_cs)
+    last[:, -1] = d_total
+    d_cs = d_cs + last
+    d_da = torch.flip(torch.cumsum(torch.flip(d_cs, (1,)), dim=1), (1,))
+    d_a = (dtq * d_da).sum(dim=(0, 1))
+    d_dtq = d_dtq + d_da * a_b
+    return d_r, d_xq, d_dtq, d_bq, d_cq, d_a
+
+
+def _chunk(r, xq, dtq, bq, cq, a, mask, paths):
+    if torch.is_grad_enabled():
+        return _Chunk.apply(r, xq, dtq, bq, cq, a, mask, paths)
+    return _chunk_body(r, xq, dtq, bq, cq, a, mask, paths)
+
+
+def _ssd_layout(x, dt, a, b, c, d_skip, chunk=None, *, paths=None,
                 return_final_state: bool = False):
     """On a mesh: batch over the data axes, heads over the model axis; B
     and C, shared by every head, whole on each rank."""
@@ -190,17 +294,28 @@ def _ssd_layout(x, dt, a, b, c, d_skip, chunk=None, *,
             ("batch", None, None), ("ssm_heads",), None), outs
 
 
-@shard_ops.shard_local(_ssd_layout)
 def ssd_chunked(x, dt, a, b, c, d_skip, chunk: int, *,
                 return_final_state: bool = False):
     """Chunked SSD: [B,S,H,P] -> [B,S,H,P]; numerically matches ``ssd_ref``.
 
     S is padded up to a multiple of ``min(chunk, S)``.  Under autograd each
-    chunk's body is rematerialized, as the reference's ``jax.checkpoint``
-    does, so the backward pass never holds every chunk's [B, Q, Q, H]
-    decay at once.  ``return_final_state``: also return the terminal
+    chunk keeps its inputs alone and recomputes the rest in the backward
+    pass (:class:`_Chunk`), as the reference's ``jax.checkpoint`` does, so
+    the backward pass never holds every chunk's [B, Q, Q, H] decay at
+    once.  ``return_final_state``: also return the terminal
     recurrent state [B, H, N, P] (the prefill -> decode handoff).  On a
-    mesh each rank runs the loop on its own shard (``_ssd_layout``)."""
+    mesh each rank runs the loop on its own shard (``_ssd_layout``), in
+    the contraction order of the whole shapes (``x.shape`` is a DTensor's
+    global one), as on one device."""
+    bsz, s, h, p = x.shape
+    paths = _chunk_paths(bsz, min(chunk, s), h, b.shape[-1], p)
+    return _ssd_chunks(x, dt, a, b, c, d_skip, chunk, paths=paths,
+                       return_final_state=return_final_state)
+
+
+@shard_ops.shard_local(_ssd_layout)
+def _ssd_chunks(x, dt, a, b, c, d_skip, chunk: int, *, paths,
+                return_final_state: bool = False):
     f32 = _acc(x)
     bsz, s, h, p = x.shape
     n = b.shape[-1]
@@ -223,9 +338,11 @@ def ssd_chunked(x, dt, a, b, c, d_skip, chunk: int, *,
 
     r = torch.zeros((bsz, h, n, p), dtype=f32, device=x.device)
     ys = []
-    for i in range(nc):
-        r, yq = remat(_chunk_body, r, xc[:, i], dtc[:, i], bc[:, i],
-                      cc[:, i], a, mask)
+    # one unbind each, the scan's xs: the backward pass stacks the chunks'
+    # cotangents once instead of adding one zero-padded copy per chunk
+    for xq, dtq, bq, cq in zip(xc.unbind(1), dtc.unbind(1), bc.unbind(1),
+                               cc.unbind(1)):
+        r, yq = _chunk(r, xq, dtq, bq, cq, a, mask, paths)
         ys.append(yq)
     y = torch.stack(ys, dim=1).reshape(bsz, nc * q, h, p)[:, :s]
     y = y + x.to(f32) * d_skip[None, None, :, None]
@@ -318,11 +435,8 @@ def ssm_decode(p: Params, cfg: ModelConfig, x, cache: dict) -> tuple:
     cf = c[:, 0].to(f32)
 
     decay = torch.exp(dt * a[None, :])                         # [B,H]
-    # the reference's three-operand einsum as jax contracts it: (B ⊗ dt)
-    # first, then x (every product exact, so the values are its values)
-    bdt = torch.einsum("bn,bh->bnh", bf, dt)
-    state = cache["state"] * decay[:, :, None, None] + torch.einsum(
-        "bnh,bhp->bhnp", bdt, xh)
+    state = cache["state"] * decay[:, :, None, None] + einsum3(
+        "bh,bn,bhp->bhnp", dt, bf, xh)
     y = torch.einsum("bn,bhnp->bhp", cf, state)
     y = y + xh * p["d_skip"][None, :, None]
     y = y.reshape(bsz, 1, di).to(dt_)

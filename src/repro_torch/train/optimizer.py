@@ -95,7 +95,7 @@ def opt_state_axes(param_axes) -> dict:
 
 def global_norm(tree: Mapping) -> torch.Tensor:
     total = None
-    for _, x in leaves(tree):
+    for name, x in leaves(tree):    # a capture reads the leaf's ``name``
         s = torch.sum(torch.square(x.to(torch.float32)))
         total = s if total is None else total + s
     if total is None:

@@ -25,39 +25,11 @@ from repro_torch.capture import zoo
 TOL = 0.05        # total FLOPs, whole-step refs, footprint
 PIN = 0.005       # a named deviation stays where it was measured
 
-_SSD = ("the port's SSD chunk (models/ssm.py ssd_chunked) contracts the "
-        "reference's three-operand einsums matrix first and keeps the "
-        "intra-chunk tensors head-major, never forming the [B, Q, N, H] "
-        "outer products: other products, fewer words")
-_REUSE = ("regions are reused by program site (the next layer's op at the "
-          "same line) where the reference reuses a scan-body variable's: "
-          "the attention block's buffers split and reuse differently")
-_BACKWARD = ("autograd's backward ops carry no Python frame, so their "
-             "buffers are reused by node type and size across the whole "
-             "backward pass, where the reference's transposed scan reuses "
-             "them layer by layer and keeps its top-level values apart")
-
 # (config, mode) -> {metric: (measured relative deviation, cause)}; metric
 # "dense" means the dense ops differ (only the weight products are held).
-NAMED = {
-    ("nemotron-4-340b", "prefill"): {"footprint": (0.109, _REUSE)},
-    ("nemotron-4-340b", "eval"): {"footprint": (0.087, _REUSE)},
-    ("paligemma-3b", "prefill"): {"footprint": (-0.092, _REUSE)},
-    ("paligemma-3b", "eval"): {"footprint": (-0.087, _REUSE)},
-    ("zamba2-7b", "decode"): {"footprint": (0.094, _REUSE)},
-    ("zamba2-7b", "prefill"): {"dense": (None, _SSD),
-                               "refs": (-0.099, _SSD)},
-    ("zamba2-7b", "eval"): {"dense": (None, _SSD), "refs": (-0.098, _SSD)},
-    ("mamba2-780m", "prefill"): {"dense": (None, _SSD),
-                                 "refs": (-0.114, _SSD)},
-    ("mamba2-780m", "eval"): {"dense": (None, _SSD), "refs": (-0.112, _SSD),
-                              "footprint": (-0.096, _SSD)},
-    ("qwen2.5-14b", "train"): {"footprint": (-0.159, _BACKWARD)},
-    ("mamba2-780m", "train"): {"dense": (None, _SSD), "refs": (0.102, _SSD),
-                               "footprint": (-0.210, _BACKWARD)},
-    ("zamba2-7b", "train"): {"dense": (None, _SSD), "refs": (0.092, _SSD),
-                             "footprint": (-0.269, _BACKWARD)},
-}
+# Every cell holds today; a lowering that cannot match the reference's is
+# named here with its measured deviation and its cause.
+NAMED: dict[tuple[str, str], dict[str, tuple]] = {}
 
 INFERENCE = [(c, m, 1) for c in jax_zoo._CONFIGS
              for m in ("decode", "prefill", "eval")]

@@ -12,7 +12,12 @@ float32 ulps of itself (the moments' own rounding).  The train cells
 compute in float64 and keep their gradients and moments in float32 here:
 in float32 the mesh's and the plain LM's sums, in another order, part by
 up to 1e-4 of a moment's rms, and the step's default bf16 gradients round
-those parts up to 2^-8."""
+those parts up to 2^-8.  The SSM family's cells compute in float64 too:
+in float32 the first layer's gated norm and output projection sum over
+the sharded inner width, which leaves 2.5e-6 of the rms between the two
+runs' x entering the second layer's scan, and the states the scan writes
+from those two inputs part by 1.2e-5 of their rms in exact arithmetic,
+before float32 rounds either scan."""
 
 import json
 import os
@@ -80,8 +85,9 @@ def rank_main(rank, path, cells, out):
     res = {}
     for arch, shape in cells:
         kind = SHAPES[shape].kind
-        cfg = configs.get_smoke(arch).replace(
-            dtype="float64" if kind == "train" else "float32")
+        cfg = configs.get_smoke(arch)
+        wide = kind == "train" or cfg.family == "ssm"
+        cfg = cfg.replace(dtype="float64" if wide else "float32")
         plan = CellPlan(arch=arch, shape=ShapeSpec("t", 64, 4, kind),
                         cfg=cfg, kind=kind,
                         microbatches=2 if kind == "train" else 1)

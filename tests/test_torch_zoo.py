@@ -4,9 +4,10 @@ reference's zoo.
 - The 176 entries: the reference's names in its order, with its
   declarations.
 - The pins: the port's own (measured by ``python -m
-  repro_torch.capture.pin_zoo``), each class equal to the reference's
-  ``_PINS`` but the one named in :data:`DIVERGENT`; the CI pair's and the
-  named boundaries' classes equal to the reference's.
+  repro_torch.capture.pin_zoo``), each AI within :data:`AI_TOL` of the
+  reference's ``_PINS`` and each class equal to its class but those
+  named in :data:`DIVERGENT` (none); the CI pair's and the named
+  boundaries' classes equal to the reference's.
 - The frontier and transition functions: the reference's algorithm over
   the port's pins.
 - ``only=`` never changes a fingerprint; building the roster captures
@@ -30,14 +31,8 @@ from repro_torch.suite import models_registry
 from repro_torch.suite.__main__ import main
 
 # Entries whose port class differs from the reference's pin, and why
-# (ROADMAP.md queue 3 lists them).
-DIVERGENT = {
-    "model.phi4-mini-3.8b.decode.bs8.c1024":
-        "MPKI 10.99 against the reference's 11.2, a hair under the 1a line; "
-        "the stacked weight layout leaves it as the per-layer one did, so "
-        "the port's reuse of freed buffers by program site (not by scan "
-        "variable) lays the 1024-token step out otherwise",
-}
+# (none today: every class is the reference's).
+DIVERGENT: dict[str, str] = {}
 
 
 def test_entries_are_the_references():
@@ -59,6 +54,18 @@ def test_pins_are_the_ports_and_agree_but_the_named():
               if cls != jax_zoo._PINS[n][1]}
     assert differ == set(DIVERGENT)
     assert zoo._PINS != jax_zoo._PINS          # measured, not copied
+
+
+AI_TOL = 0.02     # a pin's AI against the reference's
+
+
+def test_pin_ais_are_the_references():
+    """Every pinned AI within :data:`AI_TOL` of the reference's (the other
+    of DAMOV's two axes)."""
+    gaps = {n: ai / jax_zoo._PINS[n][0] - 1
+            for n, (ai, _) in zoo._PINS.items()}
+    worst = max(gaps, key=lambda n: abs(gaps[n]))
+    assert abs(gaps[worst]) <= AI_TOL, (worst, gaps[worst])
 
 
 def test_ci_pair_and_named_boundaries_hold():
