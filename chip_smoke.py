@@ -13,7 +13,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    counts the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions of
    the flash and MoE libraries with ``cuobjdump -sass``, failing if bf16
    flash or bf16 MoE dispatch has no ``HGMMA``, or if the f32 flash kernel,
-   either SSM scan or the simulator's window count spills;
+   either SSM scan or the simulator's window count spills (ptxas's
+   warnings, such as a serialized ``wgmma``, are printed too);
 2. holds each kernel against its plain PyTorch version on the card at
    full width, in float32 and bf16: qwen2.5-14b for STREAM, gather, flash
    and paged decode (40 query heads, 8 KV heads, head_dim 128, vocab
@@ -24,8 +25,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    its plan cuts into several kv ranges, some wholly above the diagonal;
    the EMA scan also at T 1000, whose last ring stage is cut short; and
    PaliGemma-3B's attention (8 query heads, one KV head, head_dim 256,
-   2048 tokens, causal) in both dtypes, and head_dims 16 and 96 there
-   (``flash_fwd_simple``); the simulator's window count (``window_scan``)
+   2048 tokens, causal) in both dtypes, and head_dims 16 and 96 there;
+   Zamba2-7B's attention (32 heads and KV heads, head_dim 112) and
+   Nemotron-4-340B's (96 heads, 8 KV heads, head_dim 192), 4096 tokens,
+   causal, both dtypes; flash at head_dims 8, 16, 40, 112, 136, 192, 200
+   and 248 (each padded in shared memory to a 64-column panel) on a small
+   shape (1 x 256 tokens, 4 heads, 2 KV heads), causal and not, both
+   dtypes; the simulator's window count (``window_scan``)
    on seeded rows, int32
    and int64 (ragged spans, cold slots, windows ending at m - 1 and past
    it), exactly, at every (lanes, steps) its plan picks (chunks 1-1024)
@@ -39,8 +45,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    both writing into one preallocated output, and its entry point, which
    allocates its output; each is first checked bit for bit against the
    plain version.  Flash is timed causal and not (f32 and bf16), beside
-   SDPA, the f32 rows with the plan's kv split, and at PaliGemma's
-   shape with head_dims 256, 16 and 96 (causal, both dtypes).  Paged decode prints its
+   SDPA, the f32 rows with the plan's kv split, at PaliGemma's shape with
+   head_dims 256, 16 and 96 and at Zamba2-7B's (112) and Nemotron-4-340B's
+   (192) (causal, both dtypes); their bound has a third term, the scores'
+   exp2 over the SFUs' rate at the card's max SM clock (``bound_by``
+   ``"exp"``), which binds bf16 at narrow heads.  Paged decode prints its
    split count, the EMA scan its plan, the state-expanded scan its plan
    and its issue floor (4 N D T f32 lane-instructions, the update's
    multiplies and adds unfused);
@@ -272,8 +281,9 @@ kernels as a fresh process does:
    as before, for the seven capture kernels and main path 6's first
    cuda run for the window count; ``launches_by_path`` for paths 1-4,
    6-9, ``models`` (path 11) and ``models_sweep`` (path 12's cuda run);
-   flash's also split by kernel and with its head-width 256, 16 and 96
-   timings as ``d256``, ``d16`` and ``d96``; the f32 (window count: int32) timings,
+   flash's also split by kernel and with its head-width 256, 16, 96, 112
+   and 192 timings as ``d256``, ``d16``, ``d96``, ``d112`` and ``d192``;
+   the f32 (window count: int32) timings,
    and the bf16 ones as ``bf16_ms``, ``bf16_bound_ms``,
    ``bf16_library_ms``) and, last, ``{"ok": true, "device": ...}``.
 
@@ -718,11 +728,35 @@ def moe_inputs(gen, geo: dict, dtype: torch.dtype):
     return x, w, eids, tok, eids[tok.long()].to(torch.int32)
 
 
+# exp2 results one SM's special-function units give a clock.
+SFU_EXP2_PER_CLOCK = 16
+
+
+def exp2_rate() -> float:
+    """exp2 a second the card can give: ``SFU_EXP2_PER_CLOCK`` on each SM
+    at the max SM clock ``nvidia-smi`` reports."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout
+    mhz = float(out.strip().splitlines()[0])
+    return SFU_EXP2_PER_CLOCK * sm_count() * mhz * 1e6
+
+
 def timing_row(bench: Bench, smi: str, kernel: str, case: str, dtype,
                ms: float, plain_ms: float, library_ms, nbytes: float,
-               ops: float, rate: str, **extra) -> dict:
-    """Print and return one full-width timing row with its bound."""
+               ops: float, rate: str, *, exps: float = 0.0,
+               **extra) -> dict:
+    """Print and return one full-width timing row with its bound: the
+    larger of the bytes over the memory rate and the operations over the
+    peak rate of their type, and, with ``exps``, of that many exp2 over
+    :func:`exp2_rate` (``bound_by`` ``"exp"``)."""
     bound_ms, bound_by = bench.bound(nbytes, ops, rate)
+    if exps:
+        exp_ms = exps / exp2_rate() * 1e3
+        extra = {"exp_bound_ms": exp_ms, **extra}
+        if exp_ms > bound_ms:
+            bound_ms, bound_by = exp_ms, "exp"
     row = {"phase": "timing", "kernel": kernel, "case": case,
            "dtype": str(dtype).replace("torch.", ""), "ms": ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
@@ -807,21 +841,38 @@ def moe_full_width(bench: Bench, smi: str, dtype: torch.dtype,
 # Zamba2-7B Mamba-2 layer: T 4096, d_inner 7168, ssm_state 64, chunk 128).
 FULL_FLASH = dict(b=1, s=4096, h=40, g=8)
 # PaliGemma-3B's attention at full width (8 query heads, one KV head,
-# head_dim 256; 2048 tokens), and the narrow widths flash_fwd_simple takes
-# at the same shape (each held and timed).
+# head_dim 256; 2048 tokens), Zamba2-7B's (32 heads, 32 KV heads, head_dim
+# 112) and Nemotron-4-340B's (96 heads, 8 KV heads, head_dim 192) at 4096
+# tokens: head width -> the shape its causal rows are held and timed at
+# (16, the smoke configs' width, and 96 at PaliGemma's shape).
 PALIGEMMA_FLASH = dict(b=1, s=2048, h=8, g=1)
-NARROW_FLASH_DIMS = (16, 96)
+ZAMBA2_FLASH = dict(b=1, s=4096, h=32, g=32)
+NEMOTRON_FLASH = dict(b=1, s=4096, h=96, g=8)
+WIDTH_FLASH = {256: PALIGEMMA_FLASH, 16: PALIGEMMA_FLASH, 96: PALIGEMMA_FLASH,
+               112: ZAMBA2_FLASH, 192: NEMOTRON_FLASH}
+# Head widths held on a small shape, causal and not: each padded width's
+# narrowest and widest, and those whose real columns end inside a
+# 32-column group (40, 112, 136, 200, 248).
+PADDED_FLASH_DIMS = (8, 16, 40, 112, 136, 192, 200, 248)
+SMALL_FLASH = dict(b=1, s=256, h=4, g=2)
 FULL_SCAN = dict(t=4096, d=2 * 3584, n=64, chunk=128)
 
 
 def flash_plan(b: int, h: int, sq: int, sk: int, d: int = 128) -> dict:
-    """The f32 kernel's kv split at one launch on this card, or nothing for
-    a checkout from before the split design."""
-    try:
-        from repro_torch.kernels.flash_attention.plan import split_plan
-    except ImportError:
+    """The f32 kernel's kv split at one launch on this card, taken at the
+    padded width the launch runs, or nothing for a launch that takes no
+    split plan (a checkout from before the split design, or one from
+    before the padded design at a width its tiled kernel was not built
+    for)."""
+    from repro_torch.kernels.flash_attention import plan
+
+    if not hasattr(plan, "split_plan"):
         return {}
-    per, n_splits = split_plan(b, h, sq, sk, n_sm=sm_count(), d=d)
+    if hasattr(plan, "padded_head_dim"):
+        d = plan.padded_head_dim(d)
+    elif d not in plan.TILED_HEAD_DIMS:
+        return {}
+    per, n_splits = plan.split_plan(b, h, sq, sk, n_sm=sm_count(), d=d)
     return {"kv_rows_per_split": per, "n_splits": n_splits}
 
 
@@ -915,14 +966,15 @@ def flash_full_width(bench: Bench, smi: str, dtype: torch.dtype, d: int,
         pairs_per_head = g["s"] * g["s"]
     if dtype == torch.float32:
         extra = {**flash_plan(g["b"], g["h"], s, s, d), **extra}
+    scores = g["b"] * g["h"] * pairs_per_head   # unmasked (query, key) pairs
     row = timing_row(
         bench, smi, "flash_attention", case, dtype,
         bench.ms(lambda: mha(qq, kk, vv, causal=causal)),
         bench.ms(lambda: attention_ref(qq, kk, vv, causal=causal)),
         bench.ms(sdpa),
         (2 * qq.numel() + kk.numel() + vv.numel()) * qq.element_size(),
-        4.0 * d * g["b"] * g["h"] * pairs_per_head,
-        "f32" if dtype == torch.float32 else "bf16", **extra)
+        4.0 * d * scores, "f32" if dtype == torch.float32 else "bf16",
+        exps=scores, **extra)
     return row, err
 
 
@@ -1106,7 +1158,7 @@ def geometry_timings(bench: Bench, smi: str, launched: list,
                          geometry=dict(h=bh, g=bg, sq=sq, sk=sk, d=d),
                          dtype="float32",
                          ms=bench.ms(lambda: mha(q, k, v, causal=False)),
-                         max_abs_err=err, **flash_plan(1, bh, sq, sk)))
+                         max_abs_err=err, **flash_plan(1, bh, sq, sk, d)))
     gen = torch.Generator(device="cuda").manual_seed(TIMING_SEED)
     for t, d, n, chunk in scans:
         x, dt, b, c = scan_inputs(gen, t, d, n, f32)
@@ -3684,7 +3736,7 @@ def main() -> int:
     for kname, log in logs.items():
         for line in log.splitlines():
             if ("registers" in line or "spill" in line
-                    or "entry function" in line):
+                    or "entry function" in line or "arning" in line):
                 say(f"# ptxas {kname}: {line.strip()}")
     for lib, fn_part in NO_SPILL.items():
         spilled = {fn: n for fn, n in ptxas_spills(logs.get(lib, "")).items()
@@ -3787,20 +3839,27 @@ def main() -> int:
             if row is not None and causal:
                 rows["flash_attention", dtype] = row
         torch.cuda.empty_cache()
-    # PaliGemma's head width, 256, and the narrow widths flash_fwd_simple
-    # takes, in both dtypes (timed, causal)
+    # PaliGemma's head width, 256, and 16 and 96 at its shape, Zamba2-7B's
+    # 112 and Nemotron-4-340B's 192, in both dtypes (timed, causal)
     for dtype in (torch.float32, torch.bfloat16):
-        for d in (256,) + NARROW_FLASH_DIMS:
+        for d, shape in WIDTH_FLASH.items():
             row, err = flash_full_width(bench, smi, dtype, d, True,
-                                        shape=PALIGEMMA_FLASH, timed=True)
+                                        shape=shape, timed=True)
             errs["flash_attention"] = max(errs["flash_attention"], err)
             rows[f"flash_attention_d{d}", dtype] = row
-        torch.cuda.empty_cache()
+            torch.cuda.empty_cache()
+    # padded widths on a small shape, causal and not (held, untimed)
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in PADDED_FLASH_DIMS:
+            for causal in (True, False):
+                _, err = flash_full_width(bench, smi, dtype, d, causal,
+                                          shape=SMALL_FLASH, timed=False)
+                errs["flash_attention"] = max(errs["flash_attention"], err)
     # f32 launches the plan cuts into several kv ranges, causal, so that the
     # first q tiles' later ranges lie wholly above the diagonal.
     for bsz, s, h, g, d in ((1, 1024, 2, 1, 128), (2, 512, 4, 2, 64)):
         qq, kk, vv = flash_inputs(gen, bsz, s, s, h, g, d, torch.float32)
-        plan = flash_plan(bsz, h, s, s)
+        plan = flash_plan(bsz, h, s, s, d)
         if plan["n_splits"] < 2:
             raise AssertionError(f"flash plan gave one split at {plan}")
         errs["flash_attention"] = max(errs["flash_attention"], check_close(
@@ -4065,9 +4124,9 @@ def main() -> int:
         if kname == "flash_attention":
             entry["launches_by_kernel"] = {
                 k: roster_flash[k] + serving_flash[k] for k in roster_flash}
-            # PaliGemma's head width and the narrow ones (no main path
-            # launches them)
-            for d in (256,) + NARROW_FLASH_DIMS:
+            # PaliGemma's, Zamba2-7B's and Nemotron-4-340B's head widths
+            # and 16 and 96 (no main path launches them)
+            for d in WIDTH_FLASH:
                 r, r16 = (rows[f"flash_attention_d{d}", dt]
                           for dt in (torch.float32, torch.bfloat16))
                 entry[f"d{d}"] = {

@@ -25,7 +25,12 @@ with ``label``; rows carry the checkout's plan (paged and flash
 ``n_splits``, the scans' rows, channels and stages) where it has one.
 The main-path flash and scan launches are those the checkout's roster and
 serving roster record when run on the CPU (``--only`` picks kernels:
-``paged``, ``moe``, ``flash``, ``scan``, ``ema``, ``window``).
+``paged``, ``moe``, ``flash``, ``scan``, ``ema``, ``window``, and
+``widths``: flash, causal, in both dtypes, at each head width of
+``chip_smoke.WIDTH_FLASH`` on its model's full-width shape, D 256, 16
+and 96 at PaliGemma-3B's, 112 at Zamba2-7B's and 192 at
+Nemotron-4-340B's, the same rows phase 3 times, and D 64 and 128 at
+qwen2.5-14b's).
 
 ``--only window`` runs the checkout's roster on the card with
 ``backend="cuda"``, recording its window counts, and times the window
@@ -163,6 +168,17 @@ def main() -> int:
                                         label=args.label)
             torch.cuda.empty_cache()
         cases += 2
+    if "widths" in only:
+        for dtype in (torch.float32, torch.bfloat16):
+            for d, shape in chip_smoke.WIDTH_FLASH.items():
+                chip_smoke.flash_full_width(bench, smi, dtype, d, True,
+                                            shape=shape, timed=True,
+                                            label=args.label)
+                torch.cuda.empty_cache()
+            for d in (64, 128):
+                chip_smoke.flash_full_width(bench, smi, dtype, d, True,
+                                            timed=True, label=args.label)
+            cases += len(chip_smoke.WIDTH_FLASH) + 2
     if "window" in only:
         cases += window_ab(chip_smoke, bench, smi,
                            Path(args.against).resolve(), args.label)

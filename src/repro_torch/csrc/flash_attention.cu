@@ -5,9 +5,17 @@
 // grid (b*h, n_q, n_kv) carries the online-softmax state (m, l, acc) in
 // VMEM scratch across the sequential kv axis.  On Hopper blocks run in no
 // order, so one block owns one (b*h, q tile) and loops the kv axis itself.
-// Three kernels sit behind flash_attention_launch, chosen by dtype and head
-// width: at D in {64, 128, 256} the two tiled kernels below, by dtype; at
-// every other D % 8 == 0 up to 256, flash_fwd_simple (end of the file).
+// Two kernels sit behind flash_attention_launch, chosen by dtype alone, and
+// each takes every head width D % 8 == 0 up to 256.  Each is built for four
+// padded widths DP in {64, 128, 192, 256} and a launch at D runs the one for
+// DP = D rounded up to a whole 64-column panel: the head is padded in
+// shared memory alone, with zero columns D .. DP - 1, while every read and
+// write of global memory stays at the real D.  The products skip what they
+// can of the padding (S = Q K^T walks only the columns that hold D) and
+// multiply zeros elsewhere (O += P V runs at DP); the output's padded
+// columns are never written.  Each DP has two instances, chosen at launch:
+// one for D = DP, compiled as a kernel of that fixed width, and one that
+// takes D < DP at run time.
 //
 // bf16: flash_fwd_sm90, on the tensor cores.  Bound on the card:
 // operations, 4*D flops per unmasked (query, key) pair at 989 TFLOP/s
@@ -19,35 +27,39 @@
 // through a ring of two stages (mbarrier full/empty pairs), and two
 // consumers (registers raised to 240), each owning 64 q rows, the M of one
 // wgmma.  Tiles land in 128-byte-swizzled shared memory straight from the
-// [B*S, heads, D] layout (rank-3 tensor maps, box {64, 1, rows}; D = 128 is
-// two 64-column panels), so nothing is transposed.  At D = 256 the K and V
-// tiles hold 64 rows (the Q tile alone is 64 KB; plan.sm90_kv_rows).  S = Q K^T is
-// wgmma m64n128k16 with both operands in shared memory and f32
-// accumulators; the online softmax runs in registers (a row lies across
-// one quad, so its max and sum take two xor-shuffles), with
-// scale * log2(e) folded into exp2f; O += P V is wgmma m64nDk16 with P
-// from registers and V read MN-major (transposed) from shared memory.  P
-// goes in as two bf16 halves, hi = bf16(p) and lo = bf16(p - hi), two
-// products into the same f32 accumulator: one bf16 rounding of p puts an
-// error of ~2^-9 of the output's rms on every element, up to 12.6x the
-// tolerance against the f32 plain version (tests/test_torch_flash_tiles.py),
-// while the split leaves ~2^-17.
-// Causal q tiles are numbered heaviest first, and only the tile on the
-// diagonal is masked.  The output is normalized, rounded to bf16, staged
-// through the swizzled Q rows the consumer owns and written with 16-byte
-// stores.
+// [B*S, heads, D] layout (rank-3 tensor maps over the real D, box {64, 1,
+// rows}; DP = 128 is two 64-column panels), so nothing is transposed; the
+// box's columns past D lie outside the map, and TMA writes them as zeros.
+// At DP 192 and 256 the K and V tiles hold 64 rows (plan.sm90_kv_rows).
+// S = Q K^T is wgmma m64n128k16 (m64n64k16 on 64-row tiles), ceil(D/16)
+// k-steps with both operands in shared memory and f32 accumulators; the
+// online softmax runs in registers (a row lies across one quad, so its max
+// and sum take two xor-shuffles), with scale * log2(e) folded into exp2f;
+// O += P V is wgmma m64n{DP}k16 with P from registers and V read MN-major
+// (transposed) from shared memory.  P goes in as two bf16 halves,
+// hi = bf16(p) and lo = bf16(p - hi), two products into the same f32
+// accumulator: one bf16 rounding of p puts an error of ~2^-9 of the
+// output's rms on every element, up to 12.6x the tolerance against the f32
+// plain version (tests/test_torch_flash_tiles.py), while the split leaves
+// ~2^-17.  Causal q tiles are numbered heaviest first, and only the tile on
+// the diagonal is masked.  The output is normalized, rounded to bf16,
+// staged through the swizzled Q rows the consumer owns and written with
+// 16-byte stores of its D real columns.
 //
 // f32: flash_fwd_kernel + flash_combine, on the CUDA cores, since one TF32
 // pass would not hold the f32 tolerance.  Bound: operations, 4*D f32
 // flops per unmasked pair at 67 TFLOP/s, so the design keeps the FMA pipe
-// fed.  A block (8 warps) holds a 128-row q tile of one head (64 at
-// D = 256) and walks one range of the kv axis in 64-row chunks (32 at
-// D = 256; plan.f32_tiles) through a ring of 16-byte cp.async
-// copies (2 stages at D = 128, where shared memory holds no third; 3 at
-// D = 64), so the next chunk loads while one is computed, with one block
-// barrier per chunk.  Both products are outer-product register tiles fed
-// by 128-bit shared-memory reads: S = Q K^T is 8 x 4 a thread (12 float4
-// reads per 128 FMAs), O += P V is 8 x D/16 (a float4 of V per 32 FMAs).
+// fed.  A block (8 warps) holds a 128-row q tile of one head (64 above
+// DP = 128) and walks one range of the kv axis in 64-row chunks (32 above
+// DP = 128; plan.f32_tiles) through a ring of 16-byte cp.async
+// copies (2 stages at DP = 128, where shared memory holds no third; 3 at
+// DP = 64), so the next chunk loads while one is computed, with one block
+// barrier per chunk.  The copies move a row's D/4 real chunks; the places
+// of the padded ones are zeroed once, before the first chunk.  Both
+// products are outer-product register tiles fed by 128-bit shared-memory
+// reads: S = Q K^T is 8 x 4 a thread (12 float4 reads per 128 FMAs) over
+// the 32-column groups that hold D, O += P V is 8 x DP/16 (a float4 of V
+// per 32 FMAs).
 // Q, K and P rows are swizzled (16-byte chunk ^ a 3-bit row group), so the
 // reads are conflict-free without padding, and a thread's rows share one
 // swizzle, so its reads walk each row's chunks in a per-thread order with
@@ -58,16 +70,17 @@
 // its warp reads (__syncwarp, no block barrier).  When the (b*h, q tile)
 // grid would leave SMs idle, the kv axis is cut into ranges (plan.py: the
 // main paths' one head and 1-2 q tiles become up to 264 blocks): each range
-// writes f32 partials (m, l, unnormalized acc) and flash_combine folds them
-// in split order, with no atomics.  At full width (1280 blocks) one range
-// writes the output itself.  Causal q tiles are numbered heaviest first.
+// writes f32 partials (m, l, unnormalized acc, at the real D) and
+// flash_combine folds them in split order, with no atomics.  At full width
+// (1280 blocks) one range writes the output itself.  Causal q tiles are
+// numbered heaviest first.
 //
-// Semantics kept from the reference in both: scale D^-0.5 applied to the
-// dot; causal mask qpos >= kpos on absolute positions, with masked scores
-// set to -1e30 (not -inf) and whole kv tiles above the diagonal skipped
-// (ki*bk > qi*bq + bq - 1; the f32 kernel skips its 64-row chunks above
-// the diagonal, which changes nothing: a masked score's p is exactly 0
-// once a row has seen key 0, and a range whose rows see only masked keys
+// Semantics kept from the reference in both: scale D^-0.5 (the real D)
+// applied to the dot; causal mask qpos >= kpos on absolute positions, with
+// masked scores set to -1e30 (not -inf) and whole kv tiles above the
+// diagonal skipped (ki*bk > qi*bq + bq - 1; the f32 kernel skips its chunks
+// above the diagonal, which changes nothing: a masked score's p is exactly
+// 0 once a row has seen key 0, and a range whose rows see only masked keys
 // has m = -1e30 and weight 2^(-1e30 - M) = 0 in the combine); out = acc /
 // max(l, 1e-30).  q is [B, Sq, H, D], k and v [B, Sk, G, D]; head h reads
 // kv head h / (H/G).
@@ -87,39 +100,39 @@ constexpr int kTY = 16;        // row groups: kThreads / kTX
 constexpr int kTX = 16;        // lanes that share a score row
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Score and output rows a thread holds, and score columns: 8 x 4 up to
-// D = 128 (a 128-row q tile, 64-row kv chunks); 4 x 2 at D = 256, where a
-// 128-row Q tile alone would take 128 KB and 8 rows of 16 output float4s
-// would not fit in registers (a 64-row q tile, 32-row kv chunks).
-// plan.f32_tiles mirrors these.
-template <int D>
+// Score and output rows a thread holds, and score columns, at padded width
+// DP: 8 x 4 up to DP = 128 (a 128-row q tile, 64-row kv chunks); 4 x 2
+// above, where a 128-row Q tile alone would take 96 KB or more and 8 rows
+// of DP/16 output float4s would not fit in registers (a 64-row q tile,
+// 32-row kv chunks).  plan.f32_tiles mirrors these.
+template <int DP>
 __host__ __device__ constexpr int rows_a_thread() {
-  return D > 128 ? 4 : 8;
+  return DP > 128 ? 4 : 8;
 }
-template <int D>
+template <int DP>
 __host__ __device__ constexpr int cols_a_thread() {
-  return D > 128 ? 2 : 4;
+  return DP > 128 ? 2 : 4;
 }
-template <int D>
+template <int DP>
 __host__ __device__ constexpr int block_q() {  // q rows a block holds
-  return kTY * rows_a_thread<D>();
+  return kTY * rows_a_thread<DP>();
 }
-template <int D>
+template <int DP>
 __host__ __device__ constexpr int block_k() {  // kv rows a ring stage holds
-  return kTX * cols_a_thread<D>();
+  return kTX * cols_a_thread<DP>();
 }
 
-// A ring of 3 stages where shared memory holds one (D = 64), else 2.
-template <int D>
+// A ring of 3 stages where shared memory holds one (DP = 64), else 2.
+template <int DP>
 __host__ __device__ constexpr int stages() {
-  return D == 64 ? 3 : 2;
+  return DP == 64 ? 3 : 2;
 }
 
-template <int D>
+template <int DP>
 __host__ __device__ constexpr int smem_floats() {
-  return block_q<D>() * D                        // Q tile
-         + 2 * stages<D>() * block_k<D>() * D    // K and V rings
-         + block_q<D>() * block_k<D>();          // P, each warp's rows its own
+  return block_q<DP>() * DP                       // Q tile
+         + 2 * stages<DP>() * block_k<DP>() * DP  // K and V rings
+         + block_q<DP>() * block_k<DP>();         // P, each warp's rows its own
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -136,53 +149,83 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// The place of 16-byte chunk c in shared row r: with G > 0 the chunks of
+// row r are stored in the order c ^ ((r / G) % 8), so the rows a warp reads
+// at one d (or k) fall in distinct bank groups, with no padding.  A
+// thread's own rows share one swizzle, so its reads walk the 8 chunks of
+// each 32 floats in the order u ^ f for a per-thread f, without index
+// arithmetic in the loop.  The swizzle permutes chunks within groups of 8.
+template <int G>
+__device__ __forceinline__ int swizzled(int r, int c) {
+  return G ? c ^ ((r / (G ? G : 1)) & 7) : c;
+}
+
 // kRows rows of D floats lying `stride` floats apart in global memory, into
-// shared rows of D floats.  With G > 0 the 16-byte chunks of row r are
-// stored in the order chunk ^ ((r / G) % 8): then the rows a warp reads at
-// one d (or k) fall in distinct bank groups, with no padding.  A thread's
-// own rows share one swizzle, so its reads walk the 8 chunks of each 32
-// floats in the order u ^ f for a per-thread f, without index arithmetic
-// in the loop.
-template <int D, int G, int kRows>
+// shared rows of DP floats: only the d4 = D / 4 real chunks of a row are
+// copied; the places of the others hold zeros (zero_pad).
+template <int DP, int G, int kRows>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int64_t stride, int tid) {
-  constexpr int kChunks = D / 4;
+                                          int64_t stride, int d4, int tid) {
+  constexpr int kChunks = DP / 4;
   static_assert(kRows * kChunks % kThreads == 0, "whole copies a thread");
 #pragma unroll
   for (int n = 0; n < kRows * kChunks / kThreads; ++n) {
     const int e = n * kThreads + tid;
     const int r = e / kChunks, c = e % kChunks;
-    const int pc = G ? c ^ ((r / (G ? G : 1)) & 7) : c;
-    cp_async16(dst + r * D + 4 * pc, src + r * stride + 4 * c);
+    if (c < d4)
+      cp_async16(dst + r * DP + 4 * swizzled<G>(r, c),
+                 src + r * stride + 4 * c);
+  }
+}
+
+// Zero the places of chunks d4 .. DP/4 - 1 of kRows shared rows of DP
+// floats, once before the first load: no copy writes them.  Where D % 32
+// != 0 the swizzle puts a row's padded chunks at places that depend on the
+// row, so the place p of a row is zeroed where the chunk stored there,
+// p ^ its swizzle, lies past the real ones.
+template <int DP, int G, int kRows>
+__device__ __forceinline__ void zero_pad(float* dst, int d4, int tid) {
+  constexpr int kChunks = DP / 4;
+  for (int e = tid; e < kRows * kChunks; e += kThreads) {
+    const int r = e / kChunks, p = e % kChunks;
+    if (swizzled<G>(r, p) >= d4)
+      *reinterpret_cast<float4*>(dst + r * DP + 4 * p) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
 // One block: a kBQ-row q tile of one (b, h) against kv rows
 // [kv0, kv0 + per_split) of split `split`, in kBK-row chunks (128 and 64
-// up to D = 128).  Thread (ty, tx) = (tid / 16, tid % 16) holds score rows
-// kRQ ty..kRQ ty + kRQ - 1 against chunk columns kCols tx..kCols tx +
-// kCols - 1, and output rows kRQ ty.. at columns 4tx + 64j (+0..3).
+// up to DP = 128), at head width D <= DP.  Thread (ty, tx) = (tid / 16,
+// tid % 16) holds score rows kRQ ty..kRQ ty + kRQ - 1 against chunk columns
+// kCols tx..kCols tx + kCols - 1, and output rows kRQ ty.. at columns
+// 4tx + 64j (+0..3), of which those below D are written.
 // A row's scores lie on the 16 lanes of one ty, so its max
 // takes four xor-shuffles; its sum is kept as a lane's share and reduced
 // once at the end.  Scores are taken in the log2 domain (scale * log2(e)
-// folded into one multiply), p = exp2(x - m).
-template <int D>
+// folded into one multiply), p = exp2(x - m).  Each DP has two instances:
+// without kPadded, D is DP and the code is that of a kernel built for D
+// alone (the run-time D cost 2.9% at D 256, PERF.md); with it, D < DP comes
+// at run time.
+template <int DP, bool kPadded>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ part, int Sq, int Sk, int H, int G,
-                 int causal, float scale_log2, int per_split, int n_splits) {
-  constexpr int kStages = stages<D>();
-  constexpr int kRQ = rows_a_thread<D>();
-  constexpr int kCols = cols_a_thread<D>();
-  constexpr int kBQ = block_q<D>();
-  constexpr int kBK = block_k<D>();
-  constexpr int OC = D / (4 * kTX);  // float4 output columns a thread holds
+                 int d_arg, int causal, float scale_log2, int per_split,
+                 int n_splits) {
+  const int D = kPadded ? d_arg : DP;
+  constexpr int kStages = stages<DP>();
+  constexpr int kRQ = rows_a_thread<DP>();
+  constexpr int kCols = cols_a_thread<DP>();
+  constexpr int kBQ = block_q<DP>();
+  constexpr int kBK = block_k<DP>();
+  constexpr int OC = DP / (4 * kTX);  // float4 output columns a thread holds
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem;
-  float* sK = sQ + kBQ * D;
-  float* sV = sK + kStages * kBK * D;
-  float* sP = sV + kStages * kBK * D;
+  float* sK = sQ + kBQ * DP;
+  float* sV = sK + kStages * kBK * DP;
+  float* sP = sV + kStages * kBK * DP;
 
   const int tid = threadIdx.x;
   const int ty = tid / kTX, tx = tid % kTX;
@@ -200,6 +243,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   int kv1 = min(Sk, kv0 + per_split);
   if (causal) kv1 = min(kv1, q0 + kBQ);  // chunks wholly above the diagonal
   const int n_chunks = kv1 > kv0 ? (kv1 - kv0) / kBK : 0;
+  const int d4 = D / 4;      // real 16-byte chunks of a row
 
   const int64_t q_stride = static_cast<int64_t>(H) * D;
   const int64_t kv_stride = static_cast<int64_t>(G) * D;
@@ -207,14 +251,22 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + (static_cast<int64_t>(b) * Sk * G + g) * D;
   const float* vb = v + (static_cast<int64_t>(b) * Sk * G + g) * D;
 
+  if (kPadded) {
+    zero_pad<DP, kRQ, kBQ>(sQ, d4, tid);
+    for (int st = 0; st < kStages; ++st) {
+      zero_pad<DP, kCols, kBK>(sK + st * kBK * DP, d4, tid);
+      zero_pad<DP, 0, kBK>(sV + st * kBK * DP, d4, tid);
+    }
+  }
   auto load_chunk = [&](int c) {
     const int st = c % kStages;
     const int64_t off = (kv0 + static_cast<int64_t>(c) * kBK) * kv_stride;
-    load_rows<D, kCols, kBK>(sK + st * kBK * D, kb + off, kv_stride, tid);
-    load_rows<D, 0, kBK>(sV + st * kBK * D, vb + off, kv_stride, tid);
+    load_rows<DP, kCols, kBK>(sK + st * kBK * DP, kb + off, kv_stride, d4,
+                              tid);
+    load_rows<DP, 0, kBK>(sV + st * kBK * DP, vb + off, kv_stride, d4, tid);
   };
   if (n_chunks > 0) {
-    load_rows<D, kRQ, kBQ>(sQ, qb + q0 * q_stride, q_stride, tid);
+    load_rows<DP, kRQ, kBQ>(sQ, qb + q0 * q_stride, q_stride, d4, tid);
     load_chunk(0);
   }
   cp_async_commit();
@@ -232,7 +284,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 4 * OC; ++j) acc[i][j] = 0.f;
   }
-  const float* qrow = sQ + r0 * D;
+  const float* qrow = sQ + r0 * DP;
   float* prow = sP + r0 * kBK;
 
   for (int c = 0; c < n_chunks; ++c) {
@@ -241,12 +293,13 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (c + kStages - 1 < n_chunks) load_chunk(c + kStages - 1);
     cp_async_commit();
 
-    const float* krow = sK + (c % kStages) * kBK * D + kCols * tx * D;
-    const float* vrow = sV + (c % kStages) * kBK * D + 4 * tx;
+    const float* krow = sK + (c % kStages) * kBK * DP + kCols * tx * DP;
+    const float* vrow = sV + (c % kStages) * kBK * DP + 4 * tx;
     const int k0 = kv0 + c * kBK;
 
     // S = Q K^T: kRQ x kCols a thread (8 x 4: 12 float4 reads per 128
-    // FMAs).
+    // FMAs), over the 32-column groups that hold real columns (the padded
+    // chunks of the last one are zeros in Q and K).
     float s[kRQ][kCols];
 #pragma unroll
     for (int i = 0; i < kRQ; ++i)
@@ -259,11 +312,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         float4 qv[kRQ], kv[kCols];
 #pragma unroll
         for (int i = 0; i < kRQ; ++i)
-          qv[i] = *reinterpret_cast<const float4*>(qrow + i * D + d8 +
+          qv[i] = *reinterpret_cast<const float4*>(qrow + i * DP + d8 +
                                                    4 * (u ^ fq));
 #pragma unroll
         for (int j = 0; j < kCols; ++j)
-          kv[j] = *reinterpret_cast<const float4*>(krow + j * D + d8 +
+          kv[j] = *reinterpret_cast<const float4*>(krow + j * DP + d8 +
                                                    4 * (u ^ fk));
 #pragma unroll
         for (int i = 0; i < kRQ; ++i)
@@ -319,7 +372,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncwarp();
 
     // O = O * alpha + P V: kRQ x 4*OC a thread; per k, OC float4 reads of
-    // V for 4 kRQ OC FMAs, and per 4 k, kRQ float4 reads of P.
+    // V for 4 kRQ OC FMAs, and per 4 k, kRQ float4 reads of P.  Columns
+    // past D multiply the zeros of V's padding and are never written.
 #pragma unroll
     for (int i = 0; i < kRQ; ++i)
 #pragma unroll
@@ -335,7 +389,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                                    4 * (u ^ fq));
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
-          const float* vk = vrow + (k8 + 4 * u + kk) * D;
+          const float* vk = vrow + (k8 + 4 * u + kk) * DP;
 #pragma unroll
           for (int jj = 0; jj < OC; ++jj) {
             const float4 vv =
@@ -374,15 +428,17 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float* orow = o + (row0 + static_cast<int64_t>(i) * H) * D + 4 * tx;
 #pragma unroll
       for (int jj = 0; jj < OC; ++jj)
-        *reinterpret_cast<float4*>(orow + 4 * kTX * jj) =
-            make_float4(acc[i][4 * jj] * inv, acc[i][4 * jj + 1] * inv,
-                        acc[i][4 * jj + 2] * inv, acc[i][4 * jj + 3] * inv);
+        if (4 * tx + 4 * kTX * jj < D)
+          *reinterpret_cast<float4*>(orow + 4 * kTX * jj) =
+              make_float4(acc[i][4 * jj] * inv, acc[i][4 * jj + 1] * inv,
+                          acc[i][4 * jj + 2] * inv, acc[i][4 * jj + 3] * inv);
     }
     return;
   }
-  // Partials of this split: acc [n_splits][rows][D], then (m, l) pairs
-  // [n_splits][rows][2].  A split with no chunk leaves m = -1e30, l = 0,
-  // acc = 0, which the combine weighs by exp2(-1e30 - M) = 0.
+  // Partials of this split at the real D: acc [n_splits][rows][D], then
+  // (m, l) pairs [n_splits][rows][2].  A split with no chunk leaves
+  // m = -1e30, l = 0, acc = 0, which the combine weighs by
+  // exp2(-1e30 - M) = 0.
   const int64_t rows = static_cast<int64_t>(gridDim.y / H) * Sq * H;
   float* pacc = part + split * rows * D;
   float* pml = part + n_splits * rows * D + split * rows * 2;
@@ -392,9 +448,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* arow = pacc + r * D + 4 * tx;
 #pragma unroll
     for (int jj = 0; jj < OC; ++jj)
-      *reinterpret_cast<float4*>(arow + 4 * kTX * jj) =
-          make_float4(acc[i][4 * jj], acc[i][4 * jj + 1], acc[i][4 * jj + 2],
-                      acc[i][4 * jj + 3]);
+      if (4 * tx + 4 * kTX * jj < D)
+        *reinterpret_cast<float4*>(arow + 4 * kTX * jj) =
+            make_float4(acc[i][4 * jj], acc[i][4 * jj + 1],
+                        acc[i][4 * jj + 2], acc[i][4 * jj + 3]);
     if (tx == 0)
       *reinterpret_cast<float2*>(pml + 2 * r) = make_float2(m[i], l[i]);
   }
@@ -404,10 +461,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // M = max m_s, L = sum l_s 2^(m_s - M),
 // out = sum acc_s 2^(m_s - M) / max(L, 1e-30).  One thread a float4 of one
 // row; no atomics, so the result is the same from run to run.
-template <int D>
 __global__ void __launch_bounds__(256)
 flash_combine(const float* __restrict__ part, float* __restrict__ o,
-              int64_t rows, int n_splits) {
+              int64_t rows, int D, int n_splits) {
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= rows * (D / 4)) return;
   const int64_t r = e / (D / 4);
@@ -435,31 +491,33 @@ flash_combine(const float* __restrict__ part, float* __restrict__ o,
       make_float4(out.x * inv, out.y * inv, out.z * inv, out.w * inv);
 }
 
-template <int D>
+template <int DP>
 int launch(const float* q, const float* k, const float* v, float* o,
-           float* part, int B, int Sq, int Sk, int H, int G, int causal,
+           float* part, int B, int Sq, int Sk, int H, int G, int D, int causal,
            float scale, int per_split, int n_splits, cudaStream_t stream) {
-  constexpr int kBQ = block_q<D>();
-  constexpr int kBK = block_k<D>();
-  if (Sq % kBQ || Sk % kBK || per_split <= 0 || per_split % kBK ||
+  constexpr int kBQ = block_q<DP>();
+  constexpr int kBK = block_k<DP>();
+  if (D > DP || DP - D >= 64 || Sq % kBQ || Sk % kBK || per_split <= 0 ||
+      per_split % kBK ||
       n_splits != (Sk + per_split - 1) / per_split ||
       (n_splits > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
-  auto* kern = flash_fwd_kernel<D>;
+  constexpr int smem = smem_floats<DP>() * static_cast<int>(sizeof(float));
+  auto* kern = D == DP ? flash_fwd_kernel<DP, false>
+                       : flash_fwd_kernel<DP, true>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq / kBQ) * n_splits, B * H);
-  kern<<<grid, kThreads, smem, stream>>>(q, k, v, o, part, Sq, Sk, H, G,
+  kern<<<grid, kThreads, smem, stream>>>(q, k, v, o, part, Sq, Sk, H, G, D,
                                          causal, scale * kLog2e, per_split,
                                          n_splits);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_splits == 1) return static_cast<int>(err);
   const int64_t rows = static_cast<int64_t>(B) * Sq * H;
   const int64_t threads = rows * (D / 4);
-  flash_combine<D><<<static_cast<unsigned>((threads + 255) / 256), 256, 0,
-                     stream>>>(part, o, rows, n_splits);
+  flash_combine<<<static_cast<unsigned>((threads + 255) / 256), 256, 0,
+                  stream>>>(part, o, rows, D, n_splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -478,15 +536,15 @@ constexpr int kThreads = 384;      // producer + two consumer warpgroups
 constexpr int kQPanel = kBQ * 128; // one 64-column panel of the Q tile
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared memory of one block at head width D with BK-row K and V tiles:
-// BK = 128 up to D = 128; at D = 256 the Q tile alone is 64 KB and two
-// stages of 128-row K and V tiles would not fit the 227 KB a block may
-// use, so BK = 64 (plan.sm90_kv_rows picks it from the same sum).
-template <int D, int BK>
+// Shared memory of one block at padded width DP with BK-row K and V
+// tiles: BK = 128 up to DP = 128; at DP = 192 and 256 two stages of 128-row
+// K and V tiles and the Q tile would not fit the 227 KB a block may use, so
+// BK = 64 (plan.sm90_kv_rows picks it from the same sum).
+template <int DP, int BK>
 __host__ __device__ constexpr int smem_bytes() {
   return 1024                           // alignment slack
-         + kBQ * D * 2                  // Q
-         + 2 * kStages * BK * D * 2     // K ring, V ring
+         + kBQ * DP * 2                 // Q
+         + 2 * kStages * BK * DP * 2    // K ring, V ring
          + 8 * (1 + 3 * kStages);       // mbarriers
 }
 
@@ -505,31 +563,39 @@ __device__ __forceinline__ void wgmma_qk(float (&sc)[BK / 2], uint64_t da,
   }
 }
 
-// O += P V for one 16-row k-step: m64n{D}k16, P from registers.
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&acc)[D / 2], const uint32_t* a,
-                                         uint64_t db) {
-  if constexpr (D == 256)
+// O += P V for one 16-row k-step: m64n{DP}k16, P from registers.
+template <int DP>
+__device__ __forceinline__ void wgmma_pv(float (&acc)[DP / 2],
+                                         const uint32_t* a, uint64_t db) {
+  if constexpr (DP == 256)
     wgmma_rs_n256(acc, a, db, 1);
-  else if constexpr (D == 128)
+  else if constexpr (DP == 192)
+    wgmma_rs_n192(acc, a, db, 1);
+  else if constexpr (DP == 128)
     wgmma_rs_n128(acc, a, db, 1);
   else
     wgmma_rs_n64(acc, a, db, 1);
 }
 
-// grid (B*H, Sq/128): blockIdx.x is the head, blockIdx.y the q tile.
-template <int D, int BK>
+// grid (B*H, Sq/128): blockIdx.x is the head, blockIdx.y the q tile.  The
+// head width D (D % 8 == 0) ends in the last of the DP / 64 panels; TMA
+// fills its columns D .. DP - 1 with zeros.  Each DP has two instances:
+// without kPadded, D is DP and the code is that of a kernel built for D
+// alone (one kernel holding both paths ran 1.4-5% slower at D 64 and 128,
+// PERF.md); with it, D < DP comes at run time.
+template <int DP, int BK, bool kPadded>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
                const __grid_constant__ CUtensorMap tm_k,
                const __grid_constant__ CUtensorMap tm_v,
                __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H, int G,
-               int causal, float scale_log2) {
-  constexpr int kPanels = D / 64;
-  constexpr int kQTile = kBQ * D * 2;
-  constexpr int kKVTile = BK * D * 2;
+               int d_arg, int causal, float scale_log2) {
+  const int D = kPadded ? d_arg : DP;
+  constexpr int kPanels = DP / 64;
+  constexpr int kQTile = kBQ * DP * 2;  // whole boxes, zero fill included
+  constexpr int kKVTile = BK * DP * 2;
   constexpr int kKVPanel = BK * 128;  // one 64-column panel of a K/V tile
-  constexpr int kAcc = D / 2;  // f32 accumulators a thread holds for 64 x D
+  constexpr int kAcc = DP / 2;  // f32 accumulators a thread holds for 64 x DP
   constexpr int kSc = BK / 2;  // ... for the 64 x BK scores
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sQ = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -608,6 +674,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
   float l[2] = {0.f, 0.f};  // this thread's columns only until the end
   const uint32_t q_addr = smem_u32(sQ) + 64 * c * 128;
 
+  const int n_k = (D + 15) / 16;  // k-steps of S that hold real columns
   mbar_wait(full_q, 0);
   for (int j = 0; j < n_kv; ++j) {
     const int s = j % kStages;
@@ -615,12 +682,16 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
     const uint32_t k_addr = smem_u32(sK + s * kKVTile);
     const uint32_t v_addr = smem_u32(sV + s * kKVTile);
 
-    // S = Q K^T over D in steps of 16 (32 bytes of one 128-byte row).
+    // S = Q K^T over D in steps of 16 (32 bytes of one 128-byte row): the
+    // k-steps past D would multiply the zero fill, so they are not issued
+    // (a chain cut at run time, which ptxas fences at each product: its
+    // C7519 note; at D = DP the chain is whole).
     mbar_wait(&full_k[s], parity);
     reg_fence(sc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      if (kk >= n_k) break;
       const uint32_t col = (kk % 4) * 32;
       const uint64_t da = sw128_desc(q_addr + (kk / 4) * kQPanel + col, 16);
       const uint64_t db = sw128_desc(k_addr + (kk / 4) * kKVPanel + col, 16);
@@ -685,8 +756,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       const uint64_t dv = sw128_desc(v_addr + kk * 16 * 128, kKVPanel);
-      wgmma_pv<D>(acc, p_hi + 4 * kk, dv);
-      wgmma_pv<D>(acc, p_lo + 4 * kk, dv);
+      wgmma_pv<DP>(acc, p_hi + 4 * kk, dv);
+      wgmma_pv<DP>(acc, p_lo + 4 * kk, dv);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -695,7 +766,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
   }
 
   // out = acc / max(l, 1e-30), rounded to bf16, staged in this consumer's
-  // Q rows (same swizzle) and written as 16-byte row segments.
+  // Q rows (same swizzle) and written as 16-byte row segments, the D / 8
+  // of a row that hold real columns.
   float lim[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -706,7 +778,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
   uint8_t* sO = sQ + 64 * c * 128;
   asm volatile("bar.sync %0, 128;" ::"r"(1 + c) : "memory");  // Q rows read
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < DP / 8; ++n) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row_lo + 8 * r;
@@ -717,10 +789,11 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
     }
   }
   asm volatile("bar.sync %0, 128;" ::"r"(1 + c) : "memory");
-  constexpr int kChunks = D / 8;  // 16-byte segments in one output row
+  constexpr int kChunks = DP / 8;  // 16-byte segments in one staged row
   for (int i = t; i < 64 * kChunks; i += 128) {
     const int row = i / kChunks;
     const int ch = i % kChunks;
+    if (ch >= D / 8) continue;     // a padded column
     const uint4 val = *reinterpret_cast<const uint4*>(
         sO + (ch / 8) * kQPanel + row * 128 + (((ch % 8) ^ (row % 8)) * 16));
     const int64_t pos = static_cast<int64_t>(b) * Sq + q_first + row;
@@ -729,7 +802,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // Tensor map over a contiguous [rows, heads, D] bf16 array, boxes of
-// {64 columns, 1 head, box_rows rows}, 128-byte swizzle.
+// {64 columns, 1 head, box_rows rows}, 128-byte swizzle.  A box's columns
+// past D lie outside the map and land as zeros (FLOAT_OOB_FILL_NONE); they
+// still count in the bytes the load completes on its mbarrier.
 bool make_map(CUtensorMap* map, const void* base, int D, int heads,
               int64_t rows, int box_rows) {
   const EncodeTiled encode = encode_tiled();
@@ -748,185 +823,51 @@ bool make_map(CUtensorMap* map, const void* base, int D, int heads,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, int BK>
+template <int DP, int BK>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-           int Sk, int H, int G, int causal, float scale, cudaStream_t stream) {
-  static_assert(smem_bytes<D, BK>() <= 232448, "over a block's shared memory");
-  if (Sq % kBQ || Sk % BK) return static_cast<int>(cudaErrorInvalidValue);
+           int Sk, int H, int G, int D, int causal, float scale,
+           cudaStream_t stream) {
+  static_assert(smem_bytes<DP, BK>() <= 232448, "over a block's shared memory");
+  if (D > DP || DP - D >= 64 || Sq % kBQ || Sk % BK)
+    return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, D, H, static_cast<int64_t>(B) * Sq, kBQ) ||
       !make_map(&tk, k, D, G, static_cast<int64_t>(B) * Sk, BK) ||
       !make_map(&tv, v, D, G, static_cast<int64_t>(B) * Sk, BK))
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int smem = smem_bytes<D, BK>();
-  auto* kern = flash_fwd_sm90<D, BK>;
+  constexpr int smem = smem_bytes<DP, BK>();
+  auto* kern = D == DP ? flash_fwd_sm90<DP, BK, false>
+                       : flash_fwd_sm90<DP, BK, true>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, Sq / kBQ);
   kern<<<grid, kThreads, smem, stream>>>(tq, tk, tv,
                                          static_cast<__nv_bfloat16*>(o), Sq,
-                                         Sk, H, G, causal, scale * kLog2e);
+                                         Sk, H, G, D, causal, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace sm90
 
 
-// ---------------------------------------------------------------------------
-// Other head widths: a simple CUDA-core kernel, both dtypes
-// ---------------------------------------------------------------------------
-//
-// The tiled kernels above are built for D in {64, 128, 256}; the reference's
-// mha runs its kernel at any D % 8 == 0 (the smoke configs' 16, for one).
-// flash_fwd_simple takes every such D up to 256 at run time, in f32 or bf16
-// (read into f32, accumulated in f32, rounded once at the end), and is
-// written to be right, not fast: a block (8 warps) holds a 32-row q tile
-// in shared memory and walks the kv axis in 32-row chunks; a warp owns 4 q
-// rows, lane j scores kv row j of the chunk (K rows padded to D + 1 floats,
-// so the lanes' reads fall in distinct banks), the row's max takes five
-// xor-shuffles, and P V broadcasts each p_j by shuffle while lane l holds
-// output columns l, l + 32, ...  Causal q tiles are numbered heaviest
-// first, and chunks wholly above the diagonal are skipped.
-
-namespace simple {
-
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kRows = 4;       // q rows a warp holds
-constexpr int kBQ = 32;        // q rows a block holds
-constexpr int kBK = 32;        // kv rows a chunk holds: one a lane
-constexpr int kCols = 8;       // output columns a lane holds: D <= 256
-constexpr float kLog2e = 1.4426950408889634f;
-
-inline int smem_bytes(int D) {
-  return static_cast<int>(sizeof(float)) *
-         (kBQ * D + kBK * (D + 1) + kBK * D);  // Q, padded K, V
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_simple(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-                 int H, int G, int D, int causal, float scale_log2) {
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;                 // [kBQ][D]
-  float* sK = sQ + kBQ * D;         // [kBK][D + 1]
-  float* sV = sK + kBK * (D + 1);   // [kBK][D]
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int n_q = Sq / kBQ;
-  const int tile = static_cast<int>(blockIdx.x);
-  const int qi = causal ? n_q - 1 - tile : tile;  // heaviest first
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H, g = h / (H / G);
-  const int q0 = qi * kBQ;
-  const int64_t q_stride = static_cast<int64_t>(H) * D;
-  const int64_t kv_stride = static_cast<int64_t>(G) * D;
-  const T* qb = q + (static_cast<int64_t>(b) * Sq * H + h) * D;
-  const T* kb = k + (static_cast<int64_t>(b) * Sk * G + g) * D;
-  const T* vb = v + (static_cast<int64_t>(b) * Sk * G + g) * D;
-
-  for (int e = tid; e < kBQ * D; e += kThreads) {
-    const int r = e / D, col = e % D;
-    sQ[e] = to_f32(qb[(q0 + r) * q_stride + col]);
-  }
-  float m[kRows], l[kRows], acc[kRows][kCols];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = REPRO_NEG_INF;
-    l[i] = 0.f;  // this lane's share until the end
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
-  }
-  const int kv_end = causal ? min(Sk, q0 + kBQ) : Sk;
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
-    __syncthreads();  // the last chunk read (and, first, Q written)
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      const int r = e / D, col = e % D;
-      const int64_t src = (k0 + r) * kv_stride + col;
-      sK[r * (D + 1) + col] = to_f32(kb[src]);
-      sV[r * D + col] = to_f32(vb[src]);
-    }
-    __syncthreads();
-    const bool mask = causal && k0 + kBK - 1 > q0;
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = warp * kRows + i;
-      const float* qr = sQ + row * D;
-      const float* kr = sK + lane * (D + 1);
-      float s = 0.f;
-      for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
-      float x = s * scale_log2;
-      if (mask && q0 + row < k0 + lane) x = REPRO_NEG_INF;
-      float mx = x;
-#pragma unroll
-      for (int off = 16; off; off /= 2)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = exp2f(m[i] - m_new);
-      const float p = exp2f(x - m_new);
-      l[i] = l[i] * alpha + p;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
-      for (int j = 0; j < kBK; ++j) {
-        const float pj = __shfl_sync(0xffffffffu, p, j);
-        const float* vr = sV + j * D + lane;
-#pragma unroll
-        for (int c = 0; c < kCols; ++c)
-          if (lane + 32 * c < D) acc[i][c] = fmaf(pj, vr[32 * c], acc[i][c]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    float sum = l[i];
-#pragma unroll
-    for (int off = 16; off; off /= 2)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    const float inv = 1.f / fmaxf(sum, 1e-30f);
-    const int row = warp * kRows + i;
-    T* orow = o + ((static_cast<int64_t>(b) * Sq + q0 + row) * H + h) * D;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c)
-      if (lane + 32 * c < D) orow[lane + 32 * c] = from_f32<T>(acc[i][c] * inv);
-  }
-}
-
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-           int Sk, int H, int G, int D, int causal, float scale,
-           cudaStream_t stream) {
-  if (D < 8 || D % 8 || D > 32 * kCols || Sq % kBQ || Sk % kBK)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = smem_bytes(D);
-  auto* kern = flash_fwd_simple<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(Sq / kBQ, B * H);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, G, D, causal,
-      scale * kLog2e);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace simple
-
 }  // namespace
 
 // Contract (checked by the Python wrapper, kernel.py): contiguous, 16-byte
 // aligned inputs, D % 8 == 0 and 8 <= D <= 256, Sq % bq == 0, Sk % bk == 0,
 // H % G == 0, where bq and bk are the reference's tiles, which no kernel
-// reads.  tile_k is the kv rows a stage of the chosen kernel holds, as
-// plan.py gives it (checked here against the instantiation):
-// - D in {64, 128, 256}, f32: flash_fwd_kernel, 128 x 64 tiles (64 x 32 at
-//   D = 256), the kv axis cut into n_splits ranges of per_split rows (a
-//   multiple of tile_k); part holds n_splits * B*Sq*H * (D + 2) floats when
+// reads.  Each dtype runs its kernel built for the padded width DP = D
+// rounded up to a multiple of 64 (plan.padded_head_dim), whose shared-memory
+// rows hold D real columns and zeros up to DP (the instance for D = DP where
+// D is a multiple of 64).  tile_k is the
+// kv rows a stage of that instance holds, as plan.py gives it (checked here
+// against the instantiation):
+// - f32: flash_fwd_kernel, 128 x 64 tiles (64 x 32 at DP 192 and 256), the
+//   kv axis cut into n_splits ranges of per_split rows (a multiple of
+//   tile_k); part holds n_splits * B*Sq*H * (D + 2) floats when
 //   n_splits > 1;
-// - D in {64, 128, 256}, bf16: flash_fwd_sm90, 128-row q tiles and tile_k
-//   (128, or 64 at D = 256) kv rows, one split;
-// - any other D: flash_fwd_simple, 32 x 32 tiles, one split.
+// - bf16: flash_fwd_sm90, 128-row q tiles and tile_k (128, or 64 at DP 192
+//   and 256) kv rows, one split.
 REPRO_EXPORT int flash_attention_launch(int dtype, const void* q, const void* k,
                                         const void* v, void* o, void* part,
                                         int B, int Sq, int Sk, int H, int G,
@@ -938,46 +879,41 @@ REPRO_EXPORT int flash_attention_launch(int dtype, const void* q, const void* k,
       D < 8 || D % 8 || D > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool tiled = D == 64 || D == 128 || D == 256;
-  if (!tiled) {
-    if (n_splits != 1 || tile_k != simple::kBK)
-      return static_cast<int>(cudaErrorInvalidValue);
-    if (dtype == REPRO_F32)
-      return simple::launch<float>(q, k, v, o, B, Sq, Sk, H, G, D, causal,
-                                   scale, s);
-    if (dtype == REPRO_BF16)
-      return simple::launch<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, G, D,
-                                           causal, scale, s);
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const int DP = (D + 63) / 64 * 64;
   if (dtype == REPRO_F32) {
     const auto* qf = static_cast<const float*>(q);
     const auto* kf = static_cast<const float*>(k);
     const auto* vf = static_cast<const float*>(v);
     auto* of = static_cast<float*>(o);
     auto* pf = static_cast<float*>(part);
-    if (D == 64 && tile_k == f32::block_k<64>())
-      return f32::launch<64>(qf, kf, vf, of, pf, B, Sq, Sk, H, G, causal,
+    if (DP == 64 && tile_k == f32::block_k<64>())
+      return f32::launch<64>(qf, kf, vf, of, pf, B, Sq, Sk, H, G, D, causal,
                              scale, per_split, n_splits, s);
-    if (D == 128 && tile_k == f32::block_k<128>())
-      return f32::launch<128>(qf, kf, vf, of, pf, B, Sq, Sk, H, G, causal,
+    if (DP == 128 && tile_k == f32::block_k<128>())
+      return f32::launch<128>(qf, kf, vf, of, pf, B, Sq, Sk, H, G, D, causal,
                               scale, per_split, n_splits, s);
-    if (D == 256 && tile_k == f32::block_k<256>())
-      return f32::launch<256>(qf, kf, vf, of, pf, B, Sq, Sk, H, G, causal,
+    if (DP == 192 && tile_k == f32::block_k<192>())
+      return f32::launch<192>(qf, kf, vf, of, pf, B, Sq, Sk, H, G, D, causal,
+                              scale, per_split, n_splits, s);
+    if (DP == 256 && tile_k == f32::block_k<256>())
+      return f32::launch<256>(qf, kf, vf, of, pf, B, Sq, Sk, H, G, D, causal,
                               scale, per_split, n_splits, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == REPRO_BF16) {
     if (n_splits != 1) return static_cast<int>(cudaErrorInvalidValue);
-    if (D == 64 && tile_k == 128)
-      return sm90::launch<64, 128>(q, k, v, o, B, Sq, Sk, H, G, causal, scale,
-                                   s);
-    if (D == 128 && tile_k == 128)
-      return sm90::launch<128, 128>(q, k, v, o, B, Sq, Sk, H, G, causal,
+    if (DP == 64 && tile_k == 128)
+      return sm90::launch<64, 128>(q, k, v, o, B, Sq, Sk, H, G, D, causal,
+                                   scale, s);
+    if (DP == 128 && tile_k == 128)
+      return sm90::launch<128, 128>(q, k, v, o, B, Sq, Sk, H, G, D, causal,
                                     scale, s);
-    if (D == 256 && tile_k == 64)
-      return sm90::launch<256, 64>(q, k, v, o, B, Sq, Sk, H, G, causal, scale,
-                                   s);
+    if (DP == 192 && tile_k == 64)
+      return sm90::launch<192, 64>(q, k, v, o, B, Sq, Sk, H, G, D, causal,
+                                   scale, s);
+    if (DP == 256 && tile_k == 64)
+      return sm90::launch<256, 64>(q, k, v, o, B, Sq, Sk, H, G, D, causal,
+                                   scale, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -5,15 +5,15 @@ Replaces ``flash_attention`` of ``repro/kernels/flash_attention/kernel.py``.
 (times the kv ranges of a split), each looping its kv rows itself; the
 spec's tiles are the reference's and only set what the trace walk
 replays.  The kernels read q, k and v in their [B, S, heads, D] layout, so
-no transpose is materialized.  The dtype and the head width pick the
-kernel (:func:`kernel_path`): at D in
-``plan.TILED_HEAD_DIMS`` bf16 runs ``flash_fwd_sm90`` on the tensor cores
+no transpose is materialized.  The dtype alone picks the kernel
+(:func:`kernel_path`): bf16 runs ``flash_fwd_sm90`` on the tensor cores
 (``wgmma``, TMA), float32 ``flash_fwd_kernel`` on the CUDA cores, its kv
 axis cut into ranges by ``plan.split_plan`` (one range writes the output;
-several write f32 partials into scratch that ``flash_combine`` folds); at
-every other D % 8 == 0 up to 256 both dtypes run ``flash_fwd_simple``, a
-CUDA-core kernel written to be right, not fast.  A wider or ragged head
-raises: ROADMAP.md's queue 2 holds what a wider one would need.
+several write f32 partials into scratch that ``flash_combine`` folds).
+Each takes every head width D % 8 == 0 up to 256 through the instance
+built for ``plan.padded_head_dim(D)`` (64, 128, 192 or 256), which pads
+the head in shared memory alone.  A wider or ragged head raises:
+ROADMAP.md's queue 2 holds what a wider one would need.
 """
 
 from __future__ import annotations
@@ -26,16 +26,14 @@ import torch
 from repro_torch.capture.launch import LaunchSpec
 
 from .. import _build
-from .plan import (MAX_HEAD_DIM, SIMPLE_TILE, TILED_HEAD_DIMS, f32_tiles,
-                   split_plan, sm90_kv_rows)
+from .plan import (MAX_HEAD_DIM, f32_tiles, padded_head_dim, split_plan,
+                   sm90_kv_rows)
 
-__all__ = ["flash_attention", "kernel_path", "head_dim_ok", "SM90_BLOCK",
-           "SIMPLE"]
+__all__ = ["flash_attention", "kernel_path", "head_dim_ok", "SM90_BLOCK"]
 
 SM90_BLOCK = 128        # bf16: the q tile rows flash_fwd_sm90 walks
-SIMPLE = "flash_fwd_simple"
 
-# Which tiled kernel a launch at D in TILED_HEAD_DIMS takes, by dtype.
+# Which kernel a launch takes, by dtype.
 PATHS = {torch.float32: "flash_fwd_kernel", torch.bfloat16: "flash_fwd_sm90"}
 
 
@@ -47,9 +45,9 @@ def head_dim_ok(d: int) -> bool:
 def kernel_path(dtype: torch.dtype, d: int, block_q: int, block_k: int) -> str:
     """The kernel that takes a launch of this dtype, head width and spec
     tiles; raises on a launch no kernel takes.  No kernel reads the spec's
-    tiles (each walks its own: ``plan.f32_tiles``, 128-row q tiles and
-    ``plan.sm90_kv_rows`` kv rows for flash_fwd_sm90, 32 x 32 for
-    flash_fwd_simple), so every tile ``ops.launch_spec`` gives is taken;
+    tiles (each walks its own at the padded width: ``plan.f32_tiles``,
+    128-row q tiles and ``plan.sm90_kv_rows`` kv rows for flash_fwd_sm90),
+    so every tile ``ops.launch_spec`` gives is taken;
     the card path's Sq, Sk multiples of 128 keep the kernels' own tiles
     whole."""
     if dtype not in PATHS:
@@ -62,7 +60,7 @@ def kernel_path(dtype: torch.dtype, d: int, block_q: int, block_k: int) -> str:
     if block_q < 1 or block_k < 1:
         raise ValueError(f"flash_attention takes positive tiles; got "
                          f"block_q={block_q}, block_k={block_k}")
-    return PATHS[dtype] if d in TILED_HEAD_DIMS else SIMPLE
+    return PATHS[dtype]
 
 
 @functools.cache
@@ -90,10 +88,13 @@ def flash_attention(spec: LaunchSpec, q: torch.Tensor, k: torch.Tensor,
                for t in (q, k, v)):
         raise ValueError("flash_attention kernel takes contiguous, 16-byte "
                          "aligned inputs")
-    per, n_splits = (split_plan(b, h, sq, sk, n_sm=_build.sm_count(q), d=d)
-                     if path == "flash_fwd_kernel" else (sk, 1))
-    tile_k = {"flash_fwd_kernel": f32_tiles(d)[1],
-              "flash_fwd_sm90": sm90_kv_rows(d)}.get(path, SIMPLE_TILE)
+    dp = padded_head_dim(d)
+    if path == "flash_fwd_kernel":
+        per, n_splits = split_plan(b, h, sq, sk, n_sm=_build.sm_count(q),
+                                   d=dp)
+        tile_k = f32_tiles(dp)[1]
+    else:
+        per, n_splits, tile_k = sk, 1, sm90_kv_rows(dp)
     out = torch.empty_like(q)
     part = (torch.empty(n_splits * b * sq * h * (d + 2), dtype=torch.float32,
                         device=q.device) if n_splits > 1 else None)
@@ -108,5 +109,4 @@ def flash_attention(spec: LaunchSpec, q: torch.Tensor, k: torch.Tensor,
 
 
 flash_attention.launches = 0
-flash_attention.launches_by_kernel = dict.fromkeys(
-    (*PATHS.values(), SIMPLE), 0)
+flash_attention.launches_by_kernel = dict.fromkeys(PATHS.values(), 0)

@@ -15,52 +15,68 @@ least) are about as many bytes as the partials it writes (128 rows x
 (D + 2) floats).  A grid that already fills the card gets one range,
 which writes the output itself in one launch.
 
-Both tiled kernels are instantiated for D in ``TILED_HEAD_DIMS``; their
-tiles shrink at D = 256, where the tiles of D = 128 do not fit a block's
-shared memory (:func:`f32_tiles`, :func:`sm90_kv_rows`).  Every other
-``D % 8 == 0`` up to ``MAX_HEAD_DIM`` runs ``flash_fwd_simple`` on
-``SIMPLE_TILE`` x ``SIMPLE_TILE`` tiles.
+Both tiled kernels are instantiated for the padded widths
+``TILED_HEAD_DIMS`` alone and take every ``D % 8 == 0`` up to
+``MAX_HEAD_DIM`` at run time: a launch at D runs the kernel built for
+:func:`padded_head_dim` (D rounded up to a whole 64-column panel), whose
+shared-memory rows hold D real columns and zeros up to DP, while every
+global read and write stays at the real D (each DP has a second instance
+for D = DP itself, compiled as a kernel of that fixed width).  Their tiles
+shrink above DP = 128, where the tiles of DP = 128 do not fit a block's
+shared memory (:func:`f32_tiles`, :func:`sm90_kv_rows`); every function
+here takes DP.
 """
 
 from __future__ import annotations
 
-__all__ = ["split_plan", "f32_tiles", "sm90_kv_rows", "sm90_smem_bytes",
-           "BLOCK_Q", "KV_CHUNK", "SPLITS_PER_SM", "TILED_HEAD_DIMS",
-           "MAX_HEAD_DIM", "SIMPLE_TILE", "SMEM_PER_BLOCK"]
+__all__ = ["split_plan", "padded_head_dim", "f32_tiles", "sm90_kv_rows",
+           "sm90_smem_bytes", "BLOCK_Q", "KV_CHUNK", "SPLITS_PER_SM",
+           "TILED_HEAD_DIMS", "MAX_HEAD_DIM", "PANEL", "SMEM_PER_BLOCK"]
 
-BLOCK_Q = 128        # q rows one block holds (D <= 128)
-KV_CHUNK = 64        # kv rows one stage of the block's ring holds (D <= 128)
+BLOCK_Q = 128        # q rows one block holds (DP <= 128)
+KV_CHUNK = 64        # kv rows one stage of the block's ring holds (DP <= 128)
 SPLITS_PER_SM = 2
-TILED_HEAD_DIMS = (64, 128, 256)   # widths the tiled kernels are built for
+PANEL = 64           # columns of one 128-byte bf16 row of a TMA box
+TILED_HEAD_DIMS = (64, 128, 192, 256)   # the padded widths DP built
 MAX_HEAD_DIM = 256
-SIMPLE_TILE = 32     # q and kv rows flash_fwd_simple's block walks
 SMEM_PER_BLOCK = 232_448   # bytes of shared memory a block may use
 SM90_BLOCK_Q = 128
 SM90_STAGES = 2
 
 
-def f32_tiles(d: int) -> tuple[int, int]:
+def padded_head_dim(d: int) -> int:
+    """The padded width DP whose instance of the tiled kernels takes head
+    width ``d``: ``d`` rounded up to a whole ``PANEL``, one of
+    ``TILED_HEAD_DIMS``; raises on a width no kernel takes."""
+    if not (8 <= d <= MAX_HEAD_DIM and d % 8 == 0):
+        raise ValueError(f"flash kernels take D % 8 == 0 up to "
+                         f"{MAX_HEAD_DIM}, got D={d}")
+    return _cdiv(d, PANEL) * PANEL
+
+
+def f32_tiles(dp: int) -> tuple[int, int]:
     """(q rows a block holds, kv rows a stage holds) of ``flash_fwd_kernel``
-    at head width ``d``: 16 row groups of 8 rows and 16 lanes of 4 columns,
-    or 4 rows and 2 columns at D = 256, where a 128-row f32 Q tile alone
-    takes 128 KB."""
-    return (64, 32) if d > 128 else (BLOCK_Q, KV_CHUNK)
+    at padded width ``dp``: 16 row groups of 8 rows and 16 lanes of 4
+    columns, or 4 rows and 2 columns above DP = 128, where a 128-row f32 Q
+    tile alone takes 96 KB or more."""
+    return (64, 32) if dp > 128 else (BLOCK_Q, KV_CHUNK)
 
 
-def sm90_smem_bytes(d: int, kv_rows: int) -> int:
-    """``flash_fwd_sm90``'s shared memory: alignment slack, the bf16 Q tile,
-    two stages of K and V tiles, the mbarriers."""
-    return (1024 + SM90_BLOCK_Q * d * 2 + 2 * SM90_STAGES * kv_rows * d * 2
+def sm90_smem_bytes(dp: int, kv_rows: int) -> int:
+    """``flash_fwd_sm90``'s shared memory at padded width ``dp``: alignment
+    slack, the bf16 Q tile, two stages of K and V tiles, the mbarriers."""
+    return (1024 + SM90_BLOCK_Q * dp * 2 + 2 * SM90_STAGES * kv_rows * dp * 2
             + 8 * (1 + 3 * SM90_STAGES))
 
 
-def sm90_kv_rows(d: int) -> int:
-    """K/V tile rows of ``flash_fwd_sm90`` at head width ``d``: 128 where
-    the buffers fit a block's shared memory, else 64 (D = 256)."""
+def sm90_kv_rows(dp: int) -> int:
+    """K/V tile rows of ``flash_fwd_sm90`` at padded width ``dp``: 128
+    where the buffers fit a block's shared memory, else 64 (DP 192 and
+    256)."""
     for rows in (128, 64):
-        if sm90_smem_bytes(d, rows) <= SMEM_PER_BLOCK:
+        if sm90_smem_bytes(dp, rows) <= SMEM_PER_BLOCK:
             return rows
-    raise ValueError(f"flash_fwd_sm90 fits no K/V tile at D={d}")
+    raise ValueError(f"flash_fwd_sm90 fits no K/V tile at DP={dp}")
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -71,7 +87,7 @@ def split_plan(b: int, h: int, sq: int, sk: int, *, n_sm: int,
                d: int = 128) -> tuple[int, int]:
     """kv rows per range and the number of ranges for one launch over
     ``b * h`` heads of ``sq`` query and ``sk`` kv rows (multiples of the
-    head width's tiles, :func:`f32_tiles`: 128 and 64 up to D = 128) on a
+    padded width's tiles, :func:`f32_tiles`: 128 and 64 up to DP = 128) on a
     card of ``n_sm`` SMs.  Every range but the last holds exactly ``rows
     per range`` rows, a multiple of the kv tile, and none is empty."""
     block_q, chunk = f32_tiles(d)

@@ -1,0 +1,179 @@
+"""The arithmetic of the two flash kernels (``csrc/flash_attention.cu``)
+emulated in PyTorch on the CPU, at every head width D % 8 == 0 up to 256.
+
+Both kernels run at the padded width ``DP = plan.padded_head_dim(D)``: the
+emulations pad q, k and v with zero columns up to DP, as the kernels' shared
+memory holds them (TMA's zero fill for ``flash_fwd_sm90``, the zeroed places
+of ``flash_fwd_kernel``'s rows), walk the tiles ``plan`` gives DP, take the
+scale from the real D and keep the output's first D columns.
+
+- :func:`sm90_emulation`: ``flash_fwd_sm90`` (bf16) on 128-row q tiles and
+  ``plan.sm90_kv_rows(DP)`` kv rows: S = Q K^T in f32 from bf16 inputs, the
+  online softmax in the log2 domain with ``scale * log2(e)`` folded into
+  one multiply of the dot, scores masked to -1e30 on the tile that crosses
+  the diagonal and kv tiles above it skipped, P split into two bf16
+  halves (``hi = bf16(p)``, ``lo = bf16(p - hi)``) both multiplied by bf16
+  V into an f32 accumulator, ``out = acc / max(l, 1e-30)`` rounded to bf16.
+- :func:`kernel_emulation`: ``flash_fwd_kernel`` + ``flash_combine`` (f32):
+  each range of kv rows runs the online softmax over its own chunks
+  (``plan.f32_tiles(DP)``), a row's sum kept as 16 lanes' shares added at
+  the end; the combine folds the ranges in order.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention.plan import (f32_tiles,
+                                                      padded_head_dim,
+                                                      sm90_kv_rows)
+
+__all__ = ["sm90_emulation", "kernel_emulation", "split_partials",
+           "pad_head", "NEG_INF", "LANES", "SM90_BLOCK"]
+
+NEG_INF = -1e30
+LANES = 16        # f32: lanes that share one score row
+SM90_BLOCK = 128  # bf16: q rows a block holds
+
+
+def pad_head(x: torch.Tensor) -> torch.Tensor:
+    """x [..., D] with zero columns up to DP = ``padded_head_dim(D)``."""
+    d = x.shape[-1]
+    return F.pad(x, (0, padded_head_dim(d) - d))
+
+
+def _scale_log2(d: int) -> float:
+    return d ** -0.5 * math.log2(math.e)
+
+
+def sm90_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool, split_p: bool = True) -> torch.Tensor:
+    """flash_fwd_sm90's arithmetic on bf16 q [B, Sq, H, D] and k, v
+    [B, Sk, G, D] -> bf16 [B, Sq, H, D]; ``split_p=False`` rounds P once
+    to bf16 instead of splitting it."""
+    b, sq, h, d = q.shape
+    _, sk, g, _ = k.shape
+    rep = h // g
+    scale_log2 = _scale_log2(d)
+    q, k, v = (pad_head(x) for x in (q, k, v))
+    dp = q.shape[-1]
+    out = torch.empty(b, sq, h, dp, dtype=torch.bfloat16)
+    rows = torch.arange(SM90_BLOCK)
+    bk = sm90_kv_rows(dp)         # 128, or 64 at DP 192 and 256
+    cols = torch.arange(bk)
+    for bi in range(b):
+        for hi in range(h):
+            for q0 in range(0, sq, SM90_BLOCK):
+                qt = q[bi, q0:q0 + SM90_BLOCK, hi].float()
+                m = torch.full((SM90_BLOCK, 1), NEG_INF)
+                l = torch.zeros(SM90_BLOCK, 1)
+                acc = torch.zeros(SM90_BLOCK, dp)
+                for k0 in range(0, sk, bk):
+                    if causal and k0 > q0 + SM90_BLOCK - 1:
+                        break
+                    kt = k[bi, k0:k0 + bk, hi // rep].float()
+                    vt = v[bi, k0:k0 + bk, hi // rep].float()
+                    s = (qt @ kt.T) * scale_log2
+                    if causal and k0 + bk - 1 > q0:
+                        keep = (q0 + rows)[:, None] >= (k0 + cols)[None, :]
+                        s = torch.where(keep, s, torch.tensor(NEG_INF))
+                    m_new = torch.maximum(m, s.amax(dim=1, keepdim=True))
+                    alpha = torch.exp2(m - m_new)
+                    p = torch.exp2(s - m_new)
+                    l = l * alpha + p.sum(dim=1, keepdim=True)
+                    p_hi = p.to(torch.bfloat16).float()
+                    pv = p_hi @ vt
+                    if split_p:
+                        pv = pv + (p - p_hi).to(torch.bfloat16).float() @ vt
+                    acc = acc * alpha + pv
+                    m = m_new
+                out[bi, q0:q0 + SM90_BLOCK, hi] = (
+                    acc / torch.clamp(l, min=1e-30)).to(torch.bfloat16)
+    return out[..., :d].contiguous()
+
+
+def _range(q0: int, kv0: int, per: int, sk: int, causal: bool,
+           dp: int) -> range:
+    """The chunk starts one f32 block walks: kv rows [kv0, kv0 + per), cut
+    at the end of the q tile's diagonal when causal."""
+    block_q, chunk = f32_tiles(dp)
+    kv1 = min(sk, kv0 + per)
+    if causal:
+        kv1 = min(kv1, q0 + block_q)
+    return range(kv0, max(kv0, kv1), chunk)
+
+
+def split_partials(qt, kt, vt, q0: int, kv0: int, per: int, sk: int,
+                   causal: bool, *, d: int | None = None):
+    """One f32 block's (m, l, acc) for a [block_q, DP] q tile
+    (``plan.f32_tiles``: 128 rows, 64 above DP = 128) against kv rows
+    [kv0, kv0 + per) of one head, all padded to DP: m in the log2 domain
+    at the scale of the real head width ``d`` (by default DP), l the 16
+    lanes' shares (4 columns each, 2 above DP = 128) added at the end."""
+    block_q, dp = qt.shape
+    chunk = f32_tiles(dp)[1]
+    scale_log2 = _scale_log2(d or dp)
+    rows = torch.arange(block_q)
+    m = torch.full((block_q, 1), NEG_INF)
+    l_lane = torch.zeros(block_q, LANES)
+    acc = torch.zeros(block_q, dp)
+    for k0 in _range(q0, kv0, per, sk, causal, dp):
+        s = (qt @ kt[k0:k0 + chunk].T) * scale_log2
+        if causal and k0 + chunk - 1 > q0:
+            keep = (q0 + rows)[:, None] >= (k0 + torch.arange(chunk))[None]
+            s = torch.where(keep, s, torch.tensor(NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        quad = p.reshape(block_q, LANES, chunk // LANES)
+        if quad.shape[-1] == 4:
+            share = (quad[..., 0] + quad[..., 1]) + (quad[..., 2]
+                                                     + quad[..., 3])
+        else:
+            share = quad[..., 0] + quad[..., 1]
+        l_lane = l_lane * alpha + share
+        acc = acc * alpha + p @ vt[k0:k0 + chunk]
+        m = m_new
+    while l_lane.shape[1] > 1:                        # xor 1, 2, 4, 8
+        l_lane = l_lane[:, 0::2] + l_lane[:, 1::2]
+    return m, l_lane, acc
+
+
+def kernel_emulation(q, k, v, *, causal: bool, per: int) -> torch.Tensor:
+    """flash_fwd_kernel (+ flash_combine when ``per`` < Sk) on f32 q
+    [B, Sq, H, D] and k, v [B, Sk, G, D]."""
+    b, sq, h, d = q.shape
+    _, sk, g, _ = k.shape
+    rep = h // g
+    q, k, v = (pad_head(x) for x in (q, k, v))
+    dp = q.shape[-1]
+    block_q = f32_tiles(dp)[0]
+    out = torch.empty(b, sq, h, dp)
+    for bi in range(b):
+        for hi in range(h):
+            kt, vt = k[bi, :, hi // rep], v[bi, :, hi // rep]
+            for q0 in range(0, sq, block_q):
+                qt = q[bi, q0:q0 + block_q, hi]
+                parts = [split_partials(qt, kt, vt, q0, kv0, per, sk, causal,
+                                        d=d)
+                         for kv0 in range(0, sk, per)]
+                if len(parts) == 1:
+                    _, l, acc = parts[0]
+                    out[bi, q0:q0 + block_q, hi] = acc / torch.clamp(
+                        l, min=1e-30)
+                    continue
+                big_m = parts[0][0]
+                for m, _, _ in parts[1:]:
+                    big_m = torch.maximum(big_m, m)
+                big_l = torch.zeros_like(big_m)
+                o = torch.zeros(block_q, dp)
+                for m, l, acc in parts:        # in range order
+                    w = torch.exp2(m - big_m)
+                    big_l = big_l + l * w
+                    o = o + acc * w
+                out[bi, q0:q0 + block_q, hi] = o / torch.clamp(big_l,
+                                                               min=1e-30)
+    return out[..., :d].contiguous()

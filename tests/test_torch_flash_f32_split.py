@@ -3,11 +3,12 @@
 ``flash_fwd_kernel`` + ``flash_combine`` (``csrc/flash_attention.cu``)
 emulated in float32.
 
-Each range of kv rows runs the reference's online softmax over its own
-64-row chunks, in the log2 domain (``scale * log2(e)`` folded into one
-multiply, masked scores -1e30, chunks wholly above the causal diagonal
-skipped), with a row's sum kept as 16 lanes' shares of 4 columns each and
-added at the end; the combine takes M = max m_s, L = sum l_s 2^(m_s - M)
+The emulation (``tests/_torch_flash_emulation.py``): each range of kv
+rows runs the reference's online softmax over its own 64-row chunks, in
+the log2 domain (``scale * log2(e)`` folded into one multiply, masked
+scores -1e30, chunks wholly above the causal diagonal skipped), with a
+row's sum kept as 16 lanes' shares of 4 columns each and added at the
+end; the combine takes M = max m_s, L = sum l_s 2^(m_s - M)
 and o = sum acc_s 2^(m_s - M) / max(L, 1e-30), in range order.  One range
 writes acc / max(l, 1e-30) itself.  The emulation is held to the reference
 Pallas kernel in interpret mode and to the port's plain version at the f32
@@ -17,13 +18,12 @@ first q tiles, extreme logits, D 64, 128 and 256 (whose tiles are 64 q
 rows and 32 kv rows, ``plan.f32_tiles``).
 """
 
-import math
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from _torch_flash_emulation import NEG_INF, kernel_emulation, split_partials
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro_torch.capture import kernels as cap
 from repro_torch.kernels.flash_attention import attention_ref
@@ -34,88 +34,6 @@ from repro_torch.serving import scenario as srv
 
 F32 = dict(atol=2e-5, rtol=1e-4)
 H100_SMS = 132   # streaming multiprocessors of an H100 SXM
-NEG_INF = -1e30
-LANES = 16       # lanes that share one score row (4 columns each)
-
-
-def _range(q0: int, kv0: int, per: int, sk: int, causal: bool,
-           d: int = 128) -> range:
-    """The chunk starts one block walks: kv rows [kv0, kv0 + per), cut at
-    the end of the q tile's diagonal when causal."""
-    block_q, chunk = f32_tiles(d)
-    kv1 = min(sk, kv0 + per)
-    if causal:
-        kv1 = min(kv1, q0 + block_q)
-    return range(kv0, max(kv0, kv1), chunk)
-
-
-def split_partials(qt, kt, vt, q0: int, kv0: int, per: int, sk: int,
-                   causal: bool):
-    """One block's (m, l, acc) in f32 for a [block_q, D] q tile
-    (``plan.f32_tiles``: 128 rows, 64 at D = 256) against kv rows
-    [kv0, kv0 + per) of one head: m in the log2 domain, l the 16 lanes'
-    shares (4 columns each, 2 at D = 256) added at the end."""
-    block_q, d = qt.shape
-    chunk = f32_tiles(d)[1]
-    scale_log2 = d ** -0.5 * math.log2(math.e)
-    rows = torch.arange(block_q)
-    m = torch.full((block_q, 1), NEG_INF)
-    l_lane = torch.zeros(block_q, LANES)
-    acc = torch.zeros(block_q, d)
-    for k0 in _range(q0, kv0, per, sk, causal, d):
-        s = (qt @ kt[k0:k0 + chunk].T) * scale_log2
-        if causal and k0 + chunk - 1 > q0:
-            keep = (q0 + rows)[:, None] >= (k0 + torch.arange(chunk))[None]
-            s = torch.where(keep, s, torch.tensor(NEG_INF))
-        m_new = torch.maximum(m, s.amax(dim=1, keepdim=True))
-        alpha = torch.exp2(m - m_new)
-        p = torch.exp2(s - m_new)
-        quad = p.reshape(block_q, LANES, chunk // LANES)
-        if quad.shape[-1] == 4:
-            share = (quad[..., 0] + quad[..., 1]) + (quad[..., 2]
-                                                     + quad[..., 3])
-        else:
-            share = quad[..., 0] + quad[..., 1]
-        l_lane = l_lane * alpha + share
-        acc = acc * alpha + p @ vt[k0:k0 + chunk]
-        m = m_new
-    while l_lane.shape[1] > 1:                        # xor 1, 2, 4, 8
-        l_lane = l_lane[:, 0::2] + l_lane[:, 1::2]
-    return m, l_lane, acc
-
-
-def kernel_emulation(q, k, v, *, causal: bool, per: int) -> torch.Tensor:
-    """flash_fwd_kernel (+ flash_combine when ``per`` < Sk) on f32 q
-    [B, Sq, H, D] and k, v [B, Sk, G, D]."""
-    b, sq, h, d = q.shape
-    _, sk, g, _ = k.shape
-    rep = h // g
-    block_q = f32_tiles(d)[0]
-    out = torch.empty_like(q)
-    for bi in range(b):
-        for hi in range(h):
-            kt, vt = k[bi, :, hi // rep], v[bi, :, hi // rep]
-            for q0 in range(0, sq, block_q):
-                qt = q[bi, q0:q0 + block_q, hi]
-                parts = [split_partials(qt, kt, vt, q0, kv0, per, sk, causal)
-                         for kv0 in range(0, sk, per)]
-                if len(parts) == 1:
-                    _, l, acc = parts[0]
-                    out[bi, q0:q0 + block_q, hi] = acc / torch.clamp(
-                        l, min=1e-30)
-                    continue
-                big_m = parts[0][0]
-                for m, _, _ in parts[1:]:
-                    big_m = torch.maximum(big_m, m)
-                big_l = torch.zeros_like(big_m)
-                o = torch.zeros(block_q, d)
-                for m, l, acc in parts:        # in range order
-                    w = torch.exp2(m - big_m)
-                    big_l = big_l + l * w
-                    o = o + acc * w
-                out[bi, q0:q0 + block_q, hi] = o / torch.clamp(big_l,
-                                                               min=1e-30)
-    return out
 
 
 # --------------------------------------------------------------------------

@@ -2,11 +2,12 @@
 bf16 tensor-core kernel) emulated in PyTorch on the CPU, and the wrapper's
 choice of kernel.
 
-The emulation walks 128-row q tiles and ``plan.sm90_kv_rows`` kv rows
-(128, or 64 at D = 256) as the kernel does: S = Q K^T in f32
-from bf16 inputs; the online softmax in the log2 domain with
-``scale * log2(e)`` folded into one multiply of the dot; scores masked to
--1e30 on the tile that crosses the diagonal and kv tiles above it skipped;
+The emulation (``tests/_torch_flash_emulation.py``) walks 128-row q tiles
+and ``plan.sm90_kv_rows`` kv rows (128, or 64 at D = 256) as the kernel
+does: S = Q K^T in f32 from bf16 inputs; the online softmax in the log2
+domain with ``scale * log2(e)`` folded into one multiply of the dot;
+scores masked to -1e30 on the tile that crosses the diagonal and kv tiles
+above it skipped;
 P split into two bf16 halves, ``hi = bf16(p)`` and ``lo = bf16(p - hi)``,
 both multiplied by bf16 V into an f32 accumulator; ``out = acc / max(l,
 1e-30)`` rounded to bf16.  It is held (a) against the reference Pallas
@@ -19,67 +20,19 @@ p puts ~2^-9 of the output's rms on every element, several times the
 limit (``test_one_bf16_rounding_of_p_misses_the_card_tolerance``).
 """
 
-import math
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from _torch_flash_emulation import sm90_emulation
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro_torch.kernels.flash_attention import attention_ref
 from repro_torch.kernels.flash_attention.kernel import (SM90_BLOCK,
                                                         kernel_path)
-from repro_torch.kernels.flash_attention.plan import sm90_kv_rows
 
-BLOCK = 128
-NEG_INF = -1e30
 BF16 = dict(atol=2e-2, rtol=2e-2)          # tests/test_torch_kernels.py
 CARD_RTOL, CARD_ATOL_RMS = 1e-2, 1e-3      # chip_smoke.py, bf16 kernels
-
-
-def sm90_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                   causal: bool, split_p: bool = True) -> torch.Tensor:
-    """flash_fwd_sm90's arithmetic on bf16 q [B, Sq, H, D] and k, v
-    [B, Sk, G, D] -> bf16 [B, Sq, H, D]; ``split_p=False`` rounds P once
-    to bf16 instead of splitting it."""
-    b, sq, h, d = q.shape
-    _, sk, g, _ = k.shape
-    rep = h // g
-    scale_log2 = d ** -0.5 * math.log2(math.e)
-    out = torch.empty_like(q)
-    rows = torch.arange(BLOCK)
-    bk = sm90_kv_rows(d)          # 128, or 64 at D = 256
-    cols = torch.arange(bk)
-    for bi in range(b):
-        for hi in range(h):
-            for q0 in range(0, sq, BLOCK):
-                qt = q[bi, q0:q0 + BLOCK, hi].float()
-                m = torch.full((BLOCK, 1), NEG_INF)
-                l = torch.zeros(BLOCK, 1)
-                acc = torch.zeros(BLOCK, d)
-                for k0 in range(0, sk, bk):
-                    if causal and k0 > q0 + BLOCK - 1:
-                        break
-                    kt = k[bi, k0:k0 + bk, hi // rep].float()
-                    vt = v[bi, k0:k0 + bk, hi // rep].float()
-                    s = (qt @ kt.T) * scale_log2
-                    if causal and k0 + bk - 1 > q0:
-                        keep = (q0 + rows)[:, None] >= (k0 + cols)[None, :]
-                        s = torch.where(keep, s, torch.tensor(NEG_INF))
-                    m_new = torch.maximum(m, s.amax(dim=1, keepdim=True))
-                    alpha = torch.exp2(m - m_new)
-                    p = torch.exp2(s - m_new)
-                    l = l * alpha + p.sum(dim=1, keepdim=True)
-                    p_hi = p.to(torch.bfloat16).float()
-                    pv = p_hi @ vt
-                    if split_p:
-                        pv = pv + (p - p_hi).to(torch.bfloat16).float() @ vt
-                    acc = acc * alpha + pv
-                    m = m_new
-                out[bi, q0:q0 + BLOCK, hi] = (
-                    acc / torch.clamp(l, min=1e-30)).to(torch.bfloat16)
-    return out
 
 
 CASES = [
@@ -161,9 +114,9 @@ def test_one_bf16_rounding_of_p_misses_the_card_tolerance(case):
     # D = 256 (PaliGemma's heads) on the tiled kernels, with smaller tiles
     (torch.bfloat16, 256, 128, 128, "flash_fwd_sm90"),
     (torch.float32, 256, 128, 128, "flash_fwd_kernel"),
-    # other widths on the simple kernel, both dtypes
-    (torch.bfloat16, 96, 128, 128, "flash_fwd_simple"),
-    (torch.float32, 16, 128, 128, "flash_fwd_simple"),
+    # other widths on the same kernels, padded to a 64-column panel
+    (torch.bfloat16, 96, 128, 128, "flash_fwd_sm90"),
+    (torch.float32, 16, 128, 128, "flash_fwd_kernel"),
 ])
 def test_kernel_path_names_the_kernel(dtype, d, bq, bk, path):
     assert kernel_path(dtype, d, bq, bk) == path
@@ -172,11 +125,11 @@ def test_kernel_path_names_the_kernel(dtype, d, bq, bk, path):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", range(8, 257, 8))
 def test_kernel_path_takes_every_width_a_multiple_of_8_up_to_256(dtype, d):
-    # the reference's mha runs its kernel at any D % 8 == 0; the port has a
-    # hand-written kernel at each of them up to 256
+    # the reference's mha runs its kernel at any D % 8 == 0; the port's two
+    # tiled kernels take each of them up to 256, padded in shared memory
     path = kernel_path(dtype, d, 128, 128)
     tiled = "flash_fwd_kernel" if dtype == torch.float32 else "flash_fwd_sm90"
-    assert path == (tiled if d in (64, 128, 256) else "flash_fwd_simple")
+    assert path == tiled
 
 
 @pytest.mark.parametrize("dtype,d,bq,bk,match", [

@@ -2,78 +2,60 @@
 kernel for (D % 8 == 0), up to 256, on the CPU.
 
 - The port's plain version against the reference Pallas kernel in
-  interpret mode at D = 16 (the smoke configs' heads) and 256
-  (PaliGemma's), at the f32 tolerance of ``tests/test_torch_kernels.py``.
-- The arithmetic of ``flash_fwd_simple`` (``csrc/flash_attention.cu``, the
-  kernel of every width but 64, 128 and 256) emulated in float32: 32-row q
-  tiles walking 32-row kv chunks, lane j scoring kv row j, a row's sum kept
-  as the 32 lanes' shares and added by a xor butterfly at the end, masked
-  scores -1e30, chunks above the diagonal skipped; held to the plain
-  version at the card's tolerances (f32 atol 2e-5, rtol 1e-4; bf16 inputs
-  rtol 1e-2, atol 1e-3 of the output's rms) and to the reference kernel.
-- The tiles ``plan.py`` gives D = 256: both tiled kernels' buffers fit a
-  block's 227 KB of shared memory, and PaliGemma's full-width launch fills
-  the card without a kv split.
+  interpret mode at D = 16 (the smoke configs' heads), 112 (Zamba2-7B's),
+  192 (Nemotron-4-340B's) and 256 (PaliGemma's), at the f32 tolerance of
+  ``tests/test_torch_kernels.py``.
+- The padded design of both tiled kernels (``csrc/flash_attention.cu``):
+  a launch at D runs the instance built for ``DP = plan.padded_head_dim(D)``
+  with the head padded in shared memory by zero columns.  The emulations of
+  ``tests/_torch_flash_emulation.py`` at D in {8, 16, 40, 96, 112, 136, 192,
+  200, 248}: f32 ``flash_fwd_kernel`` on zero-padded rows with
+  ``f32_tiles(DP)`` and its ``split_plan`` cut (and a cut of one chunk a
+  range), bf16 ``flash_fwd_sm90`` on TMA-style zero columns with
+  ``sm90_kv_rows(DP)``; each held to the plain version at the card's
+  tolerances (f32 atol 2e-5, rtol 1e-4; bf16 inputs rtol 1e-2, atol 1e-3 of
+  the output's rms) and to the reference kernel in interpret mode (bf16 at
+  ``tests/test_torch_kernels.py``'s bf16 tolerance).
+- The f32 kernel's shared rows at each padded width: the places its
+  copies write and those it zeroes make up each row, and the 32-column
+  groups its S = Q K^T walks read the real chunks in order and zeros past
+  D, whatever a row's swizzle.
+- The tiles ``plan.py`` gives each padded width: both kernels' buffers fit
+  a block's 227 KB of shared memory at every D, and the full-width launches
+  split as the D = 128 ones do.
 """
 
-import math
+import itertools
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from _torch_flash_emulation import kernel_emulation, sm90_emulation
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro_torch.kernels.flash_attention import attention_ref
-from repro_torch.kernels.flash_attention.plan import (SIMPLE_TILE,
-                                                      SMEM_PER_BLOCK,
-                                                      f32_tiles, sm90_kv_rows,
+from repro_torch.kernels.flash_attention.plan import (SMEM_PER_BLOCK,
+                                                      TILED_HEAD_DIMS,
+                                                      f32_tiles,
+                                                      padded_head_dim,
+                                                      sm90_kv_rows,
                                                       sm90_smem_bytes,
                                                       split_plan)
 
 F32 = dict(atol=2e-5, rtol=1e-4)
+BF16 = dict(atol=2e-2, rtol=2e-2)          # tests/test_torch_kernels.py
 CARD_RTOL, CARD_ATOL_RMS = 1e-2, 1e-3      # chip_smoke.py, bf16 kernels
-NEG_INF = -1e30
 H100_SMS = 132
 
 
-def simple_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                     causal: bool) -> torch.Tensor:
-    """flash_fwd_simple on q [B, Sq, H, D], k, v [B, Sk, G, D] (f32 or
-    bf16, read into f32) -> the inputs' dtype."""
-    b, sq, h, d = q.shape
-    _, sk, g, _ = k.shape
-    rep, t = h // g, SIMPLE_TILE
-    scale_log2 = d ** -0.5 * math.log2(math.e)
-    out = torch.empty_like(q)
-    rows, lanes = torch.arange(t), torch.arange(t)
-    for bi in range(b):
-        for hi in range(h):
-            kh = k[bi, :, hi // rep].float()
-            vh = v[bi, :, hi // rep].float()
-            for q0 in range(0, sq, t):
-                qt = q[bi, q0:q0 + t, hi].float()
-                m = torch.full((t, 1), NEG_INF)
-                l_lane = torch.zeros(t, t)
-                acc = torch.zeros(t, d)
-                kv_end = min(sk, q0 + t) if causal else sk
-                for k0 in range(0, kv_end, t):
-                    x = (qt @ kh[k0:k0 + t].T) * scale_log2
-                    if causal and k0 + t - 1 > q0:
-                        keep = (q0 + rows)[:, None] >= (k0 + lanes)[None]
-                        x = torch.where(keep, x, torch.tensor(NEG_INF))
-                    m_new = torch.maximum(m, x.amax(dim=1, keepdim=True))
-                    alpha = torch.exp2(m - m_new)
-                    p = torch.exp2(x - m_new)
-                    l_lane = l_lane * alpha + p
-                    acc = acc * alpha + p @ vh[k0:k0 + t]
-                    m = m_new
-                while l_lane.shape[1] > 1:             # xor 16, 8, 4, 2, 1
-                    half = l_lane.shape[1] // 2
-                    l_lane = l_lane[:, :half] + l_lane[:, half:]
-                out[bi, q0:q0 + t, hi] = (
-                    acc / torch.clamp(l_lane, min=1e-30)).to(q.dtype)
-    return out
+def f32_smem_bytes(dp: int) -> int:
+    """flash_fwd_kernel's shared memory at ``dp``: the Q tile, a ring of K
+    and V chunks (3 stages at DP = 64, else 2) and each warp's rows of P,
+    in floats."""
+    bq, bk = f32_tiles(dp)
+    stages = 3 if dp == 64 else 2
+    return 4 * (bq * dp + 2 * stages * bk * dp + bq * bk)
 
 
 def _inputs(case):
@@ -90,10 +72,18 @@ def _reference(q, k, v, causal):
                                 causal=causal, interpret=True))
 
 
+def _reference_bf16(q, k, v, causal):
+    return np.asarray(jax_flash(
+        *(jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)),
+        causal=causal, interpret=True), dtype=np.float32)
+
+
 # (b, sq, sk, h, g, d, causal, input scale)
 REF_CASES = [
     (1, 128, 128, 2, 1, 16, True, 1.0),      # the smoke configs' width
     (1, 128, 256, 4, 2, 16, False, 1.0),
+    (1, 128, 256, 4, 4, 112, True, 1.0),     # Zamba2-7B's width
+    (1, 128, 128, 6, 2, 192, False, 1.0),    # Nemotron-4-340B's width
     (1, 128, 128, 2, 1, 256, True, 1.0),     # PaliGemma's width
     (1, 128, 256, 2, 2, 256, False, 1.0),
 ]
@@ -108,56 +98,120 @@ def test_plain_version_matches_the_reference_kernel(case):
     np.testing.assert_allclose(got, _reference(q, k, v, causal), **F32)
 
 
-SIMPLE_CASES = [
-    (1, 128, 128, 2, 1, 16, True, 1.0),
-    (1, 64, 96, 2, 2, 40, False, 1.0),
-    (2, 64, 64, 4, 2, 96, True, 1.0),
-    (1, 96, 128, 2, 1, 200, True, 1.0),
-    (1, 64, 64, 1, 1, 248, False, 30.0),     # extreme logits, widest
-    (1, 32, 64, 2, 1, 8, True, 30.0),        # narrowest, extreme logits
+# Every padded width, its narrowest and widest D, widths whose real
+# columns end inside a 32-column group (40, 112, 136, 200, 248) and the
+# models' (16, 112, 192); Sq and Sk multiples of 128, as the card path takes.
+PADDED_CASES = [
+    (1, 128, 256, 2, 1, 8, True, 30.0),      # narrowest, extreme logits
+    (1, 256, 256, 4, 2, 16, True, 1.0),      # the smoke configs' width
+    (1, 128, 256, 2, 2, 40, False, 1.0),
+    (2, 128, 128, 2, 1, 96, True, 1.0),
+    (1, 256, 256, 2, 2, 112, True, 1.0),     # Zamba2-7B's width
+    (1, 128, 256, 2, 1, 136, False, 1.0),    # DP 192, 8 columns in its last
+    (1, 256, 256, 3, 1, 192, True, 1.0),     # Nemotron-4-340B's width
+    (1, 128, 128, 2, 1, 200, True, 10.0),
+    (1, 128, 256, 1, 1, 248, False, 10.0),   # widest padded, logits ~ 100
 ]
 
 
-@pytest.mark.parametrize("case", SIMPLE_CASES)
-def test_simple_kernel_emulation_holds_f32(case):
-    causal = case[6]
+def _case_id(case):
+    return f"d{case[5]}"
+
+
+@pytest.mark.parametrize("case", PADDED_CASES, ids=_case_id)
+def test_padded_f32_kernel_emulation_holds(case):
+    b, sq, sk, h, _, d, causal, _ = case
+    dp = padded_head_dim(d)
     q, k, v = _inputs(case)
     tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
-    got = simple_emulation(tq, tk, tv, causal=causal)
-    assert torch.isfinite(got).all()
-    np.testing.assert_allclose(got.numpy(), attention_ref(
-        tq, tk, tv, causal=causal).numpy(), **F32)
-    if case[1] % 128 == 0 and case[2] % 128 == 0:
-        np.testing.assert_allclose(got.numpy(),
-                                   _reference(q, k, v, causal), **F32)
+    want = attention_ref(tq, tk, tv, causal=causal).numpy()
+    want_jax = _reference(q, k, v, causal)
+    plan_per, _ = split_plan(b, h, sq, sk, n_sm=H100_SMS, d=dp)
+    for per in sorted({plan_per, f32_tiles(dp)[1], sk}):
+        got = kernel_emulation(tq, tk, tv, causal=causal, per=per).numpy()
+        assert got.shape == q.shape and np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, **F32)
+        np.testing.assert_allclose(got, want_jax, **F32)
 
 
-@pytest.mark.parametrize("case", SIMPLE_CASES[:4])
-def test_simple_kernel_emulation_holds_the_bf16_card_tolerance(case):
+@pytest.mark.parametrize("case", PADDED_CASES, ids=_case_id)
+def test_padded_bf16_kernel_emulation_holds(case):
     causal = case[6]
-    q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in _inputs(case))
-    want = attention_ref(q.float(), k.float(), v.float(), causal=causal)
-    got = simple_emulation(q, k, v, causal=causal)
-    assert got.dtype == torch.bfloat16
+    q, k, v = _inputs(case)
+    bq, bk, bv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    want = attention_ref(bq.float(), bk.float(), bv.float(), causal=causal)
+    got = sm90_emulation(bq, bk, bv, causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == bq.shape
+    assert torch.isfinite(got.float()).all()
     atol = CARD_ATOL_RMS * want.pow(2).mean().sqrt().item()
     worst = ((got.float() - want).abs()
              / (atol + CARD_RTOL * want.abs())).max().item()
     assert worst <= 1.0
+    np.testing.assert_allclose(got.float().numpy(),
+                               _reference_bf16(q, k, v, causal), **BF16)
+
+
+def _f32_row_tiles(dp: int) -> dict[str, tuple[int, int]]:
+    """flash_fwd_kernel's shared tiles at ``dp``: name -> (rows, swizzle
+    group G), G the rows that share a swizzle (0: none)."""
+    bq, bk = f32_tiles(dp)
+    rows_a_thread, cols_a_thread = bq // 16, bk // 16
+    return {"Q": (bq, rows_a_thread), "K": (bk, cols_a_thread), "V": (bk, 0)}
+
+
+@pytest.mark.parametrize("d", [c[5] for c in PADDED_CASES])
+def test_f32_padded_rows_hold_d_then_zeros(d):
+    """load_rows writes real chunk c of row r at place c ^ ((r / G) % 8);
+    zero_pad zeroes place p where p ^ ((r / G) % 8) >= D / 4.  Together
+    they fill each row once, and reading place u ^ f of each 32-column
+    group S = Q K^T walks gives chunk u of the group: real up to D, zero
+    after, in every row."""
+    dp = padded_head_dim(d)
+    chunks, d4 = dp // 4, d // 4
+    for rows, g in _f32_row_tiles(dp).values():
+        for r in range(rows):
+            f = (r // g) % 8 if g else 0
+            row = [None] * chunks
+            for c in range(d4):                           # load_rows
+                assert row[c ^ f] is None
+                row[c ^ f] = c
+            for p in range(chunks):                       # zero_pad
+                if p ^ f >= d4:
+                    assert row[p] is None
+                    row[p] = "zero"
+            assert None not in row
+            walked = [row[8 * grp + (u ^ f)]
+                      for grp, u in itertools.product(range(-(-d // 32)),
+                                                      range(8))]
+            assert walked == [c if c < d4 else "zero"
+                              for c in range(len(walked))]
+
+
+@pytest.mark.parametrize("d", range(8, 257, 8))
+def test_every_width_fits_a_block_at_its_padded_width(d):
+    dp = padded_head_dim(d)
+    assert dp in TILED_HEAD_DIMS and dp - 64 < d <= dp
+    assert f32_smem_bytes(dp) <= SMEM_PER_BLOCK
+    assert sm90_smem_bytes(dp, sm90_kv_rows(dp)) <= SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("d", [264, 512, 20, 4, 0])
+def test_padded_head_dim_refuses_what_no_kernel_takes(d):
+    with pytest.raises(ValueError, match="D % 8 == 0 up to 256"):
+        padded_head_dim(d)
 
 
 def test_d256_tiles_fit_a_block():
-    # flash_fwd_sm90: 128-row kv tiles at D <= 128, 64 at D = 256
-    assert [sm90_kv_rows(d) for d in (64, 128, 256)] == [128, 128, 64]
-    assert sm90_smem_bytes(256, 64) <= SMEM_PER_BLOCK
-    assert sm90_smem_bytes(256, 128) > SMEM_PER_BLOCK
-    # flash_fwd_kernel: Q tile, two stages of K and V, P (floats)
-    for d, stages in ((64, 3), (128, 2), (256, 2)):
-        bq, bk = f32_tiles(d)
-        assert 4 * (bq * d + 2 * stages * bk * d + bq * bk) <= SMEM_PER_BLOCK
-    assert f32_tiles(256) == (64, 32)
-    # flash_fwd_simple at its widest: Q, K padded to D + 1, V
-    t = SIMPLE_TILE
-    assert 4 * (t * 256 + t * 257 + t * 256) <= SMEM_PER_BLOCK
+    # flash_fwd_sm90: 128-row kv tiles up to DP = 128, 64 at DP 192 and 256
+    assert [sm90_kv_rows(dp) for dp in TILED_HEAD_DIMS] == [128, 128, 64, 64]
+    assert sm90_kv_rows(192) == 64
+    for dp in (192, 256):
+        assert sm90_smem_bytes(dp, 64) <= SMEM_PER_BLOCK
+        assert sm90_smem_bytes(dp, 128) > SMEM_PER_BLOCK
+    # flash_fwd_kernel: Q tile, two stages of K and V (three at DP = 64), P
+    for dp in TILED_HEAD_DIMS:
+        assert f32_smem_bytes(dp) <= SMEM_PER_BLOCK
+    assert f32_tiles(192) == f32_tiles(256) == (64, 32)
 
 
 def test_paligemma_full_width_fills_the_card_in_one_range():
@@ -165,3 +219,19 @@ def test_paligemma_full_width_fills_the_card_in_one_range():
     assert split_plan(1, 8, 2048, 2048, n_sm=H100_SMS, d=256) == (2048, 1)
     per, n = split_plan(1, 1, 128, 1024, n_sm=H100_SMS, d=256)
     assert per % 32 == 0 and n > 1
+
+
+@pytest.mark.parametrize("b,h,s,d,want", [
+    # PaliGemma-3B's shape at D 16 and 96: 128 blocks of 128 q rows on 132
+    # SMs, cut in 3 ranges as at D = 128
+    (1, 8, 2048, 16, (704, 3)),
+    (1, 8, 2048, 96, (704, 3)),
+    (1, 8, 2048, 128, (704, 3)),
+    # Zamba2-7B (32 heads) and Nemotron-4-340B (96 heads) at 4096 tokens:
+    # 1024 and 6144 blocks fill the card in one range
+    (1, 32, 4096, 112, (4096, 1)),
+    (1, 96, 4096, 192, (4096, 1)),
+])
+def test_split_plan_at_the_padded_width(b, h, s, d, want):
+    assert split_plan(b, h, s, s, n_sm=H100_SMS,
+                      d=padded_head_dim(d)) == want
