@@ -11,10 +11,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    every kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per source,
    all started together); prints each kernel's ptxas registers/spills and
    counts the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions of
-   the flash and MoE libraries with ``cuobjdump -sass``, failing if bf16
-   flash or bf16 MoE dispatch has no ``HGMMA``, or if the f32 flash kernel,
-   either SSM scan or the simulator's window count spills (ptxas's
-   warnings, such as a serialized ``wgmma``, are printed too);
+   the flash and MoE libraries with ``cuobjdump -sass``, failing if any
+   instance of the bf16 flash kernels (``flash_fwd_sm90``,
+   ``flash_fwd_wide_sm90``) or of bf16 MoE dispatch has no ``HGMMA``, or if
+   an f32 flash kernel (``flash_fwd_kernel``, ``flash_fwd_wide``), either
+   SSM scan or the simulator's window count spills (ptxas's warnings, such
+   as a serialized ``wgmma``, are printed too);
 2. holds each kernel against its plain PyTorch version on the card at
    full width, in float32 and bf16: qwen2.5-14b for STREAM, gather, flash
    and paged decode (40 query heads, 8 KV heads, head_dim 128, vocab
@@ -31,7 +33,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    causal, both dtypes; flash at head_dims 8, 16, 40, 112, 136, 192, 200
    and 248 (each padded in shared memory to a 64-column panel) on a small
    shape (1 x 256 tokens, 4 heads, 2 KV heads), causal and not, both
-   dtypes; the simulator's window count (``window_scan``)
+   dtypes; above D 256 the wide kernels (``flash_fwd_wide``,
+   ``flash_fwd_wide_sm90``) at D 320 and 512 at PaliGemma-3B's shape,
+   causal, and at D 264, 320, 328, 384, 456 and 512 on the small shape,
+   causal and not, both dtypes, each counted on the launch counter under
+   its kernel's name, and CUDA tensors at D 520 and D 300 refused with a
+   message naming ROADMAP.md; the simulator's window count (``window_scan``)
    on seeded rows, int32
    and int64 (ragged spans, cold slots, windows ending at m - 1 and past
    it), exactly, at every (lanes, steps) its plan picks (chunks 1-1024)
@@ -46,10 +53,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    allocates its output; each is first checked bit for bit against the
    plain version.  Flash is timed causal and not (f32 and bf16), beside
    SDPA, the f32 rows with the plan's kv split, at PaliGemma's shape with
-   head_dims 256, 16 and 96 and at Zamba2-7B's (112) and Nemotron-4-340B's
-   (192) (causal, both dtypes); their bound has a third term, the scores'
-   exp2 over the SFUs' rate at the card's max SM clock (``bound_by``
-   ``"exp"``), which binds bf16 at narrow heads.  Paged decode prints its
+   head_dims 256, 16, 96, 320 and 512 and at Zamba2-7B's (112) and
+   Nemotron-4-340B's (192) (causal, both dtypes), each row naming the
+   backend SDPA picked (``library``); their bound has a third term, the
+   scores' exp2 over the SFUs' rate at the card's max SM clock
+   (``bound_by`` ``"exp"``), which binds bf16 at narrow heads, and counts
+   the reference's work once (the wide kernels' recomputed S is not in
+   it).  Paged decode prints its
    split count, the EMA scan its plan, the state-expanded scan its plan
    and its issue floor (4 N D T f32 lane-instructions, the update's
    multiplies and adds unfused);
@@ -245,7 +255,9 @@ kernels as a fresh process does:
 20. the cost substrate and the launch layer (``launch_phase``; no kernel
    launches): (a) the ``hlo`` substrate's 64 rows against ``H100_SXM``,
    counted by class and timed; (b) ``python -m repro_torch.launch.dryrun``
-   in three child processes at once, at full width on the production
+   in three child processes at once, started with phase 21(c)'s two as
+   phase 15 starts and ended before phase 17 (host-only children beside
+   the simulation phases 15-16), at full width on the production
    meshes over a fake process group: qwen2.5-14b ``decode_32k`` on
    2x16x16, deepseek-moe-16b ``train_4k`` and mamba2-780m ``prefill_32k``
    on 16x16; each entry ``ok``, its argument bytes equal to the sum of
@@ -274,18 +286,21 @@ kernels as a fresh process does:
    the plain one's and none shrunk below half its rms); (c) ``python -m
    repro_torch.launch.perfvariants`` for ``ds_train_ep_int8`` and
    ``zmb_long_nocachelen`` (cut from five to keep the script inside its
-   limit), two child processes started after (a)'s timed steps, each
+   limit), two child processes run beside phase 20's dry runs during
+   phases 15-16 (whose host seconds they slow), so that no timing the
+   script holds to a bound shares the host with them, each
    ``ok``, printed with its class, three times, temp and argument GB
    against 80 GB and collective bytes by op (recorded and analytic);
 22. prints the kernels line (``launches`` summed over main paths 1 and 2,
    as before, for the seven capture kernels and main path 6's first
    cuda run for the window count; ``launches_by_path`` for paths 1-4,
    6-9, ``models`` (path 11) and ``models_sweep`` (path 12's cuda run);
-   flash's also split by kernel and with its head-width 256, 16, 96, 112
-   and 192 timings as ``d256``, ``d16``, ``d96``, ``d112`` and ``d192``;
-   the f32 (window count: int32) timings,
+   flash's also split by kernel and with its head-width 256, 16, 96, 112,
+   192, 320 and 512 timings as ``d256``, ``d16``, ``d96``, ``d112``,
+   ``d192``, ``d320`` and ``d512``; the f32 (window count: int32) timings,
    and the bf16 ones as ``bf16_ms``, ``bf16_bound_ms``,
-   ``bf16_library_ms``) and, last, ``{"ok": true, "device": ...}``.
+   ``bf16_library_ms``), after a line with the script's own seconds
+   (``total``), and, last, ``{"ok": true, "device": ...}``.
 
 Tolerances: gather is exact, and so is the EMA scan in float32, which
 rounds op by op in the plain version's order.  STREAM's plain version
@@ -320,6 +335,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from typing import TYPE_CHECKING
@@ -497,11 +513,17 @@ def ptxas_spills(log: str) -> dict[str, int]:
     return spills
 
 
-# Kernels redesigned to keep every value in registers: a spill fails phase 1.
-NO_SPILL = {"flash_attention": "flash_fwd_kernel",
-            "ssm_ema_scan": "ssm_ema_kernel",
-            "ssm_chunked_scan": "ssm_chunked_kernel",
-            "window_scan": "window_count_kernel"}
+# Kernels redesigned to keep every value in registers: a spill fails phase 1
+# (a part of a mangled name; ``flash_fwd_wideE`` ends the f32 wide kernel's
+# name, not ``flash_fwd_wide_sm90``).
+NO_SPILL = {"flash_attention": ("flash_fwd_kernel", "flash_fwd_wideE"),
+            "ssm_ema_scan": ("ssm_ema_kernel",),
+            "ssm_chunked_scan": ("ssm_chunked_kernel",),
+            "window_scan": ("window_count_kernel",)}
+# Tensor-core kernels: each instance must hold an HGMMA (wgmma).
+HGMMA_KERNELS = (("flash_attention", "flash_fwd_sm90"),
+                 ("flash_attention", "flash_fwd_wide_sm90"),
+                 ("moe_dispatch", "moe_gemm_sm90"))
 
 
 def hold_main_path(launched: list, randn, rand,
@@ -850,6 +872,14 @@ ZAMBA2_FLASH = dict(b=1, s=4096, h=32, g=32)
 NEMOTRON_FLASH = dict(b=1, s=4096, h=96, g=8)
 WIDTH_FLASH = {256: PALIGEMMA_FLASH, 16: PALIGEMMA_FLASH, 96: PALIGEMMA_FLASH,
                112: ZAMBA2_FLASH, 192: NEMOTRON_FLASH}
+# Head widths above 256 (the wide kernels; no model of the repo has one),
+# timed at PaliGemma's shape, causal, and held on the small shape below,
+# causal and not: the narrowest, widths ending inside a 32-column group
+# (328, 456), whole panels and the cap.
+WIDE_FLASH = {320: PALIGEMMA_FLASH, 512: PALIGEMMA_FLASH}
+WIDE_FLASH_DIMS = (264, 320, 328, 384, 456, 512)
+# Widths a CUDA tensor is refused at: over the cap, and D % 8 != 0.
+REFUSED_FLASH_DIMS = (520, 300)
 # Head widths held on a small shape, causal and not: each padded width's
 # narrowest and widest, and those whose real columns end inside a
 # 32-column group (40, 112, 136, 200, 248).
@@ -949,6 +979,9 @@ def flash_full_width(bench: Bench, smi: str, dtype: torch.dtype, d: int,
         return F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, scale=d ** -0.5, enable_gqa=True)
 
+    extra = {"library": f"sdpa:{sdpa_backend(qt, kt, vt, causal, d)}",
+             **extra}
+
     if dtype == torch.bfloat16 and d == 128 and g is FULL_FLASH:
         # SDPA's own bf16 result against the same limit (for the record: it
         # rounds P to bf16 once).
@@ -976,6 +1009,20 @@ def flash_full_width(bench: Bench, smi: str, dtype: torch.dtype, d: int,
         4.0 * d * scores, "f32" if dtype == torch.float32 else "bf16",
         exps=scores, **extra)
     return row, err
+
+
+def sdpa_backend(q, k, v, causal: bool, d: int) -> str:
+    """The backend SDPA picks for these inputs (``torch._fused_sdp_choice``),
+    or ``"unknown"`` where this torch does not say."""
+    try:
+        from torch.nn.attention import SDPBackend
+
+        code = torch._fused_sdp_choice(q, k, v, is_causal=causal,
+                                       scale=d ** -0.5, enable_gqa=True)
+        names = {int(b): n for n, b in SDPBackend.__members__.items()}
+        return names.get(int(code), str(code)).lower()
+    except (AttributeError, ImportError, RuntimeError, TypeError):
+        return "unknown"
 
 
 def scan_inputs(gen, t: int, d: int, n: int, dtype: torch.dtype):
@@ -3262,9 +3309,68 @@ def cell_arg_bytes(arch: str) -> int:
     raise KeyError(arch)
 
 
-def launch_phase(smi: str, tmp_dir: str) -> None:
+def start_dry_runs(tmp_dir: str) -> dict:
+    """Phase 20(b)'s ``python -m repro_torch.launch.dryrun`` of each of
+    ``LAUNCH_CELLS``, one child process each, its output in a file;
+    returns {tag: (start time, process, log path)}."""
+    out_dir = Path(tmp_dir) / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    started = {}
+    for arch, shape, mp in LAUNCH_CELLS:
+        tag = f"{arch}__{shape}__{'2pod' if mp else '1pod'}"
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                "--arch", arch, "--shape", shape, "--out", str(out_dir)]
+        log = out_dir / f"{tag}.log"
+        with open(log, "w") as f:
+            started[tag] = (time.perf_counter(), _watched(subprocess.Popen(
+                argv + (["--multi-pod"] if mp else []), env=env, cwd=ROOT,
+                stdout=f, stderr=subprocess.STDOUT)), log)
+    atexit.register(_stop, [p for _, p, _ in started.values()])
+    return started
+
+
+_ENDED: dict[int, float] = {}   # a child's pid -> when it ended
+
+
+def _watched(p: subprocess.Popen) -> subprocess.Popen:
+    """``p``, with a daemon thread that notes in ``_ENDED`` when it ends,
+    so that a child's own seconds are known however late it is waited
+    for."""
+    def wait() -> None:
+        p.wait()
+        _ENDED[p.pid] = time.perf_counter()
+
+    threading.Thread(target=wait, daemon=True).start()
+    return p
+
+
+def wait_children(**groups: dict) -> dict:
+    """Wait for the children of ``start_dry_runs`` and
+    ``start_perf_variants``; returns the seconds spent waiting
+    (``wait_s``) and, for each group, from its first child's start to its
+    last child's end (``<name>_s``)."""
+    t0 = time.perf_counter()
+    for group in groups.values():
+        for _, p, _ in group.values():
+            p.wait(timeout=900)
+    secs = {"wait_s": time.perf_counter() - t0}
+    for name, group in groups.items():
+        ends = []
+        for _, p, _ in group.values():
+            while p.pid not in _ENDED:       # the watcher's note, if late
+                time.sleep(0.01)
+            ends.append(_ENDED[p.pid])
+        secs[f"{name}_s"] = max(ends) - min(t for t, _, _ in group.values())
+    return secs
+
+
+def launch_phase(smi: str, tmp_dir: str, dry_runs: dict,
+                 dry_s: float) -> None:
     """Phase 20: the ``hlo`` substrate on ``H100_SXM``, three full-width
-    dry-run cells in child processes, and one placed decode cell stepped
+    dry-run cells (``dry_runs``, ended child processes: what
+    :func:`start_dry_runs` returned; ``dry_s``, their own seconds from the
+    first start to the last end), and one placed decode cell stepped
     on the card against the plain LM and its bound."""
     import statistics
 
@@ -3291,23 +3397,13 @@ def launch_phase(smi: str, tmp_dir: str) -> None:
 
     # (b) three full-width dry-run cells, one child process each
     out_dir = Path(tmp_dir) / "dryrun"
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t0 = time.perf_counter()
-    procs = []
-    for arch, shape, mp in LAUNCH_CELLS:
-        argv = [sys.executable, "-m", "repro_torch.launch.dryrun",
-                "--arch", arch, "--shape", shape, "--out", str(out_dir)]
-        procs.append(subprocess.Popen(
-            argv + (["--multi-pod"] if mp else []), env=env, cwd=ROOT,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    outs = [p.communicate(timeout=900) for p in procs]
-    dry_s = time.perf_counter() - t0
-    for (arch, shape, mp), p, (out, err) in zip(LAUNCH_CELLS, procs, outs):
+    for (arch, shape, mp), (_, p, log) in zip(LAUNCH_CELLS,
+                                              dry_runs.values()):
         tag = f"{arch}__{shape}__{'2pod' if mp else '1pod'}"
         path = out_dir / f"{tag}.json"
         if p.returncode or not path.exists():
             raise AssertionError(f"dry run {tag}: rc {p.returncode}: "
-                                 f"{err[-2000:]}")
+                                 f"{log.read_text()[-2000:]}")
         e = json.loads(path.read_text())
         if e["status"] != "ok":
             raise AssertionError(f"dry run {tag}: {e.get('error')}: "
@@ -3425,9 +3521,12 @@ MESH_MOE_BATCH, MESH_MOE_SEQ, MESH_MOE_STEPS = 4, 1024, 3
 MESH_MOE_RTOL = 1e-5
 # The perf variants the script records: one of each cell the port can
 # step here, cut from five (the three deepseek-moe-16b and the two zamba2-7b
-# variants) to keep the script inside its time limit.  They start once
-# phase 21(a)'s timed steps are done, so that no timing the script keeps
-# shares the host with them, and run beside (a)'s resume and (b).
+# variants) to keep the script inside its time limit.  They and phase
+# 20's dry runs, child processes on the host alone (fake process groups),
+# start as phase 15 does and are waited for before phase 17: they share
+# the host with the simulation phases 15-16 (whose host seconds are
+# therefore not comparable with a run that gives those phases the host
+# alone), and with no timing the script holds to a bound.
 PERF_VARIANTS = ("ds_train_ep_int8", "zmb_long_nocachelen")
 
 
@@ -3443,10 +3542,10 @@ def start_perf_variants(tmp_dir: str) -> dict:
     for tag in PERF_VARIANTS:
         log = out_dir / f"{tag}.log"
         with open(log, "w") as f:
-            started[tag] = (time.perf_counter(), subprocess.Popen(
+            started[tag] = (time.perf_counter(), _watched(subprocess.Popen(
                 [sys.executable, "-m", "repro_torch.launch.perfvariants",
                  "--only", tag, "--out", str(out_dir)], env=env, cwd=ROOT,
-                stdout=f, stderr=subprocess.STDOUT), log)
+                stdout=f, stderr=subprocess.STDOUT)), log)
     atexit.register(_stop, [p for _, p, _ in started.values()])
     return started
 
@@ -3513,11 +3612,14 @@ def _timed_loop(launch_train, cfg, *, profiled: int | None = None, **kw):
     return lm, state, losses, times, (traced[0] if traced else None)
 
 
-def mesh_train_phase(K, smi: str, tmp_dir: str, plain_train: dict) -> None:
+def mesh_train_phase(K, smi: str, tmp_dir: str, plain_train: dict,
+                     variants: dict, variants_s: float) -> None:
     """Phase 21: ``train_loop(mesh=...)`` on ``make_local_mesh()`` (one
     rank, NCCL) against phase 18c's plain loop (``plain_train``, what
     ``train_phase`` returns), a MoE step with int8 error feedback placed
-    on the mesh, and the records of the perf variants."""
+    on the mesh, and the records of the perf variants (``variants``,
+    ended before phase 17; ``variants_s``, their own seconds from the
+    first start to the last end)."""
     import shutil
     import statistics
 
@@ -3550,7 +3652,6 @@ def mesh_train_phase(K, smi: str, tmp_dir: str, plain_train: dict) -> None:
             steps=MESH_TRAIN_STEPS, ckpt_dir=mesh_dir, mesh=mesh, **run)
         placed = all(is_dtensor(p) for p in lm.parameters())
         del lm
-        variants = start_perf_variants(tmp_dir)
         gc.collect()
         torch.cuda.empty_cache()
         same_ckpt = _same_step_files(plain_train["checkpoint"],
@@ -3662,11 +3763,8 @@ def mesh_train_phase(K, smi: str, tmp_dir: str, plain_train: dict) -> None:
                              f"too small a buffer: {lost}")
 
     # (c) the perf variants' records, from the child processes started
-    # after (a)'s timed steps
+    # beside phase 20's dry runs as phase 15 began
     out_dir = Path(tmp_dir) / "perf"
-    for _, p, _ in variants.values():
-        p.wait(timeout=900)
-    var_s = time.perf_counter() - min(t for t, _, _ in variants.values())
     for tag, (_, p, log) in variants.items():
         path = out_dir / f"{tag}.json"
         e = json.loads(path.read_text()) if path.exists() else {}
@@ -3686,7 +3784,8 @@ def mesh_train_phase(K, smi: str, tmp_dir: str, plain_train: dict) -> None:
              "card_gb": CARD_GB, "seconds": e["compile_s"],
              "hw": "H100_SXM"})
     launches = K.launch_counts()
-    say({"phase": "mesh-train", "part": "done", "variants_seconds": var_s,
+    say({"phase": "mesh-train", "part": "done",
+         "variants_seconds": variants_s,
          "launches": launches, "seconds": time.perf_counter() - t_phase})
     if any(launches.values()):
         raise AssertionError(f"the mesh training path launched a kernel: "
@@ -3694,6 +3793,13 @@ def mesh_train_phase(K, smi: str, tmp_dir: str, plain_train: dict) -> None:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
+
+    def clock(at: str) -> None:
+        """The script's seconds so far, as phase ``at`` starts."""
+        say({"phase": "clock", "at": at,
+             "seconds": time.perf_counter() - t_start})
+
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -3738,21 +3844,26 @@ def main() -> int:
             if ("registers" in line or "spill" in line
                     or "entry function" in line or "arning" in line):
                 say(f"# ptxas {kname}: {line.strip()}")
-    for lib, fn_part in NO_SPILL.items():
-        spilled = {fn: n for fn, n in ptxas_spills(logs.get(lib, "")).items()
-                   if fn_part in fn}
-        say({"phase": "spills", "library": lib, "function": fn_part,
-             "bytes": spilled})
-        if any(spilled.values()):
-            raise AssertionError(f"{fn_part} spills: {spilled}")
-    for lib, fn_name in (("flash_attention", "flash_fwd_sm90"),
-                         ("moe_dispatch", "moe_gemm_sm90")):
-        sass = sass_counts(_build.library_path(lib))
-        for fn, counts in sass.items():
+    for lib, fn_parts in NO_SPILL.items():
+        spills = ptxas_spills(logs.get(lib, ""))
+        for fn_part in fn_parts:
+            spilled = {fn: n for fn, n in spills.items() if fn_part in fn}
+            say({"phase": "spills", "library": lib, "function": fn_part,
+                 "bytes": spilled})
+            if not spilled or any(spilled.values()):
+                raise AssertionError(f"{fn_part}: no ptxas report, or "
+                                     f"spills: {spilled}")
+    sass = {lib: sass_counts(_build.library_path(lib))
+            for lib in dict(HGMMA_KERNELS)}
+    for lib, counts_by_fn in sass.items():
+        for fn, counts in counts_by_fn.items():
             say({"phase": "sass", "library": lib, "function": fn, **counts})
-        if not sum(c["HGMMA"] for fn, c in sass.items() if fn_name in fn):
-            raise AssertionError(f"{fn_name} holds no HGMMA (wgmma) "
-                                 f"instruction")
+    for lib, fn_name in HGMMA_KERNELS:
+        held = {fn: c["HGMMA"] for fn, c in sass[lib].items()
+                if fn_name in fn}
+        if not held or not all(held.values()):
+            raise AssertionError(f"an instance of {fn_name} holds no HGMMA "
+                                 f"(wgmma) instruction: {held}")
 
     tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-obs-")
     trace_dir = Path(tmp.name)      # one span/counter trace per main path
@@ -3771,6 +3882,7 @@ def main() -> int:
     def record(*args, **kw) -> dict:
         return timing_row(bench, smi, *args, **kw)
 
+    clock("2+3 stream")
     # -- 2+3. STREAM ------------------------------------------------------------
     # In turns: the library call and the kernel, both writing into one
     # preallocated output, and the entry point, which allocates its output
@@ -3807,6 +3919,7 @@ def main() -> int:
         del a, b, o
     torch.cuda.empty_cache()
 
+    clock("2+3 gather")
     # -- 2+3. token gather ----------------------------------------------------
     def gather_idx(n_rows: int, m: int):
         idx = torch.randint(0, n_rows, (m,), generator=gen, device=dev,
@@ -3830,6 +3943,7 @@ def main() -> int:
         del table, idx
     torch.cuda.empty_cache()
 
+    clock("2+3 flash")
     # -- 2+3. flash attention (the same timings as scripts/kernel_ab.py) ----
     for dtype, d in ((torch.float32, 128), (torch.bfloat16, 128),
                      (torch.bfloat16, 64)):
@@ -3855,6 +3969,41 @@ def main() -> int:
                 _, err = flash_full_width(bench, smi, dtype, d, causal,
                                           shape=SMALL_FLASH, timed=False)
                 errs["flash_attention"] = max(errs["flash_attention"], err)
+    # above 256: the wide kernels at PaliGemma's shape (timed, causal) and
+    # on the small shape (held, causal and not), each launch counted under
+    # its kernel's name
+    wide_launches = dict(flash_kernel.launches_by_kernel)
+    for dtype in (torch.float32, torch.bfloat16):
+        for d, shape in WIDE_FLASH.items():
+            row, err = flash_full_width(bench, smi, dtype, d, True,
+                                        shape=shape, timed=True)
+            errs["flash_attention"] = max(errs["flash_attention"], err)
+            rows[f"flash_attention_d{d}", dtype] = row
+            torch.cuda.empty_cache()
+        for d in WIDE_FLASH_DIMS:
+            for causal in (True, False):
+                _, err = flash_full_width(bench, smi, dtype, d, causal,
+                                          shape=SMALL_FLASH, timed=False)
+                errs["flash_attention"] = max(errs["flash_attention"], err)
+    wide_launches = {k: v - wide_launches[k]
+                     for k, v in flash_kernel.launches_by_kernel.items()}
+    say({"phase": "flash-wide-launches", "launches_by_kernel": wide_launches})
+    if not (wide_launches["flash_fwd_wide"] > 0
+            and wide_launches["flash_fwd_wide_sm90"] > 0
+            and wide_launches["flash_fwd_kernel"] == 0
+            and wide_launches["flash_fwd_sm90"] == 0):
+        raise AssertionError(f"D > 256 did not run the wide kernels alone: "
+                             f"{wide_launches}")
+    for d in REFUSED_FLASH_DIMS:
+        qq, kk, vv = flash_inputs(gen, 1, 128, 128, 2, 1, d, torch.bfloat16)
+        try:
+            mha(qq, kk, vv, causal=True)
+        except ValueError as e:
+            if "ROADMAP.md" not in str(e):
+                raise
+            say({"phase": "flash-refused", "d": d, "error": str(e)})
+        else:
+            raise AssertionError(f"flash on CUDA took D={d}")
     # f32 launches the plan cuts into several kv ranges, causal, so that the
     # first q tiles' later ranges lie wholly above the diagonal.
     for bsz, s, h, g, d in ((1, 1024, 2, 1, 128), (2, 512, 4, 2, 64)):
@@ -3867,6 +4016,7 @@ def main() -> int:
             f"causal=True {plan}", mha(qq, kk, vv, causal=True),
             attention_ref(qq, kk, vv, causal=True), tol=ATTN_TOL))
 
+    clock("2+3 paged, moe")
     # -- 2+3. paged-KV decode and MoE dispatch (the same timings as
     # scripts/kernel_ab.py) ------------------------------------------------
     for dtype in (torch.float32, torch.bfloat16):
@@ -3881,6 +4031,7 @@ def main() -> int:
         errs["moe_dispatch"] = max(errs["moe_dispatch"], err)
         torch.cuda.empty_cache()
 
+    clock("2+3 scans")
     # -- 2+3. SSM scans: one Zamba2-7B Mamba-2 layer (the chunked scan's
     # timings are scripts/kernel_ab.py's) -----------------------------------
     t, d, n, chunk = (FULL_SCAN[k] for k in ("t", "d", "n", "chunk"))
@@ -3907,11 +4058,13 @@ def main() -> int:
     del bench
     torch.cuda.empty_cache()
 
+    clock("2 window")
     # -- 2. the simulator's window count on seeded rows (timed in phase 14,
     # at the geometries the cuda backend's main paths give it) -------------
     window_scan_seeded(gen, errs)
     torch.cuda.empty_cache()
 
+    clock("4")
     # -- 4. main path 1: the 45-entry roster on the card -----------------------
     # Driven entry by entry (``row``, what ``roster`` runs after one batch of
     # the same cells) to time each source; ``roster`` then only reads.
@@ -3962,6 +4115,7 @@ def main() -> int:
         raise AssertionError("cold roster: profile.scan is not within "
                              "(0, profile.geom]")
 
+    clock("5")
     # -- 5. main path 2: the serving roster on the card ------------------------
     K.reset_launch_counts()
     t0 = time.perf_counter()
@@ -4007,6 +4161,7 @@ def main() -> int:
          "cpu_seconds": time.perf_counter() - t0})
     span_split(trace_dir, "serving", smi)
 
+    clock("6")
     # -- 6. parity at every distinct launch of both paths -----------------------
     t0 = time.perf_counter()
     held = hold_main_path(launched + served, randn, rand, errs)
@@ -4015,9 +4170,11 @@ def main() -> int:
          "seconds": time.perf_counter() - t0})
     check_reference_tiles(randn, errs)
 
+    clock("7")
     # -- 7. MoE dispatch's tile list, ragged tiles, unsorted eid --------------
     check_moe_tiles(launched + served, gen, errs)
 
+    clock("8")
     # -- 8. paged decode and MoE dispatch at the main paths' geometries ------
     for case, geo in main_path_geometries()[0]:
         say({"phase": "paged-splits", "case": case, "geometry": geo,
@@ -4025,9 +4182,11 @@ def main() -> int:
     geometry_timings(CardBench(peaks), smi, launched + served)
     torch.cuda.empty_cache()
 
+    clock("9")
     # -- 9. out-of-range indices -------------------------------------------------
     check_bad_index()
 
+    clock("10-12")
     # -- 10-12. the sections, the serving section, the store and the pool ------
     sections_launches, sections_table, sections_s = sections_phase(
         K, registry, cpu_registry, roster, trace_dir)
@@ -4035,6 +4194,7 @@ def main() -> int:
     serving_section_launches = serving_section_phase(K, timelines)
     store_pool_phase(K)
 
+    clock("13")
     # -- 13. main paths 6-7: roster() with the vectorized and the cuda
     # backend in turns, then the sections with backend="cuda" -------------
     roster_cuda_launches, roster_calls = roster_turns(
@@ -4045,21 +4205,34 @@ def main() -> int:
     say({"phase": "sections-cuda-vs-vectorized", "cuda_seconds": secs,
          "vectorized_seconds": sections_s, "card": smi})
 
+    clock("14")
     # -- 14. the window count at every distinct main-path geometry ---------
     rows[SCAN_KERNEL, torch.int32] = window_scan_main_path(
         roster_calls + sections_calls, smi, CardBench(peaks), errs)
     del roster_calls, sections_calls
     torch.cuda.empty_cache()
 
+    # phase 20(b)'s dry runs and phase 21(c)'s perf variants, host-only
+    # children, beside the simulation phases 15-16
+    dry_runs = start_dry_runs(tmp.name)
+    variants = start_perf_variants(tmp.name)
+    clock("15")
     # -- 15. simulate_chunked over a megaref trace on the card's host -------
     megaref_host = megaref_phase(K, smi)
 
+    clock("16")
     # -- 16. main paths 8-9: the benchmark driver's sections under both
     # backends, and the study CLI --------------------------------------------
     figures_launches, figures_cuda_launches = figures_phase(
         K, trace_dir, smi, roster.rows, megaref_host, errs)
     del megaref_host
 
+    # phase 16's clock ends here: the wait for the children is its own
+    clock("16-wait")
+    children = wait_children(dryrun=dry_runs, variants=variants)
+    say({"phase": "host-children", "ended": [*dry_runs, *variants],
+         **children})
+    clock("17")
     # -- 17. the LM stack and its serving engine (after the earlier phases
     # let go of the card's memory) ----------------------------------------
     del launched, served, registry, cpu_registry, runner, roster, timelines
@@ -4071,27 +4244,33 @@ def main() -> int:
          "reserved_gib": torch.cuda.memory_reserved() / 2**30})
     lm_phase(K, smi, peaks["bytes"])
 
+    clock("18")
     # -- 18. the SSM, hybrid and audio families, and training ---------------
     gc.collect()
     torch.cuda.empty_cache()
     plain_train = lm_1b_phase(K, smi, peaks, tmp.name)
 
+    clock("19")
     # -- 19. the whole-model capture and zoo, then the CI gates -------------
     gc.collect()
     torch.cuda.empty_cache()
     models_launches = models_phase(K, trace_dir, smi)
     gates_phase(smi, tmp.name)
 
+    clock("20")
     # -- 20. the cost substrate and the launch layer ------------------------
     gc.collect()
     torch.cuda.empty_cache()
-    launch_phase(smi, tmp.name)
+    launch_phase(smi, tmp.name, dry_runs, children["dryrun_s"])
 
+    clock("21")
     # -- 21. training on a mesh, int8 error feedback, the perf variants ----
     gc.collect()
     torch.cuda.empty_cache()
-    mesh_train_phase(K, smi, tmp.name, plain_train)
+    mesh_train_phase(K, smi, tmp.name, plain_train, variants,
+                     children["variants_s"])
 
+    clock("22")
     # -- 22. results --------------------------------------------------------
     kernels = []
     for kname, (source, replaces) in KERNEL_SITES.items():
@@ -4124,9 +4303,10 @@ def main() -> int:
         if kname == "flash_attention":
             entry["launches_by_kernel"] = {
                 k: roster_flash[k] + serving_flash[k] for k in roster_flash}
-            # PaliGemma's, Zamba2-7B's and Nemotron-4-340B's head widths
-            # and 16 and 96 (no main path launches them)
-            for d in WIDTH_FLASH:
+            # PaliGemma's, Zamba2-7B's and Nemotron-4-340B's head widths,
+            # 16 and 96, and the wide kernels' 320 and 512 (no main path
+            # launches them)
+            for d in [*WIDTH_FLASH, *WIDE_FLASH]:
                 r, r16 = (rows[f"flash_attention_d{d}", dt]
                           for dt in (torch.float32, torch.bfloat16))
                 entry[f"d{d}"] = {
@@ -4135,8 +4315,10 @@ def main() -> int:
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                     "bf16_ms": r16["ms"], "bf16_plain_ms": r16["plain_ms"],
                     "bf16_bound_ms": r16["bound_ms"],
-                    "bf16_library_ms": r16["library_ms"]}
+                    "bf16_library_ms": r16["library_ms"],
+                    "library": [r["library"], r16["library"]]}
         kernels.append(entry)
+    clock("total")
     say({"kernels": kernels})
     tmp.cleanup()
     say({"ok": True, "device": {"platform": "gpu",

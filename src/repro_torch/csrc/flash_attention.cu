@@ -5,15 +5,18 @@
 // grid (b*h, n_q, n_kv) carries the online-softmax state (m, l, acc) in
 // VMEM scratch across the sequential kv axis.  On Hopper blocks run in no
 // order, so one block owns one (b*h, q tile) and loops the kv axis itself.
-// Two kernels sit behind flash_attention_launch, chosen by dtype alone, and
-// each takes every head width D % 8 == 0 up to 256.  Each is built for four
-// padded widths DP in {64, 128, 192, 256} and a launch at D runs the one for
-// DP = D rounded up to a whole 64-column panel: the head is padded in
-// shared memory alone, with zero columns D .. DP - 1, while every read and
-// write of global memory stays at the real D.  The products skip what they
-// can of the padding (S = Q K^T walks only the columns that hold D) and
-// multiply zeros elsewhere (O += P V runs at DP); the output's padded
-// columns are never written.  Each DP has two instances, chosen at launch:
+// Four kernels sit behind flash_attention_launch, chosen by dtype and head
+// width.  Up to D = 256 the two tiled kernels below take every head width
+// D % 8 == 0; above it, up to 512, the two wide kernels (flash_fwd_wide,
+// flash_fwd_wide_sm90, after the tiled ones) cut O into column panels of at
+// most 256 and sum S over 64-column panels.  Each tiled kernel is built
+// for four padded widths DP in {64, 128, 192, 256} and a launch at D runs
+// the one for DP = D rounded up to a whole 64-column panel: the head is
+// padded in shared memory alone, with zero columns D .. DP - 1, while
+// every read and write of global memory stays at the real D.  The products
+// skip what they can of the padding (S = Q K^T walks only the columns that
+// hold D) and multiply zeros elsewhere (O += P V runs at DP); the output's
+// padded columns are never written.  Each DP has two instances, chosen at launch:
 // one for D = DP, compiled as a kernel of that fixed width, and one that
 // takes D < DP at run time.
 //
@@ -521,6 +524,313 @@ int launch(const float* q, const float* k, const float* v, float* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// f32, D above 256: flash_fwd_wide
+// ---------------------------------------------------------------------------
+//
+// A thread of flash_fwd_kernel<256> holds 4 rows x 64 output columns; at
+// D = 512 that would be 128 accumulators beside the scores, past the
+// register file, and the block's 64-row Q tile alone takes 128 KB.  So O is
+// cut into column panels of at most 256 (plan.wide_f32_plan: the DP / 64
+// 64-column panels dealt evenly to 2 blocks from DP 320 to 512), one block
+// a panel along the grid's z, each recomputing S over the whole head; and
+// K and V pass through one ring of 8 KB units, each 32 kv rows of one
+// 64-column panel: a kv step streams the DP / 64 panels of K (S summed over
+// them), then the block's panels of V (each adding P V into its own
+// columns of O: a thread's columns 4tx .. 4tx + 3 of every 64-column panel
+// are one float4 of its accumulators, as in flash_fwd_kernel).  The Q tile
+// (64 x DP, swizzled as flash_fwd_kernel's) stays whole in shared memory.
+// One block barrier a unit; the ring keeps kWideSlots - 1 units in flight.
+// Each copy moves the real 16-byte chunks of a unit's rows and zeroes the
+// places of the others, so every slot holds zeros past D whatever it held
+// before.  The split plan, the partials (at the real D, (m, l) written by
+// panel 0) and flash_combine are flash_fwd_kernel's.
+constexpr int kWideRQ = 4;     // score and output rows a thread holds
+constexpr int kWideCols = 2;   // score columns a thread holds
+constexpr int kWideBQ = kTY * kWideRQ;    // 64 q rows a block
+constexpr int kWideBK = kTX * kWideCols;  // 32 kv rows a step
+constexpr int kWideSlots = 4;  // ring slots (plan.WIDE_F32_SLOTS)
+constexpr int kWideVPanels = 4;   // most 64-column O panels a block holds
+constexpr int kUnit = kWideBK * 64;  // floats of one unit: 32 rows x 64
+
+__host__ __device__ constexpr int wide_smem_floats(int dp) {
+  return kWideBQ * dp + kWideSlots * kUnit + kWideBQ * kWideBK;
+}
+
+// One instance, D at run time: one compiled for D = 512 alone ran 1.8%
+// slower there (PERF.md, the wide kernels' findings).
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wide(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ o,
+               float* __restrict__ part, int Sq, int Sk, int H, int G, int D,
+               int causal, float scale_log2, int per_split, int n_splits,
+               int vp_block) {
+  const int DP = (D + 63) / 64 * 64;  // a Q row's floats in shared memory
+  const int n_dk = DP / 64;           // K panels: S sums over them
+  const int vp0 = blockIdx.z * vp_block;  // this block's first V panel
+  const int n_dv = min(vp_block, n_dk - vp0);  // ... and how many
+  const int per_step = n_dk + n_dv;  // units of one kv step
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;
+  float* sRing = sQ + kWideBQ * DP;
+  float* sP = sRing + kWideSlots * kUnit;
+
+  const int tid = threadIdx.x;
+  const int ty = tid / kTX, tx = tid % kTX;
+  const int r0 = kWideRQ * ty;  // first row this thread holds
+  const int fq = ty & 7;        // swizzle of its Q and P rows
+  const int fk = tx & 7;        // swizzle of its K rows (2tx, 2tx + 1)
+  const int n_q = Sq / kWideBQ;
+  const int split = blockIdx.x % n_splits;
+  const int tile = blockIdx.x / n_splits;
+  const int qi = causal ? n_q - 1 - tile : tile;  // heaviest first
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H, g = h / (H / G);
+  const int q0 = qi * kWideBQ;
+  const int kv0 = split * per_split;
+  int kv1 = min(Sk, kv0 + per_split);
+  if (causal) kv1 = min(kv1, q0 + kWideBQ);  // steps wholly above the diagonal
+  const int n_steps = kv1 > kv0 ? (kv1 - kv0) / kWideBK : 0;
+  const int n_units = n_steps * per_step;
+  const int d4 = D / 4;
+
+  const int64_t q_stride = static_cast<int64_t>(H) * D;
+  const int64_t kv_stride = static_cast<int64_t>(G) * D;
+  const float* qb = q + (static_cast<int64_t>(b) * Sq * H + h) * D;
+  const float* kb = k + (static_cast<int64_t>(b) * Sk * G + g) * D;
+  const float* vb = v + (static_cast<int64_t>(b) * Sk * G + g) * D;
+
+  // Unit u: step u / per_step; K panel r < n_dk of it, else V panel
+  // vp0 + r - n_dk, into ring slot u % kWideSlots.  K rows are swizzled as
+  // flash_fwd_kernel's (kWideCols rows share one), V rows are not.
+  auto load_unit = [&](int u) {
+    const int st = u / per_step, r = u % per_step;
+    const bool is_k = r < n_dk;
+    const int col0 = 64 * (is_k ? r : vp0 + r - n_dk);
+    const int real = min(16, (D - col0) / 4);  // real chunks of a row
+    const float* src = (is_k ? kb : vb) +
+                       (kv0 + static_cast<int64_t>(st) * kWideBK) * kv_stride +
+                       col0;
+    float* dst = sRing + (u % kWideSlots) * kUnit;
+#pragma unroll
+    for (int n = 0; n < kUnit / 4 / kThreads; ++n) {
+      const int e = n * kThreads + tid;
+      const int rr = e / 16, c = e % 16;
+      float* d = dst + rr * 64 + 4 * (is_k ? swizzled<kWideCols>(rr, c) : c);
+      if (c < real)
+        cp_async16(d, src + rr * kv_stride + 4 * c);
+      else
+        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  if (n_units > 0) {
+    // The Q tile: D / 4 real chunks a row, zeros up to DP.
+    for (int e = tid; e < kWideBQ * (DP / 4); e += kThreads) {
+      const int r = e / (DP / 4), c = e % (DP / 4);
+      float* d = sQ + r * DP + 4 * swizzled<kWideRQ>(r, c);
+      if (c < d4)
+        cp_async16(d, qb + (q0 + r) * q_stride + 4 * c);
+      else
+        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    load_unit(0);
+  }
+  cp_async_commit();
+#pragma unroll
+  for (int u = 1; u < kWideSlots - 1; ++u) {
+    if (u < n_units) load_unit(u);
+    cp_async_commit();
+  }
+  // Unit u has landed for every thread, unit u - 1 is consumed: its slot
+  // takes unit u + kWideSlots - 1.
+  auto ring_next = [&](int u) {
+    cp_async_wait<kWideSlots - 2>();
+    __syncthreads();
+    if (u + kWideSlots - 1 < n_units) load_unit(u + kWideSlots - 1);
+    cp_async_commit();
+  };
+
+  float m[kWideRQ], l[kWideRQ], acc[kWideRQ][4 * kWideVPanels];
+#pragma unroll
+  for (int i = 0; i < kWideRQ; ++i) {
+    m[i] = REPRO_NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4 * kWideVPanels; ++j) acc[i][j] = 0.f;
+  }
+  const float* qrow = sQ + r0 * DP;
+  float* prow = sP + r0 * kWideBK;
+
+  int u = 0;
+  for (int st = 0; st < n_steps; ++st) {
+    const int k0 = kv0 + st * kWideBK;
+    // S = Q K^T, 4 x 2 a thread, summed over the K panels, each over the
+    // 32-column groups that hold real columns.
+    float s[kWideRQ][kWideCols];
+#pragma unroll
+    for (int i = 0; i < kWideRQ; ++i)
+#pragma unroll
+      for (int j = 0; j < kWideCols; ++j) s[i][j] = 0.f;
+    for (int p = 0; p < n_dk; ++p, ++u) {
+      ring_next(u);
+      const float* krow =
+          sRing + (u % kWideSlots) * kUnit + kWideCols * tx * 64;
+      const float* qp = qrow + 64 * p;
+      const int cols = min(64, D - 64 * p);
+#pragma unroll 1
+      for (int d8 = 0; d8 < cols; d8 += 32) {
+#pragma unroll
+        for (int w = 0; w < 8; ++w) {
+          float4 qv[kWideRQ], kv[kWideCols];
+#pragma unroll
+          for (int i = 0; i < kWideRQ; ++i)
+            qv[i] = *reinterpret_cast<const float4*>(qp + i * DP + d8 +
+                                                     4 * (w ^ fq));
+#pragma unroll
+          for (int j = 0; j < kWideCols; ++j)
+            kv[j] = *reinterpret_cast<const float4*>(krow + j * 64 + d8 +
+                                                     4 * (w ^ fk));
+#pragma unroll
+          for (int i = 0; i < kWideRQ; ++i)
+#pragma unroll
+            for (int j = 0; j < kWideCols; ++j) {
+              s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+              s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+              s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+              s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+            }
+        }
+      }
+    }
+
+    // Online softmax in registers; P to the warp's rows of sP (read after
+    // the next unit's block barrier).
+    const bool mask = causal && k0 + kWideBK - 1 > q0;
+    float alpha[kWideRQ];
+#pragma unroll
+    for (int i = 0; i < kWideRQ; ++i) {
+      float mx = REPRO_NEG_INF;
+#pragma unroll
+      for (int j = 0; j < kWideCols; ++j) {
+        float x = s[i][j] * scale_log2;
+        if (mask && q0 + r0 + i < k0 + kWideCols * tx + j) x = REPRO_NEG_INF;
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int off = 1; off < kTX; off *= 2)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      alpha[i] = exp2f(m[i] - m_new);
+      float2 pp;
+      pp.x = exp2f(s[i][0] - m_new);
+      pp.y = exp2f(s[i][1] - m_new);
+      l[i] = l[i] * alpha[i] + (pp.x + pp.y);
+      *reinterpret_cast<float2*>(prow + i * kWideBK +
+                                 4 * (((kWideCols * tx) / 4) ^ fq) +
+                                 (kWideCols * tx) % 4) = pp;
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < kWideRQ; ++i)
+#pragma unroll
+      for (int j = 0; j < 4 * kWideVPanels; ++j) acc[i][j] *= alpha[i];
+
+    // O += P V, one V panel a unit: panel jj adds into accumulators
+    // 4jj .. 4jj + 3 of each row (columns 64 (vp0 + jj) + 4tx ..).
+#pragma unroll
+    for (int jj = 0; jj < kWideVPanels; ++jj) {
+      if (jj < n_dv) {
+        ring_next(u);
+        const float* vrow = sRing + (u % kWideSlots) * kUnit + 4 * tx;
+#pragma unroll
+        for (int w = 0; w < 8; ++w) {
+          float4 pv[kWideRQ];
+#pragma unroll
+          for (int i = 0; i < kWideRQ; ++i)
+            pv[i] = *reinterpret_cast<const float4*>(prow + i * kWideBK +
+                                                     4 * (w ^ fq));
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const float4 vv =
+                *reinterpret_cast<const float4*>(vrow + (4 * w + kk) * 64);
+#pragma unroll
+            for (int i = 0; i < kWideRQ; ++i) {
+              const float p = kk == 0 ? pv[i].x
+                              : kk == 1 ? pv[i].y
+                              : kk == 2 ? pv[i].z
+                                        : pv[i].w;
+              acc[i][4 * jj + 0] = fmaf(p, vv.x, acc[i][4 * jj + 0]);
+              acc[i][4 * jj + 1] = fmaf(p, vv.y, acc[i][4 * jj + 1]);
+              acc[i][4 * jj + 2] = fmaf(p, vv.z, acc[i][4 * jj + 2]);
+              acc[i][4 * jj + 3] = fmaf(p, vv.w, acc[i][4 * jj + 3]);
+            }
+          }
+        }
+        ++u;
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < kWideRQ; ++i)
+#pragma unroll
+    for (int off = 1; off < kTX; off *= 2)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+  const int64_t row0 = (static_cast<int64_t>(b) * Sq + q0 + r0) * H + h;
+  const int64_t rows = static_cast<int64_t>(gridDim.y / H) * Sq * H;
+  float* pacc = part + split * rows * D;  // unused with one split
+#pragma unroll
+  for (int i = 0; i < kWideRQ; ++i) {
+    const int64_t r = row0 + static_cast<int64_t>(i) * H;
+    const float inv = n_splits == 1 ? 1.f / fmaxf(l[i], 1e-30f) : 1.f;
+    float* orow = (n_splits == 1 ? o : pacc) + r * D;
+#pragma unroll
+    for (int jj = 0; jj < kWideVPanels; ++jj) {
+      const int col = 64 * (vp0 + jj) + 4 * tx;
+      if (jj < n_dv && col < D)
+        *reinterpret_cast<float4*>(orow + col) =
+            make_float4(acc[i][4 * jj] * inv, acc[i][4 * jj + 1] * inv,
+                        acc[i][4 * jj + 2] * inv, acc[i][4 * jj + 3] * inv);
+    }
+    if (n_splits > 1 && blockIdx.z == 0 && tx == 0)
+      *reinterpret_cast<float2*>(part + n_splits * rows * D +
+                                 (split * rows + r) * 2) =
+          make_float2(m[i], l[i]);
+  }
+}
+
+int launch_wide(const float* q, const float* k, const float* v, float* o,
+                float* part, int B, int Sq, int Sk, int H, int G, int D,
+                int causal, float scale, int per_split, int n_splits,
+                cudaStream_t stream) {
+  if (D <= 256 || D > 512 || Sq % kWideBQ || Sk % kWideBK ||
+      per_split <= 0 || per_split % kWideBK ||
+      n_splits != (Sk + per_split - 1) / per_split ||
+      (n_splits > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int dp = (D + 63) / 64 * 64;
+  const int n_vp = dp / 64;
+  const int panels = (n_vp + kWideVPanels - 1) / kWideVPanels;
+  const int vp_block = (n_vp + panels - 1) / panels;
+  const int smem = wide_smem_floats(dp) * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((Sq / kWideBQ) * n_splits, B * H, panels);
+  flash_fwd_wide<<<grid, kThreads, smem, stream>>>(
+      q, k, v, o, part, Sq, Sk, H, G, D, causal, scale * kLog2e, per_split,
+      n_splits, vp_block);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_splits == 1) return static_cast<int>(err);
+  const int64_t rows = static_cast<int64_t>(B) * Sq * H;
+  const int64_t threads = rows * (D / 4);
+  flash_combine<<<static_cast<unsigned>((threads + 255) / 256), 256, 0,
+                  stream>>>(part, o, rows, D, n_splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace f32
 
 
@@ -848,15 +1158,315 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// bf16, D above 256: flash_fwd_wide_sm90
+// ---------------------------------------------------------------------------
+//
+// flash_fwd_sm90 keeps O as one 64 x DP wgmma accumulator a consumer (DP / 2
+// registers a thread) and the whole K and V tiles in a stage; wgmma's N
+// stops at 256, a thread at 255 registers, and at DP 512 the Q tile and two
+// stages of K and V would take 384 KB.  So O is cut into panels of 256
+// columns (kWidePW, plan.WIDE_PANEL), one block a panel along the grid's z,
+// each recomputing S and the softmax over the whole head (the same
+// operations in the same order, so the panels' m and l agree bit for bit):
+// a consumer holds the DP 256 instance's 128 accumulators.  The producer
+// streams K as 64 x 64 panels through a ring of kWideKStages and the
+// block's 64 x 256 V tile through a ring of two; S = Q K^T is a chain of
+// m64n64k16 over the K panels (the first k-step overwrites), each panel
+// released to the producer once the next one's products are issued
+// (wgmma.wait_group 1).  The 128-row Q tile stays whole in shared memory
+// (DP / 64 swizzled panels), which caps D at 512 (plan.MAX_HEAD_DIM).  As
+// in flash_fwd_sm90: tensor maps at the real D, whose zero fill past D
+// counts in the mbarrier's bytes; S skips its k-steps past D; P goes from
+// registers as two bf16 halves; the output is staged through the
+// consumer's Q rows and written at the real D.  A V panel wholly past D is
+// never loaded: its places in both V stages are zeroed once.
+constexpr int kWideBK = 64;     // kv rows of a K panel and of a V tile
+constexpr int kWidePW = 256;    // output columns a block holds (wgmma N)
+constexpr int kWideKStages = 4;   // plan.WIDE_SM90_K_STAGES
+constexpr int kWideVStages = 2;   // plan.WIDE_SM90_V_STAGES
+constexpr int kWidePanel = kWideBK * 128;  // bytes of one 64 x 64 panel
+constexpr int kWideVTile = kWidePW / 64 * kWidePanel;
+constexpr int kWideMaxPanels = 8;  // 64-column panels of D at the cap
+
+__host__ __device__ constexpr int wide_smem_bytes(int dp) {
+  return 1024 + kBQ * dp * 2 + kWideKStages * kWidePanel +
+         kWideVStages * kWideVTile +
+         8 * (1 + 2 * kWideKStages + 2 * kWideVStages);
+}
+
+// grid (B*H, Sq/128, ceil(D/256)); one instance, D at run time.
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wide_sm90(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H,
+                    int G, int D, int causal, float scale_log2) {
+  const int n_dp = (D + 63) / 64;          // panels of Q and K holding D
+  const int col0 = blockIdx.z * kWidePW;    // this block's first O column
+  const int n_vp = min(kWidePW / 64, (D - col0 + 63) / 64);  // V panels
+  constexpr int kAcc = kWidePW / 2;  // f32 accumulators a thread: 64 x 256
+  constexpr int kSc = kWideBK / 2;   // ... for the 64 x 64 scores
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sK = sQ + n_dp * kQPanel;
+  uint8_t* sV = sK + kWideKStages * kWidePanel;
+  uint64_t* full_q =
+      reinterpret_cast<uint64_t*>(sV + kWideVStages * kWideVTile);
+  uint64_t* full_k = full_q + 1;
+  uint64_t* empty_k = full_k + kWideKStages;
+  uint64_t* full_v = empty_k + kWideKStages;
+  uint64_t* empty_v = full_v + kWideVStages;
+
+  const int n_q = Sq / kBQ;
+  const int bh = blockIdx.x;
+  const int tile = static_cast<int>(blockIdx.y);
+  const int qi = causal ? n_q - 1 - tile : tile;  // heaviest first
+  const int b = bh / H;
+  const int h = bh % H;
+  const int g = h / (H / G);
+  const int q0 = qi * kBQ;
+  const int n_kv = causal ? min(Sk / kWideBK, (q0 + kBQ) / kWideBK)
+                          : Sk / kWideBK;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < kWideKStages; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&empty_k[s], 8);  // one arrival per consumer warp
+    }
+    for (int s = 0; s < kWideVStages; ++s) {
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_v[s], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // V panels past D: zeros in both stages, for wgmma to read.
+  for (int i = tid * 16; i < kWideVStages * (4 - n_vp) * kWidePanel;
+       i += kThreads * 16) {
+    const int st = i / ((4 - n_vp) * kWidePanel);
+    const int off = i % ((4 - n_vp) * kWidePanel);
+    *reinterpret_cast<uint4*>(sV + st * kWideVTile + n_vp * kWidePanel + off) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  if (tid < 128) {  // producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+    if (tid == 0) {
+      const int q_row = b * Sq + q0;
+      const int kv_row = b * Sk;
+      mbar_expect_tx(full_q, n_dp * kQPanel);
+      for (int p = 0; p < n_dp; ++p)
+        tma_load(sQ + p * kQPanel, &tm_q, full_q, 64 * p, h, q_row);
+      int kc = 0;  // K panels issued
+      for (int j = 0; j < n_kv; ++j) {
+        for (int p = 0; p < n_dp; ++p, ++kc) {
+          const int s = kc % kWideKStages;
+          mbar_wait(&empty_k[s], ((kc / kWideKStages) & 1) ^ 1);
+          mbar_expect_tx(&full_k[s], kWidePanel);
+          tma_load(sK + s * kWidePanel, &tm_k, &full_k[s], 64 * p, g,
+                   kv_row + j * kWideBK);
+        }
+        const int s = j % kWideVStages;
+        mbar_wait(&empty_v[s], ((j / kWideVStages) & 1) ^ 1);
+        mbar_expect_tx(&full_v[s], n_vp * kWidePanel);
+        for (int p = 0; p < n_vp; ++p)
+          tma_load(sV + s * kWideVTile + p * kWidePanel, &tm_v, &full_v[s],
+                   col0 + 64 * p, g, kv_row + j * kWideBK);
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroups: c owns q rows 64c .. 64c+63 of the tile.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+  const int c = tid / 128 - 1;
+  const int t = tid % 128;
+  const int lane = t % 32;
+  const int row_lo = 16 * (t / 32) + lane / 4;  // and row_lo + 8
+  const int col_in = 2 * (lane % 4);            // first of two columns
+  const int q_first = q0 + 64 * c;              // position of row 0
+
+  float acc[kAcc];
+  float sc[kSc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kSc; ++i) sc[i] = 0.f;
+  float m[2] = {REPRO_NEG_INF, REPRO_NEG_INF};
+  float l[2] = {0.f, 0.f};  // this thread's columns only until the end
+  const uint32_t q_addr = smem_u32(sQ) + 64 * c * 128;
+
+  mbar_wait(full_q, 0);
+  int kc = 0;  // K panels consumed
+  for (int j = 0; j < n_kv; ++j) {
+    // S = Q K^T over the panels that hold D, 4 k-steps of 16 a panel (the
+    // k-steps past D not issued).
+    reg_fence(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < kWideMaxPanels; ++p) {
+      if (p >= n_dp) break;
+      const int s = kc % kWideKStages;
+      mbar_wait(&full_k[s], (kc / kWideKStages) & 1);
+      const uint32_t k_addr = smem_u32(sK + s * kWidePanel);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (64 * p + 16 * kk >= D) break;
+        const uint64_t da = sw128_desc(q_addr + p * kQPanel + kk * 32, 16);
+        const uint64_t db = sw128_desc(k_addr + kk * 32, 16);
+        wgmma_ss_n64(sc, da, db, p != 0 || kk != 0);
+      }
+      wgmma_commit();
+      if (p > 0) {  // the previous panel's products are done: release it
+        wgmma_wait<1>();
+        if (lane == 0) mbar_arrive(&empty_k[(kc - 1) % kWideKStages]);
+      }
+      ++kc;
+    }
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(&empty_k[(kc - 1) % kWideKStages]);
+    reg_fence(sc);
+
+    // Online softmax in the log2 domain.  sc[4n + e] is row row_lo + 8*(e/2),
+    // column 8n + col_in + e%2 of the tile.
+    const int k0 = j * kWideBK;
+    const bool diag = causal && k0 + kWideBK - 1 > q_first;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < kSc; ++i) {
+      float x = sc[i] * scale_log2;
+      if (diag) {
+        const int qpos = q_first + row_lo + 8 * ((i % 4) / 2);
+        const int kpos = k0 + 8 * (i / 4) + col_in + i % 2;
+        if (qpos < kpos) x = REPRO_NEG_INF;
+      }
+      sc[i] = x;
+      mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], x);
+    }
+    float alpha[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2f(m[r] - mx[r]);
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int i = 0; i < kSc; ++i) {
+      const float p = exp2f(sc[i] - m[(i % 4) / 2]);
+      sc[i] = p;
+      rsum[(i % 4) / 2] += p;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rsum[r];
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) acc[i] *= alpha[(i % 4) / 2];
+
+    // P as wgmma A fragments, hi = bf16(p), lo = bf16(p - hi).
+    uint32_t p_hi[kSc / 2], p_lo[kSc / 2];
+#pragma unroll
+    for (int i = 0; i < kSc / 2; ++i) {
+      const float x0 = sc[2 * i], x1 = sc[2 * i + 1];
+      __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+      const float2 hf = __bfloat1622float2(hi);
+      p_hi[i] = *reinterpret_cast<uint32_t*>(&hi);
+      p_lo[i] = pack_bf16(x0 - hf.x, x1 - hf.y);
+    }
+
+    // O += P V for this block's 256 columns, over the 64 kv rows in steps
+    // of 16.
+    const int s = j % kWideVStages;
+    const uint32_t v_addr = smem_u32(sV + s * kWideVTile);
+    mbar_wait(&full_v[s], (j / kWideVStages) & 1);
+    reg_fence(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWideBK / 16; ++kk) {
+      const uint64_t dv = sw128_desc(v_addr + kk * 16 * 128, kWidePanel);
+      wgmma_rs_n256(acc, p_hi + 4 * kk, dv, 1);
+      wgmma_rs_n256(acc, p_lo + 4 * kk, dv, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(acc);
+    if (lane == 0) mbar_arrive(&empty_v[s]);
+  }
+
+  // out = acc / max(l, 1e-30), rounded to bf16, staged in this consumer's
+  // rows of the first four Q panels (D > 256 gives at least five) and
+  // written as 16-byte row segments of the real columns.
+  float lim[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    lim[r] = fmaxf(l[r], 1e-30f);
+  }
+  uint8_t* sO = sQ + 64 * c * 128;
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + c) : "memory");  // Q rows read
+#pragma unroll
+  for (int n = 0; n < kWidePW / 8; ++n) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_lo + 8 * r;
+      uint8_t* dst = sO + (n / 8) * kQPanel + row * 128 +
+                     (((n % 8) ^ (row % 8)) * 16) + col_in * 2;
+      *reinterpret_cast<uint32_t*>(dst) = pack_bf16(
+          acc[4 * n + 2 * r] / lim[r], acc[4 * n + 2 * r + 1] / lim[r]);
+    }
+  }
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + c) : "memory");
+  constexpr int kChunks = kWidePW / 8;  // 16-byte segments in one staged row
+  for (int i = t; i < 64 * kChunks; i += 128) {
+    const int row = i / kChunks;
+    const int ch = i % kChunks;
+    if (col0 + 8 * ch >= D) continue;  // a column past D
+    const uint4 val = *reinterpret_cast<const uint4*>(
+        sO + (ch / 8) * kQPanel + row * 128 + (((ch % 8) ^ (row % 8)) * 16));
+    const int64_t pos = static_cast<int64_t>(b) * Sq + q_first + row;
+    *reinterpret_cast<uint4*>(o + (pos * H + h) * D + col0 + ch * 8) = val;
+  }
+}
+
+int launch_wide(const void* q, const void* k, const void* v, void* o, int B,
+                int Sq, int Sk, int H, int G, int D, int causal, float scale,
+                cudaStream_t stream) {
+  static_assert(wide_smem_bytes(512) <= 232448,
+                "over a block's shared memory");
+  if (D <= 256 || D > 512 || Sq % kBQ || Sk % kWideBK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, D, H, static_cast<int64_t>(B) * Sq, kBQ) ||
+      !make_map(&tk, k, D, G, static_cast<int64_t>(B) * Sk, kWideBK) ||
+      !make_map(&tv, v, D, G, static_cast<int64_t>(B) * Sk, kWideBK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = wide_smem_bytes((D + 63) / 64 * 64);
+  auto* kern = flash_fwd_wide_sm90;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, Sq / kBQ, (D + kWidePW - 1) / kWidePW);
+  kern<<<grid, kThreads, smem, stream>>>(tq, tk, tv,
+                                         static_cast<__nv_bfloat16*>(o), Sq,
+                                         Sk, H, G, D, causal, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace sm90
 
 
 }  // namespace
 
 // Contract (checked by the Python wrapper, kernel.py): contiguous, 16-byte
-// aligned inputs, D % 8 == 0 and 8 <= D <= 256, Sq % bq == 0, Sk % bk == 0,
+// aligned inputs, D % 8 == 0 and 8 <= D <= 512, Sq % bq == 0, Sk % bk == 0,
 // H % G == 0, where bq and bk are the reference's tiles, which no kernel
-// reads.  Each dtype runs its kernel built for the padded width DP = D
+// reads.  Above D = 256 each dtype runs its wide kernel (plan.wide_f32_plan,
+// plan.wide_sm90_plan; one instance each, D at run time), tile_k its kv
+// rows (32 f32, with the split as below; 64 bf16).  Up to 256 each dtype runs its kernel built for the padded width DP = D
 // rounded up to a multiple of 64 (plan.padded_head_dim), whose shared-memory
 // rows hold D real columns and zeros up to DP (the instance for D = DP where
 // D is a multiple of 64).  tile_k is the
@@ -876,9 +1486,21 @@ REPRO_EXPORT int flash_attention_launch(int dtype, const void* q, const void* k,
                                         int n_splits, int tile_k,
                                         void* stream) {
   if (bq <= 0 || Sq % bq || bk <= 0 || Sk % bk || G <= 0 || H % G ||
-      D < 8 || D % 8 || D > 256)
+      D < 8 || D % 8 || D > 512)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D > 256) {
+    if (dtype == REPRO_F32 && tile_k == f32::kWideBK)
+      return f32::launch_wide(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<float*>(o),
+          static_cast<float*>(part), B, Sq, Sk, H, G, D, causal, scale,
+          per_split, n_splits, s);
+    if (dtype == REPRO_BF16 && n_splits == 1 && tile_k == sm90::kWideBK)
+      return sm90::launch_wide(q, k, v, o, B, Sq, Sk, H, G, D, causal,
+                               scale, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int DP = (D + 63) / 64 * 64;
   if (dtype == REPRO_F32) {
     const auto* qf = static_cast<const float*>(q);

@@ -12,8 +12,12 @@ axis cut into ranges by ``plan.split_plan`` (one range writes the output;
 several write f32 partials into scratch that ``flash_combine`` folds).
 Each takes every head width D % 8 == 0 up to 256 through the instance
 built for ``plan.padded_head_dim(D)`` (64, 128, 192 or 256), which pads
-the head in shared memory alone.  A wider or ragged head raises:
-ROADMAP.md's queue 2 holds what a wider one would need.
+the head in shared memory alone.  Above 256, up to ``plan.MAX_HEAD_DIM``
+(512), the head width picks the wide kernels instead, ``flash_fwd_wide``
+(f32, split as above) and ``flash_fwd_wide_sm90`` (bf16), which cut O into
+column panels, one block a panel (``plan.wide_f32_plan``,
+``plan.wide_sm90_plan``).  A wider or ragged head raises and names
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -26,19 +30,22 @@ import torch
 from repro_torch.capture.launch import LaunchSpec
 
 from .. import _build
-from .plan import (MAX_HEAD_DIM, f32_tiles, padded_head_dim, split_plan,
-                   sm90_kv_rows)
+from .plan import (MAX_HEAD_DIM, TILED_MAX_HEAD_DIM, f32_tiles,
+                   padded_head_dim, split_plan, sm90_kv_rows, wide_f32_plan,
+                   wide_sm90_plan)
 
 __all__ = ["flash_attention", "kernel_path", "head_dim_ok", "SM90_BLOCK"]
 
 SM90_BLOCK = 128        # bf16: the q tile rows flash_fwd_sm90 walks
 
-# Which kernel a launch takes, by dtype.
+# Which kernel a launch takes, by dtype: up to TILED_MAX_HEAD_DIM, and above.
 PATHS = {torch.float32: "flash_fwd_kernel", torch.bfloat16: "flash_fwd_sm90"}
+WIDE_PATHS = {torch.float32: "flash_fwd_wide",
+              torch.bfloat16: "flash_fwd_wide_sm90"}
 
 
 def head_dim_ok(d: int) -> bool:
-    """A head width some kernel takes: D % 8 == 0, 8 <= D <= 256."""
+    """A head width some kernel takes: D % 8 == 0, 8 <= D <= 512."""
     return 8 <= d <= MAX_HEAD_DIM and d % 8 == 0
 
 
@@ -46,21 +53,21 @@ def kernel_path(dtype: torch.dtype, d: int, block_q: int, block_k: int) -> str:
     """The kernel that takes a launch of this dtype, head width and spec
     tiles; raises on a launch no kernel takes.  No kernel reads the spec's
     tiles (each walks its own at the padded width: ``plan.f32_tiles``,
-    128-row q tiles and ``plan.sm90_kv_rows`` kv rows for flash_fwd_sm90),
-    so every tile ``ops.launch_spec`` gives is taken;
-    the card path's Sq, Sk multiples of 128 keep the kernels' own tiles
-    whole."""
+    128-row q tiles and ``plan.sm90_kv_rows`` kv rows for flash_fwd_sm90,
+    ``plan.wide_f32_plan`` and ``plan.wide_sm90_plan`` above D = 256), so
+    every tile ``ops.launch_spec`` gives is taken; the card path's Sq, Sk
+    multiples of 128 keep the kernels' own tiles whole."""
     if dtype not in PATHS:
         raise ValueError(f"flash_attention kernel takes {list(PATHS)}, "
                          f"got {dtype}")
     if not head_dim_ok(d):
         raise ValueError(f"flash_attention kernel takes D % 8 == 0 up to "
-                         f"{MAX_HEAD_DIM}, got D={d} (wider heads: "
-                         f"ROADMAP.md, queue 2)")
+                         f"{MAX_HEAD_DIM}, got D={d} (wider or ragged "
+                         f"heads: ROADMAP.md, queue 2)")
     if block_q < 1 or block_k < 1:
         raise ValueError(f"flash_attention takes positive tiles; got "
                          f"block_q={block_q}, block_k={block_k}")
-    return PATHS[dtype]
+    return (WIDE_PATHS if d > TILED_MAX_HEAD_DIM else PATHS)[dtype]
 
 
 @functools.cache
@@ -89,12 +96,15 @@ def flash_attention(spec: LaunchSpec, q: torch.Tensor, k: torch.Tensor,
         raise ValueError("flash_attention kernel takes contiguous, 16-byte "
                          "aligned inputs")
     dp = padded_head_dim(d)
-    if path == "flash_fwd_kernel":
+    if q.dtype == torch.float32:
         per, n_splits = split_plan(b, h, sq, sk, n_sm=_build.sm_count(q),
                                    d=dp)
-        tile_k = f32_tiles(dp)[1]
+        tile_k = (wide_f32_plan(dp).kv_rows if path == "flash_fwd_wide"
+                  else f32_tiles(dp)[1])
     else:
-        per, n_splits, tile_k = sk, 1, sm90_kv_rows(dp)
+        per, n_splits = sk, 1
+        tile_k = (wide_sm90_plan(dp).kv_rows if path == "flash_fwd_wide_sm90"
+                  else sm90_kv_rows(dp))
     out = torch.empty_like(q)
     part = (torch.empty(n_splits * b * sq * h * (d + 2), dtype=torch.float32,
                         device=q.device) if n_splits > 1 else None)
@@ -109,4 +119,5 @@ def flash_attention(spec: LaunchSpec, q: torch.Tensor, k: torch.Tensor,
 
 
 flash_attention.launches = 0
-flash_attention.launches_by_kernel = dict.fromkeys(PATHS.values(), 0)
+flash_attention.launches_by_kernel = dict.fromkeys(
+    [*PATHS.values(), *WIDE_PATHS.values()], 0)

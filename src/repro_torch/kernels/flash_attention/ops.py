@@ -7,7 +7,7 @@ q/o tiles mapped on ``qi`` and ``[1, bk, D]`` k/v tiles mapped on ``ki``
 (query head ``h`` reads kv head ``h // (H/G)``), ``bq = min(block_q, Sq)``
 and ``bk = min(block_k, Sk)``.  The reference's ``mha`` guard (sequence
 lengths multiples of 128, D % 8 == 0) decides between kernel and oracle on
-the TPU; here a CUDA tensor outside it, or with D above 256, raises, and
+the TPU; here a CUDA tensor outside it, or with D above 512, raises, and
 the plain version serves CPU tensors only.
 """
 
@@ -19,6 +19,7 @@ from repro_torch.capture.launch import LaunchOperand, LaunchSpec, emit
 
 from .. import _build
 from .kernel import flash_attention, head_dim_ok
+from .plan import MAX_HEAD_DIM
 from .ref import attention_ref
 
 __all__ = ["mha", "launch_spec", "SOFTMAX_OPS_PER_SCORE"]
@@ -79,7 +80,7 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if sq % 128 or sk % 128 or not head_dim_ok(d):
             raise ValueError(
                 f"flash attention on CUDA needs Sq and Sk multiples of 128 "
-                f"and D % 8 == 0 up to 256 (wider heads: ROADMAP.md, queue "
-                f"2); got Sq={sq}, Sk={sk}, D={d}")
+                f"and D % 8 == 0 up to {MAX_HEAD_DIM} (other shapes: "
+                f"ROADMAP.md, queue 2); got Sq={sq}, Sk={sk}, D={d}")
         return flash_attention(spec, q, k, v, causal=causal)
     return attention_ref(q, k, v, causal=causal)

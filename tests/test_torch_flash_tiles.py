@@ -117,6 +117,9 @@ def test_one_bf16_rounding_of_p_misses_the_card_tolerance(case):
     # other widths on the same kernels, padded to a 64-column panel
     (torch.bfloat16, 96, 128, 128, "flash_fwd_sm90"),
     (torch.float32, 16, 128, 128, "flash_fwd_kernel"),
+    # above 256, the wide kernels
+    (torch.bfloat16, 264, 128, 128, "flash_fwd_wide_sm90"),
+    (torch.float32, 512, 128, 128, "flash_fwd_wide"),
 ])
 def test_kernel_path_names_the_kernel(dtype, d, bq, bk, path):
     assert kernel_path(dtype, d, bq, bk) == path
@@ -133,10 +136,10 @@ def test_kernel_path_takes_every_width_a_multiple_of_8_up_to_256(dtype, d):
 
 
 @pytest.mark.parametrize("dtype,d,bq,bk,match", [
-    (torch.bfloat16, 264, 128, 128, "D % 8 == 0 up to 256"),
-    (torch.float32, 512, 128, 128, "D % 8 == 0 up to 256"),
-    (torch.float32, 20, 128, 128, "D % 8 == 0 up to 256"),
-    (torch.bfloat16, 4, 128, 128, "D % 8 == 0 up to 256"),
+    (torch.bfloat16, 520, 128, 128, "D % 8 == 0 up to 512"),
+    (torch.float32, 1032, 128, 128, "D % 8 == 0 up to 512"),
+    (torch.float32, 20, 128, 128, "D % 8 == 0 up to 512"),
+    (torch.bfloat16, 4, 128, 128, "D % 8 == 0 up to 512"),
     (torch.float16, 128, 128, 128, "takes"),
 ])
 def test_kernel_path_refuses_what_no_kernel_takes(dtype, d, bq, bk, match):
