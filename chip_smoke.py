@@ -33,11 +33,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    causal, both dtypes; flash at head_dims 8, 16, 40, 112, 136, 192, 200
    and 248 (each padded in shared memory to a 64-column panel) on a small
    shape (1 x 256 tokens, 4 heads, 2 KV heads), causal and not, both
-   dtypes; above D 256 the wide kernels (``flash_fwd_wide``,
-   ``flash_fwd_wide_sm90``) at D 320 and 512 at PaliGemma-3B's shape,
-   causal, and at D 264, 320, 328, 384, 456 and 512 on the small shape,
-   causal and not, both dtypes, each counted on the launch counter under
-   its kernel's name, and CUDA tensors at D 520 and D 300 refused with a
+   dtypes; above D 256 the wide kernels (``flash_fwd_wide``, launched as
+   thread-block clusters that split the head and S, and
+   ``flash_fwd_wide_sm90``, two blocks that split the head's output
+   columns) at D 320 and 512 at PaliGemma-3B's shape, causal, each row
+   with its cluster size, and at D 264, 320, 328, 384, 456 and 512 on the
+   small shape, causal and not, both dtypes, f32 also at 520, 768 and 1024
+   (clusters of three and four), each counted on the launch counter under
+   its kernel's name, and CUDA tensors at D 1032 and 300 (f32) and at 520
+   and 300 (bf16, whose cap is 512) refused with a
    message naming ROADMAP.md; the simulator's window count (``window_scan``)
    on seeded rows, int32
    and int64 (ragged spans, cold slots, windows ending at m - 1 and past
@@ -58,8 +62,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    backend SDPA picked (``library``); their bound has a third term, the
    scores' exp2 over the SFUs' rate at the card's max SM clock
    (``bound_by`` ``"exp"``), which binds bf16 at narrow heads, and counts
-   the reference's work once (the wide kernels' recomputed S is not in
-   it).  Paged decode prints its
+   the reference's work once (f32's wide clusters compute each tile's S
+   once, each block its part; bf16's two wide blocks each compute the
+   whole S, which the bound does not count twice).  Paged decode prints
+   its
    split count, the EMA scan its plan, the state-expanded scan its plan
    and its issue floor (4 N D T f32 lane-instructions, the update's
    multiplies and adds unfused);
@@ -875,11 +881,15 @@ WIDTH_FLASH = {256: PALIGEMMA_FLASH, 16: PALIGEMMA_FLASH, 96: PALIGEMMA_FLASH,
 # Head widths above 256 (the wide kernels; no model of the repo has one),
 # timed at PaliGemma's shape, causal, and held on the small shape below,
 # causal and not: the narrowest, widths ending inside a 32-column group
-# (328, 456), whole panels and the cap.
+# (328, 456), whole panels and bf16's cap, in both dtypes; f32's clusters
+# of three (520: 8 real columns in the last of nine panels, 768) and four
+# (1024, its cap).
 WIDE_FLASH = {320: PALIGEMMA_FLASH, 512: PALIGEMMA_FLASH}
 WIDE_FLASH_DIMS = (264, 320, 328, 384, 456, 512)
-# Widths a CUDA tensor is refused at: over the cap, and D % 8 != 0.
-REFUSED_FLASH_DIMS = (520, 300)
+WIDE_F32_FLASH_DIMS = (520, 768, 1024)
+# Widths a CUDA tensor is refused at, by dtype: over its cap, and
+# D % 8 != 0.
+REFUSED_FLASH_DIMS = {torch.float32: (1032, 300), torch.bfloat16: (520, 300)}
 # Head widths held on a small shape, causal and not: each padded width's
 # narrowest and widest, and those whose real columns end inside a
 # 32-column group (40, 112, 136, 200, 248).
@@ -980,7 +990,7 @@ def flash_full_width(bench: Bench, smi: str, dtype: torch.dtype, d: int,
             qt, kt, vt, is_causal=causal, scale=d ** -0.5, enable_gqa=True)
 
     extra = {"library": f"sdpa:{sdpa_backend(qt, kt, vt, causal, d)}",
-             **extra}
+             **wide_cluster(dtype, d), **extra}
 
     if dtype == torch.bfloat16 and d == 128 and g is FULL_FLASH:
         # SDPA's own bf16 result against the same limit (for the record: it
@@ -1009,6 +1019,21 @@ def flash_full_width(bench: Bench, smi: str, dtype: torch.dtype, d: int,
         4.0 * d * scores, "f32" if dtype == torch.float32 else "bf16",
         exps=scores, **extra)
     return row, err
+
+
+def wide_cluster(dtype: torch.dtype, d: int) -> dict:
+    """The blocks along the grid's z a wide flash kernel splits the head
+    between at head width ``d``, and how many form one thread-block
+    cluster (1: none), or nothing at a width the tiled kernels take, or for
+    a checkout from before the cluster design."""
+    from repro_torch.kernels.flash_attention import plan
+
+    if d <= 256 or not hasattr(plan, "wide_panels"):
+        return {}
+    dp = plan.padded_head_dim(d)
+    wide = (plan.wide_f32_plan if dtype == torch.float32
+            else plan.wide_sm90_plan)(dp)
+    return {"cluster": wide.cluster, "blocks_z": wide.blocks}
 
 
 def sdpa_backend(q, k, v, causal: bool, d: int) -> str:
@@ -3980,7 +4005,10 @@ def main() -> int:
             errs["flash_attention"] = max(errs["flash_attention"], err)
             rows[f"flash_attention_d{d}", dtype] = row
             torch.cuda.empty_cache()
-        for d in WIDE_FLASH_DIMS:
+        dims = WIDE_FLASH_DIMS
+        if dtype == torch.float32:
+            dims += WIDE_F32_FLASH_DIMS
+        for d in dims:
             for causal in (True, False):
                 _, err = flash_full_width(bench, smi, dtype, d, causal,
                                           shape=SMALL_FLASH, timed=False)
@@ -3994,16 +4022,18 @@ def main() -> int:
             and wide_launches["flash_fwd_sm90"] == 0):
         raise AssertionError(f"D > 256 did not run the wide kernels alone: "
                              f"{wide_launches}")
-    for d in REFUSED_FLASH_DIMS:
-        qq, kk, vv = flash_inputs(gen, 1, 128, 128, 2, 1, d, torch.bfloat16)
-        try:
-            mha(qq, kk, vv, causal=True)
-        except ValueError as e:
-            if "ROADMAP.md" not in str(e):
-                raise
-            say({"phase": "flash-refused", "d": d, "error": str(e)})
-        else:
-            raise AssertionError(f"flash on CUDA took D={d}")
+    for dtype, dims in REFUSED_FLASH_DIMS.items():
+        for d in dims:
+            qq, kk, vv = flash_inputs(gen, 1, 128, 128, 2, 1, d, dtype)
+            try:
+                mha(qq, kk, vv, causal=True)
+            except ValueError as e:
+                if "ROADMAP.md" not in str(e):
+                    raise
+                say({"phase": "flash-refused", "dtype": str(dtype), "d": d,
+                     "error": str(e)})
+            else:
+                raise AssertionError(f"flash on CUDA took D={d} in {dtype}")
     # f32 launches the plan cuts into several kv ranges, causal, so that the
     # first q tiles' later ranges lie wholly above the diagonal.
     for bsz, s, h, g, d in ((1, 1024, 2, 1, 128), (2, 512, 4, 2, 64)):

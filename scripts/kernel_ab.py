@@ -30,7 +30,10 @@ serving roster record when run on the CPU (``--only`` picks kernels:
 ``chip_smoke.WIDTH_FLASH`` on its model's full-width shape, D 256, 16
 and 96 at PaliGemma-3B's, 112 at Zamba2-7B's and 192 at
 Nemotron-4-340B's, the same rows phase 3 times, and D 64 and 128 at
-qwen2.5-14b's).
+qwen2.5-14b's; ``wide``: the wide kernels, flash, causal, in both dtypes,
+at each head width of ``chip_smoke.WIDE_FLASH``, D 320 and 512 at
+PaliGemma-3B's shape, the rows phase 3 times, each with its cluster size
+where the checkout has the cluster design).
 
 ``--only window`` runs the checkout's roster on the card with
 ``backend="cuda"``, recording its window counts, and times the window
@@ -179,6 +182,14 @@ def main() -> int:
                 chip_smoke.flash_full_width(bench, smi, dtype, d, True,
                                             timed=True, label=args.label)
             cases += len(chip_smoke.WIDTH_FLASH) + 2
+    if "wide" in only:
+        for dtype in (torch.float32, torch.bfloat16):
+            for d, shape in chip_smoke.WIDE_FLASH.items():
+                chip_smoke.flash_full_width(bench, smi, dtype, d, True,
+                                            shape=shape, timed=True,
+                                            label=args.label)
+                torch.cuda.empty_cache()
+            cases += len(chip_smoke.WIDE_FLASH)
     if "window" in only:
         cases += window_ab(chip_smoke, bench, smi,
                            Path(args.against).resolve(), args.label)

@@ -7,9 +7,12 @@
 // order, so one block owns one (b*h, q tile) and loops the kv axis itself.
 // Four kernels sit behind flash_attention_launch, chosen by dtype and head
 // width.  Up to D = 256 the two tiled kernels below take every head width
-// D % 8 == 0; above it, up to 512, the two wide kernels (flash_fwd_wide,
-// flash_fwd_wide_sm90, after the tiled ones) cut O into column panels of at
-// most 256 and sum S over 64-column panels.  Each tiled kernel is built
+// D % 8 == 0; above it the two wide kernels (after the tiled ones) deal
+// the head's columns of O to blocks of at most 256: flash_fwd_wide (f32,
+// up to 1024) as a thread-block cluster whose blocks each compute their
+// part of S, summed through distributed shared memory, so S is computed
+// once a step; flash_fwd_wide_sm90 (bf16, up to 512) as two blocks that
+// each compute S over the whole head.  Each tiled kernel is built
 // for four padded widths DP in {64, 128, 192, 256} and a launch at D runs
 // the one for DP = D rounded up to a whole 64-column panel: the head is
 // padded in shared memory alone, with zero columns D .. DP - 1, while
@@ -88,9 +91,65 @@
 // max(l, 1e-30).  q is [B, Sq, H, D], k and v [B, Sk, G, D]; head h reads
 // kv head h / (H/G).
 #include "common.cuh"
-#include "sm90.cuh"  // mbarriers, TMA, wgmma descriptors and forms
+#include "sm90.cuh"  // mbarriers, TMA, wgmma descriptors and forms, clusters
 
 namespace {
+
+// The widest head the wide kernels take: a cluster of four blocks of 256
+// columns (plan.MAX_HEAD_DIM, plan.WIDE_MAX_CLUSTER).
+constexpr int kWideMaxD = 1024;
+
+// The run of 64-column panels of O block `rank` of `n` owns out of the
+// head's `n_dp`: contiguous, dealt evenly, the first ranks one more
+// (plan.wide_panels).
+__host__ __device__ inline void wide_run(int n_dp, int n, int rank, int& p0,
+                                         int& np) {
+  const int base = n_dp / n, extra = n_dp % n;
+  p0 = rank * base + (rank < extra ? rank : extra);
+  np = base + (rank < extra ? 1 : 0);
+}
+
+// The run of Q and K panels (its part of S) block `rank` of an f32 cluster
+// owns: dealt the other way round, the last ranks one more
+// (plan.wide_s_panels), so a block's S and O columns add up evenly.
+__host__ __device__ inline void wide_s_run(int n_dp, int n, int rank,
+                                           int& p0, int& np) {
+  const int base = n_dp / n, extra = n_dp % n;
+  const int first = n - extra;  // the first rank with one more
+  p0 = rank * base + (rank > first ? rank - first : 0);
+  np = base + (rank >= first ? 1 : 0);
+}
+
+// Launch `kern` on `grid` as thread-block clusters of (1, 1, n) blocks
+// (grid.z == n).  A cluster the card cannot hold at once
+// (cudaOccupancyMaxActiveClusters 0: n SMs of one GPC with `smem` bytes
+// free) is refused with cudaErrorInvalidConfiguration, never run.
+template <typename... KArgs, typename... Args>
+cudaError_t launch_cluster(void (*kern)(KArgs...), dim3 grid, int threads,
+                           int smem, int n, cudaStream_t stream,
+                           Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = static_cast<unsigned>(n);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int active = 0;
+  err = cudaOccupancyMaxActiveClusters(&active, kern, &cfg);
+  if (err != cudaSuccess) return err;
+  if (active < 1) return cudaErrorInvalidConfiguration;
+  err = cudaLaunchKernelEx(&cfg, kern, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
 
 // ---------------------------------------------------------------------------
 // f32: CUDA-core kernel, split-KV
@@ -530,50 +589,112 @@ int launch(const float* q, const float* k, const float* v, float* o,
 //
 // A thread of flash_fwd_kernel<256> holds 4 rows x 64 output columns; at
 // D = 512 that would be 128 accumulators beside the scores, past the
-// register file, and the block's 64-row Q tile alone takes 128 KB.  So O is
-// cut into column panels of at most 256 (plan.wide_f32_plan: the DP / 64
-// 64-column panels dealt evenly to 2 blocks from DP 320 to 512), one block
-// a panel along the grid's z, each recomputing S over the whole head; and
-// K and V pass through one ring of 8 KB units, each 32 kv rows of one
-// 64-column panel: a kv step streams the DP / 64 panels of K (S summed over
-// them), then the block's panels of V (each adding P V into its own
-// columns of O: a thread's columns 4tx .. 4tx + 3 of every 64-column panel
-// are one float4 of its accumulators, as in flash_fwd_kernel).  The Q tile
-// (64 x DP, swizzled as flash_fwd_kernel's) stays whole in shared memory.
-// One block barrier a unit; the ring keeps kWideSlots - 1 units in flight.
-// Each copy moves the real 16-byte chunks of a unit's rows and zeroes the
-// places of the others, so every slot holds zeros past D whatever it held
-// before.  The split plan, the partials (at the real D, (m, l) written by
-// panel 0) and flash_combine are flash_fwd_kernel's.
+// register file, and the block's 64-row Q tile alone takes 128 KB.  So the
+// head is split across a thread-block cluster of ceil(DP / 256) blocks
+// along the grid's z (launch_cluster), each owning two contiguous runs of
+// at most four 64-column panels: one of O and V (wide_run,
+// plan.wide_panels: 3 + 2 at D 320) and one of Q and K dealt the other way
+// round (wide_s_run, plan.wide_s_panels: 2 + 3), so that no block's share
+// of a step's products exceeds another's by more than a panel's.  Block r
+// loads its own columns of Q (64 rows, swizzled as flash_fwd_kernel's), K
+// and V and no others.  Each 32-row kv step it computes its partial S_r
+// over its Q and K columns (4 x 2 a thread), writes it to its exchange
+// slot (double-buffered), and after one cluster barrier reads every
+// block's partial through distributed shared memory, its own from
+// registers, summing S_0 + S_1 + ... in rank order: every block holds the
+// same S, m and l, and S is computed once a step.  The barrier costs ~1 us
+// a step at two blocks (scripts/cluster_exchange.py); computing S_r a step
+// ahead, so that it runs under the softmax and P V, ran 1-2% slower
+// (PERF.md).  K and V pass through one ring of 16 KB units, each 32 kv rows
+// of two 64-column panels of the block's K or V, one block barrier a unit;
+// the ring keeps kWideSlots - 1 units in flight.  Each copy moves the real
+// 16-byte chunks of a unit's rows (those below D and in the block's run)
+// and zeroes the places of the others.  The split plan, the partials (at
+// the real D, (m, l) written by rank 0) and flash_combine are
+// flash_fwd_kernel's; every block of a cluster shares (b*h, q tile, kv
+// range), so all walk the same steps (none, in a causal range above the
+// diagonal), and a last cluster barrier keeps each block's slots alive
+// until its peers have read them.
 constexpr int kWideRQ = 4;     // score and output rows a thread holds
 constexpr int kWideCols = 2;   // score columns a thread holds
 constexpr int kWideBQ = kTY * kWideRQ;    // 64 q rows a block
 constexpr int kWideBK = kTX * kWideCols;  // 32 kv rows a step
 constexpr int kWideSlots = 4;  // ring slots (plan.WIDE_F32_SLOTS)
-constexpr int kWideVPanels = 4;   // most 64-column O panels a block holds
-constexpr int kUnit = kWideBK * 64;  // floats of one unit: 32 rows x 64
+constexpr int kWideVPanels = 4;   // most 64-column panels a block holds
+constexpr int kUnitCols = 128;    // columns of a unit: two panels
+constexpr int kUnit = kWideBK * kUnitCols;  // floats of a unit: 32 x 128
+constexpr int kXSlot = kWideBQ * kWideBK;   // floats of one partial S
 
-__host__ __device__ constexpr int wide_smem_floats(int dp) {
-  return kWideBQ * dp + kWideSlots * kUnit + kWideBQ * kWideBK;
+// Shared memory at `cols` columns a block (the widest block's: every block
+// of a cluster lays its buffers out alike, so a peer's slot lies at the
+// same offset): the exchange slots, P, the ring, the Q columns.
+__host__ __device__ constexpr int wide_smem_floats(int cols) {
+  return 2 * kXSlot + kWideBQ * kWideBK + kWideSlots * kUnit + kWideBQ * cols;
 }
 
-// One instance, D at run time: one compiled for D = 512 alone ran 1.8%
-// slower there (PERF.md, the wide kernels' findings).
+// P V for one ring unit: its kHalves panels (two, or one at the end of an
+// odd run; a run holds two at least) add into accumulators 4jj .. 4jj + 3
+// of each row, jj = 2uu + half.
+template <int kHalves, int uu>
+__device__ __forceinline__ void wide_pv_unit(
+    float (&acc)[kWideRQ][4 * kWideVPanels], const float* prow,
+    const float* vrow, int fq) {
+#pragma unroll
+  for (int w = 0; w < 8; ++w) {
+    float4 pv[kWideRQ];
+#pragma unroll
+    for (int i = 0; i < kWideRQ; ++i)
+      pv[i] = *reinterpret_cast<const float4*>(prow + i * kWideBK +
+                                               4 * (w ^ fq));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int half = 0; half < kHalves; ++half) {
+        const float4 vv = *reinterpret_cast<const float4*>(
+            vrow + (4 * w + kk) * kUnitCols + 64 * half);
+        const int jj = 2 * uu + half;
+#pragma unroll
+        for (int i = 0; i < kWideRQ; ++i) {
+          const float p = kk == 0 ? pv[i].x
+                          : kk == 1 ? pv[i].y
+                          : kk == 2 ? pv[i].z
+                                    : pv[i].w;
+          acc[i][4 * jj + 0] = fmaf(p, vv.x, acc[i][4 * jj + 0]);
+          acc[i][4 * jj + 1] = fmaf(p, vv.y, acc[i][4 * jj + 1]);
+          acc[i][4 * jj + 2] = fmaf(p, vv.z, acc[i][4 * jj + 2]);
+          acc[i][4 * jj + 3] = fmaf(p, vv.w, acc[i][4 * jj + 3]);
+        }
+      }
+    }
+  }
+}
+
+// grid ((Sq/64) * n_splits, B*H, cluster) in clusters of (1, 1, cluster);
+// one instance, D at run time.
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wide(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, float* __restrict__ o,
                float* __restrict__ part, int Sq, int Sk, int H, int G, int D,
-               int causal, float scale_log2, int per_split, int n_splits,
-               int vp_block) {
-  const int DP = (D + 63) / 64 * 64;  // a Q row's floats in shared memory
-  const int n_dk = DP / 64;           // K panels: S sums over them
-  const int vp0 = blockIdx.z * vp_block;  // this block's first V panel
-  const int n_dv = min(vp_block, n_dk - vp0);  // ... and how many
-  const int per_step = n_dk + n_dv;  // units of one kv step
+               int causal, float scale_log2, int per_split, int n_splits) {
+  const int n_dp = (D + 63) / 64;      // 64-column panels of the head
+  const int n_cl = gridDim.z;          // blocks of the cluster
+  const int rank = static_cast<int>(sm90::cluster_rank());
+  int p0, np, p0k, npk;  // this block's runs of O (V) and of S (Q, K) panels
+  wide_run(n_dp, n_cl, rank, p0, np);
+  wide_s_run(n_dp, n_cl, rank, p0k, npk);
+  const int c0 = 64 * p0;                // its first column of O and V
+  const int v_end = min(D, c0 + 64 * np);  // ... its last real one + 1
+  const int c0k = 64 * p0k;              // its first column of Q and K
+  const int cols = 64 * npk;             // ... how many (a Q row's floats)
+  const int k_end = min(D, c0k + cols);  // ... its last real one + 1
+  const int n_kp = (npk + 1) / 2;        // ring units of K a step
+  const int n_vp = (np + 1) / 2;         // ... and of V
+  const int per_step = n_kp + n_vp;
   extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;
-  float* sRing = sQ + kWideBQ * DP;
-  float* sP = sRing + kWideSlots * kUnit;
+  float* sX = smem;                    // [2 stages][2][256 threads] float4
+  float* sP = sX + 2 * kXSlot;
+  float* sRing = sP + kWideBQ * kWideBK;
+  float* sQ = sRing + kWideSlots * kUnit;
 
   const int tid = threadIdx.x;
   const int ty = tid / kTX, tx = tid % kTX;
@@ -592,7 +713,6 @@ flash_fwd_wide(const float* __restrict__ q, const float* __restrict__ k,
   if (causal) kv1 = min(kv1, q0 + kWideBQ);  // steps wholly above the diagonal
   const int n_steps = kv1 > kv0 ? (kv1 - kv0) / kWideBK : 0;
   const int n_units = n_steps * per_step;
-  const int d4 = D / 4;
 
   const int64_t q_stride = static_cast<int64_t>(H) * D;
   const int64_t kv_stride = static_cast<int64_t>(G) * D;
@@ -600,14 +720,15 @@ flash_fwd_wide(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + (static_cast<int64_t>(b) * Sk * G + g) * D;
   const float* vb = v + (static_cast<int64_t>(b) * Sk * G + g) * D;
 
-  // Unit u: step u / per_step; K panel r < n_dk of it, else V panel
-  // vp0 + r - n_dk, into ring slot u % kWideSlots.  K rows are swizzled as
+  // Unit u: step u / per_step; K pair r < n_kp of it, else V pair
+  // r - n_kp, into ring slot u % kWideSlots.  K rows are swizzled as
   // flash_fwd_kernel's (kWideCols rows share one), V rows are not.
   auto load_unit = [&](int u) {
     const int st = u / per_step, r = u % per_step;
-    const bool is_k = r < n_dk;
-    const int col0 = 64 * (is_k ? r : vp0 + r - n_dk);
-    const int real = min(16, (D - col0) / 4);  // real chunks of a row
+    const bool is_k = r < n_kp;
+    const int col0 = is_k ? c0k + kUnitCols * r : c0 + kUnitCols * (r - n_kp);
+    const int end = is_k ? k_end : v_end;
+    const int real = (end - col0) / 4;  // real chunks of a row (>= 2)
     const float* src = (is_k ? kb : vb) +
                        (kv0 + static_cast<int64_t>(st) * kWideBK) * kv_stride +
                        col0;
@@ -615,8 +736,9 @@ flash_fwd_wide(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int n = 0; n < kUnit / 4 / kThreads; ++n) {
       const int e = n * kThreads + tid;
-      const int rr = e / 16, c = e % 16;
-      float* d = dst + rr * 64 + 4 * (is_k ? swizzled<kWideCols>(rr, c) : c);
+      const int rr = e / 32, c = e % 32;
+      float* d = dst + rr * kUnitCols +
+                 4 * (is_k ? swizzled<kWideCols>(rr, c) : c);
       if (c < real)
         cp_async16(d, src + rr * kv_stride + 4 * c);
       else
@@ -624,12 +746,12 @@ flash_fwd_wide(const float* __restrict__ q, const float* __restrict__ k,
     }
   };
   if (n_units > 0) {
-    // The Q tile: D / 4 real chunks a row, zeros up to DP.
-    for (int e = tid; e < kWideBQ * (DP / 4); e += kThreads) {
-      const int r = e / (DP / 4), c = e % (DP / 4);
-      float* d = sQ + r * DP + 4 * swizzled<kWideRQ>(r, c);
-      if (c < d4)
-        cp_async16(d, qb + (q0 + r) * q_stride + 4 * c);
+    // The block's Q columns: real chunks a row, zeros past D.
+    for (int e = tid; e < kWideBQ * (cols / 4); e += kThreads) {
+      const int r = e / (cols / 4), c = e % (cols / 4);
+      float* d = sQ + r * cols + 4 * swizzled<kWideRQ>(r, c);
+      if (c0k + 4 * c < D)
+        cp_async16(d, qb + (q0 + r) * q_stride + c0k + 4 * c);
       else
         *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
     }
@@ -658,38 +780,38 @@ flash_fwd_wide(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 4 * kWideVPanels; ++j) acc[i][j] = 0.f;
   }
-  const float* qrow = sQ + r0 * DP;
+  const float* qrow = sQ + r0 * cols;
   float* prow = sP + r0 * kWideBK;
 
   int u = 0;
   for (int st = 0; st < n_steps; ++st) {
     const int k0 = kv0 + st * kWideBK;
-    // S = Q K^T, 4 x 2 a thread, summed over the K panels, each over the
-    // 32-column groups that hold real columns.
+    // S_r = Q K^T over this block's columns, 4 x 2 a thread, over the
+    // 32-column groups of each unit that hold real columns.
     float s[kWideRQ][kWideCols];
 #pragma unroll
     for (int i = 0; i < kWideRQ; ++i)
 #pragma unroll
       for (int j = 0; j < kWideCols; ++j) s[i][j] = 0.f;
-    for (int p = 0; p < n_dk; ++p, ++u) {
+    for (int pr = 0; pr < n_kp; ++pr, ++u) {
       ring_next(u);
       const float* krow =
-          sRing + (u % kWideSlots) * kUnit + kWideCols * tx * 64;
-      const float* qp = qrow + 64 * p;
-      const int cols = min(64, D - 64 * p);
+          sRing + (u % kWideSlots) * kUnit + kWideCols * tx * kUnitCols;
+      const float* qp = qrow + kUnitCols * pr;
+      const int real = min(kUnitCols, k_end - c0k - kUnitCols * pr);
 #pragma unroll 1
-      for (int d8 = 0; d8 < cols; d8 += 32) {
+      for (int d8 = 0; d8 < real; d8 += 32) {
 #pragma unroll
         for (int w = 0; w < 8; ++w) {
           float4 qv[kWideRQ], kv[kWideCols];
 #pragma unroll
           for (int i = 0; i < kWideRQ; ++i)
-            qv[i] = *reinterpret_cast<const float4*>(qp + i * DP + d8 +
+            qv[i] = *reinterpret_cast<const float4*>(qp + i * cols + d8 +
                                                      4 * (w ^ fq));
 #pragma unroll
           for (int j = 0; j < kWideCols; ++j)
-            kv[j] = *reinterpret_cast<const float4*>(krow + j * 64 + d8 +
-                                                     4 * (w ^ fk));
+            kv[j] = *reinterpret_cast<const float4*>(krow + j * kUnitCols +
+                                                     d8 + 4 * (w ^ fk));
 #pragma unroll
           for (int i = 0; i < kWideRQ; ++i)
 #pragma unroll
@@ -701,6 +823,43 @@ flash_fwd_wide(const float* __restrict__ q, const float* __restrict__ k,
             }
         }
       }
+    }
+
+    // The exchange: publish S_r in slot st % 2 (thread tid's 8 floats at
+    // float4s tid and 256 + tid), one cluster barrier, then S = S_0 + S_1
+    // + ... in rank order, the peers' partials read through distributed
+    // shared memory.  A slot is written again two steps later, after every
+    // block has passed the next step's barrier, so after its reads.
+    {
+      float4* mine = reinterpret_cast<float4*>(sX) + (st & 1) * 512 + tid;
+      const float own[8] = {s[0][0], s[0][1], s[1][0], s[1][1],
+                            s[2][0], s[2][1], s[3][0], s[3][1]};
+      mine[0] = make_float4(own[0], own[1], own[2], own[3]);
+      mine[256] = make_float4(own[4], own[5], own[6], own[7]);
+      sm90::cluster_arrive();
+      sm90::cluster_wait();
+      const uint32_t addr = sm90::smem_u32(mine);
+      float sum[8];
+      for (int p = 0; p < n_cl; ++p) {
+        float vals[8];
+        if (p == rank) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) vals[i] = own[i];
+        } else {
+          const uint32_t peer = sm90::cluster_addr(addr, p);
+          const float4 a = sm90::ld_cluster_f4(peer);
+          const float4 c = sm90::ld_cluster_f4(peer + 256 * 16);
+          vals[0] = a.x, vals[1] = a.y, vals[2] = a.z, vals[3] = a.w;
+          vals[4] = c.x, vals[5] = c.y, vals[6] = c.z, vals[7] = c.w;
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          sum[i] = p == 0 ? vals[i] : sum[i] + vals[i];
+      }
+#pragma unroll
+      for (int i = 0; i < kWideRQ; ++i)
+#pragma unroll
+        for (int j = 0; j < kWideCols; ++j) s[i][j] = sum[2 * i + j];
     }
 
     // Online softmax in registers; P to the warp's rows of sP (read after
@@ -736,42 +895,27 @@ flash_fwd_wide(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4 * kWideVPanels; ++j) acc[i][j] *= alpha[i];
 
-    // O += P V, one V panel a unit: panel jj adds into accumulators
-    // 4jj .. 4jj + 3 of each row (columns 64 (vp0 + jj) + 4tx ..).
-#pragma unroll
-    for (int jj = 0; jj < kWideVPanels; ++jj) {
-      if (jj < n_dv) {
-        ring_next(u);
-        const float* vrow = sRing + (u % kWideSlots) * kUnit + 4 * tx;
-#pragma unroll
-        for (int w = 0; w < 8; ++w) {
-          float4 pv[kWideRQ];
-#pragma unroll
-          for (int i = 0; i < kWideRQ; ++i)
-            pv[i] = *reinterpret_cast<const float4*>(prow + i * kWideBK +
-                                                     4 * (w ^ fq));
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            const float4 vv =
-                *reinterpret_cast<const float4*>(vrow + (4 * w + kk) * 64);
-#pragma unroll
-            for (int i = 0; i < kWideRQ; ++i) {
-              const float p = kk == 0 ? pv[i].x
-                              : kk == 1 ? pv[i].y
-                              : kk == 2 ? pv[i].z
-                                        : pv[i].w;
-              acc[i][4 * jj + 0] = fmaf(p, vv.x, acc[i][4 * jj + 0]);
-              acc[i][4 * jj + 1] = fmaf(p, vv.y, acc[i][4 * jj + 1]);
-              acc[i][4 * jj + 2] = fmaf(p, vv.z, acc[i][4 * jj + 2]);
-              acc[i][4 * jj + 3] = fmaf(p, vv.w, acc[i][4 * jj + 3]);
-            }
-          }
-        }
-        ++u;
-      }
+    // O += P V, one unit of two V panels at a time: panel jj of the block
+    // adds into accumulators 4jj .. 4jj + 3 of each row (columns
+    // c0 + 64 jj + 4tx ..).
+    ring_next(u);
+    {
+      const float* vrow = sRing + (u % kWideSlots) * kUnit + 4 * tx;
+      wide_pv_unit<2, 0>(acc, prow, vrow, fq);  // np >= 2 (wide_run)
+      ++u;
+    }
+    if (n_vp > 1) {
+      ring_next(u);
+      const float* vrow = sRing + (u % kWideSlots) * kUnit + 4 * tx;
+      if (np >= 4)
+        wide_pv_unit<2, 1>(acc, prow, vrow, fq);
+      else
+        wide_pv_unit<1, 1>(acc, prow, vrow, fq);
+      ++u;
     }
   }
   cp_async_wait<0>();
+  sm90::cluster_arrive();  // this block's reads of its peers' slots are done
 
 #pragma unroll
   for (int i = 0; i < kWideRQ; ++i)
@@ -788,41 +932,37 @@ flash_fwd_wide(const float* __restrict__ q, const float* __restrict__ k,
     float* orow = (n_splits == 1 ? o : pacc) + r * D;
 #pragma unroll
     for (int jj = 0; jj < kWideVPanels; ++jj) {
-      const int col = 64 * (vp0 + jj) + 4 * tx;
-      if (jj < n_dv && col < D)
+      const int col = c0 + 64 * jj + 4 * tx;
+      if (jj < np && col < D)
         *reinterpret_cast<float4*>(orow + col) =
             make_float4(acc[i][4 * jj] * inv, acc[i][4 * jj + 1] * inv,
                         acc[i][4 * jj + 2] * inv, acc[i][4 * jj + 3] * inv);
     }
-    if (n_splits > 1 && blockIdx.z == 0 && tx == 0)
+    if (n_splits > 1 && rank == 0 && tx == 0)
       *reinterpret_cast<float2*>(part + n_splits * rows * D +
                                  (split * rows + r) * 2) =
           make_float2(m[i], l[i]);
   }
+  sm90::cluster_wait();  // ... and every peer's of this block's slots
 }
 
 int launch_wide(const float* q, const float* k, const float* v, float* o,
                 float* part, int B, int Sq, int Sk, int H, int G, int D,
                 int causal, float scale, int per_split, int n_splits,
                 cudaStream_t stream) {
-  if (D <= 256 || D > 512 || Sq % kWideBQ || Sk % kWideBK ||
+  if (D <= 256 || D > kWideMaxD || Sq % kWideBQ || Sk % kWideBK ||
       per_split <= 0 || per_split % kWideBK ||
       n_splits != (Sk + per_split - 1) / per_split ||
       (n_splits > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int dp = (D + 63) / 64 * 64;
-  const int n_vp = dp / 64;
-  const int panels = (n_vp + kWideVPanels - 1) / kWideVPanels;
-  const int vp_block = (n_vp + panels - 1) / panels;
-  const int smem = wide_smem_floats(dp) * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq / kWideBQ) * n_splits, B * H, panels);
-  flash_fwd_wide<<<grid, kThreads, smem, stream>>>(
-      q, k, v, o, part, Sq, Sk, H, G, D, causal, scale * kLog2e, per_split,
-      n_splits, vp_block);
-  err = cudaGetLastError();
+  const int n_dp = (D + 63) / 64;
+  const int n_cl = (n_dp + kWideVPanels - 1) / kWideVPanels;
+  const int cols_max = 64 * ((n_dp + n_cl - 1) / n_cl);
+  const int smem = wide_smem_floats(cols_max) * static_cast<int>(sizeof(float));
+  const dim3 grid((Sq / kWideBQ) * n_splits, B * H, n_cl);
+  cudaError_t err = launch_cluster(
+      flash_fwd_wide, grid, kThreads, smem, n_cl, stream, q, k, v, o, part,
+      Sq, Sk, H, G, D, causal, scale * kLog2e, per_split, n_splits);
   if (err != cudaSuccess || n_splits == 1) return static_cast<int>(err);
   const int64_t rows = static_cast<int64_t>(B) * Sq * H;
   const int64_t threads = rows * (D / 4);
@@ -1165,126 +1305,79 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
 // flash_fwd_sm90 keeps O as one 64 x DP wgmma accumulator a consumer (DP / 2
 // registers a thread) and the whole K and V tiles in a stage; wgmma's N
 // stops at 256, a thread at 255 registers, and at DP 512 the Q tile and two
-// stages of K and V would take 384 KB.  So O is cut into panels of 256
-// columns (kWidePW, plan.WIDE_PANEL), one block a panel along the grid's z,
-// each recomputing S and the softmax over the whole head (the same
-// operations in the same order, so the panels' m and l agree bit for bit):
-// a consumer holds the DP 256 instance's 128 accumulators.  The producer
-// streams K as 64 x 64 panels through a ring of kWideKStages and the
-// block's 64 x 256 V tile through a ring of two; S = Q K^T is a chain of
-// m64n64k16 over the K panels (the first k-step overwrites), each panel
-// released to the producer once the next one's products are issued
-// (wgmma.wait_group 1).  The 128-row Q tile stays whole in shared memory
-// (DP / 64 swizzled panels), which caps D at 512 (plan.MAX_HEAD_DIM).  As
-// in flash_fwd_sm90: tensor maps at the real D, whose zero fill past D
-// counts in the mbarrier's bytes; S skips its k-steps past D; P goes from
+// stages of K and V would take 384 KB.  So O is split between two blocks
+// along the grid's z, block r owning a contiguous run of NP <= 4 of the
+// head's 64-column panels (wide_run, plan.wide_panels: 3 + 2 at D 320, so
+// no block runs P V over a whole panel of V's zeros), and each block
+// computes S and the softmax over the whole head (the same operations in
+// the same order, so the blocks' m and l agree bit for bit).  Not a
+// cluster that splits S between the blocks, as flash_fwd_wide does in f32:
+// the partial S a block would exchange each tile (128 x 64 f32, 32 KB)
+// crosses the SM-to-SM network at about 24 GB/s an SM, 1.36-1.87 us a
+// tile (scripts/cluster_exchange.py), more than the 0.56 us the bf16
+// tensor cores take to recompute the other block's half of S at D 512;
+// such a kernel ran 3-7% slower than the recompute design it was held
+// against (PERF.md).  The producer streams K as 64 x 64 panels through a
+// ring of kWideKStages and the block's 64 x 64 NP V tile through a ring of
+// two; S = Q K^T is one chain of m64n64k16 over the head's NDP panels (NDP
+// and NP are template arguments, so no k-step is cut at run time, which
+// made ptxas fence the chain at every k-step; it still fences it where it
+// waits for a K panel, C7519; k-steps past D multiply the zero fill), each
+// panel released to the producer once the next one's products are issued
+// (wgmma.wait_group 1);
+// O += P V runs at N = 64 NP.  The 128-row Q tile stays whole in shared
+// memory (NDP swizzled panels), which caps D at 512 in bf16
+// (plan.SM90_MAX_HEAD_DIM).  As in flash_fwd_sm90: tensor maps at the real
+// D, whose zero fill past D counts in the mbarriers' bytes; P goes from
 // registers as two bf16 halves; the output is staged through the
-// consumer's Q rows and written at the real D.  A V panel wholly past D is
-// never loaded: its places in both V stages are zeroed once.
+// consumer's Q rows and written at the real D.
 constexpr int kWideBK = 64;     // kv rows of a K panel and of a V tile
-constexpr int kWidePW = 256;    // output columns a block holds (wgmma N)
 constexpr int kWideKStages = 4;   // plan.WIDE_SM90_K_STAGES
 constexpr int kWideVStages = 2;   // plan.WIDE_SM90_V_STAGES
 constexpr int kWidePanel = kWideBK * 128;  // bytes of one 64 x 64 panel
-constexpr int kWideVTile = kWidePW / 64 * kWidePanel;
-constexpr int kWideMaxPanels = 8;  // 64-column panels of D at the cap
+constexpr int kWideBlocks = 2;  // blocks along z (plan.WIDE_SM90_BLOCKS)
 
-__host__ __device__ constexpr int wide_smem_bytes(int dp) {
+// Shared memory at padded width dp whose widest block holds np_max panels:
+// alignment slack, the Q tile, the K ring, the V ring, the mbarriers.
+__host__ __device__ constexpr int wide_smem_bytes(int dp, int np_max) {
   return 1024 + kBQ * dp * 2 + kWideKStages * kWidePanel +
-         kWideVStages * kWideVTile +
+         kWideVStages * np_max * kWidePanel +
          8 * (1 + 2 * kWideKStages + 2 * kWideVStages);
 }
 
-// grid (B*H, Sq/128, ceil(D/256)); one instance, D at run time.
-__global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_wide_sm90(const __grid_constant__ CUtensorMap tm_q,
-                    const __grid_constant__ CUtensorMap tm_k,
-                    const __grid_constant__ CUtensorMap tm_v,
-                    __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H,
-                    int G, int D, int causal, float scale_log2) {
-  const int n_dp = (D + 63) / 64;          // panels of Q and K holding D
-  const int col0 = blockIdx.z * kWidePW;    // this block's first O column
-  const int n_vp = min(kWidePW / 64, (D - col0 + 63) / 64);  // V panels
-  constexpr int kAcc = kWidePW / 2;  // f32 accumulators a thread: 64 x 256
-  constexpr int kSc = kWideBK / 2;   // ... for the 64 x 64 scores
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* sQ = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* sK = sQ + n_dp * kQPanel;
-  uint8_t* sV = sK + kWideKStages * kWidePanel;
-  uint64_t* full_q =
-      reinterpret_cast<uint64_t*>(sV + kWideVStages * kWideVTile);
-  uint64_t* full_k = full_q + 1;
-  uint64_t* empty_k = full_k + kWideKStages;
-  uint64_t* full_v = empty_k + kWideKStages;
-  uint64_t* empty_v = full_v + kWideVStages;
+// O += P V for one 16-row k-step at N = 64 NP.
+template <int NP>
+__device__ __forceinline__ void wgmma_pv_wide(float (&acc)[32 * NP],
+                                              const uint32_t* a,
+                                              uint64_t db) {
+  if constexpr (NP == 4)
+    wgmma_rs_n256(acc, a, db, 1);
+  else if constexpr (NP == 3)
+    wgmma_rs_n192(acc, a, db, 1);
+  else
+    wgmma_rs_n128(acc, a, db, 1);
+}
 
-  const int n_q = Sq / kBQ;
-  const int bh = blockIdx.x;
-  const int tile = static_cast<int>(blockIdx.y);
-  const int qi = causal ? n_q - 1 - tile : tile;  // heaviest first
-  const int b = bh / H;
-  const int h = bh % H;
-  const int g = h / (H / G);
-  const int q0 = qi * kBQ;
-  const int n_kv = causal ? min(Sk / kWideBK, (q0 + kBQ) / kWideBK)
-                          : Sk / kWideBK;
-  const int tid = threadIdx.x;
+struct WideBars {
+  uint64_t* full_q;
+  uint64_t* full_k;   // [kWideKStages]
+  uint64_t* empty_k;  // [kWideKStages]
+  uint64_t* full_v;   // [kWideVStages]
+  uint64_t* empty_v;  // [kWideVStages]
+};
 
-  if (tid == 0) {
-    mbar_init(full_q, 1);
-    for (int s = 0; s < kWideKStages; ++s) {
-      mbar_init(&full_k[s], 1);
-      mbar_init(&empty_k[s], 8);  // one arrival per consumer warp
-    }
-    for (int s = 0; s < kWideVStages; ++s) {
-      mbar_init(&full_v[s], 1);
-      mbar_init(&empty_v[s], 8);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  // V panels past D: zeros in both stages, for wgmma to read.
-  for (int i = tid * 16; i < kWideVStages * (4 - n_vp) * kWidePanel;
-       i += kThreads * 16) {
-    const int st = i / ((4 - n_vp) * kWidePanel);
-    const int off = i % ((4 - n_vp) * kWidePanel);
-    *reinterpret_cast<uint4*>(sV + st * kWideVTile + n_vp * kWidePanel + off) =
-        make_uint4(0u, 0u, 0u, 0u);
-  }
-  fence_proxy_async();
-  __syncthreads();
-
-  if (tid < 128) {  // producer warpgroup
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
-    if (tid == 0) {
-      const int q_row = b * Sq + q0;
-      const int kv_row = b * Sk;
-      mbar_expect_tx(full_q, n_dp * kQPanel);
-      for (int p = 0; p < n_dp; ++p)
-        tma_load(sQ + p * kQPanel, &tm_q, full_q, 64 * p, h, q_row);
-      int kc = 0;  // K panels issued
-      for (int j = 0; j < n_kv; ++j) {
-        for (int p = 0; p < n_dp; ++p, ++kc) {
-          const int s = kc % kWideKStages;
-          mbar_wait(&empty_k[s], ((kc / kWideKStages) & 1) ^ 1);
-          mbar_expect_tx(&full_k[s], kWidePanel);
-          tma_load(sK + s * kWidePanel, &tm_k, &full_k[s], 64 * p, g,
-                   kv_row + j * kWideBK);
-        }
-        const int s = j % kWideVStages;
-        mbar_wait(&empty_v[s], ((j / kWideVStages) & 1) ^ 1);
-        mbar_expect_tx(&full_v[s], n_vp * kWidePanel);
-        for (int p = 0; p < n_vp; ++p)
-          tma_load(sV + s * kWideVTile + p * kWidePanel, &tm_v, &full_v[s],
-                   col0 + 64 * p, g, kv_row + j * kWideBK);
-      }
-    }
-    return;
-  }
-
-  // Consumer warpgroups: c owns q rows 64c .. 64c+63 of the tile.
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
-  const int c = tid / 128 - 1;
-  const int t = tid % 128;
+// One consumer warpgroup's walk: q rows 64c .. 64c + 63 of the tile, S over
+// the head's NDP panels, O over the block's NP panels from column c0.
+template <int NDP, int NP>
+__device__ __forceinline__ void wide_consume(
+    const WideBars& bar, uint8_t* sQ, uint8_t* sK, uint8_t* sV,
+    __nv_bfloat16* __restrict__ o, int Sq, int H, int D, int b, int h,
+    int q0, int n_kv, int causal, float scale_log2, int c0) {
+  constexpr int kAcc = 32 * NP;     // f32 accumulators a thread: 64 x 64 NP
+  constexpr int kSc = kWideBK / 2;  // ... for the 64 x 64 scores
+  constexpr int kVTile = NP * kWidePanel;
+  const int c = threadIdx.x / 128 - 1;
+  const int t = threadIdx.x % 128;
   const int lane = t % 32;
   const int row_lo = 16 * (t / 32) + lane / 4;  // and row_lo + 8
   const int col_in = 2 * (lane % 4);            // first of two columns
@@ -1300,22 +1393,19 @@ flash_fwd_wide_sm90(const __grid_constant__ CUtensorMap tm_q,
   float l[2] = {0.f, 0.f};  // this thread's columns only until the end
   const uint32_t q_addr = smem_u32(sQ) + 64 * c * 128;
 
-  mbar_wait(full_q, 0);
+  mbar_wait(bar.full_q, 0);
   int kc = 0;  // K panels consumed
   for (int j = 0; j < n_kv; ++j) {
-    // S = Q K^T over the panels that hold D, 4 k-steps of 16 a panel (the
-    // k-steps past D not issued).
+    // S = Q K^T over the head's NDP panels, 4 k-steps of 16 a panel.
     reg_fence(sc);
     wgmma_fence();
 #pragma unroll
-    for (int p = 0; p < kWideMaxPanels; ++p) {
-      if (p >= n_dp) break;
+    for (int p = 0; p < NDP; ++p) {
       const int s = kc % kWideKStages;
-      mbar_wait(&full_k[s], (kc / kWideKStages) & 1);
+      mbar_wait(&bar.full_k[s], (kc / kWideKStages) & 1);
       const uint32_t k_addr = smem_u32(sK + s * kWidePanel);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        if (64 * p + 16 * kk >= D) break;
         const uint64_t da = sw128_desc(q_addr + p * kQPanel + kk * 32, 16);
         const uint64_t db = sw128_desc(k_addr + kk * 32, 16);
         wgmma_ss_n64(sc, da, db, p != 0 || kk != 0);
@@ -1323,12 +1413,12 @@ flash_fwd_wide_sm90(const __grid_constant__ CUtensorMap tm_q,
       wgmma_commit();
       if (p > 0) {  // the previous panel's products are done: release it
         wgmma_wait<1>();
-        if (lane == 0) mbar_arrive(&empty_k[(kc - 1) % kWideKStages]);
+        if (lane == 0) mbar_arrive(&bar.empty_k[(kc - 1) % kWideKStages]);
       }
       ++kc;
     }
     wgmma_wait<0>();
-    if (lane == 0) mbar_arrive(&empty_k[(kc - 1) % kWideKStages]);
+    if (lane == 0) mbar_arrive(&bar.empty_k[(kc - 1) % kWideKStages]);
     reg_fence(sc);
 
     // Online softmax in the log2 domain.  sc[4n + e] is row row_lo + 8*(e/2),
@@ -1377,28 +1467,28 @@ flash_fwd_wide_sm90(const __grid_constant__ CUtensorMap tm_q,
       p_lo[i] = pack_bf16(x0 - hf.x, x1 - hf.y);
     }
 
-    // O += P V for this block's 256 columns, over the 64 kv rows in steps
+    // O += P V for this block's 64 NP columns, over the 64 kv rows in steps
     // of 16.
     const int s = j % kWideVStages;
-    const uint32_t v_addr = smem_u32(sV + s * kWideVTile);
-    mbar_wait(&full_v[s], (j / kWideVStages) & 1);
+    const uint32_t v_addr = smem_u32(sV + s * kVTile);
+    mbar_wait(&bar.full_v[s], (j / kWideVStages) & 1);
     reg_fence(acc);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kWideBK / 16; ++kk) {
       const uint64_t dv = sw128_desc(v_addr + kk * 16 * 128, kWidePanel);
-      wgmma_rs_n256(acc, p_hi + 4 * kk, dv, 1);
-      wgmma_rs_n256(acc, p_lo + 4 * kk, dv, 1);
+      wgmma_pv_wide<NP>(acc, p_hi + 4 * kk, dv);
+      wgmma_pv_wide<NP>(acc, p_lo + 4 * kk, dv);
     }
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(acc);
-    if (lane == 0) mbar_arrive(&empty_v[s]);
+    if (lane == 0) mbar_arrive(&bar.empty_v[s]);
   }
 
   // out = acc / max(l, 1e-30), rounded to bf16, staged in this consumer's
-  // rows of the first four Q panels (D > 256 gives at least five) and
-  // written as 16-byte row segments of the real columns.
+  // rows of the first NP Q panels and written as 16-byte row segments of
+  // the real columns.
   float lim[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -1409,7 +1499,7 @@ flash_fwd_wide_sm90(const __grid_constant__ CUtensorMap tm_q,
   uint8_t* sO = sQ + 64 * c * 128;
   asm volatile("bar.sync %0, 128;" ::"r"(1 + c) : "memory");  // Q rows read
 #pragma unroll
-  for (int n = 0; n < kWidePW / 8; ++n) {
+  for (int n = 0; n < 8 * NP; ++n) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row_lo + 8 * r;
@@ -1420,36 +1510,131 @@ flash_fwd_wide_sm90(const __grid_constant__ CUtensorMap tm_q,
     }
   }
   asm volatile("bar.sync %0, 128;" ::"r"(1 + c) : "memory");
-  constexpr int kChunks = kWidePW / 8;  // 16-byte segments in one staged row
+  constexpr int kChunks = 8 * NP;  // 16-byte segments in one staged row
   for (int i = t; i < 64 * kChunks; i += 128) {
     const int row = i / kChunks;
     const int ch = i % kChunks;
-    if (col0 + 8 * ch >= D) continue;  // a column past D
+    if (c0 + 8 * ch >= D) continue;  // a column past D
     const uint4 val = *reinterpret_cast<const uint4*>(
         sO + (ch / 8) * kQPanel + row * 128 + (((ch % 8) ^ (row % 8)) * 16));
     const int64_t pos = static_cast<int64_t>(b) * Sq + q_first + row;
-    *reinterpret_cast<uint4*>(o + (pos * H + h) * D + col0 + ch * 8) = val;
+    *reinterpret_cast<uint4*>(o + (pos * H + h) * D + c0 + ch * 8) = val;
   }
+}
+
+// grid (B*H, Sq/128, 2); one instance, D at run time (the head's and the
+// block's panel counts pick the consumer body).
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wide_sm90(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H,
+                    int G, int D, int causal, float scale_log2) {
+  const int n_dp = (D + 63) / 64;  // 64-column panels of the head
+  int p0, np;                      // this block's run of panels
+  wide_run(n_dp, kWideBlocks, static_cast<int>(blockIdx.z), p0, np);
+  const int c0 = 64 * p0;          // its first column of the head
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sK = sQ + n_dp * kQPanel;
+  uint8_t* sV = sK + kWideKStages * kWidePanel;
+  WideBars bar;
+  bar.full_q = reinterpret_cast<uint64_t*>(
+      sV + kWideVStages * ((n_dp + 1) / 2) * kWidePanel);
+  bar.full_k = bar.full_q + 1;
+  bar.empty_k = bar.full_k + kWideKStages;
+  bar.full_v = bar.empty_k + kWideKStages;
+  bar.empty_v = bar.full_v + kWideVStages;
+
+  const int n_q = Sq / kBQ;
+  const int bh = blockIdx.x;
+  const int tile = static_cast<int>(blockIdx.y);
+  const int qi = causal ? n_q - 1 - tile : tile;  // heaviest first
+  const int b = bh / H;
+  const int h = bh % H;
+  const int g = h / (H / G);
+  const int q0 = qi * kBQ;
+  const int n_kv = causal ? min(Sk / kWideBK, (q0 + kBQ) / kWideBK)
+                          : Sk / kWideBK;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(bar.full_q, 1);
+    for (int s = 0; s < kWideKStages; ++s) {
+      mbar_init(&bar.full_k[s], 1);
+      mbar_init(&bar.empty_k[s], 8);  // one arrival per consumer warp
+    }
+    for (int s = 0; s < kWideVStages; ++s) {
+      mbar_init(&bar.full_v[s], 1);
+      mbar_init(&bar.empty_v[s], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {  // producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+    if (tid == 0) {
+      const int q_row = b * Sq + q0;
+      const int kv_row = b * Sk;
+      mbar_expect_tx(bar.full_q, n_dp * kQPanel);
+      for (int p = 0; p < n_dp; ++p)
+        tma_load(sQ + p * kQPanel, &tm_q, bar.full_q, 64 * p, h, q_row);
+      int kc = 0;  // K panels issued
+      for (int j = 0; j < n_kv; ++j) {
+        for (int p = 0; p < n_dp; ++p, ++kc) {
+          const int s = kc % kWideKStages;
+          mbar_wait(&bar.empty_k[s], ((kc / kWideKStages) & 1) ^ 1);
+          mbar_expect_tx(&bar.full_k[s], kWidePanel);
+          tma_load(sK + s * kWidePanel, &tm_k, &bar.full_k[s], 64 * p, g,
+                   kv_row + j * kWideBK);
+        }
+        const int s = j % kWideVStages;
+        mbar_wait(&bar.empty_v[s], ((j / kWideVStages) & 1) ^ 1);
+        mbar_expect_tx(&bar.full_v[s], np * kWidePanel);
+        for (int p = 0; p < np; ++p)
+          tma_load(sV + (s * np + p) * kWidePanel, &tm_v, &bar.full_v[s],
+                   c0 + 64 * p, g, kv_row + j * kWideBK);
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroups: c owns q rows 64c .. 64c+63 of the tile.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+#define REPRO_WIDE_CONSUME(NDP, NP)                                         \
+  wide_consume<NDP, NP>(bar, sQ, sK, sV, o, Sq, H, D, b, h, q0, n_kv,       \
+                        causal, scale_log2, c0)
+  switch (8 * n_dp + np) {  // the (head, block) panel runs of wide_run
+    case 8 * 5 + 3: REPRO_WIDE_CONSUME(5, 3); break;
+    case 8 * 5 + 2: REPRO_WIDE_CONSUME(5, 2); break;
+    case 8 * 6 + 3: REPRO_WIDE_CONSUME(6, 3); break;
+    case 8 * 7 + 4: REPRO_WIDE_CONSUME(7, 4); break;
+    case 8 * 7 + 3: REPRO_WIDE_CONSUME(7, 3); break;
+    default: REPRO_WIDE_CONSUME(8, 4); break;
+  }
+#undef REPRO_WIDE_CONSUME
 }
 
 int launch_wide(const void* q, const void* k, const void* v, void* o, int B,
                 int Sq, int Sk, int H, int G, int D, int causal, float scale,
                 cudaStream_t stream) {
-  static_assert(wide_smem_bytes(512) <= 232448,
+  static_assert(wide_smem_bytes(512, 4) <= 232448,
                 "over a block's shared memory");
-  if (D <= 256 || D > 512 || Sq % kBQ || Sk % kWideBK)
+  if (D <= 256 || D > 4 * 64 * kWideBlocks || Sq % kBQ || Sk % kWideBK)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, D, H, static_cast<int64_t>(B) * Sq, kBQ) ||
       !make_map(&tk, k, D, G, static_cast<int64_t>(B) * Sk, kWideBK) ||
       !make_map(&tv, v, D, G, static_cast<int64_t>(B) * Sk, kWideBK))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = wide_smem_bytes((D + 63) / 64 * 64);
+  const int n_dp = (D + 63) / 64;
+  const int smem = wide_smem_bytes(64 * n_dp, (n_dp + 1) / 2);
   auto* kern = flash_fwd_wide_sm90;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * H, Sq / kBQ, (D + kWidePW - 1) / kWidePW);
+  const dim3 grid(B * H, Sq / kBQ, kWideBlocks);
   kern<<<grid, kThreads, smem, stream>>>(tq, tk, tv,
                                          static_cast<__nv_bfloat16*>(o), Sq,
                                          Sk, H, G, D, causal, scale * kLog2e);
@@ -1462,16 +1647,17 @@ int launch_wide(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // Contract (checked by the Python wrapper, kernel.py): contiguous, 16-byte
-// aligned inputs, D % 8 == 0 and 8 <= D <= 512, Sq % bq == 0, Sk % bk == 0,
-// H % G == 0, where bq and bk are the reference's tiles, which no kernel
-// reads.  Above D = 256 each dtype runs its wide kernel (plan.wide_f32_plan,
-// plan.wide_sm90_plan; one instance each, D at run time), tile_k its kv
-// rows (32 f32, with the split as below; 64 bf16).  Up to 256 each dtype runs its kernel built for the padded width DP = D
-// rounded up to a multiple of 64 (plan.padded_head_dim), whose shared-memory
-// rows hold D real columns and zeros up to DP (the instance for D = DP where
-// D is a multiple of 64).  tile_k is the
-// kv rows a stage of that instance holds, as plan.py gives it (checked here
-// against the instantiation):
+// aligned inputs, D % 8 == 0 and 8 <= D <= 1024 (512 in bf16), Sq % bq == 0,
+// Sk % bk == 0, H % G == 0, where bq and bk are the reference's tiles,
+// which no kernel reads.  Above D = 256 each dtype runs its wide kernel
+// (plan.wide_f32_plan: clusters of ceil(D / 256) blocks; plan.wide_sm90_plan:
+// two blocks; one instance each, D at run time), tile_k its kv rows (32
+// f32, with the split as below; 64 bf16).  Up to 256 each dtype runs its
+// kernel built for the padded width DP = D rounded up to a multiple of 64
+// (plan.padded_head_dim), whose shared-memory rows hold D real columns and
+// zeros up to DP (the instance for D = DP where D is a multiple of 64).
+// tile_k is the kv rows a stage of that instance holds, as plan.py gives
+// it (checked here against the instantiation):
 // - f32: flash_fwd_kernel, 128 x 64 tiles (64 x 32 at DP 192 and 256), the
 //   kv axis cut into n_splits ranges of per_split rows (a multiple of
 //   tile_k); part holds n_splits * B*Sq*H * (D + 2) floats when
@@ -1486,7 +1672,7 @@ REPRO_EXPORT int flash_attention_launch(int dtype, const void* q, const void* k,
                                         int n_splits, int tile_k,
                                         void* stream) {
   if (bq <= 0 || Sq % bq || bk <= 0 || Sk % bk || G <= 0 || H % G ||
-      D < 8 || D % 8 || D > 512)
+      D < 8 || D % 8 || D > kWideMaxD)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D > 256) {

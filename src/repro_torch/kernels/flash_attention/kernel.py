@@ -12,12 +12,14 @@ axis cut into ranges by ``plan.split_plan`` (one range writes the output;
 several write f32 partials into scratch that ``flash_combine`` folds).
 Each takes every head width D % 8 == 0 up to 256 through the instance
 built for ``plan.padded_head_dim(D)`` (64, 128, 192 or 256), which pads
-the head in shared memory alone.  Above 256, up to ``plan.MAX_HEAD_DIM``
-(512), the head width picks the wide kernels instead, ``flash_fwd_wide``
-(f32, split as above) and ``flash_fwd_wide_sm90`` (bf16), which cut O into
-column panels, one block a panel (``plan.wide_f32_plan``,
-``plan.wide_sm90_plan``).  A wider or ragged head raises and names
-ROADMAP.md.
+the head in shared memory alone.  Above 256 the head width picks the wide
+kernels instead, ``flash_fwd_wide`` (f32, split as above, up to
+``plan.MAX_HEAD_DIM`` = 1024) and ``flash_fwd_wide_sm90`` (bf16, up to
+``plan.SM90_MAX_HEAD_DIM`` = 512), which deal the head's columns of O to
+blocks along the grid's z; in f32 those blocks form a thread-block
+cluster that also splits S, summed from the blocks' parts
+(``plan.wide_f32_plan``, ``plan.wide_sm90_plan``).  A wider or ragged head
+raises and names ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -30,11 +32,12 @@ import torch
 from repro_torch.capture.launch import LaunchSpec
 
 from .. import _build
-from .plan import (MAX_HEAD_DIM, TILED_MAX_HEAD_DIM, f32_tiles,
-                   padded_head_dim, split_plan, sm90_kv_rows, wide_f32_plan,
-                   wide_sm90_plan)
+from .plan import (MAX_HEAD_DIM, SM90_MAX_HEAD_DIM, TILED_MAX_HEAD_DIM,
+                   f32_tiles, padded_head_dim, split_plan, sm90_kv_rows,
+                   wide_f32_plan, wide_sm90_plan)
 
-__all__ = ["flash_attention", "kernel_path", "head_dim_ok", "SM90_BLOCK"]
+__all__ = ["flash_attention", "kernel_path", "head_dim_ok", "max_head_dim",
+           "SM90_BLOCK"]
 
 SM90_BLOCK = 128        # bf16: the q tile rows flash_fwd_sm90 walks
 
@@ -44,9 +47,16 @@ WIDE_PATHS = {torch.float32: "flash_fwd_wide",
               torch.bfloat16: "flash_fwd_wide_sm90"}
 
 
-def head_dim_ok(d: int) -> bool:
-    """A head width some kernel takes: D % 8 == 0, 8 <= D <= 512."""
-    return 8 <= d <= MAX_HEAD_DIM and d % 8 == 0
+def max_head_dim(dtype: torch.dtype) -> int:
+    """The widest head a kernel of this dtype takes: 512 in bf16, else
+    1024."""
+    return SM90_MAX_HEAD_DIM if dtype == torch.bfloat16 else MAX_HEAD_DIM
+
+
+def head_dim_ok(d: int, dtype: torch.dtype) -> bool:
+    """A head width a kernel of this dtype takes: D % 8 == 0, 8 <= D up to
+    :func:`max_head_dim`."""
+    return 8 <= d <= max_head_dim(dtype) and d % 8 == 0
 
 
 def kernel_path(dtype: torch.dtype, d: int, block_q: int, block_k: int) -> str:
@@ -60,10 +70,10 @@ def kernel_path(dtype: torch.dtype, d: int, block_q: int, block_k: int) -> str:
     if dtype not in PATHS:
         raise ValueError(f"flash_attention kernel takes {list(PATHS)}, "
                          f"got {dtype}")
-    if not head_dim_ok(d):
+    if not head_dim_ok(d, dtype):
         raise ValueError(f"flash_attention kernel takes D % 8 == 0 up to "
-                         f"{MAX_HEAD_DIM}, got D={d} (wider or ragged "
-                         f"heads: ROADMAP.md, queue 2)")
+                         f"{max_head_dim(dtype)} in {dtype}, got D={d} "
+                         f"(wider or ragged heads: ROADMAP.md, queue 2)")
     if block_q < 1 or block_k < 1:
         raise ValueError(f"flash_attention takes positive tiles; got "
                          f"block_q={block_q}, block_k={block_k}")

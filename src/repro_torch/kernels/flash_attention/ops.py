@@ -7,8 +7,8 @@ q/o tiles mapped on ``qi`` and ``[1, bk, D]`` k/v tiles mapped on ``ki``
 (query head ``h`` reads kv head ``h // (H/G)``), ``bq = min(block_q, Sq)``
 and ``bk = min(block_k, Sk)``.  The reference's ``mha`` guard (sequence
 lengths multiples of 128, D % 8 == 0) decides between kernel and oracle on
-the TPU; here a CUDA tensor outside it, or with D above 512, raises, and
-the plain version serves CPU tensors only.
+the TPU; here a CUDA tensor outside it, or with D above 1024 (512 in
+bf16), raises, and the plain version serves CPU tensors only.
 """
 
 from __future__ import annotations
@@ -18,8 +18,7 @@ import torch
 from repro_torch.capture.launch import LaunchOperand, LaunchSpec, emit
 
 from .. import _build
-from .kernel import flash_attention, head_dim_ok
-from .plan import MAX_HEAD_DIM
+from .kernel import flash_attention, head_dim_ok, max_head_dim
 from .ref import attention_ref
 
 __all__ = ["mha", "launch_spec", "SOFTMAX_OPS_PER_SCORE"]
@@ -77,10 +76,11 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        block_k=block_k)
     emit(spec)
     if _build.on_card(q, k, v):
-        if sq % 128 or sk % 128 or not head_dim_ok(d):
+        if sq % 128 or sk % 128 or not head_dim_ok(d, q.dtype):
             raise ValueError(
                 f"flash attention on CUDA needs Sq and Sk multiples of 128 "
-                f"and D % 8 == 0 up to {MAX_HEAD_DIM} (other shapes: "
-                f"ROADMAP.md, queue 2); got Sq={sq}, Sk={sk}, D={d}")
+                f"and D % 8 == 0 up to {max_head_dim(q.dtype)} in {q.dtype} "
+                f"(other shapes: ROADMAP.md, queue 2); got Sq={sq}, Sk={sk}, "
+                f"D={d}")
         return flash_attention(spec, q, k, v, causal=causal)
     return attention_ref(q, k, v, causal=causal)

@@ -26,14 +26,22 @@ shrink above DP = 128, where the tiles of DP = 128 do not fit a block's
 shared memory (:func:`f32_tiles`, :func:`sm90_kv_rows`); every function
 here takes DP.
 
-Above ``TILED_MAX_HEAD_DIM`` (DP 320 to 512) two other kernels take the
+Above ``TILED_MAX_HEAD_DIM`` (DP 320 to 1024) two other kernels take the
 launch, ``flash_fwd_wide`` (f32) and ``flash_fwd_wide_sm90`` (bf16): a
 thread there would hold more than the DP = 256 instances' accumulators, so
-O is cut into column panels of at most ``WIDE_PANEL`` columns, one block a
-panel (a grid axis), each block recomputing S over the whole head, and S
-is summed over 64-column panels of Q and K streamed through a ring, so
-that a block holds the Q tile and a few 64-column panels beside it
-(:func:`wide_f32_plan`, :func:`wide_sm90_plan`).
+the head's 64-column panels are dealt to ``ceil(DP / 256)`` blocks along
+the grid's z (:func:`wide_panels`, 3 + 2 at DP 320), each writing its own
+columns of O.  In f32 (:func:`wide_f32_plan`, up to ``MAX_HEAD_DIM`` =
+1024) those blocks are a thread-block cluster that splits S as well, over
+runs of Q and K dealt the other way round (:func:`wide_s_panels`, 2 + 3
+at DP 320): block r loads only its own columns of Q, K and V, computes
+its partial S_r = Q[:, s_cols_r] K[:, s_cols_r]^T each kv step, reads its
+peers' through distributed shared memory and sums S_0 + S_1 + ... in rank
+order, so every block holds the same S (and m, l) and S is computed once
+a step.  In bf16 (:func:`wide_sm90_plan`, up to ``SM90_MAX_HEAD_DIM`` =
+512) the two blocks each compute S over the whole head: exchanging the
+partial S would cost more on the SM-to-SM network than the tensor cores
+take to recompute it (PERF.md).
 """
 
 from __future__ import annotations
@@ -41,9 +49,11 @@ from __future__ import annotations
 from typing import NamedTuple
 
 __all__ = ["split_plan", "padded_head_dim", "f32_tiles", "sm90_kv_rows",
-           "sm90_smem_bytes", "wide_f32_plan", "wide_sm90_plan", "WidePlan",
-           "BLOCK_Q", "KV_CHUNK", "SPLITS_PER_SM", "TILED_HEAD_DIMS",
+           "sm90_smem_bytes", "wide_f32_plan", "wide_sm90_plan", "wide_panels",
+           "wide_s_panels", "WidePlan", "BLOCK_Q", "KV_CHUNK", "SPLITS_PER_SM",
+           "TILED_HEAD_DIMS",
            "TILED_MAX_HEAD_DIM", "MAX_HEAD_DIM", "PANEL", "WIDE_PANEL",
+           "WIDE_MAX_CLUSTER", "WIDE_SM90_BLOCKS", "SM90_MAX_HEAD_DIM",
            "SMEM_PER_BLOCK"]
 
 BLOCK_Q = 128        # q rows one block holds (DP <= 128)
@@ -52,30 +62,41 @@ SPLITS_PER_SM = 2
 PANEL = 64           # columns of one 128-byte bf16 row of a TMA box
 TILED_HEAD_DIMS = (64, 128, 192, 256)   # the padded widths DP built
 TILED_MAX_HEAD_DIM = 256   # the widest head the tiled kernels take
-# The widest head any kernel takes: the widest padded width at which
-# flash_fwd_wide_sm90's 128-row bf16 Q tile, kept whole in shared memory
-# beside its K and V rings, fits a block (DP 512: 230 504 bytes; DP 576
-# would take 246 888).  The reference's mha has no cap; wider heads raise
-# (ROADMAP.md).
-MAX_HEAD_DIM = 512
+# The widest head any kernel takes: f32's cluster of WIDE_MAX_CLUSTER blocks
+# of WIDE_PANEL columns each.  A block's buffers hold its own columns alone,
+# so they fit at any width; the cluster is what grows: every block reads
+# each of its peers' partial score tiles every kv step, through the SM-to-SM
+# network (2.0-2.2 us a step at four blocks against 1.0 at two, PERF.md).
+# bf16 keeps the whole 128-row Q tile in each of its two blocks beside a V
+# ring of the block's panels: 230 504 bytes at DP 512, 263 272 at 576 (a
+# third block would buy 576 alone: at 640 the Q tile, the K ring and a V
+# ring of three panels take 246 888).  The reference's mha has no cap;
+# wider heads raise (ROADMAP.md).
+WIDE_MAX_CLUSTER = 4
+WIDE_SM90_BLOCKS = 2
+MAX_HEAD_DIM = 1024
+SM90_MAX_HEAD_DIM = 512
 SMEM_PER_BLOCK = 232_448   # bytes of shared memory a block may use
 SM90_BLOCK_Q = 128
 SM90_STAGES = 2
-# Output columns one block of a wide kernel holds: the accumulators of the
-# DP = 256 instances (f32 4 rows x 64 columns a thread, bf16 a 64 x 256
-# wgmma accumulator of 128 registers a thread), and wgmma's widest N.
+# Columns of the head one block of a wide kernel holds at most: the
+# accumulators of the DP = 256 instances (f32 4 rows x 64 columns a thread,
+# bf16 a 64 x 256 wgmma accumulator of 128 registers a thread), and wgmma's
+# widest N.
 WIDE_PANEL = 256
-WIDE_F32_SLOTS = 4      # flash_fwd_wide: ring slots of one 32 x 64 unit each
+WIDE_F32_SLOTS = 4      # flash_fwd_wide: ring slots of one 32 x 128 unit each
+WIDE_F32_UNIT = 2 * PANEL  # ... columns of a unit: two 64-column panels
 WIDE_SM90_K_STAGES = 4  # flash_fwd_wide_sm90: ring of 64 x 64 K panels
-WIDE_SM90_V_STAGES = 2  # ... and of 64 x 256 V tiles
+WIDE_SM90_V_STAGES = 2  # ... and of 64-row V tiles of the block's columns
+WIDE_STAGES = 2         # f32 exchange slots a block holds: its partial S
 
 
 def padded_head_dim(d: int) -> int:
     """The padded width DP a kernel takes head width ``d`` at: ``d``
     rounded up to a whole ``PANEL``, one of ``TILED_HEAD_DIMS`` up to
-    ``TILED_MAX_HEAD_DIM`` (the tiled kernels' instance), else 320, 384,
-    448 or 512 (the wide kernels' Q rows in shared memory); raises on a
-    width no kernel takes: D % 8 != 0 or D above ``MAX_HEAD_DIM``."""
+    ``TILED_MAX_HEAD_DIM`` (the tiled kernels' instance), else 320 to 1024
+    (the wide kernels' panels); raises on a width no kernel takes: D % 8 !=
+    0 or D above ``MAX_HEAD_DIM``."""
     if not (8 <= d <= MAX_HEAD_DIM and d % 8 == 0):
         raise ValueError(f"flash kernels take D % 8 == 0 up to "
                          f"{MAX_HEAD_DIM}, got D={d}")
@@ -86,52 +107,84 @@ class WidePlan(NamedTuple):
     """How a wide kernel tiles a launch at one padded width DP."""
 
     block_q: int      # q rows a block holds
-    kv_rows: int      # kv rows of a K panel (and a V tile)
-    panels: int       # output column panels: blocks along the grid's z
-    panel_cols: int   # output columns a block holds (a multiple of 64)
-    smem_bytes: int   # dynamic shared memory of a block
+    kv_rows: int      # kv rows of a step (f32) or a kv tile (bf16)
+    blocks: int       # blocks along the grid's z that split the head
+    cluster: int      # ... of them in one thread-block cluster (1: none)
+    panel_cols: int   # most columns of O a block holds (x 64)
+    smem_bytes: int   # dynamic shared memory of the widest block
+
+
+def wide_panels(dp: int) -> list[tuple[int, int]]:
+    """(first 64-column panel, panels) of each of a wide kernel's blocks
+    along the grid's z at padded width ``dp``: the DP / 64 panels of the
+    head dealt to ``ceil(DP / WIDE_PANEL)`` blocks in contiguous runs,
+    evenly, the first taking one more (3 + 2 at DP 320, 4 + 4 at 512,
+    3 + 3 + 3 at 576).  Block r writes panels p0 .. p0 + n - 1 of O and
+    reads those columns of V (f32: its columns of Q and K are
+    :func:`wide_s_panels`')."""
+    _wide(dp)
+    n_panels = dp // PANEL
+    n = _cdiv(dp, WIDE_PANEL)
+    base, extra = divmod(n_panels, n)
+    return [(r * base + min(r, extra), base + (r < extra)) for r in range(n)]
+
+
+def wide_s_panels(dp: int) -> list[tuple[int, int]]:
+    """(first 64-column panel, panels) of the columns of Q and K each rank
+    of ``flash_fwd_wide``'s cluster computes its part of S over: the runs
+    of :func:`wide_panels` dealt the other way round, the last ranks taking
+    one more (2 + 3 at DP 320), so that a block's S and O columns add up to
+    the same count, or one more, in every block.  The cluster sums the
+    parts in this rank order."""
+    sizes = [n for _, n in wide_panels(dp)][::-1]
+    starts = [sum(sizes[:r]) for r in range(len(sizes))]
+    return list(zip(starts, sizes))
 
 
 def wide_f32_plan(dp: int) -> WidePlan:
-    """``flash_fwd_wide``'s tiles at padded width ``dp`` (320 to 512): 64
-    q rows (4 a thread, as at DP 256) against 32 kv rows a step.  Its ring
-    has ``WIDE_F32_SLOTS`` slots of one unit each, a unit being 32 rows of
-    64 columns of K (a panel of S's sum) or of V (a panel of O); the DP / 64
-    V panels are dealt to as few blocks as hold at most ``WIDE_PANEL``
-    columns each, evenly.  Shared memory: the Q tile, the ring, P."""
+    """``flash_fwd_wide``'s tiles at padded width ``dp`` (320 to 1024): 64
+    q rows (4 a thread, as at DP 256) against 32 kv rows a step, a block
+    holding its :func:`wide_panels` run of the head.  K and V pass through a
+    ring of ``WIDE_F32_SLOTS`` units, a unit being 32 rows of two 64-column
+    panels of the block's K (its part of S's sum) or V (its columns of O).
+    Shared memory: ``WIDE_STAGES`` slots of the 64 x 32 partial S it
+    publishes, P, the ring, the block's Q columns."""
     _wide(dp)
     block_q, kv_rows = 64, 32
-    v_panels = dp // PANEL
-    panels = _cdiv(v_panels, WIDE_PANEL // PANEL)
-    smem = 4 * (block_q * dp + WIDE_F32_SLOTS * kv_rows * PANEL
-                + block_q * kv_rows)
-    return WidePlan(block_q, kv_rows, panels,
-                    _cdiv(v_panels, panels) * PANEL, smem)
+    cols = max(n for _, n in wide_panels(dp)) * PANEL
+    smem = 4 * (WIDE_STAGES * block_q * kv_rows + block_q * kv_rows
+                + WIDE_F32_SLOTS * kv_rows * WIDE_F32_UNIT + block_q * cols)
+    n = _cdiv(dp, WIDE_PANEL)
+    return WidePlan(block_q, kv_rows, n, n, cols, smem)
 
 
 def wide_sm90_plan(dp: int) -> WidePlan:
     """``flash_fwd_wide_sm90``'s tiles at padded width ``dp`` (320 to
-    512): 128 q rows (two consumer warpgroups of 64) against 64 kv rows,
-    O in two panels of ``WIDE_PANEL`` columns (a panel's columns past D are
-    zeros in V).  Shared memory: alignment slack, the Q tile (DP / 64
+    ``SM90_MAX_HEAD_DIM``): 128 q rows (two consumer warpgroups of 64)
+    against 64 kv rows, ``WIDE_SM90_BLOCKS`` blocks, no cluster, each
+    computing S over the whole head and P V over its :func:`wide_panels`
+    run.  Shared memory: alignment slack, the whole Q tile (DP / 64
     panels), a ring of ``WIDE_SM90_K_STAGES`` 64-column K panels and one of
-    ``WIDE_SM90_V_STAGES`` V tiles of ``WIDE_PANEL`` columns, the
+    ``WIDE_SM90_V_STAGES`` V tiles of the widest block's columns, the
     mbarriers."""
     _wide(dp)
+    if dp > SM90_MAX_HEAD_DIM:
+        raise ValueError(f"flash_fwd_wide_sm90 takes padded widths up to "
+                         f"{SM90_MAX_HEAD_DIM}; got DP={dp}")
     kv_rows = 64
+    cols = max(n for _, n in wide_panels(dp)) * PANEL
     smem = (1024 + SM90_BLOCK_Q * dp * 2
             + WIDE_SM90_K_STAGES * kv_rows * PANEL * 2
-            + WIDE_SM90_V_STAGES * kv_rows * WIDE_PANEL * 2
+            + WIDE_SM90_V_STAGES * kv_rows * cols * 2
             + 8 * (1 + 2 * WIDE_SM90_K_STAGES + 2 * WIDE_SM90_V_STAGES))
-    return WidePlan(SM90_BLOCK_Q, kv_rows, _cdiv(dp, WIDE_PANEL), WIDE_PANEL,
-                    smem)
+    return WidePlan(SM90_BLOCK_Q, kv_rows, WIDE_SM90_BLOCKS, 1, cols, smem)
 
 
 def _wide(dp: int) -> None:
-    if not (TILED_MAX_HEAD_DIM < dp and dp % PANEL == 0):
+    if not (TILED_MAX_HEAD_DIM < dp <= MAX_HEAD_DIM and dp % PANEL == 0):
         raise ValueError(f"the wide flash kernels take padded widths above "
-                         f"{TILED_MAX_HEAD_DIM} in steps of {PANEL}; got "
-                         f"DP={dp}")
+                         f"{TILED_MAX_HEAD_DIM} up to {MAX_HEAD_DIM} in steps "
+                         f"of {PANEL}; got DP={dp}")
 
 
 def f32_tiles(dp: int) -> tuple[int, int]:
@@ -168,19 +221,19 @@ def split_plan(b: int, h: int, sq: int, sk: int, *, n_sm: int,
     """kv rows per range and the number of ranges for one launch over
     ``b * h`` heads of ``sq`` query and ``sk`` kv rows (multiples of the
     padded width's tiles, :func:`f32_tiles`: 128 and 64 up to DP = 128;
-    above ``TILED_MAX_HEAD_DIM`` :func:`wide_f32_plan`'s, whose output
-    panels multiply the blocks) on a card of ``n_sm`` SMs.  Every range but
+    above ``TILED_MAX_HEAD_DIM`` :func:`wide_f32_plan`'s, whose clusters
+    multiply the blocks) on a card of ``n_sm`` SMs.  Every range but
     the last holds exactly ``rows per range`` rows, a multiple of the kv
     tile, and none is empty."""
-    panels = 1
+    cluster = 1
     if d > TILED_MAX_HEAD_DIM:
-        block_q, chunk, panels = wide_f32_plan(d)[:3]
+        block_q, chunk, cluster = wide_f32_plan(d)[:3]
     else:
         block_q, chunk = f32_tiles(d)
     if sq < 1 or sq % block_q or sk < 1 or sk % chunk:
         raise ValueError(f"flash f32 kernel takes Sq a multiple of {block_q} "
                          f"and Sk of {chunk}; got Sq={sq}, Sk={sk}")
-    blocks = b * h * (sq // block_q) * panels
+    blocks = b * h * (sq // block_q) * cluster
     if blocks >= n_sm:
         return sk, 1
     want = _cdiv(SPLITS_PER_SM * n_sm, blocks)

@@ -1,5 +1,6 @@
 """The arithmetic of the flash kernels (``csrc/flash_attention.cu``)
-emulated in PyTorch on the CPU, at every head width D % 8 == 0 up to 512.
+emulated in PyTorch on the CPU, at every head width D % 8 == 0 up to 1024
+(512 in bf16).
 
 Both kernels run at the padded width ``DP = plan.padded_head_dim(D)``: the
 emulations pad q, k and v with zero columns up to DP, as the kernels' shared
@@ -18,13 +19,18 @@ scale from the real D and keep the output's first D columns.
   each range of kv rows runs the online softmax over its own chunks
   (``plan.f32_tiles(DP)``), a row's sum kept as 16 lanes' shares added at
   the end; the combine folds the ranges in order.
-- Above D = 256 the wide kernels, which cut O into column panels, one
-  block a panel, each block recomputing S summed over the 64-column panels
-  of Q and K: :func:`wide_sm90_emulation` (``flash_fwd_wide_sm90``: 128-row
-  q tiles, 64-row kv tiles, O panels of 256 columns, P split as above) and
-  :func:`wide_kernel_emulation` (``flash_fwd_wide`` + ``flash_combine``:
-  ``plan.wide_f32_plan``'s 64-row q tiles, 32-row kv steps and panels, the
-  split's partials per range, (m, l) from panel 0).
+- Above D = 256 the wide kernels, which deal the head's 64-column panels
+  to blocks along the grid's z (``plan.wide_panels``), each writing its
+  own columns of O: :func:`wide_kernel_emulation` (``flash_fwd_wide`` +
+  ``flash_combine``, a thread-block cluster: each kv step each rank's
+  partial S_r over its own columns of Q and K (``plan.wide_s_panels``),
+  summed S_0 + S_1 + ... in rank order (:func:`cluster_scores`), then the
+  online softmax and P V per rank into its columns of O;
+  ``plan.wide_f32_plan``'s 64-row q tiles and 32-row kv steps, the split's
+  partials per range, (m, l) from rank 0) and :func:`wide_sm90_emulation`
+  (``flash_fwd_wide_sm90``: each block S over the whole head, summed over
+  its 64-column panels in order (:func:`panel_scores`), 128-row q tiles,
+  64-row kv tiles, P split as above).
 """
 
 from __future__ import annotations
@@ -39,11 +45,14 @@ from repro_torch.kernels.flash_attention.plan import (PANEL, f32_tiles,
                                                       padded_head_dim,
                                                       sm90_kv_rows,
                                                       wide_f32_plan,
+                                                      wide_panels,
+                                                      wide_s_panels,
                                                       wide_sm90_plan)
 
 __all__ = ["sm90_emulation", "kernel_emulation", "split_partials",
-           "wide_sm90_emulation", "wide_kernel_emulation", "panel_scores",
-           "pad_head", "NEG_INF", "LANES", "SM90_BLOCK"]
+           "wide_sm90_emulation", "wide_kernel_emulation", "cluster_scores",
+           "panel_scores", "rank_columns", "pad_head", "NEG_INF", "LANES",
+           "SM90_BLOCK"]
 
 NEG_INF = -1e30
 LANES = 16        # f32: lanes that share one score row
@@ -190,9 +199,29 @@ def kernel_emulation(q, k, v, *, causal: bool, per: int) -> torch.Tensor:
     return out[..., :d].contiguous()
 
 
+def rank_columns(dp: int, runs=wide_panels) -> list[slice]:
+    """The columns of the head each of a wide kernel's blocks along z
+    holds at padded width ``dp``, in rank order: of O and V
+    (``plan.wide_panels``), or of Q and K with ``runs=wide_s_panels``."""
+    return [slice(PANEL * p0, PANEL * (p0 + n)) for p0, n in runs(dp)]
+
+
+def cluster_scores(qt: torch.Tensor, kt: torch.Tensor) -> torch.Tensor:
+    """S = Q K^T for a q tile and a kv tile padded to DP as flash_fwd_wide's
+    cluster forms it: each rank's partial over its own columns of Q and K
+    (``plan.wide_s_panels``), the partials added in rank order (S_0 + S_1
+    + ...), as every rank does, so each holds the same S."""
+    cols = rank_columns(qt.shape[1], wide_s_panels)
+    s = qt[:, cols[0]] @ kt[:, cols[0]].T
+    for c in cols[1:]:
+        s = s + qt[:, c] @ kt[:, c].T
+    return s
+
+
 def panel_scores(qt: torch.Tensor, kt: torch.Tensor) -> torch.Tensor:
     """S = Q K^T for a q tile and a kv tile padded to DP, summed over the
-    64-column panels of both in order, as the wide kernels stream K."""
+    64-column panels of both in order, as each flash_fwd_wide_sm90 block
+    streams K."""
     s = qt[:, :PANEL] @ kt[:, :PANEL].T
     for c0 in range(PANEL, qt.shape[1], PANEL):
         s = s + qt[:, c0:c0 + PANEL] @ kt[:, c0:c0 + PANEL].T
@@ -202,9 +231,9 @@ def panel_scores(qt: torch.Tensor, kt: torch.Tensor) -> torch.Tensor:
 def wide_sm90_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool) -> torch.Tensor:
     """flash_fwd_wide_sm90's arithmetic on bf16 q [B, Sq, H, D] and k, v
-    [B, Sk, G, D] (256 < D <= 512) -> bf16 [B, Sq, H, D]: each block one
-    256-column panel of O (its columns past D zeros in V), S recomputed
-    over the 64-column panels of the whole head."""
+    [B, Sk, G, D] (256 < D <= 512) -> bf16 [B, Sq, H, D]: each block S
+    over the whole head (the same in both), then its P V into its own
+    columns (those past D zeros in V)."""
     b, sq, h, d = q.shape
     _, sk, g, _ = k.shape
     rep = h // g
@@ -212,25 +241,24 @@ def wide_sm90_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v = (pad_head(x) for x in (q, k, v))
     dp = q.shape[-1]
     plan = wide_sm90_plan(dp)
-    bq, bk, pw = plan.block_q, plan.kv_rows, plan.panel_cols
-    v = F.pad(v, (0, plan.panels * pw - dp))     # V panels past D: zeros
-    out = torch.empty(b, sq, h, plan.panels * pw, dtype=torch.bfloat16)
-    rows, cols = torch.arange(bq), torch.arange(bk)
-    for bi, hi, q0, c0 in itertools.product(
-            range(b), range(h), range(0, sq, bq),
-            range(0, plan.panels * pw, pw)):
+    bq, bk = plan.block_q, plan.kv_rows
+    cols = rank_columns(dp)
+    out = torch.empty(b, sq, h, dp, dtype=torch.bfloat16)
+    rows, kv_cols = torch.arange(bq), torch.arange(bk)
+    for bi, hi, q0 in itertools.product(range(b), range(h),
+                                        range(0, sq, bq)):
         qt = q[bi, q0:q0 + bq, hi].float()
         m = torch.full((bq, 1), NEG_INF)
         l = torch.zeros(bq, 1)
-        acc = torch.zeros(bq, pw)
+        accs = [torch.zeros(bq, c.stop - c.start) for c in cols]
         for k0 in range(0, sk, bk):
             if causal and k0 > q0 + bq - 1:
                 break
             kt = k[bi, k0:k0 + bk, hi // rep].float()
-            vt = v[bi, k0:k0 + bk, hi // rep, c0:c0 + pw].float()
+            vt = v[bi, k0:k0 + bk, hi // rep].float()
             s = panel_scores(qt, kt) * scale_log2
             if causal and k0 + bk - 1 > q0:
-                keep = (q0 + rows)[:, None] >= (k0 + cols)[None, :]
+                keep = (q0 + rows)[:, None] >= (k0 + kv_cols)[None, :]
                 s = torch.where(keep, s, torch.tensor(NEG_INF))
             m_new = torch.maximum(m, s.amax(dim=1, keepdim=True))
             alpha = torch.exp2(m - m_new)
@@ -238,31 +266,35 @@ def wide_sm90_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             l = l * alpha + p.sum(dim=1, keepdim=True)
             p_hi = p.to(torch.bfloat16).float()
             p_lo = (p - p_hi).to(torch.bfloat16).float()
-            acc = acc * alpha + (p_hi @ vt + p_lo @ vt)
+            accs = [acc * alpha + (p_hi @ vt[:, c] + p_lo @ vt[:, c])
+                    for acc, c in zip(accs, cols)]
             m = m_new
-        out[bi, q0:q0 + bq, hi, c0:c0 + pw] = (
-            acc / torch.clamp(l, min=1e-30)).to(torch.bfloat16)
+        for acc, c in zip(accs, cols):
+            out[bi, q0:q0 + bq, hi, c] = (
+                acc / torch.clamp(l, min=1e-30)).to(torch.bfloat16)
     return out[..., :d].contiguous()
 
 
 def wide_partials(qt, kt, vt, q0: int, kv0: int, per: int, sk: int,
                   causal: bool, *, d: int):
-    """One flash_fwd_wide block's (m, l, acc) for a [64, DP] q tile and the
-    [Sk, panel columns] V of its output panel, against kv rows [kv0, kv0 +
-    per): S summed over the 64-column panels of Q and K, l as 16 lanes'
-    shares of 2 columns each, added at the end."""
+    """One flash_fwd_wide cluster's (m, l, acc) for a [64, DP] q tile
+    against kv rows [kv0, kv0 + per): S from the ranks' partials
+    (:func:`cluster_scores`), l as 16 lanes' shares of 2 columns each,
+    added at the end, and each rank's acc over its own columns of V, laid
+    side by side."""
     block_q, dp = qt.shape
     chunk = wide_f32_plan(dp).kv_rows
     scale_log2 = _scale_log2(d)
+    cols = rank_columns(dp)
     rows = torch.arange(block_q)
     m = torch.full((block_q, 1), NEG_INF)
     l_lane = torch.zeros(block_q, LANES)
-    acc = torch.zeros(block_q, vt.shape[1])
+    accs = [torch.zeros(block_q, c.stop - c.start) for c in cols]
     kv1 = min(sk, kv0 + per)
     if causal:
         kv1 = min(kv1, q0 + block_q)
     for k0 in range(kv0, max(kv0, kv1), chunk):
-        s = panel_scores(qt, kt[k0:k0 + chunk]) * scale_log2
+        s = cluster_scores(qt, kt[k0:k0 + chunk]) * scale_log2
         if causal and k0 + chunk - 1 > q0:
             keep = (q0 + rows)[:, None] >= (k0 + torch.arange(chunk))[None]
             s = torch.where(keep, s, torch.tensor(NEG_INF))
@@ -271,48 +303,47 @@ def wide_partials(qt, kt, vt, q0: int, kv0: int, per: int, sk: int,
         p = torch.exp2(s - m_new)
         pair = p.reshape(block_q, LANES, chunk // LANES)
         l_lane = l_lane * alpha + (pair[..., 0] + pair[..., 1])
-        acc = acc * alpha + p @ vt[k0:k0 + chunk]
+        accs = [acc * alpha + p @ vt[k0:k0 + chunk, c]
+                for acc, c in zip(accs, cols)]
         m = m_new
     while l_lane.shape[1] > 1:                        # xor 1, 2, 4, 8
         l_lane = l_lane[:, 0::2] + l_lane[:, 1::2]
-    return m, l_lane, acc
+    return m, l_lane, torch.cat(accs, dim=1)
 
 
 def wide_kernel_emulation(q, k, v, *, causal: bool,
                           per: int) -> torch.Tensor:
     """flash_fwd_wide (+ flash_combine when ``per`` < Sk) on f32 q
-    [B, Sq, H, D] and k, v [B, Sk, G, D] (256 < D <= 512): each block one
-    output panel of ``plan.wide_f32_plan(DP)``, S recomputed over the whole
-    head; the ranges' partials folded in order with panel 0's (m, l)."""
+    [B, Sq, H, D] and k, v [B, Sk, G, D] (256 < D <= 1024): each cluster
+    one (q tile, kv range) of ``plan.wide_f32_plan(DP)``, S summed from the
+    ranks' partials; the ranges' partials folded in order with rank 0's
+    (m, l)."""
     b, sq, h, d = q.shape
     _, sk, g, _ = k.shape
     rep = h // g
     q, k, v = (pad_head(x) for x in (q, k, v))
     dp = q.shape[-1]
-    plan = wide_f32_plan(dp)
-    block_q, pw = plan.block_q, plan.panel_cols
+    block_q = wide_f32_plan(dp).block_q
     out = torch.empty(b, sq, h, dp)
     for bi, hi, q0 in itertools.product(range(b), range(h),
                                         range(0, sq, block_q)):
         kt, vt = k[bi, :, hi // rep], v[bi, :, hi // rep]
         qt = q[bi, q0:q0 + block_q, hi]
-        for c0 in range(0, dp, pw):
-            parts = [wide_partials(qt, kt, vt[:, c0:c0 + pw], q0, kv0, per,
-                                   sk, causal, d=d)
-                     for kv0 in range(0, sk, per)]
-            if len(parts) == 1:
-                _, l, acc = parts[0]
-                o = acc / torch.clamp(l, min=1e-30)
-            else:
-                big_m = parts[0][0]
-                for m, _, _ in parts[1:]:
-                    big_m = torch.maximum(big_m, m)
-                big_l = torch.zeros_like(big_m)
-                o = torch.zeros_like(parts[0][2])
-                for m, l, acc in parts:        # in range order
-                    w = torch.exp2(m - big_m)
-                    big_l = big_l + l * w
-                    o = o + acc * w
-                o = o / torch.clamp(big_l, min=1e-30)
-            out[bi, q0:q0 + block_q, hi, c0:c0 + pw] = o
+        parts = [wide_partials(qt, kt, vt, q0, kv0, per, sk, causal, d=d)
+                 for kv0 in range(0, sk, per)]
+        if len(parts) == 1:
+            _, l, acc = parts[0]
+            o = acc / torch.clamp(l, min=1e-30)
+        else:
+            big_m = parts[0][0]
+            for m, _, _ in parts[1:]:
+                big_m = torch.maximum(big_m, m)
+            big_l = torch.zeros_like(big_m)
+            o = torch.zeros_like(parts[0][2])
+            for m, l, acc in parts:        # in range order
+                w = torch.exp2(m - big_m)
+                big_l = big_l + l * w
+                o = o + acc * w
+            o = o / torch.clamp(big_l, min=1e-30)
+        out[bi, q0:q0 + block_q, hi] = o
     return out[..., :d].contiguous()

@@ -137,8 +137,8 @@ def test_kernel_path_takes_every_width_a_multiple_of_8_up_to_256(dtype, d):
 
 @pytest.mark.parametrize("dtype,d,bq,bk,match", [
     (torch.bfloat16, 520, 128, 128, "D % 8 == 0 up to 512"),
-    (torch.float32, 1032, 128, 128, "D % 8 == 0 up to 512"),
-    (torch.float32, 20, 128, 128, "D % 8 == 0 up to 512"),
+    (torch.float32, 1032, 128, 128, "D % 8 == 0 up to 1024"),
+    (torch.float32, 20, 128, 128, "D % 8 == 0 up to 1024"),
     (torch.bfloat16, 4, 128, 128, "D % 8 == 0 up to 512"),
     (torch.float16, 128, 128, 128, "takes"),
 ])

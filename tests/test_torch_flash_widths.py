@@ -1,10 +1,10 @@
 """Flash attention at every head width the reference's ``mha`` runs its
-kernel for (D % 8 == 0), up to 512, on the CPU.
+kernel for (D % 8 == 0), up to 1024 in f32 and 512 in bf16, on the CPU.
 
 - The port's plain version against the reference Pallas kernel in
   interpret mode at D = 16 (the smoke configs' heads), 112 (Zamba2-7B's),
-  192 (Nemotron-4-340B's), 256 (PaliGemma's), 320 and 512, at the f32
-  tolerance of ``tests/test_torch_kernels.py``.
+  192 (Nemotron-4-340B's), 256 (PaliGemma's), 320, 512, 768 and 1024, at
+  the f32 tolerance of ``tests/test_torch_kernels.py``.
 - The padded design of both tiled kernels (``csrc/flash_attention.cu``):
   a launch at D runs the instance built for ``DP = plan.padded_head_dim(D)``
   with the head padded in shared memory by zero columns.  The emulations of
@@ -24,14 +24,18 @@ kernel for (D % 8 == 0), up to 512, on the CPU.
   a block's 227 KB of shared memory at every D, and the full-width launches
   split as the D = 128 ones do.
 - Above D = 256, the wide kernels (``flash_fwd_wide``, f32, and
-  ``flash_fwd_wide_sm90``, bf16): their emulations at D in {264, 320, 328,
-  384, 456, 512} (O in column panels, one block a panel, S summed over
-  64-column panels; f32 also cut into kv ranges and combined) held to the
-  plain version and to the reference kernel in interpret mode as above;
-  every width from 264 to ``plan.MAX_HEAD_DIM`` fitting a block's shared
-  memory with no thread holding more accumulators than the DP 256
-  instances; the cap itself the widest padded width the bf16 kernel's
-  resident Q tile fits; and the wrapper naming the wide kernel at each.
+  ``flash_fwd_wide_sm90``, bf16), which deal the head's panels to blocks
+  along the grid's z: their emulations at D in {264, 320, 328, 384, 456,
+  512}, and f32's also at 520, 768 and 1024 (f32 a thread-block cluster,
+  each rank's partial S over its own columns summed in rank order, also
+  cut into kv ranges and combined; bf16 each block S over the whole head;
+  then P V per block) held to the plain version and to the reference
+  kernel in interpret mode as above; ``plan.wide_panels`` dealing every
+  padded width's panels; every width from 264 to each dtype's cap fitting
+  a block's shared memory with no thread holding more accumulators than
+  the DP 256 instances; the caps themselves (a cluster of four in f32, two
+  blocks holding the whole Q tile in bf16); and the wrapper naming the
+  wide kernel at each width and refusing bf16 above its cap.
 """
 
 import itertools
@@ -48,17 +52,11 @@ from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro_torch.kernels.flash_attention import attention_ref
 from repro_torch.kernels.flash_attention.kernel import (flash_attention,
                                                         kernel_path)
-from repro_torch.kernels.flash_attention.plan import (MAX_HEAD_DIM,
-                                                      SMEM_PER_BLOCK,
-                                                      TILED_HEAD_DIMS,
-                                                      TILED_MAX_HEAD_DIM,
-                                                      WIDE_PANEL, f32_tiles,
-                                                      padded_head_dim,
-                                                      sm90_kv_rows,
-                                                      sm90_smem_bytes,
-                                                      split_plan,
-                                                      wide_f32_plan,
-                                                      wide_sm90_plan)
+from repro_torch.kernels.flash_attention.plan import (
+    MAX_HEAD_DIM, SM90_MAX_HEAD_DIM, SMEM_PER_BLOCK, TILED_HEAD_DIMS,
+    TILED_MAX_HEAD_DIM, WIDE_MAX_CLUSTER, WIDE_PANEL, WIDE_SM90_BLOCKS,
+    f32_tiles, padded_head_dim, sm90_kv_rows, sm90_smem_bytes, split_plan,
+    wide_f32_plan, wide_panels, wide_s_panels, wide_sm90_plan)
 
 F32 = dict(atol=2e-5, rtol=1e-4)
 BF16 = dict(atol=2e-2, rtol=2e-2)          # tests/test_torch_kernels.py
@@ -107,6 +105,8 @@ REF_CASES = [
     (1, 128, 256, 2, 2, 320, False, 1.0),
     (1, 128, 128, 2, 1, 512, True, 1.0),
     (1, 128, 256, 2, 2, 512, False, 1.0),
+    (1, 128, 256, 2, 2, 768, False, 1.0),    # f32's clusters of 3 and 4
+    (1, 128, 128, 2, 1, 1024, True, 1.0),
 ]
 
 
@@ -218,10 +218,11 @@ def test_every_width_fits_a_block_at_its_padded_width(d):
         assert sm90_smem_bytes(dp, sm90_kv_rows(dp)) <= SMEM_PER_BLOCK
     else:
         assert wide_f32_plan(dp).smem_bytes <= SMEM_PER_BLOCK
-        assert wide_sm90_plan(dp).smem_bytes <= SMEM_PER_BLOCK
+        if d <= SM90_MAX_HEAD_DIM:
+            assert wide_sm90_plan(dp).smem_bytes <= SMEM_PER_BLOCK
 
 
-@pytest.mark.parametrize("d", [MAX_HEAD_DIM + 8, 1032, 20, 4, 0])
+@pytest.mark.parametrize("d", [MAX_HEAD_DIM + 8, 2048, 20, 4, 0])
 def test_padded_head_dim_refuses_what_no_kernel_takes(d):
     with pytest.raises(ValueError, match=f"D % 8 == 0 up to {MAX_HEAD_DIM}"):
         padded_head_dim(d)
@@ -265,10 +266,12 @@ def test_split_plan_at_the_padded_width(b, h, s, d, want):
 
 # The wide kernels' widths: the narrowest (8 real columns in its last
 # 64-column panel), two that end inside a 32-column group (328, 456),
-# whole panels (320, 384) and the cap.  The inputs' scale stays where the
-# f32 plain version is itself within F32 of a float64 evaluation: at D 328
-# with scale 3 it lies 2.7e-5 from it, and at D 512 with scale 30 7.0e-4
-# (the emulation 0.9e-5 and 3.8e-4), so no f32 evaluation order holds F32
+# whole panels (320, 384) and bf16's cap; then f32's alone: a cluster of
+# three (520: 8 real columns in the last of nine panels, 768) and of four
+# (1024, Sq != Sk once).  The inputs' scale stays where the f32 plain
+# version is itself within F32 of a float64 evaluation: at D 328 with scale
+# 3 it lies 2.7e-5 from it, and at D 512 with scale 30 7.0e-4 (the
+# emulation 0.9e-5 and 3.8e-4), so no f32 evaluation order holds F32
 # against another there.
 WIDE_CASES = [
     (1, 128, 256, 2, 1, 264, True, 1.0),
@@ -279,13 +282,19 @@ WIDE_CASES = [
     (1, 256, 128, 2, 2, 512, True, 1.0),     # Sq != Sk, causal
     (1, 128, 256, 2, 1, 512, False, 1.0),
 ]
+WIDE_F32_CASES = WIDE_CASES + [
+    (1, 128, 256, 2, 1, 520, True, 1.0),
+    (1, 128, 128, 2, 2, 768, False, 1.0),
+    (1, 256, 128, 2, 1, 1024, True, 1.0),    # Sq != Sk, causal
+    (1, 128, 256, 1, 1, 1024, False, 1.0),
+]
 
 
 def _wide_id(case):
     return f"d{case[5]}-{'causal' if case[6] else 'full'}"
 
 
-@pytest.mark.parametrize("case", WIDE_CASES, ids=_wide_id)
+@pytest.mark.parametrize("case", WIDE_F32_CASES, ids=_wide_id)
 def test_wide_f32_kernel_emulation_holds(case):
     b, sq, sk, h, _, d, causal, _ = case
     dp = padded_head_dim(d)
@@ -319,31 +328,85 @@ def test_wide_bf16_kernel_emulation_holds(case):
                                _reference_bf16(q, k, v, causal), **BF16)
 
 
+@pytest.mark.parametrize("dp", range(TILED_MAX_HEAD_DIM + 64,
+                                     MAX_HEAD_DIM + 1, 64))
+def test_wide_panels_deal_the_head_to_the_cluster(dp):
+    """plan.wide_panels (and wide_run in csrc/flash_attention.cu): the
+    DP / 64 panels in contiguous runs, one a rank, in order, ceil(DP / 256)
+    ranks of at most four panels, two runs differing by one panel at most,
+    the longer first."""
+    runs = wide_panels(dp)
+    assert len(runs) == -(-dp // WIDE_PANEL) <= WIDE_MAX_CLUSTER
+    assert runs[0][0] == 0
+    for (p0, n), (q0, _) in zip(runs, runs[1:]):
+        assert q0 == p0 + n
+    assert sum(n for _, n in runs) == dp // 64
+    sizes = [n for _, n in runs]
+    assert max(sizes) <= WIDE_PANEL // 64 and max(sizes) - min(sizes) <= 1
+    assert sizes == sorted(sizes, reverse=True)
+    assert min(sizes) >= 2            # flash_fwd_wide's first unit is whole
+    # f32's runs of Q and K: the same sizes the other way round, contiguous
+    # from panel 0, so each block's S and O panels add up evenly
+    s_runs = wide_s_panels(dp)
+    assert [n for _, n in s_runs] == sizes[::-1]
+    assert [p0 for p0, _ in s_runs] == [sum(sizes[::-1][:r])
+                                        for r in range(len(sizes))]
+    totals = [n + m for (_, n), (_, m) in zip(runs, s_runs)]
+    assert max(totals) - min(totals) <= 1
+    assert max(totals) <= 2 * (-(-(dp // 64) // len(runs)))
+
+
 @pytest.mark.parametrize("d", range(TILED_MAX_HEAD_DIM + 8, MAX_HEAD_DIM + 1,
                                     8))
 def test_wide_plans_fit_every_width_to_the_cap(d):
     """Both wide kernels at every width they take: shared memory within a
     block's, no thread holding more accumulators than the DP = 256
     instances (f32 4 rows x 64 columns, bf16 a 64 x 256 wgmma accumulator
-    of 128 a thread), the output panels covering DP, and S's panels the
-    64-column ones."""
+    of 128 a thread), the cluster's blocks covering DP with no empty one,
+    and a block's columns whole 64-column panels."""
     dp = padded_head_dim(d)
-    f, w = wide_f32_plan(dp), wide_sm90_plan(dp)
-    for plan in (f, w):
+    plans = [wide_f32_plan(dp)]
+    if d <= SM90_MAX_HEAD_DIM:
+        plans.append(wide_sm90_plan(dp))
+    for plan in plans:
         assert plan.smem_bytes <= SMEM_PER_BLOCK
         assert plan.panel_cols % 64 == 0 and plan.panel_cols <= WIDE_PANEL
-        assert plan.panels * plan.panel_cols >= dp
-        assert (plan.panels - 1) * plan.panel_cols < d   # no empty panel
+        assert plan.blocks * plan.panel_cols >= dp
+        assert (plan.blocks - 1) * plan.panel_cols < d   # no empty block
+        assert plan.panel_cols == 64 * max(n for _, n in wide_panels(dp))
+    f = plans[0]
+    assert f.cluster == f.blocks <= WIDE_MAX_CLUSTER    # f32: one cluster
     assert 4 * f.panel_cols // 16 <= 4 * 256 // 16      # f32 accumulators
-    assert w.panel_cols // 2 <= 256 // 2                 # bf16 wgmma N / 2
     assert (f.block_q, f.kv_rows) == f32_tiles(256)
-    assert (w.block_q, w.kv_rows) == (128, sm90_kv_rows(256))
+    if len(plans) > 1:
+        w = plans[1]
+        assert (w.blocks, w.cluster) == (WIDE_SM90_BLOCKS, 1)
+        assert w.panel_cols // 2 <= 256 // 2             # bf16 wgmma N / 2
+        assert (w.block_q, w.kv_rows) == (128, sm90_kv_rows(256))
 
 
-def test_the_cap_is_where_the_bf16_q_tile_stops_fitting():
-    assert wide_sm90_plan(MAX_HEAD_DIM).smem_bytes <= SMEM_PER_BLOCK
-    assert wide_sm90_plan(MAX_HEAD_DIM + 64).smem_bytes > SMEM_PER_BLOCK
-    assert MAX_HEAD_DIM == 512
+def test_the_caps_are_the_widest_splits():
+    """What sets each cap.  f32: a block holds at most WIDE_PANEL columns
+    of Q, K, V and O, so a head is as wide as its widest cluster, four
+    blocks.  bf16: two blocks of at most WIDE_PANEL columns of O, each
+    holding the whole 128-row Q tile beside a V ring of its panels; two
+    blocks stop fitting at DP 576, and three would buy that width alone (at
+    640 the Q tile, the K ring and a three-panel V ring pass a block's
+    shared memory)."""
+    assert MAX_HEAD_DIM == WIDE_MAX_CLUSTER * WIDE_PANEL == 1024
+    assert SM90_MAX_HEAD_DIM == WIDE_SM90_BLOCKS * WIDE_PANEL == 512
+    assert WIDE_MAX_CLUSTER <= 8                         # portable clusters
+    assert wide_f32_plan(MAX_HEAD_DIM).cluster == WIDE_MAX_CLUSTER
+    assert wide_f32_plan(MAX_HEAD_DIM).smem_bytes <= SMEM_PER_BLOCK
+    w = wide_sm90_plan(SM90_MAX_HEAD_DIM)
+    assert w.smem_bytes <= SMEM_PER_BLOCK
+    q_panel, v_panel = 128 * 64 * 2, 2 * 64 * 64 * 2
+    assert w.smem_bytes + q_panel + v_panel > SMEM_PER_BLOCK   # 576, 5 + 4
+    assert w.smem_bytes + 2 * q_panel - v_panel > SMEM_PER_BLOCK  # 640, x3
+    with pytest.raises(ValueError, match="up to 1024"):
+        wide_f32_plan(MAX_HEAD_DIM + 64)
+    with pytest.raises(ValueError, match="up to 512"):
+        wide_sm90_plan(SM90_MAX_HEAD_DIM + 64)
     with pytest.raises(ValueError, match="above 256"):
         wide_f32_plan(256)
 
@@ -352,7 +415,12 @@ def test_the_cap_is_where_the_bf16_q_tile_stops_fitting():
                                     8))
 def test_kernel_path_takes_every_wide_width(d):
     assert kernel_path(torch.float32, d, 128, 128) == "flash_fwd_wide"
-    assert kernel_path(torch.bfloat16, d, 128, 128) == "flash_fwd_wide_sm90"
+    if d <= SM90_MAX_HEAD_DIM:
+        assert (kernel_path(torch.bfloat16, d, 128, 128)
+                == "flash_fwd_wide_sm90")
+    else:
+        with pytest.raises(ValueError, match="ROADMAP.md"):
+            kernel_path(torch.bfloat16, d, 128, 128)
 
 
 def test_the_launch_counter_names_the_wide_kernels():
@@ -360,7 +428,7 @@ def test_the_launch_counter_names_the_wide_kernels():
             "flash_fwd_wide_sm90"} == set(flash_attention.launches_by_kernel)
 
 
-@pytest.mark.parametrize("d", [MAX_HEAD_DIM + 8, 1032, 300, 4])
+@pytest.mark.parametrize("d", [MAX_HEAD_DIM + 8, 2048, 300, 4])
 def test_widths_no_kernel_takes_name_the_roadmap(d):
     for dtype in (torch.float32, torch.bfloat16):
         with pytest.raises(ValueError, match="ROADMAP.md"):
@@ -368,13 +436,16 @@ def test_widths_no_kernel_takes_name_the_roadmap(d):
 
 
 @pytest.mark.parametrize("b,h,s,d,want", [
-    # PaliGemma's shape at D 320 and 512: 8 heads x 32 q tiles x 2 output
-    # panels = 512 blocks fill the card in one range
+    # PaliGemma's shape at D 320 and 512: 8 heads x 32 q tiles x clusters
+    # of 2 = 512 blocks fill the card in one range
     (1, 8, 2048, 320, (2048, 1)),
     (1, 8, 2048, 512, (2048, 1)),
-    # the small shape chip_smoke.py holds them on: 4 x 4 x 2 = 32 blocks
+    # the small shape chip_smoke.py holds them on: 4 x 4 x 2 = 32 blocks,
+    # then clusters of 3 and 4: 48 and 64 blocks
     (1, 4, 256, 264, (32, 8)),
     (1, 4, 256, 512, (32, 8)),
+    (1, 4, 256, 768, (64, 4)),
+    (1, 4, 256, 1024, (64, 4)),
 ])
 def test_split_plan_counts_the_wide_panels(b, h, s, d, want):
     assert split_plan(b, h, s, s, n_sm=H100_SMS,
