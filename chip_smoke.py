@@ -42,7 +42,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    (clusters of three and four), each counted on the launch counter under
    its kernel's name, and CUDA tensors at D 1032 and 300 (f32) and at 520
    and 300 (bf16, whose cap is 512) refused with a
-   message naming ROADMAP.md; the simulator's window count (``window_scan``)
+   message naming ROADMAP.md; flash at lengths that are not multiples of
+   128 (every kernel's last q and kv tile partial): whisper-large-v3's
+   encoder (1 x 1500 positions, 20 heads, head_dim 64, non-causal) and a
+   causal qwen2.5-14b row of 2000 tokens, both dtypes, each checked to
+   launch the tiled kernel of its dtype alone, and Sq, Sk in {1, 37, 100,
+   200} crossed at head_dims 64, 192 and 320, causal and not, both dtypes
+   (one ``flash-ragged-held`` line; every flash kernel launched); paged
+   decode at granite-20b's group of 48 query heads (three head groups),
+   zamba2-7b's head_dim 112, nemotron-4-340b's group of 12 at head_dim 192
+   and head_dim 512, both dtypes, and at pages of 1 and 256 rows; the
+   simulator's window count (``window_scan``)
    on seeded rows, int32
    and int64 (ragged spans, cold slots, windows ending at m - 1 and past
    it), exactly, at every (lanes, steps) its plan picks (chunks 1-1024)
@@ -58,13 +68,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain version.  Flash is timed causal and not (f32 and bf16), beside
    SDPA, the f32 rows with the plan's kv split, at PaliGemma's shape with
    head_dims 256, 16, 96, 320 and 512 and at Zamba2-7B's (112) and
-   Nemotron-4-340B's (192) (causal, both dtypes), each row naming the
+   Nemotron-4-340B's (192) (causal, both dtypes), and at whisper's 1500
+   and qwen's 2000 positions, each row naming the
    backend SDPA picked (``library``); their bound has a third term, the
    scores' exp2 over the SFUs' rate at the card's max SM clock
    (``bound_by`` ``"exp"``), which binds bf16 at narrow heads, and counts
    the reference's work once (f32's wide clusters compute each tile's S
    once, each block its part; bf16's two wide blocks each compute the
-   whole S, which the bound does not count twice).  Paged decode prints
+   whole S, which the bound does not count twice).  Paged decode is also
+   timed at granite-20b's, zamba2-7b's and nemotron-4-340b's groups and
+   widths and at head_dim 512 (pages read once; each head group of a
+   split re-reads them, from L2 where it can).  Paged decode prints
    its
    split count, the EMA scan its plan, the state-expanded scan its plan
    and its issue floor (4 N D T f32 lane-instructions, the update's
@@ -690,6 +704,23 @@ def check_reference_tiles(randn, errs: dict[str, float]) -> None:
 # Full width of the two redesigned kernels (qwen2.5-14b decode over a
 # paged pool; one DeepSeek-MoE-16B layer's routed dispatch).
 FULL_PAGED = dict(n_pages=65536, page=16, d=128, h=5, n_active=2048)
+# Paged decode at the grouped-head counts and head widths of the repo's
+# configurations beyond the main paths' (FULL_PAGED's pool and sequence):
+# granite-20b's MQA group of 48 query heads (three head groups),
+# zamba2-7b's D 112 (32 heads over 32 KV heads: a group of one),
+# nemotron-4-340b's group of 12 at D 192, and D 512 (no config; a group of
+# 8 in two head groups), timed in both dtypes.
+WIDE_PAGED = {
+    "granite_h48": dict(FULL_PAGED, h=48, d=128),
+    "zamba2_d112": dict(FULL_PAGED, h=1, d=112),
+    "nemotron_h12_d192": dict(FULL_PAGED, h=12, d=192),
+    "d512": dict(FULL_PAGED, h=8, d=512),
+}
+# ... and held, untimed, at page sizes 1 and 256 (a page walked in chunks
+# of rows).
+PAGE_SIZE_PAGED = (dict(n_pages=8192, page=1, d=128, h=48, n_active=2048),
+                   dict(n_pages=512, page=256, d=192, h=12, n_active=64),
+                   dict(n_pages=256, page=256, d=512, h=8, n_active=16))
 FULL_MOE = dict(n_tokens=4096, top_k=6, d=2048, f=1408, n_experts=64)
 
 
@@ -801,14 +832,16 @@ TIMING_SEED = 1
 
 
 def paged_full_width(bench: Bench, smi: str, dtype: torch.dtype,
-                     **extra) -> tuple[dict, float]:
-    """Paged decode at ``FULL_PAGED``: held against its plain version,
-    then timed beside it.  Returns the timing row (printed, with
-    ``extra``) and the max abs error."""
+                     geo: dict | None = None, *, timed: bool = True,
+                     **extra) -> tuple[dict | None, float]:
+    """Paged decode at ``geo`` (default ``FULL_PAGED``): held against its
+    plain version, then, when ``timed``, timed beside it.  Returns the
+    timing row (printed, with ``extra``; None untimed) and the max abs
+    error."""
     from repro_torch.kernels.paged_kv_decode import (paged_decode,
                                                      paged_decode_ref)
 
-    g = FULL_PAGED
+    g = geo or FULL_PAGED
     gen = torch.Generator(device="cuda").manual_seed(TIMING_SEED)
     q, kp, vp, pt = paged_inputs(gen, g, dtype)
     case = (f"pool={g['n_pages']} page={g['page']} h={g['h']} d={g['d']} "
@@ -818,6 +851,8 @@ def paged_full_width(bench: Bench, smi: str, dtype: torch.dtype,
                       paged_decode(q, kp, vp, pt), want,
                       tol=attn_tol(dtype, want))
     del want
+    if not timed:
+        return None, err
     isz = q.element_size()
     row = timing_row(
         bench, smi, "paged_kv_decode", case, dtype,
@@ -895,6 +930,18 @@ REFUSED_FLASH_DIMS = {torch.float32: (1032, 300), torch.bfloat16: (520, 300)}
 # 32-column group (40, 112, 136, 200, 248).
 PADDED_FLASH_DIMS = (8, 16, 40, 112, 136, 192, 200, 248)
 SMALL_FLASH = dict(b=1, s=256, h=4, g=2)
+# Lengths that are not multiples of 128, timed: whisper-large-v3's encoder
+# self-attention (1500 positions, 20 heads, D 64, non-causal) and a causal
+# row at qwen2.5-14b's heads (40 over 8, D 128) at 2000 tokens, in both
+# dtypes, each with the kernel its launches must name; and held, untimed,
+# at Sq, Sk in RAGGED_LENGTHS crossed, causal and not, at RAGGED_DIMS (the
+# tiled kernels' 64-row and 128-row kv tiles and the wide kernels).
+WHISPER_FLASH = dict(b=1, s=1500, h=20, g=20)
+QWEN_RAGGED_FLASH = dict(b=1, s=2000, h=40, g=8)
+RAGGED_FLASH = {"whisper_s1500": (WHISPER_FLASH, 64, False),
+                "qwen_s2000": (QWEN_RAGGED_FLASH, 128, True)}
+RAGGED_LENGTHS = (1, 37, 100, 200)
+RAGGED_DIMS = (64, 192, 320)
 FULL_SCAN = dict(t=4096, d=2 * 3584, n=64, chunk=128)
 
 
@@ -1036,6 +1083,17 @@ def wide_cluster(dtype: torch.dtype, d: int) -> dict:
     return {"cluster": wide.cluster, "blocks_z": wide.blocks}
 
 
+def extra_row(r: dict, r16: dict) -> dict:
+    """The kernels line's fields of one f32 and one bf16 timing row of a
+    shape beyond the full-width ones."""
+    return {"case": r["case"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "bf16_ms": r16["ms"],
+            "bf16_plain_ms": r16["plain_ms"],
+            "bf16_bound_ms": r16["bound_ms"],
+            "bf16_library_ms": r16["library_ms"]}
+
+
 def sdpa_backend(q, k, v, causal: bool, d: int) -> str:
     """The backend SDPA picks for these inputs (``torch._fused_sdp_choice``),
     or ``"unknown"`` where this torch does not say."""
@@ -1048,6 +1106,88 @@ def sdpa_backend(q, k, v, causal: bool, d: int) -> str:
         return names.get(int(code), str(code)).lower()
     except (AttributeError, ImportError, RuntimeError, TypeError):
         return "unknown"
+
+
+def ragged_flash(bench: Bench, smi: str, gen, errs: dict[str, float],
+                 rows: dict) -> None:
+    """Flash at lengths that are not multiples of 128: the ``RAGGED_FLASH``
+    rows timed (each launch counted under the tiled kernel of its dtype),
+    then every (Sq, Sk) of ``RAGGED_LENGTHS`` crossed at ``RAGGED_DIMS``,
+    causal and not, in both dtypes, held against the plain version; the
+    wide kernels must take D 320."""
+    from repro_torch.kernels.flash_attention import attention_ref, mha
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention as flash_kernel)
+
+    counts = flash_kernel.launches_by_kernel
+    for tag, (shape, d, causal) in RAGGED_FLASH.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            before = dict(counts)
+            row, err = flash_full_width(bench, smi, dtype, d, causal,
+                                        shape=shape, timed=True)
+            errs["flash_attention"] = max(errs["flash_attention"], err)
+            ran = {k: v - before[k] for k, v in counts.items() if v > before[k]}
+            want = ("flash_fwd_kernel" if dtype == torch.float32
+                    else "flash_fwd_sm90")
+            if list(ran) != [want]:
+                raise AssertionError(f"{tag} {dtype} ran {ran}, not {want}")
+            row["launches_by_kernel"] = ran
+            rows[f"flash_attention_{tag}", dtype] = row
+            torch.cuda.empty_cache()
+    before = dict(counts)
+    held, worst = 0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        for d, sq, sk, causal in itertools.product(
+                RAGGED_DIMS, RAGGED_LENGTHS, RAGGED_LENGTHS, (True, False)):
+            qq, kk, vv = flash_inputs(gen, 1, sq, sk, 4, 2, d, dtype)
+            want = attention_ref(qq.float(), kk.float(), vv.float(),
+                                 causal=causal)
+            err = check_close(
+                "flash_attention", f"ragged sq={sq} sk={sk} d={d} "
+                f"causal={causal}", mha(qq, kk, vv, causal=causal), want,
+                tol=attn_tol(dtype, want), show=False)
+            worst[name] = max(worst.get(name, 0.0), err)
+            errs["flash_attention"] = max(errs["flash_attention"], err)
+            held += 1
+    ran = {k: v - before[k] for k, v in counts.items()}
+    say({"phase": "flash-ragged-held", "cases": held, "lengths":
+         RAGGED_LENGTHS, "dims": RAGGED_DIMS, "max_abs_err": worst,
+         "launches_by_kernel": ran})
+    if not all(ran.values()):
+        raise AssertionError(f"ragged lengths missed a flash kernel: {ran}")
+
+
+def wide_paged(bench: Bench, smi: str, errs: dict[str, float],
+               rows: dict) -> None:
+    """Paged decode at ``WIDE_PAGED`` (timed, both dtypes) and at
+    ``PAGE_SIZE_PAGED`` (held), each launch counted by ``paged_split``'s
+    wrapper."""
+    from repro_torch.kernels.paged_kv_decode.kernel import (
+        paged_decode_attention as paged_kernel)
+    from repro_torch.kernels.paged_kv_decode.plan import head_groups
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for tag, geo in WIDE_PAGED.items():
+            before = paged_kernel.launches
+            row, err = paged_full_width(
+                bench, smi, dtype, geo,
+                n_splits=paged_splits(geo, 4 if dtype == torch.float32
+                                      else 2),
+                head_groups=head_groups(geo["h"], geo["d"])[0])
+            if paged_kernel.launches <= before:
+                raise AssertionError(f"paged {tag} did not launch paged_split")
+            # paged_split (and paged_combine, with several splits) is the
+            # wrapper's one launch
+            row["launches_by_kernel"] = {
+                "paged_split": paged_kernel.launches - before}
+            errs["paged_kv_decode"] = max(errs["paged_kv_decode"], err)
+            rows[f"paged_kv_decode_{tag}", dtype] = row
+            torch.cuda.empty_cache()
+        for geo in PAGE_SIZE_PAGED:
+            _, err = paged_full_width(bench, smi, dtype, geo, timed=False)
+            errs["paged_kv_decode"] = max(errs["paged_kv_decode"], err)
+        torch.cuda.empty_cache()
 
 
 def scan_inputs(gen, t: int, d: int, n: int, dtype: torch.dtype):
@@ -4046,6 +4186,12 @@ def main() -> int:
             f"causal=True {plan}", mha(qq, kk, vv, causal=True),
             attention_ref(qq, kk, vv, causal=True), tol=ATTN_TOL))
 
+    clock("2+3 flash ragged")
+    # Sq, Sk not multiples of 128: whisper's encoder and a causal qwen row
+    # timed, every small crossed length held (the same timings as
+    # scripts/kernel_ab.py --only ragged)
+    ragged_flash(bench, smi, gen, errs, rows)
+
     clock("2+3 paged, moe")
     # -- 2+3. paged-KV decode and MoE dispatch (the same timings as
     # scripts/kernel_ab.py) ------------------------------------------------
@@ -4060,6 +4206,9 @@ def main() -> int:
         rows["moe_dispatch", dtype] = row
         errs["moe_dispatch"] = max(errs["moe_dispatch"], err)
         torch.cuda.empty_cache()
+    # granite-20b's group of 48, zamba2-7b's D 112, nemotron-4-340b's group
+    # of 12 at D 192 and D 512 timed; pages of 1 and 256 rows held
+    wide_paged(bench, smi, errs, rows)
 
     clock("2+3 scans")
     # -- 2+3. SSM scans: one Zamba2-7B Mamba-2 layer (the chunked scan's
@@ -4339,14 +4488,27 @@ def main() -> int:
             for d in [*WIDTH_FLASH, *WIDE_FLASH]:
                 r, r16 = (rows[f"flash_attention_d{d}", dt]
                           for dt in (torch.float32, torch.bfloat16))
-                entry[f"d{d}"] = {
-                    "case": r["case"], "ms": r["ms"],
-                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                    "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                    "bf16_ms": r16["ms"], "bf16_plain_ms": r16["plain_ms"],
-                    "bf16_bound_ms": r16["bound_ms"],
-                    "bf16_library_ms": r16["library_ms"],
-                    "library": [r["library"], r16["library"]]}
+                entry[f"d{d}"] = {**extra_row(r, r16),
+                                  "library": [r["library"], r16["library"]]}
+            # lengths that are not multiples of 128 (whisper's encoder, a
+            # causal qwen row), with the kernels their launches named
+            for tag in RAGGED_FLASH:
+                r, r16 = (rows[f"flash_attention_{tag}", dt]
+                          for dt in (torch.float32, torch.bfloat16))
+                entry[tag] = {**extra_row(r, r16),
+                              "library": [r["library"], r16["library"]],
+                              "launches_by_kernel": [
+                                  r["launches_by_kernel"],
+                                  r16["launches_by_kernel"]]}
+        if kname == "paged_kv_decode":
+            for tag in WIDE_PAGED:
+                r, r16 = (rows[f"paged_kv_decode_{tag}", dt]
+                          for dt in (torch.float32, torch.bfloat16))
+                entry[tag] = {**extra_row(r, r16),
+                              "launches_by_kernel": [
+                                  r["launches_by_kernel"],
+                                  r16["launches_by_kernel"]],
+                              "head_groups": r["head_groups"]}
         kernels.append(entry)
     clock("total")
     say({"kernels": kernels})

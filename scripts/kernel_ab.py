@@ -33,7 +33,13 @@ Nemotron-4-340B's, the same rows phase 3 times, and D 64 and 128 at
 qwen2.5-14b's; ``wide``: the wide kernels, flash, causal, in both dtypes,
 at each head width of ``chip_smoke.WIDE_FLASH``, D 320 and 512 at
 PaliGemma-3B's shape, the rows phase 3 times, each with its cluster size
-where the checkout has the cluster design).
+where the checkout has the cluster design; ``ragged``: flash at lengths
+that are not multiples of 128, ``chip_smoke.RAGGED_FLASH``'s whisper-large-
+v3 encoder (1500 positions, non-causal) and causal qwen2.5-14b row (2000
+tokens), in both dtypes; ``paged_wide``: paged decode at
+``chip_smoke.WIDE_PAGED``'s groups and widths (granite-20b's 48 heads,
+zamba2-7b's D 112, nemotron-4-340b's 12 heads at D 192, D 512), in both
+dtypes; these two only for a checkout that takes those shapes).
 
 ``--only window`` runs the checkout's roster on the card with
 ``backend="cuda"``, recording its window counts, and times the window
@@ -190,6 +196,21 @@ def main() -> int:
                                             label=args.label)
                 torch.cuda.empty_cache()
             cases += len(chip_smoke.WIDE_FLASH)
+    if "ragged" in only:
+        for dtype in (torch.float32, torch.bfloat16):
+            for shape, d, causal in chip_smoke.RAGGED_FLASH.values():
+                chip_smoke.flash_full_width(bench, smi, dtype, d, causal,
+                                            shape=shape, timed=True,
+                                            label=args.label)
+                torch.cuda.empty_cache()
+            cases += len(chip_smoke.RAGGED_FLASH)
+    if "paged_wide" in only:
+        for dtype in (torch.float32, torch.bfloat16):
+            for geo in chip_smoke.WIDE_PAGED.values():
+                chip_smoke.paged_full_width(bench, smi, dtype, geo,
+                                            label=args.label)
+                torch.cuda.empty_cache()
+            cases += len(chip_smoke.WIDE_PAGED)
     if "window" in only:
         cases += window_ab(chip_smoke, bench, smi,
                            Path(args.against).resolve(), args.label)

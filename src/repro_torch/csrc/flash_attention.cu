@@ -90,6 +90,17 @@
 // has m = -1e30 and weight 2^(-1e30 - M) = 0 in the combine); out = acc /
 // max(l, 1e-30).  q is [B, Sq, H, D], k and v [B, Sk, G, D]; head h reads
 // kv head h / (H/G).
+//
+// Every kernel takes any Sq, Sk >= 1 (the reference's mha computes every
+// length; whisper-large-v3's encoder runs 1500 positions): the grid counts
+// ceil(Sq / q tile) tiles and each block ceil(.. / kv tile) kv steps.  The
+// rows of a partial tile past Sq or Sk load as zeros (f32: cp.async with a
+// source size of 0, or zero stores; bf16: rank-4 tensor maps {D, heads, S,
+// B}, whose rows past S are TMA's zero fill, counted in the mbarrier's
+// bytes, never the next sequence's), the scores of kv rows past Sk are
+// masked to -1e30 like those above the diagonal, and no output or partial
+// row past Sq is stored.  The tail's tests are uniform branches taken on
+// the last tiles alone, so whole tiles run as before.
 #include "common.cuh"
 #include "sm90.cuh"  // mbarriers, TMA, wgmma descriptors and forms, clusters
 
@@ -203,6 +214,17 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
                "l"(gmem)
                : "memory");
 }
+// The same copy of a row that may lie past the sequence's end: with
+// `valid` false no byte is read and the 16 bytes land as zeros (src-size
+// 0), so `gmem` need only be some valid address.  A row's validity is one
+// compare and a select beside each copy.
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(valid ? 16 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -224,10 +246,13 @@ __device__ __forceinline__ int swizzled(int r, int c) {
 
 // kRows rows of D floats lying `stride` floats apart in global memory, into
 // shared rows of DP floats: only the d4 = D / 4 real chunks of a row are
-// copied; the places of the others hold zeros (zero_pad).
+// copied; the places of the others hold zeros (zero_pad).  Rows `valid`
+// .. kRows - 1 (past the sequence's end, in its last tile) land as zeros:
+// one code path for every tile, the copy's source size 0 for those rows.
 template <int DP, int G, int kRows>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int64_t stride, int d4, int tid) {
+                                          int64_t stride, int d4, int tid,
+                                          int valid) {
   constexpr int kChunks = DP / 4;
   static_assert(kRows * kChunks % kThreads == 0, "whole copies a thread");
 #pragma unroll
@@ -235,8 +260,9 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
     const int e = n * kThreads + tid;
     const int r = e / kChunks, c = e % kChunks;
     if (c < d4)
-      cp_async16(dst + r * DP + 4 * swizzled<G>(r, c),
-                 src + r * stride + 4 * c);
+      cp_async16_zfill(dst + r * DP + 4 * swizzled<G>(r, c),
+                       src + (r < valid ? r : 0) * stride + 4 * c,
+                       r < valid);
   }
 }
 
@@ -294,7 +320,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int r0 = kRQ * ty;   // first row this thread holds
   const int fq = ty & 7;     // swizzle of its Q and P rows
   const int fk = tx & 7;     // swizzle of its K rows (4tx..4tx+3)
-  const int n_q = Sq / kBQ;
+  const int n_q = (Sq + kBQ - 1) / kBQ;  // the last tile may be partial
   const int split = blockIdx.x % n_splits;
   const int tile = blockIdx.x / n_splits;
   const int qi = causal ? n_q - 1 - tile : tile;  // heaviest first
@@ -304,7 +330,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kv0 = split * per_split;
   int kv1 = min(Sk, kv0 + per_split);
   if (causal) kv1 = min(kv1, q0 + kBQ);  // chunks wholly above the diagonal
-  const int n_chunks = kv1 > kv0 ? (kv1 - kv0) / kBK : 0;
+  const int n_chunks = kv1 > kv0 ? (kv1 - kv0 + kBK - 1) / kBK : 0;
   const int d4 = D / 4;      // real 16-byte chunks of a row
 
   const int64_t q_stride = static_cast<int64_t>(H) * D;
@@ -320,15 +346,20 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       zero_pad<DP, 0, kBK>(sV + st * kBK * DP, d4, tid);
     }
   }
+  // A chunk or q tile past the sequence's end loads its missing rows as
+  // zeros; their scores are masked below and their outputs never stored.
   auto load_chunk = [&](int c) {
     const int st = c % kStages;
-    const int64_t off = (kv0 + static_cast<int64_t>(c) * kBK) * kv_stride;
+    const int k0 = kv0 + c * kBK;
+    const int64_t off = static_cast<int64_t>(k0) * kv_stride;
     load_rows<DP, kCols, kBK>(sK + st * kBK * DP, kb + off, kv_stride, d4,
-                              tid);
-    load_rows<DP, 0, kBK>(sV + st * kBK * DP, vb + off, kv_stride, d4, tid);
+                              tid, Sk - k0);
+    load_rows<DP, 0, kBK>(sV + st * kBK * DP, vb + off, kv_stride, d4, tid,
+                          Sk - k0);
   };
   if (n_chunks > 0) {
-    load_rows<DP, kRQ, kBQ>(sQ, qb + q0 * q_stride, q_stride, d4, tid);
+    load_rows<DP, kRQ, kBQ>(sQ, qb + q0 * q_stride, q_stride, d4, tid,
+                            Sq - q0);
     load_chunk(0);
   }
   cp_async_commit();
@@ -392,8 +423,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
 
-    // Online softmax in registers; P to the warp's rows of sP.
+    // Online softmax in registers; P to the warp's rows of sP.  Scores
+    // above the diagonal, or of kv rows past Sk (the last chunk's), are
+    // masked.
     const bool mask = causal && k0 + kBK - 1 > q0;
+    const bool tail = k0 + kBK > Sk;
     float alpha[kRQ];
 #pragma unroll
     for (int i = 0; i < kRQ; ++i) {
@@ -402,6 +436,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < kCols; ++j) {
         float x = s[i][j] * scale_log2;
         if (mask && q0 + r0 + i < k0 + kCols * tx + j) x = REPRO_NEG_INF;
+        if (tail && k0 + kCols * tx + j >= Sk) x = REPRO_NEG_INF;
         s[i][j] = x;
         mx = fmaxf(mx, x);
       }
@@ -481,7 +516,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int off = 1; off < kTX; off *= 2)
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
-  // Output row index (b*Sq + q)*H + h, as in o's [B, Sq, H, D] layout.
+  // Output row index (b*Sq + q)*H + h, as in o's [B, Sq, H, D] layout;
+  // rows past Sq (the last q tile's) are not stored.
   const int64_t row0 = (static_cast<int64_t>(b) * Sq + q0 + r0) * H + h;
   if (n_splits == 1) {
 #pragma unroll
@@ -490,7 +526,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float* orow = o + (row0 + static_cast<int64_t>(i) * H) * D + 4 * tx;
 #pragma unroll
       for (int jj = 0; jj < OC; ++jj)
-        if (4 * tx + 4 * kTX * jj < D)
+        if (4 * tx + 4 * kTX * jj < D && q0 + r0 + i < Sq)
           *reinterpret_cast<float4*>(orow + 4 * kTX * jj) =
               make_float4(acc[i][4 * jj] * inv, acc[i][4 * jj + 1] * inv,
                           acc[i][4 * jj + 2] * inv, acc[i][4 * jj + 3] * inv);
@@ -506,6 +542,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* pml = part + n_splits * rows * D + split * rows * 2;
 #pragma unroll
   for (int i = 0; i < kRQ; ++i) {
+    if (q0 + r0 + i >= Sq) continue;
     const int64_t r = row0 + static_cast<int64_t>(i) * H;
     float* arow = pacc + r * D + 4 * tx;
 #pragma unroll
@@ -519,7 +556,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// Fold the splits' partials of every output row in split order:
+// Fold the splits' partials of every output row (rows < Sq alone: B*Sq*H)
+// in split order:
 // M = max m_s, L = sum l_s 2^(m_s - M),
 // out = sum acc_s 2^(m_s - M) / max(L, 1e-30).  One thread a float4 of one
 // row; no atomics, so the result is the same from run to run.
@@ -559,7 +597,7 @@ int launch(const float* q, const float* k, const float* v, float* o,
            float scale, int per_split, int n_splits, cudaStream_t stream) {
   constexpr int kBQ = block_q<DP>();
   constexpr int kBK = block_k<DP>();
-  if (D > DP || DP - D >= 64 || Sq % kBQ || Sk % kBK || per_split <= 0 ||
+  if (D > DP || DP - D >= 64 || Sq < 1 || Sk < 1 || per_split <= 0 ||
       per_split % kBK ||
       n_splits != (Sk + per_split - 1) / per_split ||
       (n_splits > 1 && part == nullptr))
@@ -570,7 +608,7 @@ int launch(const float* q, const float* k, const float* v, float* o,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq / kBQ) * n_splits, B * H);
+  const dim3 grid(((Sq + kBQ - 1) / kBQ) * n_splits, B * H);
   kern<<<grid, kThreads, smem, stream>>>(q, k, v, o, part, Sq, Sk, H, G, D,
                                          causal, scale * kLog2e, per_split,
                                          n_splits);
@@ -701,7 +739,7 @@ flash_fwd_wide(const float* __restrict__ q, const float* __restrict__ k,
   const int r0 = kWideRQ * ty;  // first row this thread holds
   const int fq = ty & 7;        // swizzle of its Q and P rows
   const int fk = tx & 7;        // swizzle of its K rows (2tx, 2tx + 1)
-  const int n_q = Sq / kWideBQ;
+  const int n_q = (Sq + kWideBQ - 1) / kWideBQ;  // the last may be partial
   const int split = blockIdx.x % n_splits;
   const int tile = blockIdx.x / n_splits;
   const int qi = causal ? n_q - 1 - tile : tile;  // heaviest first
@@ -711,7 +749,9 @@ flash_fwd_wide(const float* __restrict__ q, const float* __restrict__ k,
   const int kv0 = split * per_split;
   int kv1 = min(Sk, kv0 + per_split);
   if (causal) kv1 = min(kv1, q0 + kWideBQ);  // steps wholly above the diagonal
-  const int n_steps = kv1 > kv0 ? (kv1 - kv0) / kWideBK : 0;
+  // Every rank of the cluster shares (q tile, kv range), so all take the
+  // same steps and cluster barriers, the ragged last one included.
+  const int n_steps = kv1 > kv0 ? (kv1 - kv0 + kWideBK - 1) / kWideBK : 0;
   const int n_units = n_steps * per_step;
 
   const int64_t q_stride = static_cast<int64_t>(H) * D;
@@ -722,13 +762,15 @@ flash_fwd_wide(const float* __restrict__ q, const float* __restrict__ k,
 
   // Unit u: step u / per_step; K pair r < n_kp of it, else V pair
   // r - n_kp, into ring slot u % kWideSlots.  K rows are swizzled as
-  // flash_fwd_kernel's (kWideCols rows share one), V rows are not.
+  // flash_fwd_kernel's (kWideCols rows share one), V rows are not.  Rows
+  // past Sk (the last step's) are zeros, as the columns past D are.
   auto load_unit = [&](int u) {
     const int st = u / per_step, r = u % per_step;
     const bool is_k = r < n_kp;
     const int col0 = is_k ? c0k + kUnitCols * r : c0 + kUnitCols * (r - n_kp);
     const int end = is_k ? k_end : v_end;
     const int real = (end - col0) / 4;  // real chunks of a row (>= 2)
+    const int rows = Sk - (kv0 + st * kWideBK);  // real rows (>= 1)
     const float* src = (is_k ? kb : vb) +
                        (kv0 + static_cast<int64_t>(st) * kWideBK) * kv_stride +
                        col0;
@@ -739,7 +781,7 @@ flash_fwd_wide(const float* __restrict__ q, const float* __restrict__ k,
       const int rr = e / 32, c = e % 32;
       float* d = dst + rr * kUnitCols +
                  4 * (is_k ? swizzled<kWideCols>(rr, c) : c);
-      if (c < real)
+      if (c < real && rr < rows)
         cp_async16(d, src + rr * kv_stride + 4 * c);
       else
         *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -750,7 +792,7 @@ flash_fwd_wide(const float* __restrict__ q, const float* __restrict__ k,
     for (int e = tid; e < kWideBQ * (cols / 4); e += kThreads) {
       const int r = e / (cols / 4), c = e % (cols / 4);
       float* d = sQ + r * cols + 4 * swizzled<kWideRQ>(r, c);
-      if (c0k + 4 * c < D)
+      if (c0k + 4 * c < D && q0 + r < Sq)
         cp_async16(d, qb + (q0 + r) * q_stride + c0k + 4 * c);
       else
         *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -863,8 +905,10 @@ flash_fwd_wide(const float* __restrict__ q, const float* __restrict__ k,
     }
 
     // Online softmax in registers; P to the warp's rows of sP (read after
-    // the next unit's block barrier).
+    // the next unit's block barrier).  Scores above the diagonal, or of kv
+    // rows past Sk, are masked.
     const bool mask = causal && k0 + kWideBK - 1 > q0;
+    const bool tail = k0 + kWideBK > Sk;
     float alpha[kWideRQ];
 #pragma unroll
     for (int i = 0; i < kWideRQ; ++i) {
@@ -873,6 +917,7 @@ flash_fwd_wide(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < kWideCols; ++j) {
         float x = s[i][j] * scale_log2;
         if (mask && q0 + r0 + i < k0 + kWideCols * tx + j) x = REPRO_NEG_INF;
+        if (tail && k0 + kWideCols * tx + j >= Sk) x = REPRO_NEG_INF;
         s[i][j] = x;
         mx = fmaxf(mx, x);
       }
@@ -927,6 +972,7 @@ flash_fwd_wide(const float* __restrict__ q, const float* __restrict__ k,
   float* pacc = part + split * rows * D;  // unused with one split
 #pragma unroll
   for (int i = 0; i < kWideRQ; ++i) {
+    if (q0 + r0 + i >= Sq) continue;  // a row past Sq: not stored
     const int64_t r = row0 + static_cast<int64_t>(i) * H;
     const float inv = n_splits == 1 ? 1.f / fmaxf(l[i], 1e-30f) : 1.f;
     float* orow = (n_splits == 1 ? o : pacc) + r * D;
@@ -950,7 +996,7 @@ int launch_wide(const float* q, const float* k, const float* v, float* o,
                 float* part, int B, int Sq, int Sk, int H, int G, int D,
                 int causal, float scale, int per_split, int n_splits,
                 cudaStream_t stream) {
-  if (D <= 256 || D > kWideMaxD || Sq % kWideBQ || Sk % kWideBK ||
+  if (D <= 256 || D > kWideMaxD || Sq < 1 || Sk < 1 ||
       per_split <= 0 || per_split % kWideBK ||
       n_splits != (Sk + per_split - 1) / per_split ||
       (n_splits > 1 && part == nullptr))
@@ -959,7 +1005,7 @@ int launch_wide(const float* q, const float* k, const float* v, float* o,
   const int n_cl = (n_dp + kWideVPanels - 1) / kWideVPanels;
   const int cols_max = 64 * ((n_dp + n_cl - 1) / n_cl);
   const int smem = wide_smem_floats(cols_max) * static_cast<int>(sizeof(float));
-  const dim3 grid((Sq / kWideBQ) * n_splits, B * H, n_cl);
+  const dim3 grid(((Sq + kWideBQ - 1) / kWideBQ) * n_splits, B * H, n_cl);
   cudaError_t err = launch_cluster(
       flash_fwd_wide, grid, kThreads, smem, n_cl, stream, q, k, v, o, part,
       Sq, Sk, H, G, D, causal, scale * kLog2e, per_split, n_splits);
@@ -1056,7 +1102,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* full_v = full_k + kStages;
   uint64_t* empty = full_v + kStages;
 
-  const int n_q = Sq / kBQ;
+  const int n_q = (Sq + kBQ - 1) / kBQ;  // the last tile may be partial
   const int bh = blockIdx.x;
   const int tile = static_cast<int>(blockIdx.y);
   const int qi = causal ? n_q - 1 - tile : tile;  // heaviest first
@@ -1064,8 +1110,10 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
   const int h = bh % H;
   const int g = h / (H / G);
   const int q0 = qi * kBQ;
-  // Tiles ki with ki*BK <= q0 + kBQ - 1 are computed under the causal mask.
-  const int n_kv = causal ? min(Sk / BK, (q0 + kBQ) / BK) : Sk / BK;
+  // Tiles ki with ki*BK <= q0 + kBQ - 1 are computed under the causal mask;
+  // the last may cross Sk.
+  const int n_kv_all = (Sk + BK - 1) / BK;
+  const int n_kv = causal ? min(n_kv_all, (q0 + kBQ) / BK) : n_kv_all;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -1082,11 +1130,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
   if (tid < 128) {  // producer warpgroup
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
     if (tid == 0) {
-      const int q_row = b * Sq + q0;
-      const int kv_row = b * Sk;
       mbar_expect_tx(full_q, kQTile);
       for (int p = 0; p < kPanels; ++p)
-        tma_load(sQ + p * kQPanel, &tm_q, full_q, 64 * p, h, q_row);
+        tma_load_4d(sQ + p * kQPanel, &tm_q, full_q, 64 * p, h, q0, b);
       for (int j = 0; j < n_kv; ++j) {
         const int s = j % kStages;
         mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
@@ -1094,12 +1140,12 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
         uint8_t* v_dst = sV + s * kKVTile;
         mbar_expect_tx(&full_k[s], kKVTile);
         for (int p = 0; p < kPanels; ++p)
-          tma_load(k_dst + p * kKVPanel, &tm_k, &full_k[s], 64 * p, g,
-                   kv_row + j * BK);
+          tma_load_4d(k_dst + p * kKVPanel, &tm_k, &full_k[s], 64 * p, g,
+                      j * BK, b);
         mbar_expect_tx(&full_v[s], kKVTile);
         for (int p = 0; p < kPanels; ++p)
-          tma_load(v_dst + p * kKVPanel, &tm_v, &full_v[s], 64 * p, g,
-                   kv_row + j * BK);
+          tma_load_4d(v_dst + p * kKVPanel, &tm_v, &full_v[s], 64 * p, g,
+                      j * BK, b);
       }
     }
     return;
@@ -1152,20 +1198,32 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
     reg_fence(sc);
 
     // Online softmax in the log2 domain.  sc[4n + e] is row row_lo + 8*(e/2),
-    // column 8n + col_in + e%2 of the tile.
+    // column 8n + col_in + e%2 of the tile.  Scores above the diagonal, or
+    // of kv rows past Sk (the last tile's, TMA's zero fill), are masked:
+    // column k of row r is kept while k <= lim[r], on the tiles the
+    // diagonal or Sk crosses alone (a uniform branch).
     const int k0 = j * BK;
     const bool diag = causal && k0 + BK - 1 > q_first;
     float mx[2] = {m[0], m[1]};
+    if (diag || k0 + BK > Sk) {
+      int lim[2];
 #pragma unroll
-    for (int i = 0; i < kSc; ++i) {
-      float x = sc[i] * scale_log2;
-      if (diag) {
-        const int qpos = q_first + row_lo + 8 * ((i % 4) / 2);
-        const int kpos = k0 + 8 * (i / 4) + col_in + i % 2;
-        if (qpos < kpos) x = REPRO_NEG_INF;
+      for (int r = 0; r < 2; ++r)
+        lim[r] = min(diag ? q_first + row_lo + 8 * r : Sk - 1, Sk - 1);
+#pragma unroll
+      for (int i = 0; i < kSc; ++i) {
+        float x = sc[i] * scale_log2;
+        if (k0 + 8 * (i / 4) + col_in + i % 2 > lim[(i % 4) / 2])
+          x = REPRO_NEG_INF;
+        sc[i] = x;
+        mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], x);
       }
-      sc[i] = x;
-      mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], x);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kSc; ++i) {
+        sc[i] *= scale_log2;
+        mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], sc[i]);
+      }
     }
     float alpha[2], rsum[2] = {0.f, 0.f};
 #pragma unroll
@@ -1244,6 +1302,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
     const int row = i / kChunks;
     const int ch = i % kChunks;
     if (ch >= D / 8) continue;     // a padded column
+    if (q_first + row >= Sq) continue;  // a row past Sq
     const uint4 val = *reinterpret_cast<const uint4*>(
         sO + (ch / 8) * kQPanel + row * 128 + (((ch % 8) ^ (row % 8)) * 16));
     const int64_t pos = static_cast<int64_t>(b) * Sq + q_first + row;
@@ -1251,22 +1310,25 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// Tensor map over a contiguous [rows, heads, D] bf16 array, boxes of
-// {64 columns, 1 head, box_rows rows}, 128-byte swizzle.  A box's columns
-// past D lie outside the map and land as zeros (FLOAT_OOB_FILL_NONE); they
-// still count in the bytes the load completes on its mbarrier.
-bool make_map(CUtensorMap* map, const void* base, int D, int heads,
-              int64_t rows, int box_rows) {
+// Tensor map over a contiguous [B, S, heads, D] bf16 array, boxes of
+// {64 columns, 1 head, box_rows rows, 1 sequence}, 128-byte swizzle.  A
+// box's columns past D and rows past S lie outside the map and land as
+// zeros (FLOAT_OOB_FILL_NONE), never the next sequence's rows; they still
+// count in the bytes the load completes on its mbarrier.
+bool make_map(CUtensorMap* map, const void* base, int D, int heads, int S,
+              int B, int box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(heads) * D * 2};
-  const cuuint32_t box[3] = {64, 1, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {
+      static_cast<cuuint64_t>(D) * 2, static_cast<cuuint64_t>(heads) * D * 2,
+      static_cast<cuuint64_t>(S) * heads * D * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(base), dims, strides, box, elem_strides,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -1278,12 +1340,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
            int Sk, int H, int G, int D, int causal, float scale,
            cudaStream_t stream) {
   static_assert(smem_bytes<DP, BK>() <= 232448, "over a block's shared memory");
-  if (D > DP || DP - D >= 64 || Sq % kBQ || Sk % BK)
+  if (D > DP || DP - D >= 64 || Sq < 1 || Sk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, D, H, static_cast<int64_t>(B) * Sq, kBQ) ||
-      !make_map(&tk, k, D, G, static_cast<int64_t>(B) * Sk, BK) ||
-      !make_map(&tv, v, D, G, static_cast<int64_t>(B) * Sk, BK))
+  if (!make_map(&tq, q, D, H, Sq, B, kBQ) ||
+      !make_map(&tk, k, D, G, Sk, B, BK) ||
+      !make_map(&tv, v, D, G, Sk, B, BK))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = smem_bytes<DP, BK>();
   auto* kern = D == DP ? flash_fwd_sm90<DP, BK, false>
@@ -1291,7 +1353,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * H, Sq / kBQ);
+  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   kern<<<grid, kThreads, smem, stream>>>(tq, tk, tv,
                                          static_cast<__nv_bfloat16*>(o), Sq,
                                          Sk, H, G, D, causal, scale * kLog2e);
@@ -1371,8 +1433,8 @@ struct WideBars {
 template <int NDP, int NP>
 __device__ __forceinline__ void wide_consume(
     const WideBars& bar, uint8_t* sQ, uint8_t* sK, uint8_t* sV,
-    __nv_bfloat16* __restrict__ o, int Sq, int H, int D, int b, int h,
-    int q0, int n_kv, int causal, float scale_log2, int c0) {
+    __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H, int D, int b,
+    int h, int q0, int n_kv, int causal, float scale_log2, int c0) {
   constexpr int kAcc = 32 * NP;     // f32 accumulators a thread: 64 x 64 NP
   constexpr int kSc = kWideBK / 2;  // ... for the 64 x 64 scores
   constexpr int kVTile = NP * kWidePanel;
@@ -1422,20 +1484,32 @@ __device__ __forceinline__ void wide_consume(
     reg_fence(sc);
 
     // Online softmax in the log2 domain.  sc[4n + e] is row row_lo + 8*(e/2),
-    // column 8n + col_in + e%2 of the tile.
+    // column 8n + col_in + e%2 of the tile.  Scores above the diagonal, or
+    // of kv rows past Sk (the last tile's, TMA's zero fill), are masked:
+    // column k of row r is kept while k <= lim[r], on the tiles the
+    // diagonal or Sk crosses alone (a uniform branch).
     const int k0 = j * kWideBK;
     const bool diag = causal && k0 + kWideBK - 1 > q_first;
     float mx[2] = {m[0], m[1]};
+    if (diag || k0 + kWideBK > Sk) {
+      int lim[2];
 #pragma unroll
-    for (int i = 0; i < kSc; ++i) {
-      float x = sc[i] * scale_log2;
-      if (diag) {
-        const int qpos = q_first + row_lo + 8 * ((i % 4) / 2);
-        const int kpos = k0 + 8 * (i / 4) + col_in + i % 2;
-        if (qpos < kpos) x = REPRO_NEG_INF;
+      for (int r = 0; r < 2; ++r)
+        lim[r] = min(diag ? q_first + row_lo + 8 * r : Sk - 1, Sk - 1);
+#pragma unroll
+      for (int i = 0; i < kSc; ++i) {
+        float x = sc[i] * scale_log2;
+        if (k0 + 8 * (i / 4) + col_in + i % 2 > lim[(i % 4) / 2])
+          x = REPRO_NEG_INF;
+        sc[i] = x;
+        mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], x);
       }
-      sc[i] = x;
-      mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], x);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kSc; ++i) {
+        sc[i] *= scale_log2;
+        mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], sc[i]);
+      }
     }
     float alpha[2], rsum[2] = {0.f, 0.f};
 #pragma unroll
@@ -1514,7 +1588,7 @@ __device__ __forceinline__ void wide_consume(
   for (int i = t; i < 64 * kChunks; i += 128) {
     const int row = i / kChunks;
     const int ch = i % kChunks;
-    if (c0 + 8 * ch >= D) continue;  // a column past D
+    if (c0 + 8 * ch >= D || q_first + row >= Sq) continue;  // past D or Sq
     const uint4 val = *reinterpret_cast<const uint4*>(
         sO + (ch / 8) * kQPanel + row * 128 + (((ch % 8) ^ (row % 8)) * 16));
     const int64_t pos = static_cast<int64_t>(b) * Sq + q_first + row;
@@ -1546,7 +1620,7 @@ flash_fwd_wide_sm90(const __grid_constant__ CUtensorMap tm_q,
   bar.full_v = bar.empty_k + kWideKStages;
   bar.empty_v = bar.full_v + kWideVStages;
 
-  const int n_q = Sq / kBQ;
+  const int n_q = (Sq + kBQ - 1) / kBQ;  // the last tile may be partial
   const int bh = blockIdx.x;
   const int tile = static_cast<int>(blockIdx.y);
   const int qi = causal ? n_q - 1 - tile : tile;  // heaviest first
@@ -1554,8 +1628,8 @@ flash_fwd_wide_sm90(const __grid_constant__ CUtensorMap tm_q,
   const int h = bh % H;
   const int g = h / (H / G);
   const int q0 = qi * kBQ;
-  const int n_kv = causal ? min(Sk / kWideBK, (q0 + kBQ) / kWideBK)
-                          : Sk / kWideBK;
+  const int n_kv_all = (Sk + kWideBK - 1) / kWideBK;  // the last may cross Sk
+  const int n_kv = causal ? min(n_kv_all, (q0 + kBQ) / kWideBK) : n_kv_all;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -1575,26 +1649,24 @@ flash_fwd_wide_sm90(const __grid_constant__ CUtensorMap tm_q,
   if (tid < 128) {  // producer warpgroup
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
     if (tid == 0) {
-      const int q_row = b * Sq + q0;
-      const int kv_row = b * Sk;
       mbar_expect_tx(bar.full_q, n_dp * kQPanel);
       for (int p = 0; p < n_dp; ++p)
-        tma_load(sQ + p * kQPanel, &tm_q, bar.full_q, 64 * p, h, q_row);
+        tma_load_4d(sQ + p * kQPanel, &tm_q, bar.full_q, 64 * p, h, q0, b);
       int kc = 0;  // K panels issued
       for (int j = 0; j < n_kv; ++j) {
         for (int p = 0; p < n_dp; ++p, ++kc) {
           const int s = kc % kWideKStages;
           mbar_wait(&bar.empty_k[s], ((kc / kWideKStages) & 1) ^ 1);
           mbar_expect_tx(&bar.full_k[s], kWidePanel);
-          tma_load(sK + s * kWidePanel, &tm_k, &bar.full_k[s], 64 * p, g,
-                   kv_row + j * kWideBK);
+          tma_load_4d(sK + s * kWidePanel, &tm_k, &bar.full_k[s], 64 * p, g,
+                      j * kWideBK, b);
         }
         const int s = j % kWideVStages;
         mbar_wait(&bar.empty_v[s], ((j / kWideVStages) & 1) ^ 1);
         mbar_expect_tx(&bar.full_v[s], np * kWidePanel);
         for (int p = 0; p < np; ++p)
-          tma_load(sV + (s * np + p) * kWidePanel, &tm_v, &bar.full_v[s],
-                   c0 + 64 * p, g, kv_row + j * kWideBK);
+          tma_load_4d(sV + (s * np + p) * kWidePanel, &tm_v, &bar.full_v[s],
+                      c0 + 64 * p, g, j * kWideBK, b);
       }
     }
     return;
@@ -1603,7 +1675,7 @@ flash_fwd_wide_sm90(const __grid_constant__ CUtensorMap tm_q,
   // Consumer warpgroups: c owns q rows 64c .. 64c+63 of the tile.
   asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
 #define REPRO_WIDE_CONSUME(NDP, NP)                                         \
-  wide_consume<NDP, NP>(bar, sQ, sK, sV, o, Sq, H, D, b, h, q0, n_kv,       \
+  wide_consume<NDP, NP>(bar, sQ, sK, sV, o, Sq, Sk, H, D, b, h, q0, n_kv,   \
                         causal, scale_log2, c0)
   switch (8 * n_dp + np) {  // the (head, block) panel runs of wide_run
     case 8 * 5 + 3: REPRO_WIDE_CONSUME(5, 3); break;
@@ -1621,12 +1693,12 @@ int launch_wide(const void* q, const void* k, const void* v, void* o, int B,
                 cudaStream_t stream) {
   static_assert(wide_smem_bytes(512, 4) <= 232448,
                 "over a block's shared memory");
-  if (D <= 256 || D > 4 * 64 * kWideBlocks || Sq % kBQ || Sk % kWideBK)
+  if (D <= 256 || D > 4 * 64 * kWideBlocks || Sq < 1 || Sk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, D, H, static_cast<int64_t>(B) * Sq, kBQ) ||
-      !make_map(&tk, k, D, G, static_cast<int64_t>(B) * Sk, kWideBK) ||
-      !make_map(&tv, v, D, G, static_cast<int64_t>(B) * Sk, kWideBK))
+  if (!make_map(&tq, q, D, H, Sq, B, kBQ) ||
+      !make_map(&tk, k, D, G, Sk, B, kWideBK) ||
+      !make_map(&tv, v, D, G, Sk, B, kWideBK))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_dp = (D + 63) / 64;
   const int smem = wide_smem_bytes(64 * n_dp, (n_dp + 1) / 2);
@@ -1634,7 +1706,7 @@ int launch_wide(const void* q, const void* k, const void* v, void* o, int B,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * H, Sq / kBQ, kWideBlocks);
+  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ, kWideBlocks);
   kern<<<grid, kThreads, smem, stream>>>(tq, tk, tv,
                                          static_cast<__nv_bfloat16*>(o), Sq,
                                          Sk, H, G, D, causal, scale * kLog2e);
@@ -1647,9 +1719,10 @@ int launch_wide(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // Contract (checked by the Python wrapper, kernel.py): contiguous, 16-byte
-// aligned inputs, D % 8 == 0 and 8 <= D <= 1024 (512 in bf16), Sq % bq == 0,
-// Sk % bk == 0, H % G == 0, where bq and bk are the reference's tiles,
-// which no kernel reads.  Above D = 256 each dtype runs its wide kernel
+// aligned inputs, D % 8 == 0 and 8 <= D <= 1024 (512 in bf16), any Sq, Sk
+// >= 1 (every kernel's last q tile and last kv tile may be partial: rows
+// past the end load as zeros, their scores are masked and their outputs
+// never stored), H % G == 0.  Above D = 256 each dtype runs its wide kernel
 // (plan.wide_f32_plan: clusters of ceil(D / 256) blocks; plan.wide_sm90_plan:
 // two blocks; one instance each, D at run time), tile_k its kv rows (32
 // f32, with the split as below; 64 bf16).  Up to 256 each dtype runs its
@@ -1660,19 +1733,18 @@ int launch_wide(const void* q, const void* k, const void* v, void* o, int B,
 // it (checked here against the instantiation):
 // - f32: flash_fwd_kernel, 128 x 64 tiles (64 x 32 at DP 192 and 256), the
 //   kv axis cut into n_splits ranges of per_split rows (a multiple of
-//   tile_k); part holds n_splits * B*Sq*H * (D + 2) floats when
+//   tile_k; the last range may end inside a tile); part holds n_splits * B*Sq*H * (D + 2) floats when
 //   n_splits > 1;
 // - bf16: flash_fwd_sm90, 128-row q tiles and tile_k (128, or 64 at DP 192
 //   and 256) kv rows, one split.
 REPRO_EXPORT int flash_attention_launch(int dtype, const void* q, const void* k,
                                         const void* v, void* o, void* part,
                                         int B, int Sq, int Sk, int H, int G,
-                                        int D, int bq, int bk, int causal,
-                                        float scale, int per_split,
-                                        int n_splits, int tile_k,
-                                        void* stream) {
-  if (bq <= 0 || Sq % bq || bk <= 0 || Sk % bk || G <= 0 || H % G ||
-      D < 8 || D % 8 || D > kWideMaxD)
+                                        int D, int causal, float scale,
+                                        int per_split, int n_splits,
+                                        int tile_k, void* stream) {
+  if (B < 1 || Sq < 1 || Sk < 1 || G <= 0 || H % G || D < 8 || D % 8 ||
+      D > kWideMaxD)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D > 256) {

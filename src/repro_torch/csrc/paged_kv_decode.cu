@@ -34,6 +34,24 @@
 // splits in order and the runs are added in order: no atomics, so the
 // result is the same on every run.  bf16 takes the same design: at H <= 16
 // heads it is bound by bytes too, so there is no tensor-core path.
+//
+// Every head width D % 8 == 0 up to 512, every group of H >= 1 query heads
+// and every page size (the reference's paged_decode_attention takes any):
+// - Lanes.  A lane holds VEC columns of each head, VEC in {1, 2, 4, 8, 12,
+//   16} (lanes_vec: D rounded up to DP = 32 VEC, so 112 runs at 128, 192
+//   at 256).  The stage rows are DP wide in shared memory; the copies move
+//   a row's D real columns and the places past D are zeroed once, so a
+//   lane's columns past D read zeros, and they are never stored.  D = DP
+//   (128, 256: the main paths') skips the zeroing alone.
+// - Heads.  A lane's q and accumulator slices take 2 x HMAX x VEC
+//   registers, so one block holds at most head_cap(VEC) heads (16 up to
+//   VEC 4, 8 at VEC 8, 4 above).  A larger group is cut into head groups
+//   of equal size (head_groups), walked as the grid's second dimension:
+//   each group's blocks read the same pages, the second and later reads
+//   mostly from L2, and write their heads' partials.
+// - Pages.  A stage holds as many whole pages as fit kStageElems elements
+//   of K, or one page up to twice that; a larger page is walked in chunks
+//   of kStageElems / DP rows (stage_rows), so any page fits shared memory.
 #include <math.h>  // INFINITY
 
 #include "common.cuh"
@@ -42,23 +60,52 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kStageElems = 4096;  // K elements per stage buffer
+constexpr int kStageElems = 4096;  // K elements a stage buffer holds
 
-__host__ __device__ inline int pages_per_stage(int D, int page) {
-  const int rows = kStageElems / D;
-  return rows >= page ? rows / page : 1;
+// Columns a lane holds at head width D: D rounded up to DP = 32 VEC, VEC in
+// {1, 2, 4, 8, 12, 16}; 0 where no instance takes D (D % 8 != 0 or above
+// 512).  plan.lanes_vec mirrors it.
+__host__ __device__ inline int lanes_vec(int D) {
+  if (D < 8 || D % 8 || D > 512) return 0;
+  const int vecs[6] = {1, 2, 4, 8, 12, 16};
+  for (int i = 0; i < 6; ++i)
+    if (32 * vecs[i] >= D) return vecs[i];
+  return 0;
 }
 
-// Dynamic shared memory of paged_split: the stage buffers (or, once they
-// are free, the warps' accumulators), the scores, m, l and alpha, and the
-// split's page-table entries.
+// Most heads one block holds at VEC columns a lane (plan.head_cap).
+__host__ __device__ inline int head_cap(int vec) {
+  return vec <= 4 ? 16 : vec <= 8 ? 8 : 4;
+}
+
+// The group of H heads cut into n equal head groups of at most
+// head_cap(vec) heads; `per` heads a group (the last may hold fewer).
+__host__ __device__ inline void head_groups(int H, int vec, int& n, int& per) {
+  const int cap = head_cap(vec);
+  n = (H + cap - 1) / cap;
+  per = (H + n - 1) / n;
+}
+
+// Rows of K (and of V) one stage holds at padded width DP: whole pages
+// while at least one fits kStageElems elements, one page up to twice that,
+// else chunks of kStageElems / DP rows of a page.
+__host__ __device__ inline int stage_rows(int DP, int page) {
+  const int rows = kStageElems / DP;
+  if (page <= rows) return rows / page * page;
+  if (page * DP <= 2 * kStageElems) return page;
+  return rows;
+}
+
+// Dynamic shared memory of paged_split for a block of Hg heads: the stage
+// buffers (or, once they are free, the warps' accumulators), the scores,
+// m, l and alpha, and the split's page-table entries.
 template <typename T>
-__host__ __device__ inline size_t smem_bytes_for(int H, int D, int page,
+__host__ __device__ inline size_t smem_bytes_for(int Hg, int DP, int page,
                                                  int per_split) {
-  const size_t R = static_cast<size_t>(pages_per_stage(D, page)) * page;
-  const size_t stages = 4 * R * D * sizeof(T);  // K and V, two buffers each
-  const size_t red = static_cast<size_t>(kWarps) * H * D * sizeof(float);
-  const size_t scores = (static_cast<size_t>(H) * R + 3 * H) * sizeof(float);
+  const size_t R = static_cast<size_t>(stage_rows(DP, page));
+  const size_t stages = 4 * R * DP * sizeof(T);  // K and V, two buffers each
+  const size_t red = static_cast<size_t>(kWarps) * Hg * DP * sizeof(float);
+  const size_t scores = (static_cast<size_t>(Hg) * R + 3 * Hg) * sizeof(float);
   return (stages > red ? stages : red) + scores + 8 +  // 8: alignment
          static_cast<size_t>(per_split) * sizeof(int64_t);
 }
@@ -77,42 +124,61 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // VEC consecutive elements as floats, in 16-byte (f32) or 8-byte (bf16)
-// shared-memory loads.
+// shared-memory loads, or narrower ones at VEC 1 and 2.
 template <int VEC>
 __device__ __forceinline__ void load_vec(const float* p, float* out) {
+  if constexpr (VEC % 4 == 0) {
 #pragma unroll
-  for (int i = 0; i < VEC; i += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(p + i);
-    out[i] = v.x; out[i + 1] = v.y; out[i + 2] = v.z; out[i + 3] = v.w;
+    for (int i = 0; i < VEC; i += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + i);
+      out[i] = v.x; out[i + 1] = v.y; out[i + 2] = v.z; out[i + 3] = v.w;
+    }
+  } else if constexpr (VEC == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    out[0] = v.x; out[1] = v.y;
+  } else {
+    out[0] = *p;
   }
 }
 template <int VEC>
 __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
+  if constexpr (VEC % 4 == 0) {
 #pragma unroll
-  for (int i = 0; i < VEC; i += 4) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p + i);
+    for (int i = 0; i < VEC; i += 4) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p + i);
+      const float2 a =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+      const float2 b =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+      out[i] = a.x; out[i + 1] = a.y; out[i + 2] = b.x; out[i + 3] = b.y;
+    }
+  } else if constexpr (VEC == 2) {
     const float2 a =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-    const float2 b =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-    out[i] = a.x; out[i + 1] = a.y; out[i + 2] = b.x; out[i + 3] = b.y;
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    out[0] = a.x; out[1] = a.y;
+  } else {
+    out[0] = __bfloat162float(*p);
   }
 }
 
-// Copy the K/V rows of n_pg pages into one stage buffer; pg holds each
-// page's first element offset in the pools (from shared memory).
-template <typename T, int D>
+// Copy rows [r0, r0 + n) of the split's concatenated pages into one stage
+// buffer (rows of DP elements, the D real ones copied); pg holds each
+// page's first element offset in the pools (from shared memory).  With
+// kWhole, D is DP, so a row's copies are counted at compile time (no
+// division by a run-time width in the loop).
+template <typename T, int DP, bool kWhole>
 __device__ void issue_stage(T* sK, T* sV, const T* __restrict__ kp,
                             const T* __restrict__ vp, const int64_t* pg,
-                            int n_pg, int page) {
+                            int r0, int n, int page, int d_arg) {
   constexpr int E16 = 16 / sizeof(T);  // elements per 16-byte copy
-  constexpr int per_row = D / E16;
-  const int rows = n_pg * page;
-  for (int e = threadIdx.x; e < rows * per_row; e += kThreads) {
+  const int D = kWhole ? DP : d_arg;
+  const int per_row = D / E16;
+  for (int e = threadIdx.x; e < n * per_row; e += kThreads) {
     const int r = e / per_row, c = (e % per_row) * E16;
-    const int64_t off = pg[r / page] + static_cast<int64_t>(r % page) * D + c;
-    cp_async16(sK + r * D + c, kp + off);
-    cp_async16(sV + r * D + c, vp + off);
+    const int rr = r0 + r;
+    const int64_t off = pg[rr / page] + static_cast<int64_t>(rr % page) * D + c;
+    cp_async16(sK + r * DP + c, kp + off);
+    cp_async16(sV + r * DP + c, vp + off);
   }
 }
 
@@ -123,31 +189,38 @@ constexpr int min_blocks() {
   return HMAX * VEC <= 32 ? 2 : 1;
 }
 
-// grid (n_splits,): block b walks table entries [b * per_split, ...).
-template <typename T, int VEC, int HMAX>
-__global__ void __launch_bounds__(kThreads, (min_blocks<VEC, HMAX>()))
-paged_split(const T* __restrict__ q, const T* __restrict__ kp,
-            const T* __restrict__ vp, const int* __restrict__ pt,
-            T* __restrict__ o, float* __restrict__ part, int64_t n_pages,
-            int H, int page, int n_active, int per_split, float scale) {
-  constexpr int D = VEC * 32;
+// One block of paged_split: table entries [b * per_split, ...) for heads
+// [y * per_group, ...) of the H.  With kWhole, D is DP (128 and 256, the
+// main paths'): every width is a compile-time constant, and no place past
+// D is zeroed.
+template <typename T, int VEC, int HMAX, bool kWhole>
+__device__ __forceinline__ void split_body(
+    const T* __restrict__ q, const T* __restrict__ kp,
+    const T* __restrict__ vp, const int* __restrict__ pt, T* __restrict__ o,
+    float* __restrict__ part, int64_t n_pages, int H, int d_arg, int page,
+    int n_active, int per_split, int per_group, float scale) {
+  constexpr int DP = VEC * 32;
+  const int D = kWhole ? DP : d_arg;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int pps = pages_per_stage(D, page);
-  const int R = pps * page;
+  const int R = stage_rows(DP, page);
   const int split = blockIdx.x;
+  const int h0 = blockIdx.y * per_group;       // this block's first head
+  const int Hg = min(per_group, H - h0);        // ... and how many
   const int begin = split * per_split;
   const int n_mine = min(per_split, n_active - begin);
-  const int n_stages = (n_mine + pps - 1) / pps;
+  const int n_rows = n_mine * page;             // the split's K/V rows
+  const int n_stages = (n_rows + R - 1) / R;
   T* const stage0 = reinterpret_cast<T*>(smem_raw);  // K0, V0, K1, V1
-  const size_t stage_bytes = 4 * static_cast<size_t>(R) * D * sizeof(T);
-  const size_t red_bytes = static_cast<size_t>(kWarps) * H * D * sizeof(float);
+  const size_t stage_bytes = 4 * static_cast<size_t>(R) * DP * sizeof(T);
+  const size_t red_bytes =
+      static_cast<size_t>(kWarps) * Hg * DP * sizeof(float);
   float* sS = reinterpret_cast<float*>(
       smem_raw + (stage_bytes > red_bytes ? stage_bytes : red_bytes));
-  float* sM = sS + H * R;
-  float* sL = sM + H;
-  float* sA = sL + H;
+  float* sM = sS + Hg * R;
+  float* sL = sM + Hg;
+  float* sA = sL + Hg;
   int64_t* sPg = reinterpret_cast<int64_t*>(
-      (reinterpret_cast<uintptr_t>(sA + H) + 7) & ~uintptr_t{7});
+      (reinterpret_cast<uintptr_t>(sA + Hg) + 7) & ~uintptr_t{7});
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
 
@@ -156,13 +229,21 @@ paged_split(const T* __restrict__ q, const T* __restrict__ kp,
   for (int h = 0; h < HMAX; ++h)
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
-      qf[h][j] = h < H ? to_f32(q[h * D + lane * VEC + j]) : 0.f;
+      const int c = lane * VEC + j;
+      qf[h][j] = h < Hg && c < D ? to_f32(q[(h0 + h) * D + c]) : 0.f;
       acc[h][j] = 0.f;
     }
-  for (int h = tid; h < H; h += kThreads) {
+  for (int h = tid; h < Hg; h += kThreads) {
     sM[h] = REPRO_NEG_INF;
     sL[h] = 0.f;
   }
+  // Columns D .. DP - 1 of every stage row: zeros, written once (no copy
+  // writes them).
+  if (D < DP)
+    for (int e = tid; e < 4 * R * (DP - D); e += kThreads) {
+      const int r = e / (DP - D), c = D + e % (DP - D);
+      stage0[r * DP + c] = from_f32<T>(0.f);
+    }
 
   // The split's table entries, read once (a page outside [0, n_pages)
   // traps), as element offsets into the pools.
@@ -173,19 +254,19 @@ paged_split(const T* __restrict__ q, const T* __restrict__ kp,
   }
   __syncthreads();
 
-  issue_stage<T, D>(stage0, stage0 + R * D, kp, vp, sPg, min(pps, n_mine),
-                    page);
+  issue_stage<T, DP, kWhole>(stage0, stage0 + R * DP, kp, vp, sPg, 0,
+                             min(R, n_rows), page, D);
   cp_async_commit();
   for (int s = 0; s < n_stages; ++s) {
-    const int first = s * pps;  // within the split
-    const int rows = min(pps, n_mine - first) * page;
-    const T* cK = stage0 + (s & 1) * 2 * R * D;
-    const T* cV = cK + R * D;
+    const int first = s * R;  // first row of the stage within the split
+    const int rows = min(R, n_rows - first);
+    const T* cK = stage0 + (s & 1) * 2 * R * DP;
+    const T* cV = cK + R * DP;
     if (s + 1 < n_stages) {  // next stage's copies overlap this stage
-      const int nxt = first + pps;
-      T* nK = stage0 + ((s + 1) & 1) * 2 * R * D;
-      issue_stage<T, D>(nK, nK + R * D, kp, vp, sPg + nxt,
-                        min(pps, n_mine - nxt), page);
+      const int nxt = first + R;
+      T* nK = stage0 + ((s + 1) & 1) * 2 * R * DP;
+      issue_stage<T, DP, kWhole>(nK, nK + R * DP, kp, vp, sPg, nxt,
+                                 min(R, n_rows - nxt), page, D);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -194,10 +275,10 @@ paged_split(const T* __restrict__ q, const T* __restrict__ kp,
     __syncthreads();  // this stage's rows, and m and l, visible
 
     // s = (q . k) * scale.  Every one of the HMAX heads at once (q is 0
-    // past H), so that their shuffle reductions overlap.
+    // past Hg), so that their shuffle reductions overlap.
     for (int r = warp; r < rows; r += kWarps) {
       float kf[VEC], p[HMAX];
-      load_vec<VEC>(cK + r * D + lane * VEC, kf);
+      load_vec<VEC>(cK + r * DP + lane * VEC, kf);
 #pragma unroll
       for (int h = 0; h < HMAX; ++h) {
         p[h] = 0.f;
@@ -211,11 +292,11 @@ paged_split(const T* __restrict__ q, const T* __restrict__ kp,
           p[h] += __shfl_xor_sync(0xffffffffu, p[h], off);
 #pragma unroll
       for (int h = 0; h < HMAX; ++h)
-        if (lane == h && h < H) sS[h * R + r] = p[h] * scale;
+        if (lane == h && h < Hg) sS[h * R + r] = p[h] * scale;
     }
     __syncthreads();
 
-    for (int h = warp; h < H; h += kWarps) {  // online softmax, one warp/head
+    for (int h = warp; h < Hg; h += kWarps) {  // online softmax, one warp/head
       float* row = sS + h * R;
       float mx = -INFINITY;
       for (int r = lane; r < rows; r += 32) mx = fmaxf(mx, row[r]);
@@ -245,16 +326,16 @@ paged_split(const T* __restrict__ q, const T* __restrict__ kp,
 
 #pragma unroll
     for (int h = 0; h < HMAX; ++h) {  // acc = acc * alpha + p @ v
-      const float a = h < H ? sA[h] : 0.f;  // heads past H stay 0
+      const float a = h < Hg ? sA[h] : 0.f;  // heads past Hg stay 0
 #pragma unroll
       for (int j = 0; j < VEC; ++j) acc[h][j] *= a;
     }
     for (int r = warp; r < rows; r += kWarps) {
       float vf[VEC];
-      load_vec<VEC>(cV + r * D + lane * VEC, vf);
+      load_vec<VEC>(cV + r * DP + lane * VEC, vf);
 #pragma unroll
       for (int h = 0; h < HMAX; ++h) {
-        const float p = h < H ? sS[h * R + r] : 0.f;
+        const float p = h < Hg ? sS[h * R + r] : 0.f;
 #pragma unroll
         for (int j = 0; j < VEC; ++j) acc[h][j] = fmaf(p, vf[j], acc[h][j]);
       }
@@ -266,36 +347,57 @@ paged_split(const T* __restrict__ q, const T* __restrict__ kp,
   float* red = reinterpret_cast<float*>(smem_raw);
 #pragma unroll
   for (int h = 0; h < HMAX; ++h) {
-    if (h >= H) break;
+    if (h >= Hg) break;
 #pragma unroll
     for (int j = 0; j < VEC; ++j)
-      red[(warp * H + h) * D + lane * VEC + j] = acc[h][j];
+      red[(warp * Hg + h) * DP + lane * VEC + j] = acc[h][j];
   }
   __syncthreads();
   const int n_splits = gridDim.x;
   float* part_m = part;
   float* part_l = part + n_splits * H;
   float* part_acc = part + 2 * n_splits * H;
-  for (int e = tid; e < H * D; e += kThreads) {
+  for (int e = tid; e < Hg * D; e += kThreads) {  // the real columns alone
     const int h = e / D, c = e % D;
     float a = 0.f;
-    for (int w = 0; w < kWarps; ++w) a += red[(w * H + h) * D + c];
+    for (int w = 0; w < kWarps; ++w) a += red[(w * Hg + h) * DP + c];
     if (n_splits == 1)
-      o[e] = from_f32<T>(a / fmaxf(sL[h], 1e-30f));
+      o[h0 * D + e] = from_f32<T>(a / fmaxf(sL[h], 1e-30f));
     else
-      part_acc[static_cast<int64_t>(split) * H * D + e] = a;
+      part_acc[(static_cast<int64_t>(split) * H + h0) * D + e] = a;
   }
   if (n_splits > 1)
-    for (int h = tid; h < H; h += kThreads) {
-      part_m[split * H + h] = sM[h];
-      part_l[split * H + h] = sL[h];
+    for (int h = tid; h < Hg; h += kThreads) {
+      part_m[split * H + h0 + h] = sM[h];
+      part_l[split * H + h0 + h] = sL[h];
     }
+}
+
+// grid (n_splits, n_groups): block (b, y) walks table entries
+// [b * per_split, ...) for heads [y * per_group, ...) of the H; one
+// instance of each (VEC, HMAX), D at run time.
+template <typename T, int VEC, int HMAX>
+__global__ void __launch_bounds__(kThreads, (min_blocks<VEC, HMAX>()))
+paged_split(const T* __restrict__ q, const T* __restrict__ kp,
+            const T* __restrict__ vp, const int* __restrict__ pt,
+            T* __restrict__ o, float* __restrict__ part, int64_t n_pages,
+            int H, int D, int page, int n_active, int per_split,
+            int per_group, float scale) {
+  if (D == VEC * 32)
+    split_body<T, VEC, HMAX, true>(q, kp, vp, pt, o, part, n_pages, H, D,
+                                   page, n_active, per_split, per_group,
+                                   scale);
+  else
+    split_body<T, VEC, HMAX, false>(q, kp, vp, pt, o, part, n_pages, H, D,
+                                    page, n_active, per_split, per_group,
+                                    scale);
 }
 
 constexpr int kCombineWarps = 8;
 
-// grid (H, D / 32): block (h, c) combines columns 32c .. 32c+31 of head h;
-// warp w takes splits [w * per, (w + 1) * per) in order, lane j column 32c+j.
+// grid (H, ceil(D / 32)): block (h, c) combines columns 32c .. 32c+31 of
+// head h (those below D); warp w takes splits [w * per, (w + 1) * per) in
+// order, lane j column 32c+j.
 template <typename T>
 __global__ void __launch_bounds__(kCombineWarps * 32)
 paged_combine(const float* __restrict__ part, T* __restrict__ o,
@@ -305,6 +407,8 @@ paged_combine(const float* __restrict__ part, T* __restrict__ o,
   const int h = blockIdx.x;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int col = blockIdx.y * 32 + lane;
+  const bool real = col < D;
+  const int col_r = real ? col : D - 1;  // a lane past D reads a real column
   const float* part_m = part;
   const float* part_l = part + n_splits * H;
   const float* part_acc = part + 2 * n_splits * H;
@@ -327,12 +431,12 @@ paged_combine(const float* __restrict__ part, T* __restrict__ o,
   for (int s = lo; s < hi; ++s) {  // loads of 8 splits in flight at once
     const float wt = expf(part_m[s * H + h] - m_all);
     l = fmaf(part_l[s * H + h], wt, l);
-    a = fmaf(part_acc[(static_cast<int64_t>(s) * H + h) * D + col], wt, a);
+    a = fmaf(part_acc[(static_cast<int64_t>(s) * H + h) * D + col_r], wt, a);
   }
   sSum[warp][lane] = a;
   if (lane == 0) sSum[warp][32] = l;
   __syncthreads();
-  if (warp == 0) {
+  if (warp == 0 && real) {
     float lt = 0.f, at = 0.f;
 #pragma unroll
     for (int w = 0; w < kCombineWarps; ++w) {
@@ -345,23 +449,49 @@ paged_combine(const float* __restrict__ part, T* __restrict__ o,
 
 template <typename T, int VEC, int HMAX>
 int launch(const void* q, const void* kp, const void* vp, const void* pt,
-           void* o, void* part, int64_t n_pages, int H, int page,
-           int n_active, int per_split, int n_splits, float scale,
-           cudaStream_t stream) {
-  constexpr int D = VEC * 32;
-  const size_t smem = smem_bytes_for<T>(H, D, page, per_split);
+           void* o, void* part, int64_t n_pages, int H, int D, int page,
+           int n_active, int per_split, int n_splits, int n_groups,
+           int per_group, float scale, cudaStream_t stream) {
+  constexpr int DP = VEC * 32;
+  const size_t smem = smem_bytes_for<T>(per_group, DP, page, per_split);
   auto* kern = paged_split<T, VEC, HMAX>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<n_splits, kThreads, smem, stream>>>(
+  kern<<<dim3(n_splits, n_groups), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), static_cast<const int*>(pt), static_cast<T*>(o),
-      static_cast<float*>(part), n_pages, H, page, n_active, per_split, scale);
+      static_cast<float*>(part), n_pages, H, D, page, n_active, per_split,
+      per_group, scale);
   if (n_splits > 1)
-    paged_combine<T><<<dim3(H, D / 32), kCombineWarps * 32, 0, stream>>>(
-        static_cast<const float*>(part), static_cast<T*>(o), n_splits, H, D);
+    paged_combine<T><<<dim3(H, (D + 31) / 32), kCombineWarps * 32, 0,
+                       stream>>>(static_cast<const float*>(part),
+                                 static_cast<T*>(o), n_splits, H, D);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instance for (VEC, heads a group): HMAX the least of 4, 8, 16 that
+// holds them (plan.head_groups).
+template <typename T, int VEC>
+int by_heads(int per_group, const void* q, const void* kp, const void* vp,
+             const void* pt, void* o, void* part, int64_t n_pages, int H,
+             int D, int page, int n_active, int per_split, int n_splits,
+             int n_groups, float scale, cudaStream_t s) {
+  if (per_group <= 4)
+    return launch<T, VEC, 4>(q, kp, vp, pt, o, part, n_pages, H, D, page,
+                             n_active, per_split, n_splits, n_groups,
+                             per_group, scale, s);
+  if constexpr (VEC <= 8)
+    if (per_group <= 8)
+      return launch<T, VEC, 8>(q, kp, vp, pt, o, part, n_pages, H, D, page,
+                               n_active, per_split, n_splits, n_groups,
+                               per_group, scale, s);
+  if constexpr (VEC <= 4)
+    if (per_group <= 16)
+      return launch<T, VEC, 16>(q, kp, vp, pt, o, part, n_pages, H, D, page,
+                                n_active, per_split, n_splits, n_groups,
+                                per_group, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
@@ -369,47 +499,52 @@ int dispatch(const void* q, const void* kp, const void* vp, const void* pt,
              void* o, void* part, int64_t n_pages, int H, int D, int page,
              int n_active, int per_split, int n_splits, float scale,
              cudaStream_t s) {
-  if (D == 128) {
-    if (H <= 4)
-      return launch<T, 4, 4>(q, kp, vp, pt, o, part, n_pages, H, page,
-                             n_active, per_split, n_splits, scale, s);
-    if (H <= 8)
-      return launch<T, 4, 8>(q, kp, vp, pt, o, part, n_pages, H, page,
-                             n_active, per_split, n_splits, scale, s);
-    if (H <= 16)
-      return launch<T, 4, 16>(q, kp, vp, pt, o, part, n_pages, H, page,
-                              n_active, per_split, n_splits, scale, s);
+  const int vec = lanes_vec(D);
+  int n_groups = 0, per_group = 0;
+  if (vec) head_groups(H, vec, n_groups, per_group);
+#define REPRO_PAGED_VEC(V)                                                   \
+  case V:                                                                    \
+    return by_heads<T, V>(per_group, q, kp, vp, pt, o, part, n_pages, H, D,  \
+                          page, n_active, per_split, n_splits, n_groups,     \
+                          scale, s)
+  switch (vec) {
+    REPRO_PAGED_VEC(1);
+    REPRO_PAGED_VEC(2);
+    REPRO_PAGED_VEC(4);
+    REPRO_PAGED_VEC(8);
+    REPRO_PAGED_VEC(12);
+    REPRO_PAGED_VEC(16);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (D == 256) {
-    if (H <= 4)
-      return launch<T, 8, 4>(q, kp, vp, pt, o, part, n_pages, H, page,
-                             n_active, per_split, n_splits, scale, s);
-    if (H <= 8)
-      return launch<T, 8, 8>(q, kp, vp, pt, o, part, n_pages, H, page,
-                             n_active, per_split, n_splits, scale, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+#undef REPRO_PAGED_VEC
 }
 
 }  // namespace
 
 // Shared memory paged_split needs for one (dtype, H, D, page, pages per
-// split), in bytes.
+// split), in bytes: that of a block of one head group; -1 where no
+// instance takes D.
 REPRO_EXPORT int64_t paged_decode_smem_bytes(int dtype, int H, int D, int page,
                                              int per_split) {
+  const int vec = lanes_vec(D);
+  if (!vec || H < 1 || page < 1) return -1;
+  int n_groups, per_group;
+  head_groups(H, vec, n_groups, per_group);
   if (dtype == REPRO_BF16)
     return static_cast<int64_t>(
-        smem_bytes_for<__nv_bfloat16>(H, D, page, per_split));
-  return static_cast<int64_t>(smem_bytes_for<float>(H, D, page, per_split));
+        smem_bytes_for<__nv_bfloat16>(per_group, 32 * vec, page, per_split));
+  return static_cast<int64_t>(
+      smem_bytes_for<float>(per_group, 32 * vec, page, per_split));
 }
 
 // Contract (checked by the Python wrapper): contiguous, 16-byte aligned
-// inputs; D = 128 with H <= 16, or D = 256 with H <= 8; n_active >= 1;
-// per_split >= 1 and n_splits = ceil(n_active / per_split); with
-// n_splits > 1, f32 scratch part of n_splits * H * (D + 2) floats; shared
-// memory within the card's per-block limit.  A page-table entry outside
-// [0, n_pages) traps, so the launch fails.  One launch for one split, two
-// (split, combine) otherwise.
+// inputs; D % 8 == 0 with 8 <= D <= 512, any H >= 1 and page >= 1;
+// n_active >= 1; per_split >= 1 and n_splits = ceil(n_active / per_split);
+// with n_splits > 1, f32 scratch part of n_splits * H * (D + 2) floats;
+// shared memory within the card's per-block limit.  A page-table entry
+// outside [0, n_pages) traps, so the launch fails.  One launch for one
+// split, two (split, combine) otherwise.
 REPRO_EXPORT int paged_decode_launch(int dtype, const void* q, const void* kp,
                                      const void* vp, const void* pt, void* o,
                                      void* part, int64_t n_pages, int H, int D,

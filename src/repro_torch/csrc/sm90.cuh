@@ -65,6 +65,19 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// One TMA box of a rank-4 tensor map, at coordinates {c0, c1, c2, c3} (the
+// innermost first), into shared memory, completing its bytes on `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // One TMA box of a rank-2 tensor map, at coordinates {c0, c1} (the
 // innermost first), into shared memory, completing its bytes on `bar`.
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,

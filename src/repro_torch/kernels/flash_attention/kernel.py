@@ -18,8 +18,10 @@ kernels instead, ``flash_fwd_wide`` (f32, split as above, up to
 ``plan.SM90_MAX_HEAD_DIM`` = 512), which deal the head's columns of O to
 blocks along the grid's z; in f32 those blocks form a thread-block
 cluster that also splits S, summed from the blocks' parts
-(``plan.wide_f32_plan``, ``plan.wide_sm90_plan``).  A wider or ragged head
-raises and names ROADMAP.md.
+(``plan.wide_f32_plan``, ``plan.wide_sm90_plan``).  Every kernel takes
+any Sq, Sk >= 1: its last q tile and last kv tile may be partial (rows
+past the end load as zeros, their scores are masked, their outputs never
+stored).  A wider or ragged head raises and names ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -59,14 +61,16 @@ def head_dim_ok(d: int, dtype: torch.dtype) -> bool:
     return 8 <= d <= max_head_dim(dtype) and d % 8 == 0
 
 
-def kernel_path(dtype: torch.dtype, d: int, block_q: int, block_k: int) -> str:
+def kernel_path(dtype: torch.dtype, d: int, block_q: int = 128,
+                block_k: int = 128) -> str:
     """The kernel that takes a launch of this dtype, head width and spec
     tiles; raises on a launch no kernel takes.  No kernel reads the spec's
     tiles (each walks its own at the padded width: ``plan.f32_tiles``,
     128-row q tiles and ``plan.sm90_kv_rows`` kv rows for flash_fwd_sm90,
-    ``plan.wide_f32_plan`` and ``plan.wide_sm90_plan`` above D = 256), so
-    every tile ``ops.launch_spec`` gives is taken; the card path's Sq, Sk
-    multiples of 128 keep the kernels' own tiles whole."""
+    ``plan.wide_f32_plan`` and ``plan.wide_sm90_plan`` above D = 256, the
+    last of each partial where Sq or Sk ends inside it), so every tile
+    ``ops.launch_spec`` gives is taken, and a launch with no reference
+    geometry (``spec`` None in :func:`flash_attention`) too."""
     if dtype not in PATHS:
         raise ValueError(f"flash_attention kernel takes {list(PATHS)}, "
                          f"got {dtype}")
@@ -85,22 +89,29 @@ def _fn():
     v, i = ctypes.c_void_p, ctypes.c_int
     return _build.bind(
         "flash_attention", "flash_attention_launch",
-        [i, v, v, v, v, v, i, i, i, i, i, i, i, i, i, ctypes.c_float, i, i,
-         i, v])
+        [i, v, v, v, v, v, i, i, i, i, i, i, i, ctypes.c_float, i, i, i, v])
 
 
-def flash_attention(spec: LaunchSpec, q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor, *, causal: bool) -> torch.Tensor:
+def flash_attention(spec: LaunchSpec | None, q: torch.Tensor,
+                    k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool) -> torch.Tensor:
     """Launch the kernel on CUDA tensors: q [B, Sq, H, D], k and v
-    [B, Sk, G, D] -> [B, Sq, H, D]."""
+    [B, Sk, G, D] -> [B, Sq, H, D], at any Sq, Sk >= 1.  ``spec`` is the
+    reference's launch geometry where one exists (``ops.launch_spec``),
+    else None; the kernels walk their own tiles either way."""
     if not _build.on_card(q, k, v):
         raise ValueError("flash_attention takes CUDA tensors")
     code = _build.dtype_code(q, k, v)
     b, sq, h, d = q.shape
     _, sk, g, _ = k.shape
-    bq = spec.operand("q").block_shape[1]
-    bk = spec.operand("k").block_shape[1]
-    path = kernel_path(q.dtype, d, bq, bk)
+    if spec is None:
+        path = kernel_path(q.dtype, d)
+    else:
+        path = kernel_path(q.dtype, d, spec.operand("q").block_shape[1],
+                           spec.operand("k").block_shape[1])
+    if sq < 1 or sk < 1 or b < 1:
+        raise ValueError(f"flash_attention takes B, Sq, Sk >= 1; got "
+                         f"B={b}, Sq={sq}, Sk={sk}")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
                for t in (q, k, v)):
         raise ValueError("flash_attention kernel takes contiguous, 16-byte "
@@ -120,7 +131,7 @@ def flash_attention(spec: LaunchSpec, q: torch.Tensor, k: torch.Tensor,
                         device=q.device) if n_splits > 1 else None)
     err = _fn()(code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 out.data_ptr(), None if part is None else part.data_ptr(),
-                b, sq, sk, h, g, d, bq, bk, int(causal), d ** -0.5, per,
+                b, sq, sk, h, g, d, int(causal), d ** -0.5, per,
                 n_splits, tile_k, _build.stream_ptr(q))
     _build.check("flash_attention", err)
     flash_attention.launches += 1

@@ -5,10 +5,13 @@ The launch spec is the reference's: heads folded into the leading grid
 axis, grid ``(b*h, n_q, n_kv)`` with the kv axis innermost, ``[1, bq, D]``
 q/o tiles mapped on ``qi`` and ``[1, bk, D]`` k/v tiles mapped on ``ki``
 (query head ``h`` reads kv head ``h // (H/G)``), ``bq = min(block_q, Sq)``
-and ``bk = min(block_k, Sk)``.  The reference's ``mha`` guard (sequence
-lengths multiples of 128, D % 8 == 0) decides between kernel and oracle on
-the TPU; here a CUDA tensor outside it, or with D above 1024 (512 in
-bf16), raises, and the plain version serves CPU tensors only.
+and ``bk = min(block_k, Sk)``.  Such a geometry exists where ``bq``
+divides Sq and ``bk`` divides Sk; elsewhere the reference's oracle route
+launches no Pallas kernel, and :func:`mha` emits no spec.  Every Sq, Sk >=
+1 is computed: a CUDA tensor runs the kernels (which take any length) and
+raises only at a head width they do not take (D % 8 != 0, D above 1024,
+512 in bf16), naming ROADMAP.md; the plain version serves CPU tensors
+only.
 """
 
 from __future__ import annotations
@@ -21,11 +24,20 @@ from .. import _build
 from .kernel import flash_attention, head_dim_ok, max_head_dim
 from .ref import attention_ref
 
-__all__ = ["mha", "launch_spec", "SOFTMAX_OPS_PER_SCORE"]
+__all__ = ["mha", "launch_spec", "has_geometry", "SOFTMAX_OPS_PER_SCORE"]
 
 # Softmax/online-update vector ops per score element (exp, max, scale, two
 # fused multiply-adds) on top of the two bq x bk x d products.
 SOFTMAX_OPS_PER_SCORE = 6.0
+
+
+def has_geometry(sq: int, sk: int, *, block_q: int = 128,
+                 block_k: int = 128) -> bool:
+    """Whether the reference's Pallas ``flash_attention`` has a launch
+    geometry at these lengths and tiles: ``min(block_q, Sq)`` divides Sq
+    and ``min(block_k, Sk)`` divides Sk."""
+    return (sq >= 1 and sk >= 1 and sq % min(block_q, sq) == 0
+            and sk % min(block_k, sk) == 0)
 
 
 def launch_spec(b: int, sq: int, sk: int, h: int, g: int, d: int,
@@ -69,18 +81,21 @@ def launch_spec(b: int, sq: int, sk: int, h: int, g: int, d: int,
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         causal: bool = True, block_q: int = 128,
         block_k: int = 128) -> torch.Tensor:
-    """q: [B, Sq, H, D]; k, v: [B, Sk, G, D] (GQA) -> [B, Sq, H, D]."""
+    """q: [B, Sq, H, D]; k, v: [B, Sk, G, D] (GQA) -> [B, Sq, H, D], at
+    every Sq, Sk >= 1.  The reference's spec is emitted where its geometry
+    exists (:func:`has_geometry`), and none elsewhere."""
     b, sq, h, d = q.shape
     _, sk, g, _ = k.shape
-    spec = launch_spec(b, sq, sk, h, g, d, q.dtype, block_q=block_q,
-                       block_k=block_k)
-    emit(spec)
+    spec = None
+    if has_geometry(sq, sk, block_q=block_q, block_k=block_k):
+        spec = launch_spec(b, sq, sk, h, g, d, q.dtype, block_q=block_q,
+                           block_k=block_k)
+        emit(spec)
     if _build.on_card(q, k, v):
-        if sq % 128 or sk % 128 or not head_dim_ok(d, q.dtype):
+        if not head_dim_ok(d, q.dtype):
             raise ValueError(
-                f"flash attention on CUDA needs Sq and Sk multiples of 128 "
-                f"and D % 8 == 0 up to {max_head_dim(q.dtype)} in {q.dtype} "
-                f"(other shapes: ROADMAP.md, queue 2); got Sq={sq}, Sk={sk}, "
-                f"D={d}")
+                f"flash attention on CUDA needs D % 8 == 0 up to "
+                f"{max_head_dim(q.dtype)} in {q.dtype} (other widths: "
+                f"ROADMAP.md, queue 2); got D={d}")
         return flash_attention(spec, q, k, v, causal=causal)
     return attention_ref(q, k, v, causal=causal)

@@ -219,23 +219,25 @@ def _cdiv(a: int, b: int) -> int:
 def split_plan(b: int, h: int, sq: int, sk: int, *, n_sm: int,
                d: int = 128) -> tuple[int, int]:
     """kv rows per range and the number of ranges for one launch over
-    ``b * h`` heads of ``sq`` query and ``sk`` kv rows (multiples of the
-    padded width's tiles, :func:`f32_tiles`: 128 and 64 up to DP = 128;
-    above ``TILED_MAX_HEAD_DIM`` :func:`wide_f32_plan`'s, whose clusters
-    multiply the blocks) on a card of ``n_sm`` SMs.  Every range but
-    the last holds exactly ``rows per range`` rows, a multiple of the kv
-    tile, and none is empty."""
+    ``b * h`` heads of ``sq`` query and ``sk`` kv rows (any Sq, Sk >= 1;
+    the padded width's tiles are :func:`f32_tiles`', 128 and 64 up to
+    DP = 128, above ``TILED_MAX_HEAD_DIM`` :func:`wide_f32_plan`'s, whose
+    clusters multiply the blocks; a partial last q tile counts as a tile)
+    on a card of ``n_sm`` SMs.  Every range but the last holds exactly
+    ``rows per range`` rows, a multiple of the kv tile; the last ends at
+    Sk, inside a tile where Sk is not a multiple of it; none is empty."""
     cluster = 1
     if d > TILED_MAX_HEAD_DIM:
         block_q, chunk, cluster = wide_f32_plan(d)[:3]
     else:
         block_q, chunk = f32_tiles(d)
-    if sq < 1 or sq % block_q or sk < 1 or sk % chunk:
-        raise ValueError(f"flash f32 kernel takes Sq a multiple of {block_q} "
-                         f"and Sk of {chunk}; got Sq={sq}, Sk={sk}")
-    blocks = b * h * (sq // block_q) * cluster
+    if sq < 1 or sk < 1:
+        raise ValueError(f"flash f32 kernel takes Sq, Sk >= 1; got Sq={sq}, "
+                         f"Sk={sk}")
+    whole = _cdiv(sk, chunk) * chunk   # Sk rounded up to whole kv tiles
+    blocks = b * h * _cdiv(sq, block_q) * cluster
     if blocks >= n_sm:
-        return sk, 1
+        return whole, 1
     want = _cdiv(SPLITS_PER_SM * n_sm, blocks)
-    per = min(_cdiv(_cdiv(sk, want), chunk) * chunk, sk)
+    per = min(_cdiv(_cdiv(sk, want), chunk) * chunk, whole)
     return per, _cdiv(sk, per)

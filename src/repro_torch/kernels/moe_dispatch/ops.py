@@ -8,6 +8,13 @@ weight tile in (``[1, D, F]``, resident across a run of one expert) and
 row ``tok[i]`` of y out (``[1, F]``).  The reference decides on D and F
 multiples of 128 between kernel and oracle; here a CUDA tensor outside
 that raises.
+
+:func:`dispatch` is the reference's public dispatcher: where the reference
+runs its kernel (D and F multiples of 128) it is :func:`moe_dispatch`;
+elsewhere the reference's oracle launches no Pallas kernel and it emits no
+spec, computing on the CPU through the plain version and on the card
+through the kernel where it takes the shape (D % 64 == 0, F % 128 == 0),
+raising (naming ROADMAP.md) elsewhere.
 """
 
 from __future__ import annotations
@@ -18,9 +25,9 @@ from repro_torch.capture.launch import LaunchOperand, LaunchSpec, emit
 
 from .. import _build
 from .kernel import moe_grouped_gemm
-from .ref import moe_dispatch_sorted_ref
+from .ref import moe_dispatch_ref, moe_dispatch_sorted_ref
 
-__all__ = ["moe_dispatch", "moe_dispatch_sorted", "launch_spec",
+__all__ = ["moe_dispatch", "moe_dispatch_sorted", "dispatch", "launch_spec",
            "dispatch_flops"]
 
 
@@ -89,3 +96,25 @@ def moe_dispatch(x: torch.Tensor, w: torch.Tensor,
     dispatches.  ``expert_ids``: [T] expert of each token (top-1)."""
     order = torch.argsort(expert_ids, stable=True)
     return moe_dispatch_sorted(x, w, order, expert_ids[order])
+
+
+def dispatch(x: torch.Tensor, w: torch.Tensor,
+             expert_ids: torch.Tensor) -> torch.Tensor:
+    """The reference's ``dispatch``: x [T, D]; w [E, D, F]; expert_ids [T]
+    -> [T, F].  :func:`moe_dispatch` where the reference runs its kernel (D
+    and F multiples of 128), else no launch spec: the plain version on the
+    CPU, the kernel on the card where it takes the shape."""
+    d, f = x.shape[-1], w.shape[-1]
+    if d % 128 == 0 and f % 128 == 0:
+        return moe_dispatch(x, w, expert_ids)
+    if not _build.on_card(x, w, expert_ids):
+        return moe_dispatch_ref(x, w, expert_ids)
+    if d % 64 or f % 128:
+        raise ValueError(f"moe dispatch on CUDA needs D % 64 == 0 and "
+                         f"F % 128 == 0 (other shapes: ROADMAP.md, queue 2); "
+                         f"got D={d}, F={f}")
+    order = torch.argsort(expert_ids, stable=True)
+    tok = order.to(torch.int32)
+    eid = expert_ids[order].to(torch.int32)
+    spec = launch_spec(x.shape[0], d, f, w.shape[0], tok, eid, x.dtype)
+    return moe_grouped_gemm(spec, x, w, tok, eid)

@@ -4,8 +4,10 @@ Replaces ``paged_decode_attention`` of
 ``repro/kernels/paged_kv_decode/kernel.py``.  :func:`paged_decode_attention`
 launches from the spec: the spec's sequential page grid ``(n_active,)`` is
 cut into ranges of consecutive table entries (``plan.split_plan``), one
-block walks each range in table order, and a second launch combines the
-blocks' partials in split order; one range writes the output directly.
+block walks each range in table order for each head group
+(``plan.head_groups``), and a second launch combines the blocks' partials
+in split order; one range writes the output directly.  Every H >= 1, every
+D % 8 == 0 up to ``plan.MAX_HEAD_DIM`` and every page size is taken.
 """
 
 from __future__ import annotations
@@ -18,13 +20,11 @@ import torch
 from repro_torch.capture.launch import LaunchSpec
 
 from .. import _build
-from .plan import split_plan
+from .plan import lanes_vec, split_plan
 
-__all__ = ["paged_decode_attention", "smem_bytes", "MAX_SMEM_BYTES",
-           "MAX_HEADS"]
+__all__ = ["paged_decode_attention", "smem_bytes", "MAX_SMEM_BYTES"]
 
 MAX_SMEM_BYTES = 232_448   # dynamic shared memory one Hopper block may use
-MAX_HEADS = {128: 16, 256: 8}   # head width -> grouped heads the kernel takes
 
 
 @functools.cache
@@ -46,7 +46,7 @@ def _smem_fn():
 def smem_bytes(dtype: torch.dtype, h: int, d: int, page: int,
                per_split: int) -> int:
     """Shared memory the split kernel asks for at one (dtype, H, D, page,
-    pages per split)."""
+    pages per split): that of a block of one head group."""
     return int(_smem_fn()(_build.DTYPE_CODES[dtype], h, d, page, per_split))
 
 
@@ -70,16 +70,15 @@ def paged_decode_attention(spec: LaunchSpec, q: torch.Tensor,
         raise ValueError("paged_decode_attention: expected contiguous "
                          "inputs, equal 16-byte aligned K/V pools and an [n] "
                          "int32 table")
-    if h > MAX_HEADS.get(d, 0):
-        raise ValueError(f"paged decode kernel takes D in {list(MAX_HEADS)} "
-                         f"with up to {MAX_HEADS} heads; got H={h}, D={d}")
+    lanes_vec(d)   # raises on a head width no instance takes
     per, n_splits = split_plan(n_active, page, d, h, q.element_size(),
                                n_sm=_build.sm_count(q))
     need = smem_bytes(q.dtype, h, d, page, per)
     if need > MAX_SMEM_BYTES:
         raise ValueError(f"(H={h}, D={d}, page={page}, {per} pages a split) "
                          f"needs {need} bytes of shared memory; a block has "
-                         f"{MAX_SMEM_BYTES}")
+                         f"{MAX_SMEM_BYTES} (a longer table: ROADMAP.md, "
+                         f"queue 2)")
     out = torch.empty_like(q)
     part = (torch.empty(n_splits * h * (d + 2), dtype=torch.float32,
                         device=q.device) if n_splits > 1 else None)

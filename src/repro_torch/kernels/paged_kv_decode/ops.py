@@ -5,7 +5,8 @@ The launch spec is the reference's: grid ``(n_active,)``; the int32 page
 table read once; q ``[H, D]`` resident (constant block index); step ``i``
 moves page ``page_table[i]`` of the K and V pools in (``[1, page, D]``
 blocks); the output written once.  The reference decides on D % 128 == 0
-between kernel and oracle; here a CUDA tensor outside it raises.
+between kernel and oracle; here a CUDA tensor runs the kernel at every H,
+page and D % 8 == 0 up to 512, and raises elsewhere, naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from repro_torch.capture.launch import LaunchOperand, LaunchSpec, emit
 
 from .. import _build
 from .kernel import paged_decode_attention
+from .plan import lanes_vec
 from .ref import paged_decode_ref
 
 __all__ = ["paged_decode", "launch_spec", "decode_flops"]
@@ -65,8 +67,6 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
     spec = launch_spec(h, d, n_pages, page, page_table, q.dtype)
     emit(spec)
     if _build.on_card(q, k_pages, v_pages, page_table):
-        if d % 128:
-            raise ValueError(f"paged decode on CUDA needs D % 128 == 0, "
-                             f"got D={d}")
+        lanes_vec(d)   # raises at a width the kernel does not take
         return paged_decode_attention(spec, q, k_pages, v_pages, page_table)
     return paged_decode_ref(q, k_pages, v_pages, page_table)

@@ -6,6 +6,14 @@ N)`` blocks of b and c in, and the ``(chunk, D)`` block of y out.  The
 recurrent state is kernel-private and never an operand.  ``flops`` is the
 reference's ``scan_flops``.  The reference decides on D % 128 == 0
 between kernel and oracle; here a CUDA tensor outside it raises.
+
+:func:`ema_scan` and :func:`chunked_scan` are the reference's public
+dispatchers: where the reference runs its kernel (D % 128 == 0 and T a
+multiple of ``chunk``) they are :func:`ssm_ema_scan` and
+:func:`ssm_chunked_scan`, spec and all; elsewhere the reference's oracle
+launches no Pallas kernel and they emit no spec, computing on the CPU
+through the plain versions and on the card through the kernels, which take
+any T, raising (naming ROADMAP.md) at a D or N they do not take.
 """
 
 from __future__ import annotations
@@ -15,11 +23,11 @@ import torch
 from repro_torch.capture.launch import LaunchOperand, LaunchSpec, emit
 
 from .. import _build
-from .kernel import ssm_chunked_cuda, ssm_ema_cuda
+from .kernel import STATE_WIDTHS, ssm_chunked_cuda, ssm_ema_cuda
 from .ref import ssm_chunked_ref, ssm_ema_ref
 
-__all__ = ["ssm_ema_scan", "ssm_chunked_scan", "launch_spec", "scan_flops",
-           "SSM_OPS"]
+__all__ = ["ssm_ema_scan", "ssm_chunked_scan", "ema_scan", "chunked_scan",
+           "launch_spec", "scan_flops", "SSM_OPS"]
 
 SSM_OPS = ("ema", "expand")
 
@@ -95,4 +103,50 @@ def ssm_chunked_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     if _build.on_card(x, dt, b, c):
         _check_lanes(d)
         return ssm_chunked_cuda(spec, x, dt, b, c)
+    return ssm_chunked_ref(x, dt, b, c)
+
+
+def _uses_kernel(t: int, d: int, chunk: int) -> bool:
+    """Whether the reference's dispatchers run their kernel: D % 128 == 0
+    and T a multiple of ``chunk``."""
+    return d % 128 == 0 and chunk >= 1 and t % chunk == 0
+
+
+def _card_shape(what: str, d: int, n: int | None = None) -> None:
+    """Raise, naming ROADMAP.md, at a shape the card's scan kernels do not
+    take."""
+    if d % 128 or (n is not None and n not in STATE_WIDTHS):
+        raise ValueError(f"{what} on CUDA needs D % 128 == 0"
+                         + ("" if n is None else f" and N in {STATE_WIDTHS}")
+                         + f" (other shapes: ROADMAP.md, queue 2); got D={d}"
+                         + ("" if n is None else f", N={n}"))
+
+
+def ema_scan(x: torch.Tensor, dt: torch.Tensor, g: torch.Tensor, *,
+             chunk: int = 128) -> torch.Tensor:
+    """The reference's ``ema_scan``: :func:`ssm_ema_scan` where it runs its
+    kernel, else the scan with no launch spec (plain version on the CPU,
+    the kernel over the whole T on the card)."""
+    t, d = x.shape
+    if _uses_kernel(t, d, chunk):
+        return ssm_ema_scan(x, dt, g, chunk=chunk)
+    if _build.on_card(x, dt, g):
+        _card_shape("ema_scan", d)
+        return ssm_ema_cuda(launch_spec("ema", t, d, 0, t, x.dtype), x, dt, g)
+    return ssm_ema_ref(x, dt, g)
+
+
+def chunked_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                 c: torch.Tensor, *, chunk: int = 128) -> torch.Tensor:
+    """The reference's ``chunked_scan``: :func:`ssm_chunked_scan` where it
+    runs its kernel, else the scan with no launch spec (plain version on
+    the CPU, the kernel over the whole T on the card)."""
+    t, d = x.shape
+    n = b.shape[1]
+    if _uses_kernel(t, d, chunk):
+        return ssm_chunked_scan(x, dt, b, c, chunk=chunk)
+    if _build.on_card(x, dt, b, c):
+        _card_shape("chunked_scan", d, n)
+        return ssm_chunked_cuda(launch_spec("expand", t, d, n, t, x.dtype),
+                                x, dt, b, c)
     return ssm_chunked_ref(x, dt, b, c)

@@ -31,6 +31,12 @@ scale from the real D and keep the output's first D columns.
   (``flash_fwd_wide_sm90``: each block S over the whole head, summed over
   its 64-column panels in order (:func:`panel_scores`), 128-row q tiles,
   64-row kv tiles, P split as above).
+
+Every emulation takes any Sq, Sk >= 1, as the kernels do: the last q tile
+and the last kv tile may be partial, their rows past the end zeros
+(:func:`pad_seq`, as TMA's zero fill and the zero-filling copies put
+them), the scores of kv rows past Sk masked to -1e30 like those above the
+diagonal (:func:`keep_mask`), and the output's rows past Sq dropped.
 """
 
 from __future__ import annotations
@@ -51,8 +57,8 @@ from repro_torch.kernels.flash_attention.plan import (PANEL, f32_tiles,
 
 __all__ = ["sm90_emulation", "kernel_emulation", "split_partials",
            "wide_sm90_emulation", "wide_kernel_emulation", "cluster_scores",
-           "panel_scores", "rank_columns", "pad_head", "NEG_INF", "LANES",
-           "SM90_BLOCK"]
+           "panel_scores", "rank_columns", "pad_head", "pad_seq", "keep_mask",
+           "NEG_INF", "LANES", "SM90_BLOCK"]
 
 NEG_INF = -1e30
 LANES = 16        # f32: lanes that share one score row
@@ -63,6 +69,32 @@ def pad_head(x: torch.Tensor) -> torch.Tensor:
     """x [..., D] with zero columns up to DP = ``padded_head_dim(D)``."""
     d = x.shape[-1]
     return F.pad(x, (0, padded_head_dim(d) - d))
+
+
+def pad_seq(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """x [B, S, heads, D] with zero rows up to a whole number of ``rows``
+    tiles: a partial tile's rows past S, as the kernels load them."""
+    s = x.shape[1]
+    return F.pad(x, (0, 0, 0, 0, 0, -(-s // rows) * rows - s))
+
+
+def keep_mask(q0: int, n_q: int, k0: int, n_k: int, sk: int,
+              causal: bool) -> torch.Tensor | None:
+    """The scores a kernel keeps in the [n_q, n_k] tile at (q0, k0): those
+    on or below the diagonal when causal, and of kv rows below Sk; None
+    where the tile keeps all (neither the diagonal nor Sk crosses it)."""
+    diag = causal and k0 + n_k - 1 > q0
+    if not diag and k0 + n_k <= sk:
+        return None
+    kpos = (k0 + torch.arange(n_k))[None, :]
+    keep = kpos < sk
+    if diag:
+        keep = keep & ((q0 + torch.arange(n_q))[:, None] >= kpos)
+    return keep
+
+
+def _masked(s: torch.Tensor, keep: torch.Tensor | None) -> torch.Tensor:
+    return s if keep is None else torch.where(keep, s, torch.tensor(NEG_INF))
 
 
 def _scale_log2(d: int) -> float:
@@ -80,10 +112,10 @@ def sm90_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale_log2 = _scale_log2(d)
     q, k, v = (pad_head(x) for x in (q, k, v))
     dp = q.shape[-1]
-    out = torch.empty(b, sq, h, dp, dtype=torch.bfloat16)
-    rows = torch.arange(SM90_BLOCK)
     bk = sm90_kv_rows(dp)         # 128, or 64 at DP 192 and 256
-    cols = torch.arange(bk)
+    q = pad_seq(q, SM90_BLOCK)
+    k, v = pad_seq(k, bk), pad_seq(v, bk)
+    out = torch.empty(b, q.shape[1], h, dp, dtype=torch.bfloat16)
     for bi in range(b):
         for hi in range(h):
             for q0 in range(0, sq, SM90_BLOCK):
@@ -96,10 +128,8 @@ def sm90_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         break
                     kt = k[bi, k0:k0 + bk, hi // rep].float()
                     vt = v[bi, k0:k0 + bk, hi // rep].float()
-                    s = (qt @ kt.T) * scale_log2
-                    if causal and k0 + bk - 1 > q0:
-                        keep = (q0 + rows)[:, None] >= (k0 + cols)[None, :]
-                        s = torch.where(keep, s, torch.tensor(NEG_INF))
+                    s = _masked((qt @ kt.T) * scale_log2,
+                                keep_mask(q0, SM90_BLOCK, k0, bk, sk, causal))
                     m_new = torch.maximum(m, s.amax(dim=1, keepdim=True))
                     alpha = torch.exp2(m - m_new)
                     p = torch.exp2(s - m_new)
@@ -112,7 +142,7 @@ def sm90_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     m = m_new
                 out[bi, q0:q0 + SM90_BLOCK, hi] = (
                     acc / torch.clamp(l, min=1e-30)).to(torch.bfloat16)
-    return out[..., :d].contiguous()
+    return out[:, :sq, :, :d].contiguous()
 
 
 def _range(q0: int, kv0: int, per: int, sk: int, causal: bool,
@@ -132,19 +162,17 @@ def split_partials(qt, kt, vt, q0: int, kv0: int, per: int, sk: int,
     (``plan.f32_tiles``: 128 rows, 64 above DP = 128) against kv rows
     [kv0, kv0 + per) of one head, all padded to DP: m in the log2 domain
     at the scale of the real head width ``d`` (by default DP), l the 16
-    lanes' shares (4 columns each, 2 above DP = 128) added at the end."""
+    lanes' shares (4 columns each, 2 above DP = 128) added at the end.  kt
+    and vt hold whole chunks, their rows past ``sk`` zeros."""
     block_q, dp = qt.shape
     chunk = f32_tiles(dp)[1]
     scale_log2 = _scale_log2(d or dp)
-    rows = torch.arange(block_q)
     m = torch.full((block_q, 1), NEG_INF)
     l_lane = torch.zeros(block_q, LANES)
     acc = torch.zeros(block_q, dp)
     for k0 in _range(q0, kv0, per, sk, causal, dp):
-        s = (qt @ kt[k0:k0 + chunk].T) * scale_log2
-        if causal and k0 + chunk - 1 > q0:
-            keep = (q0 + rows)[:, None] >= (k0 + torch.arange(chunk))[None]
-            s = torch.where(keep, s, torch.tensor(NEG_INF))
+        s = _masked((qt @ kt[k0:k0 + chunk].T) * scale_log2,
+                    keep_mask(q0, block_q, k0, chunk, sk, causal))
         m_new = torch.maximum(m, s.amax(dim=1, keepdim=True))
         alpha = torch.exp2(m - m_new)
         p = torch.exp2(s - m_new)
@@ -170,8 +198,10 @@ def kernel_emulation(q, k, v, *, causal: bool, per: int) -> torch.Tensor:
     rep = h // g
     q, k, v = (pad_head(x) for x in (q, k, v))
     dp = q.shape[-1]
-    block_q = f32_tiles(dp)[0]
-    out = torch.empty(b, sq, h, dp)
+    block_q, chunk = f32_tiles(dp)
+    q = pad_seq(q, block_q)
+    k, v = pad_seq(k, chunk), pad_seq(v, chunk)
+    out = torch.empty(b, q.shape[1], h, dp)
     for bi in range(b):
         for hi in range(h):
             kt, vt = k[bi, :, hi // rep], v[bi, :, hi // rep]
@@ -196,7 +226,7 @@ def kernel_emulation(q, k, v, *, causal: bool, per: int) -> torch.Tensor:
                     o = o + acc * w
                 out[bi, q0:q0 + block_q, hi] = o / torch.clamp(big_l,
                                                                min=1e-30)
-    return out[..., :d].contiguous()
+    return out[:, :sq, :, :d].contiguous()
 
 
 def rank_columns(dp: int, runs=wide_panels) -> list[slice]:
@@ -243,8 +273,9 @@ def wide_sm90_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     plan = wide_sm90_plan(dp)
     bq, bk = plan.block_q, plan.kv_rows
     cols = rank_columns(dp)
-    out = torch.empty(b, sq, h, dp, dtype=torch.bfloat16)
-    rows, kv_cols = torch.arange(bq), torch.arange(bk)
+    q = pad_seq(q, bq)
+    k, v = pad_seq(k, bk), pad_seq(v, bk)
+    out = torch.empty(b, q.shape[1], h, dp, dtype=torch.bfloat16)
     for bi, hi, q0 in itertools.product(range(b), range(h),
                                         range(0, sq, bq)):
         qt = q[bi, q0:q0 + bq, hi].float()
@@ -256,10 +287,8 @@ def wide_sm90_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 break
             kt = k[bi, k0:k0 + bk, hi // rep].float()
             vt = v[bi, k0:k0 + bk, hi // rep].float()
-            s = panel_scores(qt, kt) * scale_log2
-            if causal and k0 + bk - 1 > q0:
-                keep = (q0 + rows)[:, None] >= (k0 + kv_cols)[None, :]
-                s = torch.where(keep, s, torch.tensor(NEG_INF))
+            s = _masked(panel_scores(qt, kt) * scale_log2,
+                        keep_mask(q0, bq, k0, bk, sk, causal))
             m_new = torch.maximum(m, s.amax(dim=1, keepdim=True))
             alpha = torch.exp2(m - m_new)
             p = torch.exp2(s - m_new)
@@ -272,7 +301,7 @@ def wide_sm90_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         for acc, c in zip(accs, cols):
             out[bi, q0:q0 + bq, hi, c] = (
                 acc / torch.clamp(l, min=1e-30)).to(torch.bfloat16)
-    return out[..., :d].contiguous()
+    return out[:, :sq, :, :d].contiguous()
 
 
 def wide_partials(qt, kt, vt, q0: int, kv0: int, per: int, sk: int,
@@ -286,7 +315,6 @@ def wide_partials(qt, kt, vt, q0: int, kv0: int, per: int, sk: int,
     chunk = wide_f32_plan(dp).kv_rows
     scale_log2 = _scale_log2(d)
     cols = rank_columns(dp)
-    rows = torch.arange(block_q)
     m = torch.full((block_q, 1), NEG_INF)
     l_lane = torch.zeros(block_q, LANES)
     accs = [torch.zeros(block_q, c.stop - c.start) for c in cols]
@@ -294,10 +322,8 @@ def wide_partials(qt, kt, vt, q0: int, kv0: int, per: int, sk: int,
     if causal:
         kv1 = min(kv1, q0 + block_q)
     for k0 in range(kv0, max(kv0, kv1), chunk):
-        s = cluster_scores(qt, kt[k0:k0 + chunk]) * scale_log2
-        if causal and k0 + chunk - 1 > q0:
-            keep = (q0 + rows)[:, None] >= (k0 + torch.arange(chunk))[None]
-            s = torch.where(keep, s, torch.tensor(NEG_INF))
+        s = _masked(cluster_scores(qt, kt[k0:k0 + chunk]) * scale_log2,
+                    keep_mask(q0, block_q, k0, chunk, sk, causal))
         m_new = torch.maximum(m, s.amax(dim=1, keepdim=True))
         alpha = torch.exp2(m - m_new)
         p = torch.exp2(s - m_new)
@@ -323,8 +349,10 @@ def wide_kernel_emulation(q, k, v, *, causal: bool,
     rep = h // g
     q, k, v = (pad_head(x) for x in (q, k, v))
     dp = q.shape[-1]
-    block_q = wide_f32_plan(dp).block_q
-    out = torch.empty(b, sq, h, dp)
+    block_q, chunk = wide_f32_plan(dp)[:2]
+    q = pad_seq(q, block_q)
+    k, v = pad_seq(k, chunk), pad_seq(v, chunk)
+    out = torch.empty(b, q.shape[1], h, dp)
     for bi, hi, q0 in itertools.product(range(b), range(h),
                                         range(0, sq, block_q)):
         kt, vt = k[bi, :, hi // rep], v[bi, :, hi // rep]
@@ -346,4 +374,4 @@ def wide_kernel_emulation(q, k, v, *, causal: bool,
                 o = o + acc * w
             o = o / torch.clamp(big_l, min=1e-30)
         out[bi, q0:q0 + block_q, hi] = o
-    return out[..., :d].contiguous()
+    return out[:, :sq, :, :d].contiguous()

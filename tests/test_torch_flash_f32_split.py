@@ -101,10 +101,13 @@ def test_plan_fills_the_card_at_the_main_path_launches(name):
 
 
 def test_plan_refuses_what_the_kernel_cannot_take():
-    with pytest.raises(ValueError, match="multiple of"):
-        split_plan(1, 1, 192, 256, n_sm=H100_SMS)
-    with pytest.raises(ValueError, match="multiple of"):
-        split_plan(1, 1, 128, 48, n_sm=H100_SMS)
+    # every Sq, Sk >= 1 is taken (the last q tile and kv tile partial):
+    # only an empty sequence is refused
+    with pytest.raises(ValueError, match="Sq, Sk >= 1"):
+        split_plan(1, 1, 0, 256, n_sm=H100_SMS)
+    with pytest.raises(ValueError, match="Sq, Sk >= 1"):
+        split_plan(1, 1, 128, 0, n_sm=H100_SMS)
+    assert split_plan(1, 1, 192, 256, n_sm=H100_SMS)[1] >= 1
 
 
 # --------------------------------------------------------------------------
