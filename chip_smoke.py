@@ -56,7 +56,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    on seeded rows, int32
    and int64 (ragged spans, cold slots, windows ending at m - 1 and past
    it), exactly, at every (lanes, steps) its plan picks (chunks 1-1024)
-   with a ragged last tile;
+   with a ragged last tile; and, through the reference's dispatchers,
+   the scans, the gather and MoE dispatch at shapes beyond the
+   reference's kernel route, both dtypes (``odd_shapes_phase``: the scans
+   at D 1, 3, 64, 96, 100 and 200, the chunked one at N 1, 24, 96 and 384
+   crossed; the gather at D 1, 3, 64, 96 and 100, bit for bit; MoE at D
+   3, 40, 96 and 100 by F 5, 24 and 200, T 256 and 200, and one call of
+   1 900 000 tokens at D 3, F 5), each kernel's launch counter required
+   to rise, and float16 and strided inputs refused naming ROADMAP.md;
 3. times each kernel at full width with CUDA events (median of 10 after
    3 warm-ups, L2 flushed before each), beside its plain version, the one
    PyTorch call that computes the same function where there is one, and
@@ -143,8 +150,8 @@ kernels as a fresh process does:
    ``store.recall.warm`` 45, ``engine.sim.run`` 0), and two spawned
    worker processes give the same rows;
 13. main paths 6 and 7: the roster through ``SuiteRunner.roster()`` with
-   the vectorized and the ``cuda`` backend in turns (vectorized, cuda,
-   cuda, vectorized), then the sections with ``backend="cuda"`` (beside
+   the vectorized and then the ``cuda`` backend, then the sections with
+   ``backend="cuda"`` (beside
    phase 10's seconds), each traced with its span split, counters reset
    before and read after: 45/45, rows equal to the vectorized run's,
    ``scan.cuda`` > 0 and window-count launches > 0 (one a chunk step),
@@ -197,7 +204,7 @@ kernels as a fresh process does:
    and tokens per second; every served request's logits (its prefill's
    and its slot's row of each decode step) against one bf16 forward of
    its prompt and tokens at batch 1 (rms of the difference <= 0.05 of
-   the logits' rms); then five decode steps of 4 busy slots under
+   the logits' rms); then three decode steps of 4 busy slots under
    ``torch.profiler`` (device busy ms a step, kernels a step, the idle
    share against the same steps untraced, the costliest kernels); each of
    (b)-(d) does all of this; (c) deepseek-v2-lite-16b at full width, 4 of its
@@ -230,12 +237,12 @@ kernels as a fresh process does:
    request's forward) must lie above its bound; (c) mamba2-780m trained
    through ``repro_torch.launch.train.train_loop``: bf16 compute, float32
    master weights, AdamW (bf16 moments, lr 3e-4 after 2 warm-up steps),
-   batch 8 x 1024 tokens, 20 steps, each loss finite and the last five's
+   batch 8 x 1024 tokens, 12 steps, each loss finite and the last five's
    mean below the first, each step timed between synchronizes (ms a
    step, tokens/s, peak memory, the model-FLOP bound 8 N tokens over the
    bf16 peak) and the sixth under ``torch.profiler`` (device busy ms,
    idle share, kernels, the costliest kernels); an asynchronous
-   checkpoint at step 10 written while steps 11-20 run, loaded into a
+   checkpoint at step 10 written while steps 11-12 run, loaded into a
    separate LM equal bit for bit to the snapshot the writer was handed,
    and steps 11-12 resumed within rtol 1e-5 of the uninterrupted run's
    losses; the first step at two microbatches (loss rtol 1e-5, grad norm
@@ -252,11 +259,13 @@ kernels as a fresh process does:
    forward layer) captured with their LM on the card and again on
    ``meta``: equal ops, FLOPs, footprint and walk; (b) main paths 10
    and 11: the models roster of the driver's CI pair (qwen2.5-14b and
-   mamba2-780m, 51 entries, ``models_registry(only=..., device="cuda")``)
-   under the vectorized and the ``cuda`` backend, counters reset before
-   and read after, each traced with its span split (capture, walk,
-   simulation): 51/51 classes equal to the port's pins, rows equal, no
-   window count under the vectorized backend and some under cuda;
+   mamba2-780m, 51 entries, ``models_registry(only=..., device="cuda")``),
+   one model at a time under the vectorized and then the ``cuda`` backend
+   (the second run finds the model's traces in the zoo's memo), counters
+   reset before and read after, each traced with its span split
+   (capture, walk, simulation): 51/51 classes equal to the port's pins,
+   rows equal, no window count under the vectorized backend and some
+   under cuda;
    (c) main path 12: the driver's ``models_sweep`` (the bs64 decode
    step streamed op by op into ``simulate_chunked``) under both
    backends: equal rows, and ``perf_gate``'s counter gate
@@ -458,6 +467,10 @@ BAD_INDEX = {
         "p = torch.zeros(4, 16, 128, device='cuda')\n"
         "paged_decode(torch.zeros(1, 128, device='cuda'), p, p,\n"
         "             torch.tensor([1, 4], dtype=torch.int32, device='cuda'))\n"),
+    "token_gather:odd_row": (
+        "from repro_torch.kernels.token_gather import gather\n"
+        "t = torch.zeros(4, 3, device='cuda')\n"
+        "gather(t, torch.tensor([0, -1], dtype=torch.int32, device='cuda'))\n"),
     "moe_dispatch": (
         "from repro_torch.kernels.moe_dispatch import moe_dispatch_sorted\n"
         "ids = lambda *v: torch.tensor(v, dtype=torch.int32, device='cuda')\n"
@@ -538,7 +551,8 @@ def ptxas_spills(log: str) -> dict[str, int]:
 # name, not ``flash_fwd_wide_sm90``).
 NO_SPILL = {"flash_attention": ("flash_fwd_kernel", "flash_fwd_wideE"),
             "ssm_ema_scan": ("ssm_ema_kernel",),
-            "ssm_chunked_scan": ("ssm_chunked_kernel",),
+            "ssm_chunked_scan": ("ssm_chunked_kernel",
+                                 "ssm_chunked_general"),
             "window_scan": ("window_count_kernel",)}
 # Tensor-core kernels: each instance must hold an HGMMA (wgmma).
 HGMMA_KERNELS = (("flash_attention", "flash_fwd_sm90"),
@@ -554,15 +568,16 @@ def hold_main_path(launched: list, randn, rand,
     reversed; MoE token order and expert ids).  Prints one summary line per
     kernel, records each max abs error in ``errs`` and returns the
     distinct count."""
-    from repro_torch.kernels.flash_attention import attention_ref, mha
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
     from repro_torch.kernels.moe_dispatch import (moe_dispatch_sorted,
                                                   moe_dispatch_sorted_ref)
-    from repro_torch.kernels.paged_kv_decode import (paged_decode,
+    from repro_torch.kernels.paged_kv_decode import (paged_decode_attention,
                                                      paged_decode_ref)
     from repro_torch.kernels.ssm_scan import (ssm_chunked_ref,
                                               ssm_chunked_scan, ssm_ema_ref,
                                               ssm_ema_scan)
-    from repro_torch.kernels.token_gather import gather, gather_rows_ref
+    from repro_torch.kernels.token_gather import gather_rows, gather_rows_ref
 
     from repro_torch.benchmarks.kernel_bench import stream_calls
 
@@ -591,7 +606,8 @@ def hold_main_path(launched: list, randn, rand,
             n_rows, d = spec.operand("table").shape
             table, (idx,) = randn(n_rows, d, dtype=dtype), spec.index
             check("token_gather", f"{n_rows}x{d} m={len(idx)}",
-                  gather(table, idx), gather_rows_ref(table, idx), exact=True)
+                  gather_rows(table, idx), gather_rows_ref(table, idx),
+                  exact=True)
             return "token_gather"
         if spec.name == "flash_attention":
             (bh, sq, d), (_, bq, _) = (spec.operand("q").shape,
@@ -603,7 +619,8 @@ def hold_main_path(launched: list, randn, rand,
             want = attention_ref(qq.float(), kk.float(), vv.float(),
                                  causal=False)
             check("flash_attention", f"sq={sq} sk={sk} d={d}",
-                  mha(qq, kk, vv, causal=False, block_q=bq, block_k=bk), want,
+                  flash_attention(qq, kk, vv, causal=False, block_q=bq,
+                                  block_k=bk), want,
                   tol=attn_tol(dtype, want))
             for d16 in (64, 128):        # the shape recast to bf16
                 qq = randn(1, sq, bh, d16, dtype=torch.bfloat16)
@@ -614,8 +631,8 @@ def hold_main_path(launched: list, randn, rand,
                                          causal=causal)
                     check("flash_attention",
                           f"bf16 sq={sq} sk={sk} d={d16} causal={causal}",
-                          mha(qq, kk, vv, causal=causal, block_q=bq,
-                              block_k=bk), want,
+                          flash_attention(qq, kk, vv, causal=causal,
+                                          block_q=bq, block_k=bk), want,
                           tol=attn_tol(torch.bfloat16, want))
             return "flash_attention"
         if spec.name == "paged_kv_decode":
@@ -628,7 +645,7 @@ def hold_main_path(launched: list, randn, rand,
                                         table)
                 check("paged_kv_decode",
                       f"pool={n_pages} page={page} h={h} n={len(table)}",
-                      paged_decode(qq, kp, vp, table), want,
+                      paged_decode_attention(qq, kp, vp, table), want,
                       tol=attn_tol(dtype, want))
             return "paged_kv_decode"
         if spec.name == "moe_dispatch":
@@ -686,7 +703,8 @@ def check_reference_tiles(randn, errs: dict[str, float]) -> None:
     ``block_k`` 256 against 128, ``tests/test_kernels.py``'s tile
     invariance cases), float32 and bf16, causal and not, against the plain
     version: the spec records the tile and the kernels walk their own."""
-    from repro_torch.kernels.flash_attention import attention_ref, mha
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
 
     for dtype, (bq, bk), causal in itertools.product(
             (torch.float32, torch.bfloat16), ((256, 128), (128, 256)),
@@ -697,7 +715,8 @@ def check_reference_tiles(randn, errs: dict[str, float]) -> None:
         errs["flash_attention"] = max(errs["flash_attention"], check_close(
             "flash_attention", f"reference tile block_q={bq} block_k={bk} "
             f"s=512 h=4 g=2 d=128 causal={causal}",
-            mha(q, k, v, causal=causal, block_q=bq, block_k=bk), want,
+            flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk),
+            want,
             tol=attn_tol(dtype, want)))
 
 
@@ -866,18 +885,18 @@ def paged_full_width(bench: Bench, smi: str, dtype: torch.dtype,
 
 
 def moe_full_width(bench: Bench, smi: str, dtype: torch.dtype,
-                   **extra) -> tuple[dict, float]:
-    """One DeepSeek-MoE-16B layer's routed dispatch (``FULL_MOE``): the
-    unsorted entry point held against its plain version, then the sorted
-    dispatch timed beside its plain version (and, in bf16, the
-    ``torch._grouped_mm`` yardstick).  Returns the timing row (printed,
-    with ``extra``) and the max abs error."""
+                   geo: dict | None = None, **extra) -> tuple[dict, float]:
+    """One DeepSeek-MoE-16B layer's routed dispatch (``FULL_MOE``, or
+    ``geo``): the unsorted entry point held against its plain version, then
+    the sorted dispatch timed beside its plain version (and, in bf16 at
+    ``FULL_MOE``, the ``torch._grouped_mm`` yardstick).  Returns the timing
+    row (printed, with ``extra``) and the max abs error."""
     from repro_torch.kernels.moe_dispatch import (moe_dispatch,
                                                   moe_dispatch_ref,
                                                   moe_dispatch_sorted,
                                                   moe_dispatch_sorted_ref)
 
-    g = FULL_MOE
+    g = geo or FULL_MOE
     gen = torch.Generator(device="cuda").manual_seed(TIMING_SEED)
     x, w, eids, tok, eid = moe_inputs(gen, g, dtype)
     t, d, f = x.shape[0], g["d"], g["f"]
@@ -894,7 +913,7 @@ def moe_full_width(bench: Bench, smi: str, dtype: torch.dtype,
         (x.numel() + w.numel() + t * f) * x.element_size() + 8 * t,
         2.0 * t * d * f, "f32" if dtype == torch.float32 else "bf16",
         **extra)
-    if dtype == torch.bfloat16:
+    if dtype == torch.bfloat16 and geo is None:
         grouped_mm_yardstick(bench, x, w, tok, eid, smi)
     return row, err
 
@@ -943,6 +962,171 @@ RAGGED_FLASH = {"whisper_s1500": (WHISPER_FLASH, 64, False),
 RAGGED_LENGTHS = (1, 37, 100, 200)
 RAGGED_DIMS = (64, 192, 320)
 FULL_SCAN = dict(t=4096, d=2 * 3584, n=64, chunk=128)
+# qwen2.5-14b's embedding table gathered for one batch of tokens
+FULL_GATHER = dict(n_rows=152064, d=5120, m=8192)
+# The four kernels at full width off the reference's kernel route
+# (scripts/kernel_ab.py --only odd; not in this script): the gather at D
+# 5118 and both scans at D 7166, rows that are not 16-byte multiples in
+# either dtype (the chunked scan at N 96, padded to 128 state rows), MoE at
+# D 2040 and F 1400, a K tail and an N tail.
+ODD_FULL = {"token_gather": {**FULL_GATHER, "d": 5118},
+            "ssm_ema_scan": {**FULL_SCAN, "d": 7166},
+            "ssm_chunked_scan": {**FULL_SCAN, "d": 7166, "n": 96},
+            "moe_dispatch": {**FULL_MOE, "d": 2040, "f": 1400}}
+
+
+def gather_full_width(bench: Bench, smi: str, dtype: torch.dtype,
+                      geo: dict | None = None, **extra) -> tuple[dict, float]:
+    """The token gather at ``FULL_GATHER`` (or ``geo``): held exactly
+    against its plain version, then timed beside it and ``index_select``.
+    Returns the timing row (printed, with ``extra``) and the max abs
+    error."""
+    from repro_torch.kernels.token_gather import gather, gather_rows_ref
+
+    g = geo or FULL_GATHER
+    n_rows, d, m = g["n_rows"], g["d"], g["m"]
+    gen = torch.Generator(device="cuda").manual_seed(TIMING_SEED)
+    table = torch.randn(n_rows, d, generator=gen, device="cuda").to(dtype)
+    idx = torch.randint(0, n_rows, (m,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    idx[:3] = torch.tensor([0, n_rows - 1, 0], dtype=torch.int32)
+    case = f"{n_rows}x{d} m={m}"
+    err = check_close("token_gather", f"full {case}", gather(table, idx),
+                      gather_rows_ref(table, idx), exact=True)
+    row = timing_row(
+        bench, smi, "token_gather", case, dtype,
+        bench.ms(lambda: gather(table, idx)),
+        bench.ms(lambda: gather_rows_ref(table, idx)),
+        bench.ms(lambda: torch.index_select(table, 0, idx)),
+        2 * m * d * table.element_size() + 4 * m, 0.0, "f32", **extra)
+    return row, err
+
+
+# Shapes the scans, the gather and MoE dispatch take on the card beyond the
+# reference's kernel route (D % 128 != 0, N not a power of two 16-256, more
+# than 1 859 584 MoE tokens), held against their plain versions in both
+# dtypes through the dispatchers (phase 2, odd shapes): the scans at
+# ODD_SCAN_T steps (not a multiple of a stage), the chunked scan at every
+# (D, N) of the two lists crossed; MoE at every (D, F) crossed, T a
+# multiple of every M-tile and not, plus D 3 and F 5 (rows of neither 16
+# nor 8 bytes: the narrow instances, bf16 without TMA) and one call above
+# the pre-pass's shared-memory bitmap at that narrow width.
+ODD_SCAN_D = (1, 3, 64, 96, 100, 200)
+ODD_SCAN_N = (1, 24, 96, 384)
+ODD_SCAN_T = 300
+ODD_GATHER_D = (1, 3, 64, 96, 100)
+ODD_MOE_D = (40, 96, 100, 3)
+ODD_MOE_F = (24, 200, 5)
+ODD_MOE_T = (256, 200)
+ODD_MOE_E = 4
+BIG_MOE = dict(t=1_900_000, d=3, f=5, e=4)
+# Shapes the four kernels still refuse on the card (ROADMAP.md, queue 2):
+# float16 inputs (the gather copies bytes and takes every dtype) and a
+# strided view.
+REFUSED_ODD = ("float16", "strided")
+
+
+def odd_shapes_phase(K, gen) -> dict[str, dict]:
+    """The new shapes of the scans, the gather and MoE dispatch, each held
+    against its plain version in f32 and bf16 (the EMA scan in f32 and the
+    gather bit for bit), each kernel's launch counter required to rise, and
+    the refusals of REFUSED_ODD required to name ROADMAP.md.  Returns, for
+    each kernel, the shapes held, their max abs errors by dtype and the
+    launches."""
+    from repro_torch.kernels.moe_dispatch import dispatch, moe_dispatch_ref
+    from repro_torch.kernels.ssm_scan import (chunked_scan, ema_scan,
+                                              ssm_chunked_ref, ssm_ema_ref)
+    from repro_torch.kernels.token_gather import gather, gather_rows_ref
+
+    dev = torch.device("cuda")
+    before = K.launch_counts()
+    out = {k: {"held": 0, "max_abs_err": {"float32": 0.0, "bfloat16": 0.0}}
+           for k in ("ssm_ema_scan", "ssm_chunked_scan", "token_gather",
+                     "moe_dispatch")}
+
+    def held(kernel: str, dtype, err: float) -> None:
+        row = out[kernel]
+        row["held"] += 1
+        key = str(dtype).replace("torch.", "")
+        row["max_abs_err"][key] = max(row["max_abs_err"][key], err)
+
+    t = ODD_SCAN_T
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in ODD_SCAN_D:
+            x, dt, g = ema_inputs(gen, t, d, dtype)
+            want = ssm_ema_ref(x.float(), dt.float(), g.float())
+            held("ssm_ema_scan", dtype, check_close(
+                "ssm_ema_scan", f"odd T={t} D={d} "
+                f"{ema_plan_of(t, d, x.element_size())}",
+                ema_scan(x, dt, g), want, show=False,
+                **ema_tol(dtype, want)))
+            for n in ODD_SCAN_N:
+                x, dt, b, c = scan_inputs(gen, t, d, n, dtype)
+                want = ssm_chunked_ref(x.float(), dt.float(), b.float(),
+                                       c.float())
+                held("ssm_chunked_scan", dtype, check_close(
+                    "ssm_chunked_scan", f"odd T={t} D={d} N={n} "
+                    f"{scan_plan_of(t, d, n, x.element_size())}",
+                    chunked_scan(x, dt, b, c), want, show=False,
+                    tol=chunked_tol(dtype, want)))
+        for d in ODD_GATHER_D:
+            table = torch.randn(1000, d, generator=gen, device=dev).to(dtype)
+            idx = torch.randint(0, 1000, (777,), generator=gen, device=dev,
+                                dtype=torch.int32)
+            held("token_gather", dtype, check_close(
+                "token_gather", f"odd 1000x{d} m=777", gather(table, idx),
+                gather_rows_ref(table, idx), exact=True, show=False))
+        shapes = [(tt, d, f) for tt in ODD_MOE_T for d in ODD_MOE_D
+                  for f in ODD_MOE_F]
+        shapes.append((BIG_MOE["t"], BIG_MOE["d"], BIG_MOE["f"]))
+        for tt, d, f in shapes:
+            e = BIG_MOE["e"] if tt == BIG_MOE["t"] else ODD_MOE_E
+            x = torch.randn(tt, d, generator=gen, device=dev).to(dtype)
+            w = (torch.randn(e, d, f, generator=gen, device=dev)
+                 / d ** 0.5).to(dtype)
+            eids = torch.randint(0, e, (tt,), generator=gen, device=dev)
+            want = moe_dispatch_ref(x.float(), w.float(), eids)
+            held("moe_dispatch", dtype, check_close(
+                "moe_dispatch", f"odd T={tt} D={d} F={f} E={e}",
+                dispatch(x, w, eids), want, show=tt == BIG_MOE["t"],
+                tol=attn_tol(dtype, want)))
+            del x, w, eids, want
+    after = K.launch_counts()
+    for kernel, row in out.items():
+        row["launches"] = after[kernel] - before[kernel]
+        if row["launches"] < row["held"]:
+            raise AssertionError(f"{kernel}: {row['held']} odd shapes held "
+                                 f"with {row['launches']} kernel launches")
+    # what still raises on the card names ROADMAP.md
+    x16 = torch.zeros(64, 96, device=dev, dtype=torch.float16)
+    xs = torch.zeros(96, 64, device=dev).t()
+    ids = torch.zeros(64, dtype=torch.long, device=dev)
+    refusals = {
+        "ssm_ema_scan": (lambda: ema_scan(x16, x16, x16),
+                         lambda: ema_scan(xs, xs, xs)),
+        "ssm_chunked_scan": (
+            lambda: chunked_scan(x16, x16, x16[:, :24], x16[:, :24]),
+            lambda: chunked_scan(xs, xs, xs[:, :24], xs[:, :24])),
+        "token_gather": (None, lambda: gather(xs, ids[:5])),
+        "moe_dispatch": (
+            lambda: dispatch(x16, torch.zeros(2, 96, 24, device=dev,
+                                              dtype=torch.float16), ids),
+            lambda: dispatch(xs, torch.zeros(2, 96, 24, device=dev), ids)),
+    }
+    for kernel, calls in refusals.items():
+        for why, call in zip(REFUSED_ODD, calls):
+            if call is None:
+                continue
+            try:
+                call()
+            except ValueError as e:
+                if "ROADMAP.md" not in str(e):
+                    raise
+            else:
+                raise AssertionError(f"{kernel} on CUDA took a {why} input")
+    for kernel, row in out.items():
+        say({"phase": "odd-shapes", "kernel": kernel, **row})
+    return out
 
 
 def flash_plan(b: int, h: int, sq: int, sk: int, d: int = 128) -> dict:
@@ -964,28 +1148,23 @@ def flash_plan(b: int, h: int, sq: int, sk: int, d: int = 128) -> dict:
 
 
 def scan_plan_of(t: int, d: int, n: int, itemsize: int) -> dict:
-    """The chunked scan's plan at one launch on this card, or nothing for a
-    checkout from before the plan."""
-    try:
-        from repro_torch.kernels.ssm_scan.plan import scan_plan
-    except ImportError:
-        return {}
+    """The chunked scan's plan at one launch on this card."""
+    from repro_torch.kernels.ssm_scan.plan import scan_plan
+
     plan = scan_plan(t, d, n, itemsize, n_sm=sm_count())
     return {"rows_per_thread": plan.rows, "channels_per_block": plan.channels,
-            "blocks": plan.blocks(d), "threads_per_block": plan.threads(n)}
+            "blocks": plan.blocks(d), "threads_per_block": plan.threads(),
+            "state_rows": plan.state_rows, "parts": plan.parts}
 
 
 def ema_plan_of(t: int, d: int, itemsize: int) -> dict:
-    """The EMA scan's plan at one launch on this card, or nothing for a
-    checkout from before the plan."""
-    try:
-        from repro_torch.kernels.ssm_scan.plan import ema_plan
-    except ImportError:
-        return {}
+    """The EMA scan's plan at one launch on this card."""
+    from repro_torch.kernels.ssm_scan.plan import ema_plan
+
     plan = ema_plan(t, d, itemsize, n_sm=sm_count())
     return {"channels_per_block": plan.channels, "blocks": plan.blocks(d),
             "stage_steps": plan.stage_steps, "ring": plan.ring,
-            "threads_per_block": plan.threads()}
+            "threads_per_block": plan.threads(), "piece": plan.piece}
 
 
 def ema_tol(dtype: torch.dtype, want: torch.Tensor) -> dict:
@@ -1117,7 +1296,7 @@ def ragged_flash(bench: Bench, smi: str, gen, errs: dict[str, float],
     wide kernels must take D 320."""
     from repro_torch.kernels.flash_attention import attention_ref, mha
     from repro_torch.kernels.flash_attention.kernel import (
-        flash_attention as flash_kernel)
+        flash_attention_cuda as flash_kernel)
 
     counts = flash_kernel.launches_by_kernel
     for tag, (shape, d, causal) in RAGGED_FLASH.items():
@@ -1164,7 +1343,7 @@ def wide_paged(bench: Bench, smi: str, errs: dict[str, float],
     ``PAGE_SIZE_PAGED`` (held), each launch counted by ``paged_split``'s
     wrapper."""
     from repro_torch.kernels.paged_kv_decode.kernel import (
-        paged_decode_attention as paged_kernel)
+        paged_decode_cuda as paged_kernel)
     from repro_torch.kernels.paged_kv_decode.plan import head_groups
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -1212,14 +1391,15 @@ def ema_inputs(gen, t: int, d: int, dtype: torch.dtype):
 
 
 def ema_full_width(bench: Bench, smi: str, dtype: torch.dtype,
-                   **extra) -> tuple[dict, float]:
-    """The gated EMA scan at ``FULL_SCAN``'s T and D: held against its
-    plain version (float32 bit for bit), then timed beside it, with its
-    plan.  Returns the timing row (printed, with ``extra``) and the max abs
-    error."""
+                   geo: dict | None = None, **extra) -> tuple[dict, float]:
+    """The gated EMA scan at ``FULL_SCAN``'s T and D (or ``geo``'s): held
+    against its plain version (float32 bit for bit), then timed beside it,
+    with its plan.  Returns the timing row (printed, with ``extra``) and
+    the max abs error."""
     from repro_torch.kernels.ssm_scan import ssm_ema_ref, ssm_ema_scan
 
-    t, d, chunk = FULL_SCAN["t"], FULL_SCAN["d"], FULL_SCAN["chunk"]
+    g = geo or FULL_SCAN
+    t, d, chunk = g["t"], g["d"], g["chunk"]
     gen = torch.Generator(device="cuda").manual_seed(TIMING_SEED)
     x, dt, g = ema_inputs(gen, t, d, dtype)
     case = f"T={t} D={d} chunk={chunk}"
@@ -1238,15 +1418,16 @@ def ema_full_width(bench: Bench, smi: str, dtype: torch.dtype,
 
 
 def chunked_full_width(bench: Bench, smi: str, dtype: torch.dtype,
+                       geo: dict | None = None,
                        **extra) -> tuple[dict, float]:
-    """The state-expanded scan at ``FULL_SCAN``: held against its plain
-    version, then timed beside it, with the bound (the direct recurrence's
-    5 N D T operations at the f32 peak) and the issue floor (its 4 N D T
-    lane-instructions at ``f32_issue``).  Returns the timing row (printed,
-    with ``extra``) and the max abs error."""
+    """The state-expanded scan at ``FULL_SCAN`` (or ``geo``): held against
+    its plain version, then timed beside it, with the bound (the direct
+    recurrence's 5 N D T operations at the f32 peak) and the issue floor
+    (its 4 N D T lane-instructions at ``f32_issue``).  Returns the timing
+    row (printed, with ``extra``) and the max abs error."""
     from repro_torch.kernels.ssm_scan import ssm_chunked_ref, ssm_chunked_scan
 
-    g = FULL_SCAN
+    g = geo or FULL_SCAN
     t, d, n, chunk = g["t"], g["d"], g["n"], g["chunk"]
     gen = torch.Generator(device="cuda").manual_seed(TIMING_SEED)
     x, dt, b, c = scan_inputs(gen, t, d, n, dtype)
@@ -1498,6 +1679,15 @@ def grouped_mm_yardstick(bench: Bench, x, w, tok, eid, smi: str) -> None:
              "grouped_mm_ms": bench.ms(lambda: fn(xs, wb, offs=offs)),
              "max_abs_err": (got.float() - want).abs().max().item()})
         return
+
+
+def forget_profiles() -> None:
+    """Drop the simulator's per-trace profile memo, so the next run
+    simulates traces it has seen before, on its own backend, rather than
+    recalling their profiles."""
+    from repro_torch.core import cachesim_vec
+
+    cachesim_vec.clear_memo()
 
 
 def forget_captures() -> None:
@@ -1830,15 +2020,14 @@ def roster_run(K, registry, path: str, sections: tuple, backend: str,
 
 def roster_turns(K, registry, want_rows, trace_dir: Path, smi: str
                  ) -> tuple[dict, list]:
-    """Main path 6: ``roster()`` with the vectorized and the cuda backend
-    in turns (vectorized, cuda, cuda, vectorized), each traced with its
-    span split; prints each side's seconds and ``sim.scan`` seconds.
-    Returns the first cuda run's launches and its window counts."""
+    """Main path 6: ``roster()`` with the vectorized and then the cuda
+    backend, each traced with its span split; prints each side's seconds
+    and ``sim.scan`` seconds.  Returns the cuda run's launches and its
+    window counts."""
     secs: dict[str, list[float]] = {"vectorized": [], "cuda": []}
     scan_s: dict[str, list[float]] = {"vectorized": [], "cuda": []}
     first = None
-    for turn, backend in enumerate(("vectorized", "cuda", "cuda",
-                                    "vectorized")):
+    for turn, backend in enumerate(("vectorized", "cuda")):
         launches, calls, t, rep = roster_run(
             K, registry, f"roster-{backend}-{turn}", (), backend, want_rows,
             trace_dir, smi, record=backend == "cuda" and first is None)
@@ -1846,8 +2035,8 @@ def roster_turns(K, registry, want_rows, trace_dir: Path, smi: str
         scan_s[backend].append(rep.span_total("sim.scan"))
         if backend == "cuda" and first is None:
             first = (launches, calls)
-    say({"phase": "roster-turns", "order": "vectorized, cuda, cuda, "
-         "vectorized", "seconds": secs, "sim_scan_s": scan_s,
+    say({"phase": "roster-turns", "order": "vectorized, cuda",
+         "seconds": secs, "sim_scan_s": scan_s,
          "cuda_over_vectorized": sum(secs["cuda"]) / sum(secs["vectorized"]),
          "card": smi})
     return first
@@ -2658,7 +2847,7 @@ def serve_bf16(lm, n_requests: int, rate: float, smi: str, *,
         "card": smi}
 
 
-def profile_decode(lm, smi: str, steps: int = 5, frames=None) -> dict:
+def profile_decode(lm, smi: str, steps: int = 3, frames=None) -> dict:
     """The bf16 engine's decode step under ``torch.profiler``: 4 slots
     busy with seeded prompts of 64-500 tokens, ``steps`` steps timed on
     the host clock between synchronizes, then the same number traced.
@@ -2876,7 +3065,7 @@ def lm_phase(K, smi: str, rate: float) -> None:
 
 LM_SMOKE_1B = ("mamba2-780m", "zamba2-7b", "whisper-large-v3")
 TRAIN_ARCH = "mamba2-780m"
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_SAVE_AT = 8, 1024, 20, 10
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_SAVE_AT = 8, 1024, 12, 10
 TRAIN_RESUMED = 2      # steps resumed after the step-10 checkpoint
 TRAIN_PROFILED = 5     # the loop's step (from 0) traced by torch.profiler
 TRAIN_LR, TRAIN_WARMUP = 3e-4, 2      # the reference's lr, a short warm-up
@@ -2993,7 +3182,7 @@ def train_phase(smi: str, peaks: dict, tmp_dir: str) -> dict:
     """18c: mamba2-780m at full width and depth trained through
     ``repro_torch.launch.train.train_loop`` on the card: bf16 compute,
     float32 master weights, AdamW with bf16 moments, global batch 8 x
-    1024 tokens from the Philox stream, 20 steps (each timed, one traced),
+    1024 tokens from the Philox stream, 12 steps (each timed, one traced),
     an asynchronous checkpoint at step 10 (its host snapshot recorded),
     restored into a separately loaded LM (equal bit for bit) and resumed
     for two steps; the first steps of ``train_first_steps``; ms a step,
@@ -3064,7 +3253,7 @@ def train_phase(smi: str, peaks: dict, tmp_dir: str) -> dict:
     launch_train.CheckpointManager = Recording
     launch_train.build_train_step = timing
     try:
-        # 20 uninterrupted steps, saving at step 10 while steps 11-20 run
+        # 12 uninterrupted steps, saving at step 10 while steps 11-12 run
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -3194,15 +3383,15 @@ MODELS_ONLY = ("qwen2.5-14b", "mamba2-780m")   # the driver's CI pair
 MODELS_ENTRIES = 51           # the pair's sweep points in the zoo
 
 
-def models_roster(K, path: str, backend: str, trace_dir: Path, smi: str
-                  ) -> tuple[object, dict]:
-    """The CI pair's models roster on the card under ``backend``, traced,
-    counters set to 0 before and read after: 51/51, each class its port
-    pin.  Returns the table and the launches."""
+def models_roster(K, path: str, backend: str, trace_dir: Path, smi: str,
+                  model: str) -> tuple[object, dict]:
+    """One model's part of the CI pair's models roster on the card under
+    ``backend``, traced, counters set to 0 before and read after: each
+    class its port pin.  Returns the table and the launches."""
     from repro_torch.suite import SuiteRunner, models_registry
 
     def drive():
-        return SuiteRunner(models_registry(only=MODELS_ONLY, device="cuda"),
+        return SuiteRunner(models_registry(only=(model,), device="cuda"),
                            store=None, sections=("models",),
                            backend=backend).roster()
 
@@ -3216,9 +3405,8 @@ def models_roster(K, path: str, backend: str, trace_dir: Path, smi: str
          "walk_s": rep.span_total("capture.walk"),
          "simulation_s": rep.span_total("sim.many"),
          "window_counts": launches[SCAN_KERNEL], "card": smi})
-    if len(table.rows) != MODELS_ENTRIES or bad:
-        raise AssertionError(f"{path}: {len(table.rows)} entries, "
-                             f"divergent {bad}")
+    if bad:
+        raise AssertionError(f"{path}: divergent {bad}")
     return table, launches
 
 
@@ -3323,18 +3511,30 @@ def models_phase(K, trace_dir: Path, smi: str) -> dict[str, dict]:
                                  f"differs from meta's")
         del lm, card, meta
 
-    # (b) the models roster, vectorized then cuda
-    vec, vec_launches = models_roster(K, "models-vectorized", "vectorized",
-                                      trace_dir, smi)
-    cud, cuda_launches = models_roster(K, "models-cuda", "cuda", trace_dir,
-                                       smi)
-    if vec.rows != cud.rows:
-        raise AssertionError("models roster: cuda rows differ from the "
-                             "vectorized backend's")
-    if vec_launches[SCAN_KERNEL] or cuda_launches[SCAN_KERNEL] <= 0:
-        raise AssertionError(f"models roster window counts: "
-                             f"{vec_launches[SCAN_KERNEL]} vectorized, "
-                             f"{cuda_launches[SCAN_KERNEL]} cuda")
+    # (b) the models roster, each model of the pair vectorized then cuda:
+    # the cuda run finds the model's traces in the zoo's memo, which holds
+    # one model's entries but not the pair's, and simulates them afresh
+    entries, vec_windows = 0, 0
+    cuda_launches = dict.fromkeys(K.KERNELS, 0)
+    for model in MODELS_ONLY:
+        vec, vec_launches = models_roster(
+            K, f"models-vectorized-{model}", "vectorized", trace_dir, smi,
+            model)
+        forget_profiles()
+        cud, launches = models_roster(K, f"models-cuda-{model}", "cuda",
+                                      trace_dir, smi, model)
+        if vec.rows != cud.rows:
+            raise AssertionError(f"models roster, {model}: cuda rows differ "
+                                 f"from the vectorized backend's")
+        entries += len(cud.rows)
+        vec_windows += vec_launches[SCAN_KERNEL]
+        for k, v in launches.items():
+            cuda_launches[k] += v
+    if entries != MODELS_ENTRIES:
+        raise AssertionError(f"models roster: {entries} entries")
+    if vec_windows or cuda_launches[SCAN_KERNEL] <= 0:
+        raise AssertionError(f"models roster window counts: {vec_windows} "
+                             f"vectorized, {cuda_launches[SCAN_KERNEL]} cuda")
 
     # (c) models_sweep: the streamed step under both backends
     sweep, sweep_launches = {}, {}
@@ -3970,7 +4170,12 @@ def main() -> int:
         return 1
     import tempfile
 
-    import repro_torch
+    try:
+        import repro_torch
+    except ImportError:
+        print(f"chip_smoke: no repro_torch package under {ROOT / 'src'}; "
+              f"run it from a checkout of the repo", file=sys.stderr)
+        raise
 
     if not Path(repro_torch.__file__).resolve().is_relative_to(ROOT):
         raise RuntimeError(f"repro_torch imported from outside {ROOT}")
@@ -3981,12 +4186,11 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import attention_ref, mha
     from repro_torch.kernels.flash_attention.kernel import (
-        flash_attention as flash_kernel)
+        flash_attention_cuda as flash_kernel)
     from repro_torch.kernels.ssm_scan import ssm_ema_ref, ssm_ema_scan
     from repro_torch.kernels.ssm_scan.ops import scan_flops
     from repro_torch.kernels.stream import ops as stream_ops
     from repro_torch.kernels.stream.kernel import stream_cuda
-    from repro_torch.kernels.token_gather import gather, gather_rows_ref
     from repro_torch.serving import SCENARIOS, measure_windows
     from repro_torch.suite import SuiteRunner, default_registry
 
@@ -4001,9 +4205,12 @@ def main() -> int:
 
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    logs = _build.build(list(K.KERNELS))
+    lib_seconds: dict[str, float] = {}
+    logs = _build.build(list(K.KERNELS), lib_seconds)
     say({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-         "built": sorted(logs)})
+         "built": sorted(logs),
+         "library_seconds": {k: round(v, 1) for k, v in
+                             sorted(lib_seconds.items(), key=lambda kv: kv[1])}})
     for kname, log in logs.items():
         for line in log.splitlines():
             if ("registers" in line or "spill" in line
@@ -4085,27 +4292,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     clock("2+3 gather")
-    # -- 2+3. token gather ----------------------------------------------------
-    def gather_idx(n_rows: int, m: int):
-        idx = torch.randint(0, n_rows, (m,), generator=gen, device=dev,
-                            dtype=torch.int32)
-        idx[:3] = torch.tensor([0, n_rows - 1, 0], dtype=torch.int32)
-        return idx
-
-    n_rows, d, m = 152064, 5120, 8192
+    # -- 2+3. token gather (the same timing as scripts/kernel_ab.py) -------
     for dtype in (torch.float32, torch.bfloat16):
-        table, idx = randn(n_rows, d, dtype=dtype), gather_idx(n_rows, m)
-        errs["token_gather"] = max(errs["token_gather"], check_close(
-            "token_gather", f"full {n_rows}x{d} m={m}",
-            gather(table, idx), gather_rows_ref(table, idx), exact=True))
-        row = record(
-            "token_gather", f"{n_rows}x{d} m={m}", dtype,
-            bench.ms(lambda: gather(table, idx)),
-            bench.ms(lambda: gather_rows_ref(table, idx)),
-            bench.ms(lambda: torch.index_select(table, 0, idx)),
-            2 * m * d * table.element_size() + 4 * m, 0.0, "f32")
+        row, err = gather_full_width(bench, smi, dtype)
         rows["token_gather", dtype] = row
-        del table, idx
+        errs["token_gather"] = max(errs["token_gather"], err)
     torch.cuda.empty_cache()
 
     clock("2+3 flash")
@@ -4235,6 +4426,13 @@ def main() -> int:
         rows["ssm_chunked_scan", dtype] = row
         errs["ssm_chunked_scan"] = max(errs["ssm_chunked_scan"], err)
     del bench
+    torch.cuda.empty_cache()
+
+    clock("2 odd shapes")
+    # -- 2. the scans, the gather and MoE dispatch beyond the reference's
+    # kernel route (held, untimed: scripts/kernel_ab.py --only odd times
+    # them at full width) ---------------------------------------------------
+    odd = odd_shapes_phase(K, gen)
     torch.cuda.empty_cache()
 
     clock("2 window")
@@ -4500,6 +4698,9 @@ def main() -> int:
                               "launches_by_kernel": [
                                   r["launches_by_kernel"],
                                   r16["launches_by_kernel"]]}
+        if kname in odd:
+            # shapes beyond the reference's kernel route (phase 2)
+            entry["odd_shapes"] = odd[kname]
         if kname == "paged_kv_decode":
             for tag in WIDE_PAGED:
                 r, r16 = (rows[f"paged_kv_decode_{tag}", dt]

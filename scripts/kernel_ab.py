@@ -22,7 +22,7 @@ peaks come from the ``--src`` package's ``benchmarks/kernel_bench.py``, so
 Each run prints the card's name and power limit, one ``timing`` line a
 full-width case and one ``geometry-timing`` line a main-path case, each
 with ``label``; rows carry the checkout's plan (paged and flash
-``n_splits``, the scans' rows, channels and stages) where it has one.
+``n_splits`` where it has one; the scans' plan as its own fields).
 The main-path flash and scan launches are those the checkout's roster and
 serving roster record when run on the CPU (``--only`` picks kernels:
 ``paged``, ``moe``, ``flash``, ``scan``, ``ema``, ``window``, and
@@ -39,7 +39,14 @@ v3 encoder (1500 positions, non-causal) and causal qwen2.5-14b row (2000
 tokens), in both dtypes; ``paged_wide``: paged decode at
 ``chip_smoke.WIDE_PAGED``'s groups and widths (granite-20b's 48 heads,
 zamba2-7b's D 112, nemotron-4-340b's 12 heads at D 192, D 512), in both
-dtypes; these two only for a checkout that takes those shapes).
+dtypes; these two only for a checkout that takes those shapes;
+``gather``: the token gather at full width, qwen2.5-14b's 152 064-row
+embedding table and 8 192 tokens at D 5120, in both dtypes, beside
+``index_select``; ``odd``: the four kernels at full width off the
+reference's kernel route, ``chip_smoke.ODD_FULL``: the gather at D 5118,
+the EMA scan at D 7166, the chunked scan at D 7166 and N 96 (rows that
+are not 16-byte multiples), MoE dispatch at D 2040 and F 1400 (a K and an
+N tail), in both dtypes, only for a checkout that takes them).
 
 ``--only window`` runs the checkout's roster on the card with
 ``backend="cuda"``, recording its window counts, and times the window
@@ -78,6 +85,20 @@ def paged_splits(chip_smoke, itemsize: int) -> dict:
                                                     itemsize)}
     except ImportError:
         return {}
+
+
+def describe_plans(chip_smoke) -> None:
+    """Let ``chip_smoke``'s scan rows carry the imported checkout's scan
+    plans, each as that checkout's own fields (``_asdict()``), so that a
+    plan of another version needs nothing of ``chip_smoke``."""
+    from repro_torch.kernels.ssm_scan import plan
+
+    def fields(make):
+        return lambda *args: {
+            "plan": make(*args, n_sm=chip_smoke.sm_count())._asdict()}
+
+    chip_smoke.scan_plan_of = fields(plan.scan_plan)
+    chip_smoke.ema_plan_of = fields(plan.ema_plan)
 
 
 def load_window_kernel(src: Path):
@@ -153,12 +174,17 @@ def main() -> int:
         raise RuntimeError(f"repro_torch imported from outside {src}")
     from repro_torch.benchmarks.kernel_bench import CardBench, card_identity
 
+    describe_plans(chip_smoke)
+
     smi = ", ".join(card_identity())
     chip_smoke.say(smi)
     bench = CardBench()
     only = set(args.only.split(","))
     cases = 0
+    odd = chip_smoke.ODD_FULL if "odd" in only else {}
     for dtype in (torch.float32, torch.bfloat16):
+        if "gather" in only:
+            chip_smoke.gather_full_width(bench, smi, dtype, label=args.label)
         if "paged" in only:
             chip_smoke.paged_full_width(
                 bench, smi, dtype, label=args.label,
@@ -169,7 +195,17 @@ def main() -> int:
             chip_smoke.chunked_full_width(bench, smi, dtype, label=args.label)
         if "ema" in only:
             chip_smoke.ema_full_width(bench, smi, dtype, label=args.label)
-        cases += len(only & {"paged", "moe", "scan", "ema"})
+        cases += len(only & {"gather", "paged", "moe", "scan", "ema"})
+        for kernel, timing in (
+                ("token_gather", chip_smoke.gather_full_width),
+                ("ssm_ema_scan", chip_smoke.ema_full_width),
+                ("ssm_chunked_scan", chip_smoke.chunked_full_width),
+                ("moe_dispatch", chip_smoke.moe_full_width)):
+            if kernel in odd:
+                timing(bench, smi, dtype, odd[kernel], label=args.label,
+                       shape="odd")
+                torch.cuda.empty_cache()
+                cases += 1
         torch.cuda.empty_cache()
     if "flash" in only:
         for causal in (True, False):

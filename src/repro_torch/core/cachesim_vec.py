@@ -586,6 +586,16 @@ def _memo_for(addr: np.ndarray) -> _TraceMemo:
         return found
 
 
+def clear_memo() -> None:
+    """Drop every trace memo, so the next simulation of any trace profiles
+    it afresh (``memo.bytes`` falls to 0)."""
+    global _MEMO_BYTES_LAST
+    with _MEMOS_LOCK:
+        _MEMOS.clear()
+        obs.count("memo.bytes", -_MEMO_BYTES_LAST)
+        _MEMO_BYTES_LAST = 0
+
+
 def _pf_l2_replay(stream, l2_nsets: int, l2_ways: int,
                   degree: int, stream_cap: int):
     """Sequential L2 + stream-prefetcher replay over the L1-miss stream.

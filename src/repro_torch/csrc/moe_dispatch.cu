@@ -11,8 +11,11 @@
 // launches:
 //
 // 1. moe_tile_list, one block: checks that tok is a permutation of [0, T)
-//    (a bitmap of T bits in shared memory, atomicOr, a trap on a repeat)
-//    and that every token and expert id is in range; marks the start of
+//    (a bitmap of T bits in shared memory, atomicOr, a trap on a repeat;
+//    above what a block's shared memory holds, 1 859 584 tokens, the
+//    bitmap lies in global memory and moe_check_tokens, a grid of blocks,
+//    checks the tokens first) and that every token and expert id is in
+//    range; marks the start of
 //    each run of one expert (i == 0 or eid[i] != eid[i-1]); and, with two
 //    block-wide scans, cuts every run into M-tiles of at most bm rows,
 //    written as (first sorted row, rows, expert) records after a count.
@@ -66,12 +69,34 @@
 // memory as float4 along K (chunks XOR-swizzled by row so a warp's four row
 // groups hit distinct banks), B as float4 along N.  The sum stays in f32 and
 // is rounded once.
+//
+// Every D >= 1 and F >= 1.  The last K stage and the last N-tile may be
+// partial: copies past D or F are zero-filled (a cp.async source size of
+// 0), so they add nothing, and columns past F are never stored.  Each
+// GEMM has a second instance, kNarrow, for rows that are not a multiple of
+// 16 bytes (f32 D or F % 4 != 0; bf16 D or F % 8 != 0): its copies move 4
+// bytes (2 for a bf16 row of odd length, by plain loads and stores), bf16
+// brings the weight panels by cp.async in place of TMA (whose row stride
+// must be a multiple of 16 bytes) into the same swizzled layout, and the
+// epilogue stores element by element.  Shapes of whole K stages and
+// N-tiles (f32 D % 32 == 0 and F % 128 == 0; bf16 D and F % 64 == 0), the
+// reference's kernel route among them, keep a third instance with no tail
+// tests (kExact).
+#include <algorithm>
+
 #include "common.cuh"
 #include "sm90.cuh"
 
 namespace {
 
-constexpr int kBN = 128;  // f32's N-tile; F is a multiple of it
+constexpr int kBN = 128;  // f32's N-tile
+
+// Instances of each GEMM by the rows it copies: whole tiles of 16-byte rows
+// (kExact), 16-byte rows with a K or N tail (kTail), other rows (kNarrow).
+// kNarrow computes every shape, but at 16-byte rows kTail's wide copies
+// (and bf16's TMA) are faster: at D 2040, F 1400 kNarrow took 1.11x its
+// time in f32 and 4.7x in bf16 (PERF.md).
+constexpr int kExact = 0, kTail = 1, kNarrow = 2;
 
 // One M-tile of the list; the buffer holds an int32 header of four (the
 // tile count first), then the records.
@@ -87,6 +112,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int src_bytes) {
   // src_bytes 0 zero-fills the 16 bytes without reading.
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  // src_bytes 0 zero-fills the 4 bytes without reading.
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(src), "r"(src_bytes)
                : "memory");
 }
@@ -144,19 +176,42 @@ __device__ int block_exclusive_scan(int v, int identity, Op op, int* warp_tot,
   return res;
 }
 
+// Tokens and expert ids in range, no token twice: `seen` is a bitmap of
+// n_tokens bits, zero to begin with (shared or global memory).
+__device__ __forceinline__ void check_token(const int* __restrict__ tok,
+                                            const int* __restrict__ eid,
+                                            int i, int n_tokens,
+                                            int n_experts, uint32_t* seen) {
+  const int t = tok[i], e = eid[i];
+  if (t < 0 || t >= n_tokens || e < 0 || e >= n_experts) __trap();
+  const uint32_t bit = 1u << (t % 32);
+  if (atomicOr(&seen[t / 32], bit) & bit) __trap();  // a repeated token
+}
+
+// The check over a grid of blocks, with the bitmap in global memory (a
+// stream too long for one block's shared memory).
+__global__ void __launch_bounds__(256)
+moe_check_tokens(const int* __restrict__ tok, const int* __restrict__ eid,
+                 int n_tokens, int n_experts, uint32_t* __restrict__ seen) {
+  for (int i = blockIdx.x * 256 + threadIdx.x; i < n_tokens;
+       i += gridDim.x * 256)
+    check_token(tok, eid, i, n_tokens, n_experts, seen);
+}
+
+// check: the tokens are checked here, with the bitmap in shared memory;
+// else moe_check_tokens has checked them.
 __global__ void __launch_bounds__(kPreThreads)
 moe_tile_list(const int* __restrict__ tok, const int* __restrict__ eid,
-              int n_tokens, int n_experts, int bm, int* __restrict__ out) {
+              int n_tokens, int n_experts, int bm, int* __restrict__ out,
+              bool check) {
   extern __shared__ uint32_t seen[];  // one bit a token
   __shared__ int warp_tot[32];
-  const int words = (n_tokens + 31) / 32;
-  for (int i = threadIdx.x; i < words; i += blockDim.x) seen[i] = 0;
-  __syncthreads();
-  for (int i = threadIdx.x; i < n_tokens; i += blockDim.x) {
-    const int t = tok[i], e = eid[i];
-    if (t < 0 || t >= n_tokens || e < 0 || e >= n_experts) __trap();
-    const uint32_t bit = 1u << (t % 32);
-    if (atomicOr(&seen[t / 32], bit) & bit) __trap();  // a repeated token
+  if (check) {
+    const int words = (n_tokens + 31) / 32;
+    for (int i = threadIdx.x; i < words; i += blockDim.x) seen[i] = 0;
+    __syncthreads();
+    for (int i = threadIdx.x; i < n_tokens; i += blockDim.x)
+      check_token(tok, eid, i, n_tokens, n_experts, seen);
   }
 
   // Each thread takes a chunk of consecutive sorted positions.  A tile
@@ -202,9 +257,29 @@ size_t prepass_smem(int n_tokens) {
   return static_cast<size_t>((n_tokens + 31) / 32) * 4;
 }
 
+// Dynamic shared memory the pre-pass's block may use beside its scan
+// scratch (a Hopper block's 232 448 bytes less 128).
+constexpr size_t kPrepassSmem = 232448 - 128;
+
+// `tiles` holds 4 + 4 n_tokens ints of header and records, then a bitmap of
+// ceil(n_tokens / 32) words, used where the bitmap overflows shared memory.
 int launch_tile_list(const int* tok, const int* eid, int* tiles, int n_tokens,
                      int n_experts, int bm, cudaStream_t stream) {
-  const size_t smem = prepass_smem(n_tokens);
+  const size_t bitmap_bytes = prepass_smem(n_tokens);
+  const bool in_smem = bitmap_bytes <= kPrepassSmem;
+  if (!in_smem) {
+    uint32_t* seen = reinterpret_cast<uint32_t*>(
+        tiles + 4 + 4 * static_cast<int64_t>(n_tokens));
+    cudaError_t err = cudaMemsetAsync(seen, 0, bitmap_bytes, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int blocks = static_cast<int>(
+        std::min<int64_t>((n_tokens + 255) / 256, 8192));
+    moe_check_tokens<<<blocks, 256, 0, stream>>>(tok, eid, n_tokens,
+                                                 n_experts, seen);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const size_t smem = in_smem ? bitmap_bytes : 0;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         moe_tile_list, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -212,7 +287,8 @@ int launch_tile_list(const int* tok, const int* eid, int* tiles, int n_tokens,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   moe_tile_list<<<1, kPreThreads, smem, stream>>>(tok, eid, n_tokens,
-                                                  n_experts, bm, tiles);
+                                                  n_experts, bm, tiles,
+                                                  in_smem);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -240,12 +316,15 @@ struct Tiling {
 // Issue stage kt's copies into buffer `buf`: A rows tid/8 + 32j (chunk
 // tid % 8, stored at chunk ^ (row/RT % 8), so the rows a warp reads at
 // once hit distinct banks); B rows tid/32 + 8j (chunk tid % 32) of the
-// expert's [D, F] slab.
-template <int RT>
+// expert's [D, F] slab from column n0 on (`we` points there).  A chunk is
+// four floats: one 16-byte copy, or four 4-byte ones (kNarrow), each
+// zero-filled where it lies past D, F or the tile's rows (kExact: past the
+// tile's rows alone).
+template <int RT, int kMode>
 __device__ __forceinline__ void issue(float* buf, const float* __restrict__ x,
                                       const float* __restrict__ we,
                                       const int* sTok, int rows, int D, int F,
-                                      int k0) {
+                                      int n0, int k0) {
   constexpr int kBM = Tiling<RT>::kBM;
   const int tid = threadIdx.x;
   const uint32_t a = sm90::smem_u32(buf);
@@ -253,22 +332,46 @@ __device__ __forceinline__ void issue(float* buf, const float* __restrict__ x,
 #pragma unroll
   for (int j = 0; j < kBM / 32; ++j) {
     const int r = tid / 8 + 32 * j, ch = tid % 8;
+    const int k = k0 + ch * 4;
     const bool ok = r < rows;
-    const float* src = x + (ok ? static_cast<int64_t>(sTok[r]) * D : 0) + k0 +
-                       ch * 4;
-    cp_async16(a + (r * kBK + ((ch ^ ((r / RT) % 8)) * 4)) * 4, src,
-               ok ? 16 : 0);
+    const float* src = x + (ok ? static_cast<int64_t>(sTok[r]) * D : 0) + k;
+    const uint32_t dst = a + (r * kBK + ((ch ^ ((r / RT) % 8)) * 4)) * 4;
+    if constexpr (kMode == kExact) {
+      cp_async16(dst, src, ok ? 16 : 0);
+    } else if constexpr (kMode == kNarrow) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        cp_async4(dst + 4 * e, ok && k + e < D ? src + e : x,
+                  ok && k + e < D ? 4 : 0);
+    } else {
+      cp_async16(dst, ok && k < D ? src : x, ok && k < D ? 16 : 0);
+    }
   }
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int k = tid / 32 + 8 * j, ch = tid % 32;
-    cp_async16(b + (k * kBN + ch * 4) * 4,
-               we + static_cast<int64_t>(k0 + k) * F + ch * 4, 16);
+    const uint32_t dst = b + (k * kBN + ch * 4) * 4;
+    if constexpr (kMode == kExact) {
+      cp_async16(dst, we + static_cast<int64_t>(k0 + k) * F + ch * 4, 16);
+    } else {
+      const int col = n0 + ch * 4;
+      const bool ok = k0 + k < D;
+      const float* src =
+          we + static_cast<int64_t>(ok ? k0 + k : 0) * F + ch * 4;
+      if constexpr (kMode == kNarrow) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          cp_async4(dst + 4 * e, ok && col + e < F ? src + e : x,
+                    ok && col + e < F ? 4 : 0);
+      } else {
+        cp_async16(dst, ok && col < F ? src : x, ok && col < F ? 16 : 0);
+      }
+    }
   }
 }
 
 // Two blocks an SM (plan.BLOCKS_PER_SM sizes the grid for that).
-template <int RT>
+template <int RT, int kMode>
 __global__ void __launch_bounds__(kThreads, 2)
 moe_gemm_f32(const float* __restrict__ x, const float* __restrict__ w,
              const int* __restrict__ tok, const int* __restrict__ tiles_buf,
@@ -280,7 +383,7 @@ moe_gemm_f32(const float* __restrict__ x, const float* __restrict__ w,
   const int lane = tid % 32, warp = tid / 32;
   const int tx = lane % 8 + 8 * (warp % 2);  // columns 4tx.., 64 + 4tx..
   const int ty = lane / 8 + 4 * (warp / 2);  // rows RT ty .. RT ty + RT - 1
-  const int n_ntiles = F / kBN, nk = D / kBK;
+  const int n_ntiles = (F + kBN - 1) / kBN, nk = (D + kBK - 1) / kBK;
   const int n_items = tiles_buf[0] * n_ntiles;
   const Tile* tiles = tile_records(tiles_buf);
 
@@ -293,8 +396,8 @@ moe_gemm_f32(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
     for (int s = 0; s < kStages - 1; ++s) {
       if (s < nk)
-        issue<RT>(smem + s * Geo::kStageFloats, x, we, sTok, tl.rows, D, F,
-                  s * kBK);
+        issue<RT, kMode>(smem + s * Geo::kStageFloats, x, we, sTok, tl.rows,
+                         D, F, n0, s * kBK);
       cp_async_commit();
     }
     float acc[RT][8];
@@ -308,8 +411,8 @@ moe_gemm_f32(const float* __restrict__ x, const float* __restrict__ w,
       __syncthreads();  // stage kt landed; buffer kt-1 is free
       const int nxt = kt + kStages - 1;
       if (nxt < nk)
-        issue<RT>(smem + (nxt % kStages) * Geo::kStageFloats, x, we, sTok,
-                  tl.rows, D, F, nxt * kBK);
+        issue<RT, kMode>(smem + (nxt % kStages) * Geo::kStageFloats, x, we,
+                         sTok, tl.rows, D, F, n0, nxt * kBK);
       cp_async_commit();
       const float* sA = smem + (kt % kStages) * Geo::kStageFloats;
       const float* sB = sA + Geo::kBM * kBK;
@@ -345,26 +448,48 @@ moe_gemm_f32(const float* __restrict__ x, const float* __restrict__ w,
       const int r = RT * ty + i;
       if (r < tl.rows) {
         float* dst = y + static_cast<int64_t>(sTok[r]) * F + n0;
-        *reinterpret_cast<float4*>(dst + 4 * tx) =
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-        *reinterpret_cast<float4*>(dst + 64 + 4 * tx) =
-            make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int col = 64 * h + 4 * tx;  // of the N-tile
+          if constexpr (kMode == kNarrow) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (n0 + col + e < F) dst[col + e] = acc[i][4 * h + e];
+          } else if (kMode == kExact || n0 + col < F) {
+            *reinterpret_cast<float4*>(dst + col) =
+                make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                            acc[i][4 * h + 2], acc[i][4 * h + 3]);
+          }
+        }
       }
     }
     __syncthreads();  // sTok and the ring are refilled by the next item
   }
 }
 
-template <int RT>
+template <int RT, int kMode>
 int launch(const float* x, const float* w, const int* tok, const int* tiles,
            float* y, int D, int F, int grid, cudaStream_t stream) {
   constexpr int smem = Tiling<RT>::kSmem;
+  auto* kern = moe_gemm_f32<RT, kMode>;
   const cudaError_t err = cudaFuncSetAttribute(
-      moe_gemm_f32<RT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  moe_gemm_f32<RT><<<grid, kThreads, smem, stream>>>(x, w, tok, tiles, y, D,
-                                                     F);
+  kern<<<grid, kThreads, smem, stream>>>(x, w, tok, tiles, y, D, F);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Rows of 16-byte multiples (D, F % 4 == 0) take the wide copies, whole
+// K stages and N-tiles (D % kBK == 0, F % kBN == 0) no tail tests.
+template <int RT>
+int launch_rows(const float* x, const float* w, const int* tok,
+                const int* tiles, float* y, int D, int F, int grid,
+                cudaStream_t stream) {
+  if (D % kBK == 0 && F % kBN == 0)
+    return launch<RT, kExact>(x, w, tok, tiles, y, D, F, grid, stream);
+  return D % 4 == 0 && F % 4 == 0
+             ? launch<RT, kTail>(x, w, tok, tiles, y, D, F, grid, stream)
+             : launch<RT, kNarrow>(x, w, tok, tiles, y, D, F, grid, stream);
 }
 
 }  // namespace f32k
@@ -394,9 +519,34 @@ constexpr int kOut = kPanels * kPanel;    // a consumer's 64 x kBN
 constexpr int kSmem =
     1024 + kStages * (kATile + kBTile) + 2 * kOut + 8 * 3 * kStages;
 
+// Bytes a narrow copy moves: 4 (two bf16) where a row's length is even,
+// else 2 (one bf16, by a plain load and store).  Each lands at its place in
+// the 128-byte-swizzled layout: row r's 16-byte chunk c at chunk c ^ (r %
+// 8) of its 128-byte row.  `valid` elements are read from src (0 or the
+// copy's own count), the rest are zeros; `base`, an address inside the
+// array, stands in for src when none is read.
+__device__ __forceinline__ void copy_narrow(uint8_t* row_base, int r, int col,
+                                            const __nv_bfloat16* src,
+                                            const __nv_bfloat16* base,
+                                            int valid, bool pairs) {
+  uint8_t* dst = row_base + (((col / 8) ^ (r % 8)) * 16) + (col % 8) * 2;
+  if (pairs) {
+    cp_async4(smem_u32(dst), valid > 0 ? src : base, valid > 0 ? 4 : 0);
+  } else {
+    *reinterpret_cast<__nv_bfloat16*>(dst) =
+        valid > 0 ? *src : __float2bfloat16(0.f);
+  }
+}
+
+// kNarrow: x or w has rows that are not a multiple of 16 bytes; the
+// producers bring A and B in 4- or 2-byte copies, and B without TMA.
+// kTail: a K tail or a panel F ends inside (D or F % 64 != 0): A's copies
+// past D are zero-filled, B's by TMA's fill; kExact: neither.
+template <int kMode>
 __global__ void __launch_bounds__(kThreads, 1)
 moe_gemm_sm90(const __grid_constant__ CUtensorMap tm_w,
               const __nv_bfloat16* __restrict__ x,
+              const __nv_bfloat16* __restrict__ w,
               const int* __restrict__ tok, const int* __restrict__ tiles_buf,
               __nv_bfloat16* __restrict__ y, int D, int F) {
   extern __shared__ uint8_t smem_raw[];
@@ -408,7 +558,7 @@ moe_gemm_sm90(const __grid_constant__ CUtensorMap tm_w,
   uint64_t* empty = full_b + kStages;
 
   const int tid = threadIdx.x;
-  const int n_ntiles = (F + kBN - 1) / kBN, nk = D / kBK;
+  const int n_ntiles = (F + kBN - 1) / kBN, nk = (D + kBK - 1) / kBK;
   const int n_items = tiles_buf[0] * n_ntiles;
   const Tile* tiles = tile_records(tiles_buf);
 
@@ -426,37 +576,76 @@ moe_gemm_sm90(const __grid_constant__ CUtensorMap tm_w,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 56;" ::: "memory");
     // Thread tid copies chunk tid % 8 of rows tid / 8 + 16 j of each A tile.
     const int ch = tid % 8;
+    const bool x_pairs = D % 2 == 0, w_pairs = F % 2 == 0;
     int it = 0;  // stages issued, over all items
     for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
       const Tile tl = tiles[item / n_ntiles];
       const int n0 = (item % n_ntiles) * kBN;
       // Panels past F (the last N-tile of an F that is not a multiple of
       // kBN) are not loaded; their columns are computed from stale data and
-      // never stored.
-      const int panels = min(kPanels, (F - n0) / 64);
+      // never stored.  A panel F ends inside is loaded whole, its columns
+      // past F zeros (TMA's fill, or the narrow copies').
+      const int panels = min(kPanels, (F - n0 + 63) / 64);
       const __nv_bfloat16* src[8];
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int r = tid / 8 + 16 * j;
         src[j] = x + (r < tl.rows ? static_cast<int64_t>(tok[tl.row0 + r]) * D
-                                  : 0) + ch * 8;
+                                  : 0);
       }
+      const __nv_bfloat16* we = w + static_cast<int64_t>(tl.expert) * D * F;
       for (int kt = 0; kt < nk; ++kt, ++it) {
         const int s = it % kStages;
         mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
-        if (tid == 0) {
-          uint8_t* b = sB + s * kBTile;
-          mbar_expect_tx(&full_b[s], panels * kPanel);
-          for (int p = 0; p < panels; ++p)
-            tma_load(b + p * kPanel, &tm_w, &full_b[s], n0 + 64 * p, kt * kBK,
-                     tl.expert);
-        }
-        const uint32_t a = smem_u32(sA + s * kATile);
+        const int k0 = kt * kBK;
+        if constexpr (kMode != kNarrow) {
+          if (tid == 0) {
+            uint8_t* b = sB + s * kBTile;
+            mbar_expect_tx(&full_b[s], panels * kPanel);
+            for (int p = 0; p < panels; ++p)
+              tma_load(b + p * kPanel, &tm_w, &full_b[s], n0 + 64 * p, k0,
+                       tl.expert);
+          }
+          const uint32_t a = smem_u32(sA + s * kATile);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int r = tid / 8 + 16 * j;
-          cp_async16(a + r * 128 + ((ch ^ (r % 8)) * 16), src[j] + kt * kBK,
-                     r < tl.rows ? 16 : 0);
+          for (int j = 0; j < 8; ++j) {
+            const int r = tid / 8 + 16 * j;
+            const uint32_t dst = a + r * 128 + ((ch ^ (r % 8)) * 16);
+            if constexpr (kMode == kExact) {
+              cp_async16(dst, src[j] + k0 + ch * 8, r < tl.rows ? 16 : 0);
+            } else {
+              const bool ok = r < tl.rows && k0 + ch * 8 < D;
+              cp_async16(dst, ok ? src[j] + k0 + ch * 8 : x, ok ? 16 : 0);
+            }
+          }
+        } else {
+          if (tid == 0) mbar_arrive(&full_b[s]);  // B comes with A's copies
+          const int step = x_pairs ? 2 : 1;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int r = tid / 8 + 16 * j;
+            uint8_t* row = sA + s * kATile + r * 128;
+            for (int e = 0; e < 8; e += step) {
+              const int k = k0 + ch * 8 + e;
+              const int valid = r < tl.rows ? min(step, D - k) : 0;
+              copy_narrow(row, r, ch * 8 + e, src[j] + k, x, valid, x_pairs);
+            }
+          }
+          // B: panels x 64 rows x 8 chunks of 8 columns, chunk q of the
+          // stage's list to thread q % 128.
+          const int wstep = w_pairs ? 2 : 1;
+          for (int q = tid; q < panels * 64 * 8; q += 128) {
+            const int p = q / 512, k = (q / 8) % 64, c = q % 8;
+            uint8_t* row = sB + s * kBTile + p * kPanel + k * 128;
+            const int col = n0 + 64 * p + 8 * c;
+            const __nv_bfloat16* wsrc =
+                we + static_cast<int64_t>(min(k0 + k, D - 1)) * F;
+            for (int e = 0; e < 8; e += wstep) {
+              const int valid = k0 + k < D ? min(wstep, F - col - e) : 0;
+              copy_narrow(row, k, 8 * c + e, wsrc + col + e, w, valid,
+                          w_pairs);
+            }
+          }
         }
         cp_async_commit();
         if (it >= kLag) {  // stage it - kLag has landed: hand it over
@@ -530,15 +719,31 @@ moe_gemm_sm90(const __grid_constant__ CUtensorMap tm_w,
       }
     }
     asm volatile("bar.sync %0, 128;" ::"r"(1 + c) : "memory");
-    const int chunks = min(kBN, F - n0) / 8;  // 16-byte segments in a row
-    for (int i = t; i < 64 * chunks; i += 128) {
-      const int row = i / chunks, chk = i % chunks;
-      if (64 * c + row < tl.rows) {
-        const uint4 val = *reinterpret_cast<const uint4*>(
-            out + (chk / 8) * kPanel + row * 128 +
-            (((chk % 8) ^ (row % 8)) * 16));
-        const int64_t dst = static_cast<int64_t>(tok[tl.row0 + 64 * c + row]);
-        *reinterpret_cast<uint4*>(y + dst * F + n0 + chk * 8) = val;
+    const int cols = min(kBN, F - n0);
+    if (kMode != kNarrow || F % 8 == 0) {
+      const int chunks = cols / 8;  // 16-byte segments in a row
+      for (int i = t; i < 64 * chunks; i += 128) {
+        const int row = i / chunks, chk = i % chunks;
+        if (64 * c + row < tl.rows) {
+          const uint4 val = *reinterpret_cast<const uint4*>(
+              out + (chk / 8) * kPanel + row * 128 +
+              (((chk % 8) ^ (row % 8)) * 16));
+          const int64_t dst =
+              static_cast<int64_t>(tok[tl.row0 + 64 * c + row]);
+          *reinterpret_cast<uint4*>(y + dst * F + n0 + chk * 8) = val;
+        }
+      }
+    } else {  // rows that are not 16-byte multiples: element by element
+      for (int i = t; i < 64 * cols; i += 128) {
+        const int row = i / cols, col = i % cols;
+        if (64 * c + row < tl.rows) {
+          const __nv_bfloat16 val = *reinterpret_cast<const __nv_bfloat16*>(
+              out + (col / 64) * kPanel + row * 128 +
+              ((((col % 64) / 8) ^ (row % 8)) * 16) + (col % 8) * 2);
+          const int64_t dst =
+              static_cast<int64_t>(tok[tl.row0 + 64 * c + row]);
+          y[dst * F + n0 + col] = val;
+        }
       }
     }
     asm volatile("bar.sync %0, 128;" ::"r"(1 + c) : "memory");
@@ -564,17 +769,24 @@ bool make_w_map(CUtensorMap* map, const void* w, int D, int F, int E) {
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// Rows of x and w that are 16-byte multiples (D, F % 8 == 0) take TMA and
+// 16-byte copies (whole K stages and panels, D and F % 64 == 0, without
+// tail tests), other rows the narrow instance.
 int launch(const __nv_bfloat16* x, const void* w, const int* tok,
            const int* tiles, __nv_bfloat16* y, int D, int F, int E, int grid,
            cudaStream_t stream) {
-  CUtensorMap tm;
-  if (!make_w_map(&tm, w, D, F, E))
+  const bool narrow = D % 8 != 0 || F % 8 != 0;
+  CUtensorMap tm{};  // unused by the narrow instance
+  if (!narrow && !make_w_map(&tm, w, D, F, E))
     return static_cast<int>(cudaErrorInvalidValue);
+  auto* kern = narrow                           ? moe_gemm_sm90<kNarrow>
+               : D % kBK == 0 && F % 64 == 0 ? moe_gemm_sm90<kExact>
+                                               : moe_gemm_sm90<kTail>;
   const cudaError_t err = cudaFuncSetAttribute(
-      moe_gemm_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  moe_gemm_sm90<<<grid, kThreads, kSmem, stream>>>(tm, x, tok, tiles, y, D,
-                                                   F);
+  kern<<<grid, kThreads, kSmem, stream>>>(
+      tm, x, static_cast<const __nv_bfloat16*>(w), tok, tiles, y, D, F);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -585,7 +797,7 @@ int launch(const __nv_bfloat16* x, const void* w, const int* tok,
 // The pre-pass alone: checks tok and eid (traps on a token or expert id out
 // of range, or a repeated token) and writes the list of tiles of at most bm
 // rows into `tiles` (int32: count, 3 zeros, then T records of (row0, rows,
-// expert, 0)).
+// expert, 0), then the bitmap's ceil(T / 32) words).
 REPRO_EXPORT int moe_tile_list_launch(const void* tok, const void* eid,
                                       void* tiles, int n_tokens,
                                       int n_experts, int bm, void* stream) {
@@ -598,13 +810,12 @@ REPRO_EXPORT int moe_tile_list_launch(const void* tok, const void* eid,
 }
 
 // Contract (checked by the Python wrapper): contiguous x [T, D], w [E, D,
-// F], int32 tok and eid [T], int32 scratch tiles [4 + 4 T], y [T, F];
-// D % 64 == 0, F % 128 == 0, 16-byte aligned x, w and y; the pre-pass's
-// bitmap within the card's shared memory; bm, the rows of an M-tile, 128
-// for bf16 and 128 or 32 for f32; grid, the blocks of the persistent GEMM
-// (plan.launch_shape: no more than fit on the card at once).  Two launches:
-// the pre-pass (which checks tok and eid on the card), then the grouped
-// GEMM.
+// F], int32 tok and eid [T], int32 scratch tiles [4 + 4 T + ceil(T / 32)],
+// y [T, F]; D >= 1, F >= 1, 16-byte aligned x, w and y; bm, the rows of an
+// M-tile, 128 for bf16 and 128 or 32 for f32; grid, the blocks of the
+// persistent GEMM (plan.launch_shape: no more than fit on the card at
+// once).  Two launches (three above 1 859 584 tokens): the pre-pass (which
+// checks tok and eid on the card), then the grouped GEMM.
 REPRO_EXPORT int moe_dispatch_launch(int dtype, const void* x, const void* w,
                                      const void* tok, const void* eid,
                                      void* tiles, void* y, int n_tokens, int D,
@@ -612,9 +823,8 @@ REPRO_EXPORT int moe_dispatch_launch(int dtype, const void* x, const void* w,
                                      void* stream) {
   if (n_tokens == 0) return static_cast<int>(cudaSuccess);
   const bool f32 = dtype == REPRO_F32, bf16 = dtype == REPRO_BF16;
-  if (n_tokens < 0 || D < 64 || D % 64 || F < kBN || F % kBN ||
-      n_experts < 1 || grid < 1 || !(f32 || bf16) ||
-      !(bm == 128 || (f32 && bm == f32k::Tiling<2>::kBM)))
+  if (n_tokens < 0 || D < 1 || F < 1 || n_experts < 1 || grid < 1 ||
+      !(f32 || bf16) || !(bm == 128 || (f32 && bm == f32k::Tiling<2>::kBM)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* tk = static_cast<const int*>(tok);
@@ -630,6 +840,7 @@ REPRO_EXPORT int moe_dispatch_launch(int dtype, const void* x, const void* w,
   const float* xf = static_cast<const float*>(x);
   const float* wf = static_cast<const float*>(w);
   float* yf = static_cast<float*>(y);
-  return bm == 128 ? f32k::launch<8>(xf, wf, tk, tl, yf, D, F, grid, s)
-                   : f32k::launch<2>(xf, wf, tk, tl, yf, D, F, grid, s);
+  return bm == 128
+             ? f32k::launch_rows<8>(xf, wf, tk, tl, yf, D, F, grid, s)
+             : f32k::launch_rows<2>(xf, wf, tk, tl, yf, D, F, grid, s);
 }

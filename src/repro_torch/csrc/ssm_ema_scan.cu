@@ -36,6 +36,16 @@
 // width 224 blocks of 32 channels, 2 an SM, keep 2 stages of 12 KB each in
 // flight (plan.py's EMA_FLIGHT_BYTES across the card): deeper rings timed
 // slower.
+//
+// Every D >= 1: the grid is ceil(D / CH) blocks, and the consumers of the
+// last block's channels past D compute and store nothing.  TMA needs a row
+// stride that is a multiple of 16 bytes; where x's rows are not (f32 D %
+// 4 != 0, bf16 D % 8 != 0), kCopyWarps producer warps bring the same
+// [S, CH] tiles with cp.async of the widest of 8 and 4 bytes that divides
+// a row, each thread's copies arriving on the stage's full mbarrier as
+// they land (cp.async.mbarrier.arrive.noinc), or, for bf16 rows of an odd
+// D, with plain loads and stores before its arrival (plan.py's `piece`).
+// Copies of channels past D are not made: nothing reads them.
 #include "common.cuh"
 #include "sm90.cuh"  // mbarriers, the tensor-map encoder, TMA loads
 
@@ -44,6 +54,7 @@ namespace {
 using namespace sm90;
 
 constexpr int kMaxThreads = 160;  // 4 consumer warps and the producer
+constexpr int kCopyWarps = 4;     // producer warps that copy without TMA
 
 // Shared memory of one block: the ring of [S, CH] tiles of x, dt and g, a
 // full and an empty mbarrier a stage, and 128 bytes to align the ring
@@ -55,14 +66,74 @@ __host__ inline size_t smem_bytes(int CH, int S, int ring, int elem_bytes) {
          128;
 }
 
-// grid (D / CH); 32 * (ceil(CH / 32) + 1) threads: thread tid < CH walks
-// channel blockIdx.x * CH + tid, the last warp is the producer.
+// cp.async of `bytes` (4 or 8) bytes whose completion the stage's mbarrier
+// tracks once the thread issues cp_async_arrive.
+__device__ __forceinline__ void cp_async_small(void* dst, const void* src,
+                                               int bytes) {
+  const uint32_t d = smem_u32(dst);
+  if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Producer thread `lane` of `lanes` copies its share of stage i's [S, CH]
+// tiles of x, dt and g (channels d0 .. d0 + CH - 1 that lie below D, steps
+// below n_steps) into dst, in pieces of `piece` bytes: cp.async for 4 and
+// 8, plain loads and stores for 2 (a bf16 row of odd length).
 template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
+__device__ __forceinline__ void copy_stage(
+    T* dst, const T* __restrict__ x, const T* __restrict__ dt,
+    const T* __restrict__ g, int lane, int lanes, int i, int n_steps, int D,
+    int CH, int S, int d0, int piece) {
+  const int tile = S * CH;
+  const int vec = piece / static_cast<int>(sizeof(T));  // elements a piece
+  const int lanes_row = min(CH / vec, 32);  // lanes a row (powers of two)
+  const int rows_pass = lanes / lanes_row;
+  const int t0 = i * S;
+  const int rows = min(S, n_steps - t0);
+  const int cols = min(CH, D - d0);  // a multiple of vec
+  const int k0 = (lane % lanes_row) * vec;
+  for (int r = lane / lanes_row; r < rows; r += rows_pass) {
+    const int64_t off = static_cast<int64_t>(t0 + r) * D + d0;
+    T* to = dst + r * CH;
+    for (int k = k0; k < cols; k += lanes_row * vec) {
+      if (piece >= 4) {
+        cp_async_small(to + k, x + off + k, piece);
+        cp_async_small(to + tile + k, dt + off + k, piece);
+        cp_async_small(to + 2 * tile + k, g + off + k, piece);
+      } else {
+        to[k] = x[off + k];
+        to[tile + k] = dt[off + k];
+        to[2 * tile + k] = g[off + k];
+      }
+    }
+  }
+}
+
+// grid (ceil(D / CH)); 32 * ceil(CH / 32) consumer threads and the
+// producer warp (kCopyWarps of them without TMA): thread tid < CH walks
+// channel blockIdx.x * CH + tid (if it lies below D).  piece 16 loads by
+// TMA through the tensor maps, else from x, dt and g (copy_stage).  kGeneral false is
+// the instance for CH dividing D and TMA (the reference's kernel route),
+// with neither test.
+template <typename T, bool kGeneral>
+__global__ void __launch_bounds__(kGeneral ? kMaxThreads + 96 : kMaxThreads)
 ssm_ema_kernel(const __grid_constant__ CUtensorMap tm_x,
                const __grid_constant__ CUtensorMap tm_dt,
-               const __grid_constant__ CUtensorMap tm_g, T* __restrict__ y,
-               int n_steps, int D, int CH, int S, int ring) {
+               const __grid_constant__ CUtensorMap tm_g,
+               const T* __restrict__ x, const T* __restrict__ dt,
+               const T* __restrict__ g, T* __restrict__ y, int n_steps,
+               int D, int CH, int S, int ring, int piece) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base =
       smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
@@ -76,32 +147,48 @@ ssm_ema_kernel(const __grid_constant__ CUtensorMap tm_x,
   const int d0 = blockIdx.x * CH;
   const int tid = threadIdx.x;
 
+  const bool tma = !kGeneral || piece == 16;
   if (tid == 0) {
     for (int s = 0; s < ring; ++s) {
-      mbar_init(&full[s], 1);
+      mbar_init(&full[s], tma ? 1 : 32 * kCopyWarps);  // TMA, or each copier
       mbar_init(&empty[s], n_warps);  // one arrival per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  if (tid >= 32 * n_warps) {  // producer warp
-    if (tid == 32 * n_warps) {
-      const uint32_t bytes = 3u * tile * sizeof(T);  // whole boxes, tail too
+  if (tid >= 32 * n_warps) {  // producer warps
+    if (tma) {
+      if (tid == 32 * n_warps) {
+        const uint32_t bytes = 3u * tile * sizeof(T);  // whole boxes, tails too
+        for (int i = 0; i < n_stages; ++i) {
+          const int s = i % ring;
+          mbar_wait(&empty[s], ((i / ring) & 1) ^ 1);
+          T* dst = sring + static_cast<size_t>(s) * 3 * tile;
+          mbar_expect_tx(&full[s], bytes);
+          tma_load_2d(dst, &tm_x, &full[s], d0, i * S);
+          tma_load_2d(dst + tile, &tm_dt, &full[s], d0, i * S);
+          tma_load_2d(dst + 2 * tile, &tm_g, &full[s], d0, i * S);
+        }
+      }
+    } else if constexpr (kGeneral) {
+      const int lane = tid - 32 * n_warps;
       for (int i = 0; i < n_stages; ++i) {
         const int s = i % ring;
         mbar_wait(&empty[s], ((i / ring) & 1) ^ 1);
-        T* dst = sring + static_cast<size_t>(s) * 3 * tile;
-        mbar_expect_tx(&full[s], bytes);
-        tma_load_2d(dst, &tm_x, &full[s], d0, i * S);
-        tma_load_2d(dst + tile, &tm_dt, &full[s], d0, i * S);
-        tma_load_2d(dst + 2 * tile, &tm_g, &full[s], d0, i * S);
+        copy_stage(sring + static_cast<size_t>(s) * 3 * tile, x, dt, g, lane,
+                   32 * kCopyWarps, i, n_steps, D, CH, S, d0, piece);
+        if (piece >= 4)
+          cp_async_arrive(&full[s]);
+        else
+          mbar_arrive(&full[s]);
       }
     }
     return;
   }
 
-  const bool active = tid < CH;  // lanes past CH (CH < 32) only keep step
+  // lanes past CH (CH < 32) and channels past D only keep step
+  const bool active = tid < CH && (!kGeneral || d0 + tid < D);
   float h = 0.f;
   T* yp = y + d0 + tid;
   for (int i = 0; i < n_stages; ++i) {
@@ -146,48 +233,60 @@ bool make_map(CUtensorMap* map, const void* base, CUtensorMapDataType type,
 template <typename T>
 int launch(CUtensorMapDataType type, const void* x, const void* dt,
            const void* g, void* y, int n_steps, int D, int CH, int S,
-           int ring, cudaStream_t stream) {
-  CUtensorMap tx, tdt, tg;
+           int ring, int piece, cudaStream_t stream) {
+  CUtensorMap tx{}, tdt{}, tg{};  // unused unless piece is 16
   const int elem = static_cast<int>(sizeof(T));
-  if (!make_map(&tx, x, type, elem, n_steps, D, CH, S) ||
-      !make_map(&tdt, dt, type, elem, n_steps, D, CH, S) ||
-      !make_map(&tg, g, type, elem, n_steps, D, CH, S))
+  if (piece == 16 &&
+      (!make_map(&tx, x, type, elem, n_steps, D, CH, S) ||
+       !make_map(&tdt, dt, type, elem, n_steps, D, CH, S) ||
+       !make_map(&tg, g, type, elem, n_steps, D, CH, S)))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(CH, S, ring, elem);
-  auto* kern = ssm_ema_kernel<T>;
+  auto* kern = piece == 16 && D % CH == 0 ? ssm_ema_kernel<T, false>
+                                          : ssm_ema_kernel<T, true>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<D / CH, 32 * ((CH + 31) / 32 + 1), smem, stream>>>(
-      tx, tdt, tg, static_cast<T*>(y), n_steps, D, CH, S, ring);
+  const int producers = piece == 16 ? 1 : kCopyWarps;  // warps
+  kern<<<(D + CH - 1) / CH, 32 * ((CH + 31) / 32 + producers), smem,
+         stream>>>(
+      tx, tdt, tg, static_cast<const T*>(x), static_cast<const T*>(dt),
+      static_cast<const T*>(g), static_cast<T*>(y), n_steps, D, CH, S, ring,
+      piece);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Contract (checked by the Python wrapper): contiguous, 16-byte aligned
-// x, dt, g and contiguous y [T, D]; the plan from plan.py: CH channels a
-// block (a power of two, at most 128, dividing D, rows of at least 16
+// x, dt, g and contiguous y [T, D], D >= 1; the plan from plan.py: CH
+// channels a block (a power of two, at most 128, rows of at least 16
 // bytes), S steps a stage (at most 256, the TMA box's limit; a tile a
 // multiple of 128 bytes), a ring of `ring` stages within the shared memory
-// a block may use.
+// a block may use, and `piece`, the bytes of a copy: 16 (TMA; x's rows a
+// multiple of 16 bytes), 8 or 4 (cp.async; dividing a row's bytes) or 2
+// (plain loads of bf16).
 REPRO_EXPORT int ssm_ema_launch(int dtype, const void* x, const void* dt,
                                 const void* g, void* y, int n_steps, int D,
-                                int CH, int S, int ring, void* stream) {
+                                int CH, int S, int ring, int piece,
+                                void* stream) {
   const int elem = dtype == REPRO_BF16 ? 2 : 4;
+  const int64_t row = static_cast<int64_t>(D) * elem;
   if (n_steps < 0 || D < 0 || CH < 1 || (CH & (CH - 1)) ||
-      CH > kMaxThreads - 32 || CH * elem < 16 || (D > 0 && D % CH) ||
-      S < 1 || S > 256 || (S * CH * elem) % 128 || ring < 1 ||
-      smem_bytes(CH, S, ring, elem) > 232448)
+      CH > kMaxThreads - 32 || CH * elem < 16 || S < 1 || S > 256 ||
+      (S * CH * elem) % 128 || ring < 1 ||
+      smem_bytes(CH, S, ring, elem) > 232448 ||
+      !(piece == 16 || piece == 8 || piece == 4 || piece == elem) ||
+      row % piece)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_steps == 0 || D == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == REPRO_F32)
     return launch<float>(CU_TENSOR_MAP_DATA_TYPE_FLOAT32, x, dt, g, y,
-                         n_steps, D, CH, S, ring, s);
+                         n_steps, D, CH, S, ring, piece, s);
   if (dtype == REPRO_BF16)
     return launch<__nv_bfloat16>(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, dt, g,
-                                 y, n_steps, D, CH, S, ring, s);
+                                 y, n_steps, D, CH, S, ring, piece, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -2,10 +2,13 @@
 
 Each package has ``ref.py`` (the plain PyTorch version), ``kernel.py``
 (the ctypes wrapper of ``csrc/<name>.cu``, with a plain-int ``launches``
-counter it bumps on every launch), ``ops.py`` (the entry point: computes
-the launch spec, records it, launches the kernel for CUDA tensors and the
-plain version for CPU tensors, and raises otherwise) and ``capture.py``
-(the per-thread capture hook of the suite):
+counter it bumps on every launch), ``ops.py`` (the entry points, as the
+reference's: a kernel-level one that computes the launch spec and records
+it, and a dispatcher that records it only where the reference launches
+its Pallas kernel; both launch the kernel for CUDA tensors and the plain
+version for CPU tensors, and raise otherwise) and ``capture.py`` (the
+per-thread capture hook of the suite, which calls the kernel-level
+entry):
 
 - ``stream``          — STREAM copy/scale/add/triad (one kernel);
 - ``token_gather``    — row gather steered by an index vector;
@@ -33,9 +36,9 @@ __all__ = ["KERNELS", "launch_counts", "reset_launch_counts",
 # Kernel name (= csrc/<name>.cu) -> the wrapper that launches it.
 KERNELS = {
     "stream": stream.kernel.stream_cuda,
-    "token_gather": token_gather.kernel.gather_rows,
-    "flash_attention": flash_attention.kernel.flash_attention,
-    "paged_kv_decode": paged_kv_decode.kernel.paged_decode_attention,
+    "token_gather": token_gather.kernel.gather_rows_cuda,
+    "flash_attention": flash_attention.kernel.flash_attention_cuda,
+    "paged_kv_decode": paged_kv_decode.kernel.paged_decode_cuda,
     "moe_dispatch": moe_dispatch.kernel.moe_grouped_gemm,
     "ssm_ema_scan": ssm_scan.kernel.ssm_ema_cuda,
     "ssm_chunked_scan": ssm_scan.kernel.ssm_chunked_cuda,
@@ -51,6 +54,6 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
-    split = flash_attention.kernel.flash_attention.launches_by_kernel
+    split = flash_attention.kernel.flash_attention_cuda.launches_by_kernel
     for name in split:
         split[name] = 0

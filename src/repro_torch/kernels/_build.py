@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -60,30 +61,43 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: list[str]) -> dict[str, str]:
+def build(names: list[str], seconds: dict | None = None) -> dict[str, str]:
     """Compile every named kernel whose library is missing, all nvcc
     processes started together; returns each built kernel's compiler log
-    (ptxas register and shared-memory report).  Raises on a failed build."""
+    (ptxas register and shared-memory report), and puts each one's nvcc
+    wall seconds in ``seconds`` where given.  Raises on a failed build."""
     with _LOCK:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
         procs = {}
         for name in names:
             lib = library_path(name)
             if lib.exists():
                 continue
             tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-            procs[name] = (lib, tmp, subprocess.Popen(
+            log = open(lib.with_suffix(f".{os.getpid()}.log"), "w+")
+            procs[name] = (lib, tmp, log, subprocess.Popen(
                 nvcc_command(CSRC / f"{name}.cu", tmp),
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+                stdout=log, stderr=subprocess.STDOUT))
         logs, failed = {}, []
-        for name, (lib, tmp, proc) in procs.items():
-            out, _ = proc.communicate()
-            logs[name] = out
-            if proc.returncode != 0:
-                failed.append(f"{name} (nvcc exit {proc.returncode}):\n{out}")
-                tmp.unlink(missing_ok=True)
-            else:
-                os.replace(tmp, lib)
+        while procs:
+            for name, (lib, tmp, log, proc) in list(procs.items()):
+                if proc.poll() is None:
+                    continue
+                del procs[name]
+                if seconds is not None:
+                    seconds[name] = time.perf_counter() - t0
+                log.seek(0)
+                logs[name] = out = log.read()
+                log.close()
+                Path(log.name).unlink()
+                if proc.returncode != 0:
+                    failed.append(f"{name} (nvcc exit {proc.returncode}):\n{out}")
+                    tmp.unlink(missing_ok=True)
+                else:
+                    os.replace(tmp, lib)
+            if procs:
+                time.sleep(0.05)
         if failed:
             raise RuntimeError("kernel build failed: " + "\n".join(failed))
         return logs
@@ -136,7 +150,8 @@ def dtype_code(*tensors: torch.Tensor) -> int:
     dtypes = {t.dtype for t in tensors}
     if len(dtypes) != 1 or next(iter(dtypes)) not in DTYPE_CODES:
         raise ValueError(
-            f"kernel takes one dtype of {list(DTYPE_CODES)}, got {dtypes}")
+            f"kernel takes one dtype of {list(DTYPE_CODES)}, got {dtypes} "
+            f"(other dtypes: ROADMAP.md, queue 2)")
     return DTYPE_CODES[dtypes.pop()]
 
 

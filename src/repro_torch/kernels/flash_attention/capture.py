@@ -22,7 +22,7 @@ from repro_torch.capture.grid import GridCapture
 from repro_torch.capture.launch import capture_launch, memoized
 from repro_torch.device import resolve_device
 
-from .ops import mha
+from .ops import flash_attention
 
 __all__ = ["capture"]
 
@@ -53,4 +53,5 @@ def _launch(sq_t: int, sk_t: int, d: int, bq: int, bk: int,
     k = torch.randn(1, sk_t, 1, d, generator=gen, device=dev)
     v = torch.randn(1, sk_t, 1, d, generator=gen, device=dev)
     return capture_launch(
-        lambda: mha(q, k, v, causal=False, block_q=bq, block_k=bk), dev)
+        lambda: flash_attention(q, k, v, causal=False, block_q=bq,
+                                block_k=bk), dev)

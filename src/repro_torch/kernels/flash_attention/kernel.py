@@ -1,7 +1,7 @@
 """Flash attention forward as CUDA kernels (``csrc/flash_attention.cu``).
 
 Replaces ``flash_attention`` of ``repro/kernels/flash_attention/kernel.py``.
-:func:`flash_attention` launches one block per ``(b*h, 128-row q tile)``
+:func:`flash_attention_cuda` launches one block per ``(b*h, 128-row q tile)``
 (times the kv ranges of a split), each looping its kv rows itself; the
 spec's tiles are the reference's and only set what the trace walk
 replays.  The kernels read q, k and v in their [B, S, heads, D] layout, so
@@ -38,7 +38,7 @@ from .plan import (MAX_HEAD_DIM, SM90_MAX_HEAD_DIM, TILED_MAX_HEAD_DIM,
                    f32_tiles, padded_head_dim, split_plan, sm90_kv_rows,
                    wide_f32_plan, wide_sm90_plan)
 
-__all__ = ["flash_attention", "kernel_path", "head_dim_ok", "max_head_dim",
+__all__ = ["flash_attention_cuda", "kernel_path", "head_dim_ok", "max_head_dim",
            "SM90_BLOCK"]
 
 SM90_BLOCK = 128        # bf16: the q tile rows flash_fwd_sm90 walks
@@ -70,7 +70,7 @@ def kernel_path(dtype: torch.dtype, d: int, block_q: int = 128,
     ``plan.wide_f32_plan`` and ``plan.wide_sm90_plan`` above D = 256, the
     last of each partial where Sq or Sk ends inside it), so every tile
     ``ops.launch_spec`` gives is taken, and a launch with no reference
-    geometry (``spec`` None in :func:`flash_attention`) too."""
+    geometry (``spec`` None in :func:`flash_attention_cuda`) too."""
     if dtype not in PATHS:
         raise ValueError(f"flash_attention kernel takes {list(PATHS)}, "
                          f"got {dtype}")
@@ -92,15 +92,15 @@ def _fn():
         [i, v, v, v, v, v, i, i, i, i, i, i, i, ctypes.c_float, i, i, i, v])
 
 
-def flash_attention(spec: LaunchSpec | None, q: torch.Tensor,
-                    k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool) -> torch.Tensor:
+def flash_attention_cuda(spec: LaunchSpec | None, q: torch.Tensor,
+                         k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool) -> torch.Tensor:
     """Launch the kernel on CUDA tensors: q [B, Sq, H, D], k and v
     [B, Sk, G, D] -> [B, Sq, H, D], at any Sq, Sk >= 1.  ``spec`` is the
     reference's launch geometry where one exists (``ops.launch_spec``),
     else None; the kernels walk their own tiles either way."""
     if not _build.on_card(q, k, v):
-        raise ValueError("flash_attention takes CUDA tensors")
+        raise ValueError("flash_attention_cuda takes CUDA tensors")
     code = _build.dtype_code(q, k, v)
     b, sq, h, d = q.shape
     _, sk, g, _ = k.shape
@@ -115,7 +115,8 @@ def flash_attention(spec: LaunchSpec | None, q: torch.Tensor,
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
                for t in (q, k, v)):
         raise ValueError("flash_attention kernel takes contiguous, 16-byte "
-                         "aligned inputs")
+                         "aligned inputs (strided or unaligned views: "
+                         "ROADMAP.md, queue 2)")
     dp = padded_head_dim(d)
     if q.dtype == torch.float32:
         per, n_splits = split_plan(b, h, sq, sk, n_sm=_build.sm_count(q),
@@ -134,11 +135,11 @@ def flash_attention(spec: LaunchSpec | None, q: torch.Tensor,
                 b, sq, sk, h, g, d, int(causal), d ** -0.5, per,
                 n_splits, tile_k, _build.stream_ptr(q))
     _build.check("flash_attention", err)
-    flash_attention.launches += 1
-    flash_attention.launches_by_kernel[path] += 1
+    flash_attention_cuda.launches += 1
+    flash_attention_cuda.launches_by_kernel[path] += 1
     return out
 
 
-flash_attention.launches = 0
-flash_attention.launches_by_kernel = dict.fromkeys(
+flash_attention_cuda.launches = 0
+flash_attention_cuda.launches_by_kernel = dict.fromkeys(
     [*PATHS.values(), *WIDE_PATHS.values()], 0)

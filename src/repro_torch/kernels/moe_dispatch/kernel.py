@@ -6,8 +6,10 @@ whose grid walks the expert-sorted token stream one token a step.
 checks the token order is a permutation and builds the list of M-tiles
 (runs of one expert cut into at most ``plan.block_rows`` rows) in device
 memory, then a persistent grouped GEMM over (M-tile, N-tile) items, on
-the tensor cores for bf16 and the CUDA cores for f32.  :func:`tile_list_on_card` runs the
-pre-pass alone, to check its list against ``plan.tile_list``.
+the tensor cores for bf16 and the CUDA cores for f32, at every D, F >= 1
+and every token count (above 1 859 584 tokens the pre-pass's permutation
+check keeps its bitmap in global memory).  :func:`tile_list_on_card` runs
+the pre-pass alone, to check its list against ``plan.tile_list``.
 """
 
 from __future__ import annotations
@@ -22,9 +24,7 @@ from repro_torch.capture.launch import LaunchSpec
 from .. import _build
 from .plan import launch_shape, tile_capacity
 
-__all__ = ["moe_grouped_gemm", "tile_list_on_card", "MAX_SMEM_BYTES"]
-
-MAX_SMEM_BYTES = 232_448   # dynamic shared memory one Hopper block may use
+__all__ = ["moe_grouped_gemm", "tile_list_on_card"]
 
 
 @functools.cache
@@ -43,13 +43,11 @@ def _list_fn():
 
 def _tiles_scratch(t: int, device: torch.device) -> torch.Tensor:
     """The pre-pass's output: int32 count, three zeros, then the records
-    (row0, rows, expert, 0).  Raises when its bitmap of ``t`` bits would
-    not fit a block's shared memory."""
-    if (t + 31) // 32 * 4 + 128 > MAX_SMEM_BYTES:   # + its scan scratch
-        raise ValueError(f"moe dispatch on CUDA takes at most "
-                         f"{MAX_SMEM_BYTES * 8} tokens, got {t}")
-    return torch.empty(4 + 4 * tile_capacity(t), dtype=torch.int32,
-                       device=device)
+    (row0, rows, expert, 0), then room for a bitmap of ``t`` bits, which
+    the pre-pass keeps there where it would not fit a block's shared
+    memory."""
+    return torch.empty(4 + 4 * tile_capacity(t) + (t + 31) // 32,
+                       dtype=torch.int32, device=device)
 
 
 def _check_ids(t: int, tok: torch.Tensor, eid: torch.Tensor) -> None:
@@ -76,10 +74,10 @@ def moe_grouped_gemm(spec: LaunchSpec, x: torch.Tensor, w: torch.Tensor,
     _check_ids(t, tok, eid)
     if (x.shape != (t, d) or w.shape != (n_experts, d, f)
             or not (x.is_contiguous() and w.is_contiguous())
-            or x.data_ptr() % 16 or w.data_ptr() % 16 or d % 64 or f % 128):
+            or x.data_ptr() % 16 or w.data_ptr() % 16):
         raise ValueError("moe_grouped_gemm: expected contiguous, 16-byte "
-                         "aligned x [T, D] and w [E, D, F] with D % 64 == 0 "
-                         "and F % 128 == 0")
+                         "aligned x [T, D] and w [E, D, F] (strided or "
+                         "unaligned views: ROADMAP.md, queue 2)")
     if out is None:
         out = torch.empty((t, f), dtype=x.dtype, device=x.device)
     elif (out.shape != (t, f) or out.dtype != x.dtype

@@ -5,16 +5,15 @@ The launch spec is the reference's: grid ``(T,)``; the token order and the
 expert ids, both int32, read once (``tok`` first, then ``eid``); step
 ``i`` moves row ``tok[i]`` of x in (``[1, D]``), expert ``eid[i]``'s
 weight tile in (``[1, D, F]``, resident across a run of one expert) and
-row ``tok[i]`` of y out (``[1, F]``).  The reference decides on D and F
-multiples of 128 between kernel and oracle; here a CUDA tensor outside
-that raises.
+row ``tok[i]`` of y out (``[1, F]``).  On the card the kernel takes
+every D, F >= 1 and every token count; on the CPU the plain version
+computes.
 
 :func:`dispatch` is the reference's public dispatcher: where the reference
 runs its kernel (D and F multiples of 128) it is :func:`moe_dispatch`;
 elsewhere the reference's oracle launches no Pallas kernel and it emits no
 spec, computing on the CPU through the plain version and on the card
-through the kernel where it takes the shape (D % 64 == 0, F % 128 == 0),
-raising (naming ROADMAP.md) elsewhere.
+through the kernel.
 """
 
 from __future__ import annotations
@@ -83,9 +82,6 @@ def moe_dispatch_sorted(x: torch.Tensor, w: torch.Tensor, tok: torch.Tensor,
     spec = launch_spec(t, d, f, n_experts, tok, eid, x.dtype)
     emit(spec)
     if _build.on_card(x, w, tok, eid):
-        if d % 128 or f % 128:
-            raise ValueError(f"moe dispatch on CUDA needs D and F multiples "
-                             f"of 128, got D={d}, F={f}")
         return moe_grouped_gemm(spec, x, w, tok, eid)
     return moe_dispatch_sorted_ref(x, w, tok, eid)
 
@@ -103,16 +99,12 @@ def dispatch(x: torch.Tensor, w: torch.Tensor,
     """The reference's ``dispatch``: x [T, D]; w [E, D, F]; expert_ids [T]
     -> [T, F].  :func:`moe_dispatch` where the reference runs its kernel (D
     and F multiples of 128), else no launch spec: the plain version on the
-    CPU, the kernel on the card where it takes the shape."""
+    CPU, the kernel on the card."""
     d, f = x.shape[-1], w.shape[-1]
     if d % 128 == 0 and f % 128 == 0:
         return moe_dispatch(x, w, expert_ids)
     if not _build.on_card(x, w, expert_ids):
         return moe_dispatch_ref(x, w, expert_ids)
-    if d % 64 or f % 128:
-        raise ValueError(f"moe dispatch on CUDA needs D % 64 == 0 and "
-                         f"F % 128 == 0 (other shapes: ROADMAP.md, queue 2); "
-                         f"got D={d}, F={f}")
     order = torch.argsort(expert_ids, stable=True)
     tok = order.to(torch.int32)
     eid = expert_ids[order].to(torch.int32)

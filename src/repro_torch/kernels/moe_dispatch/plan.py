@@ -40,7 +40,7 @@ def block_rows(dtype: torch.dtype, n_tokens: int, f: int, *,
     lighter, spread over more SMs."""
     if dtype != torch.float32:
         return BM
-    items = -(-n_tokens // BM) * (f // BN[dtype])
+    items = -(-n_tokens // BM) * -(-f // BN[dtype])
     return BM if items >= BLOCKS_PER_SM[dtype] * n_sm else SMALL_BM
 
 

@@ -20,7 +20,7 @@ from repro_torch.capture.grid import GridCapture
 from repro_torch.capture.launch import capture_launch, memoized
 from repro_torch.device import resolve_device
 
-from .ops import decode_flops, paged_decode
+from .ops import decode_flops, paged_decode_attention
 
 __all__ = ["capture", "decode_flops"]
 
@@ -73,5 +73,5 @@ def _launch(n_pages: int, page: int, d: int, h: int, pt: np.ndarray,
     gen = torch.Generator(device=dev).manual_seed(1)
     q = torch.randn(h, d, generator=gen, device=dev)
     pt_t = torch.from_numpy(pt.astype(np.int32)).to(dev)
-    return capture_launch(lambda: paged_decode(q, k_pages, v_pages, pt_t),
-                          dev)
+    return capture_launch(
+        lambda: paged_decode_attention(q, k_pages, v_pages, pt_t), dev)

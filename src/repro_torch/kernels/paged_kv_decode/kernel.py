@@ -1,7 +1,7 @@
 """Paged-KV decode attention as a CUDA kernel (``csrc/paged_kv_decode.cu``).
 
 Replaces ``paged_decode_attention`` of
-``repro/kernels/paged_kv_decode/kernel.py``.  :func:`paged_decode_attention`
+``repro/kernels/paged_kv_decode/kernel.py``.  :func:`paged_decode_cuda`
 launches from the spec: the spec's sequential page grid ``(n_active,)`` is
 cut into ranges of consecutive table entries (``plan.split_plan``), one
 block walks each range in table order for each head group
@@ -22,7 +22,7 @@ from repro_torch.capture.launch import LaunchSpec
 from .. import _build
 from .plan import lanes_vec, split_plan
 
-__all__ = ["paged_decode_attention", "smem_bytes", "MAX_SMEM_BYTES"]
+__all__ = ["paged_decode_cuda", "smem_bytes", "MAX_SMEM_BYTES"]
 
 MAX_SMEM_BYTES = 232_448   # dynamic shared memory one Hopper block may use
 
@@ -50,14 +50,14 @@ def smem_bytes(dtype: torch.dtype, h: int, d: int, page: int,
     return int(_smem_fn()(_build.DTYPE_CODES[dtype], h, d, page, per_split))
 
 
-def paged_decode_attention(spec: LaunchSpec, q: torch.Tensor,
-                           k_pages: torch.Tensor, v_pages: torch.Tensor,
-                           page_table: torch.Tensor) -> torch.Tensor:
+def paged_decode_cuda(spec: LaunchSpec, q: torch.Tensor,
+                      k_pages: torch.Tensor, v_pages: torch.Tensor,
+                      page_table: torch.Tensor) -> torch.Tensor:
     """Launch the kernel on CUDA tensors: q [H, D]; pools [P, page, D];
     page_table [n] int32 -> [H, D].  An entry outside [0, P) traps in the
     kernel, so the launch fails (raised at the next synchronize)."""
     if not _build.on_card(q, k_pages, v_pages, page_table):
-        raise ValueError("paged_decode_attention takes CUDA tensors")
+        raise ValueError("paged_decode_cuda takes CUDA tensors")
     code = _build.dtype_code(q, k_pages, v_pages)
     h, d = q.shape
     n_pages, page, _ = k_pages.shape
@@ -67,9 +67,10 @@ def paged_decode_attention(spec: LaunchSpec, q: torch.Tensor,
             or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16
             or not all(t.is_contiguous()
                        for t in (q, k_pages, v_pages, page_table))):
-        raise ValueError("paged_decode_attention: expected contiguous "
+        raise ValueError("paged_decode_cuda: expected contiguous "
                          "inputs, equal 16-byte aligned K/V pools and an [n] "
-                         "int32 table")
+                         "int32 table (strided or unaligned views: "
+                         "ROADMAP.md, queue 2)")
     lanes_vec(d)   # raises on a head width no instance takes
     per, n_splits = split_plan(n_active, page, d, h, q.element_size(),
                                n_sm=_build.sm_count(q))
@@ -88,8 +89,8 @@ def paged_decode_attention(spec: LaunchSpec, q: torch.Tensor,
         None if part is None else part.data_ptr(), n_pages, h, d, page,
         n_active, per, n_splits, d ** -0.5, _build.stream_ptr(q))
     _build.check("paged_kv_decode", err)
-    paged_decode_attention.launches += 1
+    paged_decode_cuda.launches += 1
     return out
 
 
-paged_decode_attention.launches = 0
+paged_decode_cuda.launches = 0

@@ -6,9 +6,12 @@ Replace ``ssm_ema_scan`` and ``ssm_chunked_scan`` of
 order with the state in VMEM scratch.  Hopper blocks run in no order, so
 here the time axis is a loop inside each block and the blocks split the
 channels: :func:`ssm_ema_cuda` runs one consumer thread per channel fed by
-a TMA ring, its blocks and stages laid out by ``plan.ema_plan``;
-:func:`ssm_chunked_cuda` one block per tile of channels, its [N, tile]
-state in registers, laid out by ``plan.scan_plan``.
+a ring of TMA (or, for rows that are not a multiple of 16 bytes, cp.async)
+loads, its blocks and stages laid out by ``plan.ema_plan``;
+:func:`ssm_chunked_cuda` one block per tile of channels and part of the
+state, its [N, tile] state (padded to a power of two, in parts of at most
+256 rows) in registers, laid out by ``plan.scan_plan``.  Both take every
+D >= 1, and the chunked scan every N >= 1.
 """
 
 from __future__ import annotations
@@ -21,33 +24,31 @@ import torch
 from repro_torch.capture.launch import LaunchSpec
 
 from .. import _build
-from .plan import ema_plan, scan_plan
+from .plan import copy_piece, ema_plan, scan_plan, state_split
 
-__all__ = ["ssm_ema_cuda", "ssm_chunked_cuda", "STATE_WIDTHS"]
-
-# State widths N the chunked kernel takes (powers of two, plan.py).
-STATE_WIDTHS = (16, 32, 64, 128, 256)
+__all__ = ["ssm_ema_cuda", "ssm_chunked_cuda"]
 
 
 @functools.cache
 def _ema_fn():
     v, i = ctypes.c_void_p, ctypes.c_int
     return _build.bind("ssm_ema_scan", "ssm_ema_launch",
-                       [i, v, v, v, v, i, i, i, i, i, v])
+                       [i, v, v, v, v, i, i, i, i, i, i, v])
 
 
 @functools.cache
 def _chunked_fn():
     v, i = ctypes.c_void_p, ctypes.c_int
     return _build.bind("ssm_chunked_scan", "ssm_chunked_launch",
-                       [i, v, v, v, v, v, i, i, i, i, i, i, v])
+                       [i, v, v, v, v, v, v, i, i, i, i, i, i, i, i, i, i, v])
 
 
 def _check(name: str, shapes: dict, tensors: dict) -> None:
     for key, t in tensors.items():
         if tuple(t.shape) != shapes[key] or not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be a contiguous "
-                             f"{shapes[key]} tensor, got {tuple(t.shape)}")
+                             f"{shapes[key]} tensor, got {tuple(t.shape)} "
+                             f"(strided views: ROADMAP.md, queue 2)")
 
 
 def ssm_ema_cuda(spec: LaunchSpec, x: torch.Tensor, dt: torch.Tensor,
@@ -61,12 +62,13 @@ def ssm_ema_cuda(spec: LaunchSpec, x: torch.Tensor, dt: torch.Tensor,
     _check("ssm_ema_cuda", {"x": (t, d), "dt": (t, d), "g": (t, d)},
            {"x": x, "dt": dt, "g": g})
     if any(u.data_ptr() % 16 for u in (x, dt, g)):
-        raise ValueError("ssm_ema_cuda takes 16-byte aligned tensors")
+        raise ValueError("ssm_ema_cuda takes 16-byte aligned tensors "
+                         "(unaligned views: ROADMAP.md, queue 2)")
     plan = ema_plan(t, d, x.element_size(), n_sm=_build.sm_count(x))
     y = torch.empty_like(x)
     err = _ema_fn()(code, x.data_ptr(), dt.data_ptr(), g.data_ptr(),
                     y.data_ptr(), t, d, plan.channels, plan.stage_steps,
-                    plan.ring, _build.stream_ptr(x))
+                    plan.ring, plan.piece, _build.stream_ptr(x))
     _build.check("ssm_ema_scan", err)
     ssm_ema_cuda.launches += 1
     return y
@@ -81,19 +83,25 @@ def ssm_chunked_cuda(spec: LaunchSpec, x: torch.Tensor, dt: torch.Tensor,
     code = _build.dtype_code(x, dt, b, c)
     t, d = spec.operand("x").shape
     n = spec.operand("b").shape[1]
-    if n not in STATE_WIDTHS:
-        raise ValueError(f"ssm chunked kernel takes N in {STATE_WIDTHS}, "
-                         f"got N={n}")
     _check("ssm_chunked_cuda",
            {"x": (t, d), "dt": (t, d), "b": (t, n), "c": (t, n)},
            {"x": x, "dt": dt, "b": b, "c": c})
     if any(u.data_ptr() % 16 for u in (x, dt, b, c)):
-        raise ValueError("ssm_chunked_cuda takes 16-byte aligned tensors")
-    plan = scan_plan(t, d, n, x.element_size(), n_sm=_build.sm_count(x))
+        raise ValueError("ssm_chunked_cuda takes 16-byte aligned tensors "
+                         "(unaligned views: ROADMAP.md, queue 2)")
+    size = x.element_size()
+    plan = scan_plan(t, d, n, size, n_sm=_build.sm_count(x))
+    _, per, _ = state_split(n)
     y = torch.empty_like(x)
+    part_y = (torch.empty(plan.parts * t * d, dtype=torch.float32,
+                          device=x.device) if plan.parts > 1 else None)
     err = _chunked_fn()(code, x.data_ptr(), dt.data_ptr(), b.data_ptr(),
-                        c.data_ptr(), y.data_ptr(), t, d, n, plan.rows,
-                        plan.channels, plan.stage_steps, _build.stream_ptr(x))
+                        c.data_ptr(), y.data_ptr(),
+                        None if part_y is None else part_y.data_ptr(), t, d,
+                        n, plan.rows, plan.channels, plan.stage_steps,
+                        plan.state_rows, per, copy_piece(d, size),
+                        copy_piece(n, size, per if plan.parts > 1 else 0),
+                        _build.stream_ptr(x))
     _build.check("ssm_chunked_scan", err)
     ssm_chunked_cuda.launches += 1
     return y

@@ -4,16 +4,15 @@ The launch specs are the reference's chunk grids ``(T // chunk,)``: step
 ``i`` moves the ``(chunk, D)`` blocks of x, dt (and g) or the ``(chunk,
 N)`` blocks of b and c in, and the ``(chunk, D)`` block of y out.  The
 recurrent state is kernel-private and never an operand.  ``flops`` is the
-reference's ``scan_flops``.  The reference decides on D % 128 == 0
-between kernel and oracle; here a CUDA tensor outside it raises.
+reference's ``scan_flops``.  On the card the kernels take every T, D >= 1
+and N >= 1; on the CPU the plain versions compute.
 
 :func:`ema_scan` and :func:`chunked_scan` are the reference's public
 dispatchers: where the reference runs its kernel (D % 128 == 0 and T a
 multiple of ``chunk``) they are :func:`ssm_ema_scan` and
 :func:`ssm_chunked_scan`, spec and all; elsewhere the reference's oracle
 launches no Pallas kernel and they emit no spec, computing on the CPU
-through the plain versions and on the card through the kernels, which take
-any T, raising (naming ROADMAP.md) at a D or N they do not take.
+through the plain versions and on the card through the kernels.
 """
 
 from __future__ import annotations
@@ -23,7 +22,7 @@ import torch
 from repro_torch.capture.launch import LaunchOperand, LaunchSpec, emit
 
 from .. import _build
-from .kernel import STATE_WIDTHS, ssm_chunked_cuda, ssm_ema_cuda
+from .kernel import ssm_chunked_cuda, ssm_ema_cuda
 from .ref import ssm_chunked_ref, ssm_ema_ref
 
 __all__ = ["ssm_ema_scan", "ssm_chunked_scan", "ema_scan", "chunked_scan",
@@ -69,11 +68,6 @@ def launch_spec(op: str, t: int, d: int, n: int, chunk: int,
                       flops=scan_flops(op, seq_len=t, d=d, n=n, chunk=chunk))
 
 
-def _check_lanes(d: int) -> None:
-    if d % 128:
-        raise ValueError(f"ssm scan on CUDA needs D % 128 == 0, got D={d}")
-
-
 def ssm_ema_scan(x: torch.Tensor, dt: torch.Tensor, g: torch.Tensor, *,
                  chunk: int = 128) -> torch.Tensor:
     """x, dt, g: [T, D] -> y: [T, D] with y_t = g_t (dt_t h_{t-1} + x_t)."""
@@ -84,7 +78,6 @@ def ssm_ema_scan(x: torch.Tensor, dt: torch.Tensor, g: torch.Tensor, *,
     spec = launch_spec("ema", t, d, 0, chunk, x.dtype)
     emit(spec)
     if _build.on_card(x, dt, g):
-        _check_lanes(d)
         return ssm_ema_cuda(spec, x, dt, g)
     return ssm_ema_ref(x, dt, g)
 
@@ -101,7 +94,6 @@ def ssm_chunked_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     spec = launch_spec("expand", t, d, n, chunk, x.dtype)
     emit(spec)
     if _build.on_card(x, dt, b, c):
-        _check_lanes(d)
         return ssm_chunked_cuda(spec, x, dt, b, c)
     return ssm_chunked_ref(x, dt, b, c)
 
@@ -110,16 +102,6 @@ def _uses_kernel(t: int, d: int, chunk: int) -> bool:
     """Whether the reference's dispatchers run their kernel: D % 128 == 0
     and T a multiple of ``chunk``."""
     return d % 128 == 0 and chunk >= 1 and t % chunk == 0
-
-
-def _card_shape(what: str, d: int, n: int | None = None) -> None:
-    """Raise, naming ROADMAP.md, at a shape the card's scan kernels do not
-    take."""
-    if d % 128 or (n is not None and n not in STATE_WIDTHS):
-        raise ValueError(f"{what} on CUDA needs D % 128 == 0"
-                         + ("" if n is None else f" and N in {STATE_WIDTHS}")
-                         + f" (other shapes: ROADMAP.md, queue 2); got D={d}"
-                         + ("" if n is None else f", N={n}"))
 
 
 def ema_scan(x: torch.Tensor, dt: torch.Tensor, g: torch.Tensor, *,
@@ -131,7 +113,6 @@ def ema_scan(x: torch.Tensor, dt: torch.Tensor, g: torch.Tensor, *,
     if _uses_kernel(t, d, chunk):
         return ssm_ema_scan(x, dt, g, chunk=chunk)
     if _build.on_card(x, dt, g):
-        _card_shape("ema_scan", d)
         return ssm_ema_cuda(launch_spec("ema", t, d, 0, t, x.dtype), x, dt, g)
     return ssm_ema_ref(x, dt, g)
 
@@ -146,7 +127,6 @@ def chunked_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     if _uses_kernel(t, d, chunk):
         return ssm_chunked_scan(x, dt, b, c, chunk=chunk)
     if _build.on_card(x, dt, b, c):
-        _card_shape("chunked_scan", d, n)
         return ssm_chunked_cuda(launch_spec("expand", t, d, n, t, x.dtype),
                                 x, dt, b, c)
     return ssm_chunked_ref(x, dt, b, c)

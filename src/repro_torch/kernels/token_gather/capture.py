@@ -16,7 +16,7 @@ from repro_torch.capture.grid import GridCapture
 from repro_torch.capture.launch import capture_launch, memoized
 from repro_torch.device import resolve_device
 
-from .ops import gather
+from .ops import gather_rows
 
 __all__ = ["capture"]
 
@@ -37,4 +37,4 @@ def _launch(n_rows: int, d: int, idx: np.ndarray,
     gen = torch.Generator(device=dev).manual_seed(0)
     table = torch.randn(n_rows, d, generator=gen, device=dev)
     idx_t = torch.from_numpy(idx.astype(np.int32)).to(dev)
-    return capture_launch(lambda: gather(table, idx_t), dev)
+    return capture_launch(lambda: gather_rows(table, idx_t), dev)

@@ -12,9 +12,11 @@
   Sq dropped; f32 ``flash_fwd_kernel`` (also cut into kv ranges and
   combined) and ``flash_fwd_wide``, bf16 ``flash_fwd_sm90`` and
   ``flash_fwd_wide_sm90``, each held to the reference's oracle.
-- ``record()``: ``mha`` emits the reference's launch spec where the
-  reference's Pallas kernel has a geometry (``min(block, S)`` dividing S,
-  walked equal to the reference's mirror geometry) and none elsewhere.
+- ``record()``: the kernel-level ``flash_attention`` emits the
+  reference's launch spec where the reference's Pallas kernel has a
+  geometry (``min(block, S)`` dividing S, walked equal to the reference's
+  mirror geometry) and raises, emitting none, elsewhere; ``mha`` emits it
+  only on the reference's kernel route (Sq, Sk % 128 == 0, D % 8 == 0).
 - The f32 split plan covers a ragged kv axis with whole-tile ranges.
 """
 
@@ -34,9 +36,11 @@ from repro.kernels.flash_attention import mha as jax_mha
 from repro.kernels.flash_attention.capture import capture as jax_capture
 from repro_torch.capture.grid import walk
 from repro_torch.capture.launch import record
-from repro_torch.kernels.flash_attention import attention_ref, mha
+from repro_torch.kernels.flash_attention import (attention_ref,
+                                                flash_attention, mha)
 from repro_torch.kernels.flash_attention.kernel import kernel_path
-from repro_torch.kernels.flash_attention.ops import has_geometry
+from repro_torch.kernels.flash_attention.ops import (has_geometry,
+                                                    uses_kernel)
 from repro_torch.kernels.flash_attention.plan import (f32_tiles,
                                                       padded_head_dim,
                                                       split_plan,
@@ -211,7 +215,8 @@ def test_record_sees_the_reference_spec_where_it_has_a_geometry(
     q = torch.zeros(1, sq, 1, d)
     kv = torch.zeros(1, sk, 1, d)
     with record() as launched:
-        mha(q, kv, kv, causal=False, block_q=block_q, block_k=block_k)
+        flash_attention(q, kv, kv, causal=False, block_q=block_q,
+                        block_k=block_k)
     assert len(launched) == 1
     bq, bk = min(block_q, sq), min(block_k, sk)
     want = jax_capture(sq=sq, sk=sk, d=d, bq=bq, bk=bk, path="mirror")
@@ -232,8 +237,15 @@ def test_record_sees_no_spec_where_the_reference_has_none(sq, sk, block_q,
     q = torch.randn(1, sq, 2, 16)
     kv = torch.randn(1, sk, 1, 16)
     with record() as launched:
-        out = mha(q, kv, kv, causal=True, block_q=block_q, block_k=block_k)
+        with pytest.raises(ValueError, match="not multiples"):
+            flash_attention(q, kv, kv, causal=True, block_q=block_q,
+                            block_k=block_k)
     assert launched == []
+    # the dispatcher computes them all, with a spec only on the
+    # reference's kernel route (at its default tiles)
+    with record() as launched:
+        out = mha(q, kv, kv, causal=True)
+    assert len(launched) == int(uses_kernel(sq, sk, 16))
     np.testing.assert_array_equal(out.numpy(),
                                   attention_ref(q, kv, kv).numpy())
 

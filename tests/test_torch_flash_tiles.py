@@ -153,7 +153,8 @@ def test_kernel_path_refuses_what_no_kernel_takes(dtype, d, bq, bk, match):
 def test_kernel_path_takes_the_reference_tiles(dtype, block_q, block_k):
     # tests/test_kernels.py's tile invariance cases: the spec records the
     # reference's tile, and the wrapper takes whatever tile it records.
-    from repro_torch.kernels.flash_attention.ops import launch_spec, mha
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         launch_spec)
 
     spec = launch_spec(1, 512, 512, 4, 2, 64, dtype, block_q=block_q,
                        block_k=block_k)
@@ -165,7 +166,8 @@ def test_kernel_path_takes_the_reference_tiles(dtype, block_q, block_k):
     q, k, v = (torch.from_numpy(x) for x in _inputs(
         (1, 512, 512, 4, 2, 64, True, 1.0)))
     np.testing.assert_array_equal(
-        mha(q, k, v, causal=True, block_q=block_q, block_k=block_k).numpy(),
+        flash_attention(q, k, v, causal=True, block_q=block_q,
+                        block_k=block_k).numpy(),
         attention_ref(q, k, v, causal=True).numpy())
 
 

@@ -50,7 +50,7 @@ from _torch_flash_emulation import (kernel_emulation, sm90_emulation,
                                     wide_sm90_emulation)
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro_torch.kernels.flash_attention import attention_ref
-from repro_torch.kernels.flash_attention.kernel import (flash_attention,
+from repro_torch.kernels.flash_attention.kernel import (flash_attention_cuda,
                                                         kernel_path)
 from repro_torch.kernels.flash_attention.plan import (
     MAX_HEAD_DIM, SM90_MAX_HEAD_DIM, SMEM_PER_BLOCK, TILED_HEAD_DIMS,
@@ -425,7 +425,8 @@ def test_kernel_path_takes_every_wide_width(d):
 
 def test_the_launch_counter_names_the_wide_kernels():
     assert {"flash_fwd_kernel", "flash_fwd_sm90", "flash_fwd_wide",
-            "flash_fwd_wide_sm90"} == set(flash_attention.launches_by_kernel)
+            "flash_fwd_wide_sm90"} == set(
+        flash_attention_cuda.launches_by_kernel)
 
 
 @pytest.mark.parametrize("d", [MAX_HEAD_DIM + 8, 2048, 300, 4])

@@ -22,7 +22,7 @@ from repro_torch.capture.kernels import CAPTURED_KERNELS
 from repro_torch.device import resolve_device
 from repro_torch.kernels import KERNELS, launch_counts, reset_launch_counts
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ops import launch_spec as flash_spec
 from repro_torch.kernels.stream import ops as stream_ops
 from repro_torch.kernels.stream.kernel import stream_cuda
@@ -242,8 +242,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         stream_cuda(spec, "copy", a, out=torch.empty_like(a))
     q = torch.zeros(1, 128, 1, 64)
     with pytest.raises(ValueError, match="CUDA"):
-        flash_attention(flash_spec(1, 128, 128, 1, 1, 64, q.dtype), q, q, q,
-                        causal=True)
+        flash_attention_cuda(flash_spec(1, 128, 128, 1, 1, 64, q.dtype), q,
+                             q, q, causal=True)
 
 
 def test_ops_raise_on_a_device_without_a_path():
