@@ -13,9 +13,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    counts the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions of
    the flash and MoE libraries with ``cuobjdump -sass``, failing if any
    instance of the bf16 flash kernels (``flash_fwd_sm90``,
-   ``flash_fwd_wide_sm90``) or of bf16 MoE dispatch has no ``HGMMA``, or if
-   an f32 flash kernel (``flash_fwd_kernel``, ``flash_fwd_wide``), either
-   SSM scan or the simulator's window count spills (ptxas's warnings, such
+   ``flash_fwd_wide_sm90``) or of bf16 or float16 MoE dispatch has no
+   ``HGMMA``, or if an f32 flash kernel (``flash_fwd_kernel``,
+   ``flash_fwd_wide``), either SSM scan or the simulator's window count
+   spills, and unless every float16 instance of MoE dispatch (three) and
+   of the scans (two EMA, six chunked) is built (ptxas's warnings, such
    as a serialized ``wgmma``, are printed too);
 2. holds each kernel against its plain PyTorch version on the card at
    full width, in float32 and bf16: qwen2.5-14b for STREAM, gather, flash
@@ -62,8 +64,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    at D 1, 3, 64, 96, 100 and 200, the chunked one at N 1, 24, 96 and 384
    crossed; the gather at D 1, 3, 64, 96 and 100, bit for bit; MoE at D
    3, 40, 96 and 100 by F 5, 24 and 200, T 256 and 200, and one call of
-   1 900 000 tokens at D 3, F 5), each kernel's launch counter required
-   to rise, and float16 and strided inputs refused naming ROADMAP.md;
+   1 900 000 tokens at D 3, F 5), in float32, bf16 and float16, each
+   kernel's launch counter required to rise; STREAM, both scans
+   and MoE dispatch held once each in float16 at full width (2^28
+   elements, Zamba2-7B's layer, DeepSeek-MoE-16B's; ``f16_full_width``,
+   each with its max |y|, the EMA scan also against its plain version
+   rounded to float16, ``bitwise``); and every family on a strided view
+   and on a view that starts off 16 bytes (``views_phase``: a transposed
+   [B, H, S, D] attention input, Mamba's ``xz[:, :d]``, column slices,
+   offset views), each bit for bit the call on a contiguous copy, its
+   ``copies`` counter risen by one a view that is not dense (the gather
+   reads its row-strided or offset table where it lies), and flash and
+   paged decode in float16, float64 and mixed dtypes refused naming
+   ROADMAP.md;
 3. times each kernel at full width with CUDA events (median of 10 after
    3 warm-ups, L2 flushed before each), beside its plain version, the one
    PyTorch call that computes the same function where there is one, and
@@ -103,14 +116,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    synthetic entries at ``DEFAULT_REFS`` and 24 captured ones, the full
    core sweep) on the card recording every launch's spec, reads the
    counters, prints the seconds of each source, checks 45/45 classes as
-   expected, all seven capture kernels launched, and rows equal to the
+   expected, all seven capture kernels launched, no input copied (every
+   ``copies`` counter 0), and rows equal to the
    roster run on the CPU; prints its span split (seconds of simulation,
    trace generation, trace walk, per-launch synchronize and entries, every
    span and counter) and checks ``0 < profile.scan <= profile.geom``;
 5. main path 2: sets the counters to 0 again, runs ``measure_windows``
    for the 16 serving scenarios (``repro_torch.serving``) on the card,
    reads the counters, checks that flash attention, paged decode and MoE
-   dispatch launched, and that every scenario's window traces, timeline
+   dispatch launched, no input copied, and that every scenario's window
+   traces, timeline
    and whole-trace label equal the same run on the CPU; its span split;
 6. holds each kernel against its plain version again at every distinct
    launch of both paths: its shapes and tiles, with its own index vectors
@@ -328,7 +343,10 @@ kernels as a fresh process does:
    192, 320 and 512 timings as ``d256``, ``d16``, ``d96``, ``d112``,
    ``d192``, ``d320`` and ``d512``; the f32 (window count: int32) timings,
    and the bf16 ones as ``bf16_ms``, ``bf16_bound_ms``,
-   ``bf16_library_ms``), after a line with the script's own seconds
+   ``bf16_library_ms``; ``dtypes``, those each kernel was held in on the
+   card; ``copies_by_path``, the main paths' dense copies, 0; for STREAM,
+   the scans and MoE ``f16``, phase 2's float16 full-width holds; for
+   every family ``views``), after a line with the script's own seconds
    (``total``), and, last, ``{"ok": true, "device": ...}``.
 
 Tolerances: gather is exact, and so is the EMA scan in float32, which
@@ -343,7 +361,13 @@ error is at most N 2^-24 sum|c h|, about 3e-5 of the rms at N = 64.  In
 bf16 every kernel but STREAM is held against the plain version computed
 in float32 on the same bf16 inputs (the kernels compute in float32, bf16
 flash's P.V on two bf16 halves of P, and round once): rtol 1e-2, 2.5x the
-bf16 rounding of a value (2^-8), and atol 1e-3 of the output's rms.
+bf16 rounding of a value (2^-8), and atol 1e-3 of the output's rms.  In
+float16 STREAM and the gather are held bit for bit, the scans and MoE
+against the float32 plain version on the same inputs within one float16
+ulp of its largest finite magnitude (2^-10 max|y|; each rounds once, so
+the error is at most half that), with infinities, where float16
+saturates, required at the same places.  A view is held bit for bit
+against the same kernel on a contiguous copy.
 
 The window count is exact (integer counts).
 
@@ -411,29 +435,40 @@ STREAM_TOL = (1e-5, 1e-6)   # (rtol, atol), both dtypes
 ATTN_TOL = (1e-4, 2e-5)     # flash, paged decode and MoE dispatch, float32
 CHUNKED_RTOL, CHUNKED_ATOL_RMS = 1e-4, 1e-4   # state-expanded scan, float32
 BF16_RTOL, BF16_ATOL_RMS = 1e-2, 1e-3
+F16_ULP = 2.0 ** -10        # float16: |kernel - plain| <= this x max|plain|
+
+# kernel -> the dtypes it was held in on the card in this run
+TOOK: dict[str, set[str]] = {}
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
 
 
 def check_close(kernel: str, case: str, got, want, *, exact=False,
                 tol: tuple[float, float] = (0.0, 0.0), show=True) -> float:
     """Assert the kernel's output matches the plain version's ``want``
-    within ``(rtol, atol)``; returns the max abs error.  Prints one JSON
-    line when ``show`` (always when the check fails)."""
+    within ``(rtol, atol)``, infinities at the same places (float16 may
+    saturate); returns the max abs error where ``want`` is finite.  Prints
+    one JSON line when ``show`` (always when the check fails)."""
     torch.cuda.synchronize()
     got32, want32 = got.float(), want.float()
-    err = (got32 - want32).abs().max().item()
+    fin = torch.isfinite(want32)
+    err = ((got32 - want32).abs()[fin].max().item() if fin.any() else 0.0)
     rtol, atol = tol
     ok = (torch.equal(got, want) if exact
           else torch.allclose(got32, want32, rtol=rtol, atol=atol))
-    ok = bool(ok) and bool(torch.isfinite(got32).all())
+    ok = bool(ok) and torch.equal(torch.isfinite(got32), fin)
     if show or not ok:
         say({"phase": "parity", "kernel": kernel, "case": case,
-             "dtype": str(got.dtype).replace("torch.", ""),
-             "max_abs_err": err, "want_rms": rms(want32),
+             "dtype": dtype_name(got.dtype),
+             "max_abs_err": err, "want_rms": rms(want32[fin]),
              "tolerance": "exact" if exact else {"rtol": rtol, "atol": atol},
              "ok": ok})
     if not ok:
         raise AssertionError(f"{kernel} {case}: kernel disagrees with its "
                              f"plain version (max abs err {err})")
+    TOOK.setdefault(kernel, set()).add(dtype_name(got.dtype))
     return err
 
 
@@ -441,14 +476,30 @@ def rms(t: torch.Tensor) -> float:
     return t.float().pow(2).mean().sqrt().item()
 
 
+def f16_tol(want: torch.Tensor) -> tuple[float, float]:
+    """One float16 ulp of the plain version's largest finite magnitude:
+    (rtol 0, atol 2^-10 max|want|)."""
+    w = want.float().abs()
+    w = w[torch.isfinite(w)]
+    return 0.0, F16_ULP * (w.max().item() if w.numel() else 0.0)
+
+
 def attn_tol(dtype: torch.dtype, want: torch.Tensor,
              f32: tuple[float, float] = ATTN_TOL) -> tuple[float, float]:
     """Tolerance of a kernel that computes in float32: ``f32`` for float32
     inputs, or for bf16 (``want`` computed in float32 on the bf16 inputs)
-    a limit scaled to the output."""
+    a limit scaled to the output, for float16 :func:`f16_tol`."""
     if dtype == torch.float32:
         return f32
+    if dtype == torch.float16:
+        return f16_tol(want)
     return BF16_RTOL, BF16_ATOL_RMS * rms(want)
+
+
+def rate_of(dtype: torch.dtype) -> str:
+    """The peak-rate key of a kernel's operations in ``dtype``: CUDA-core
+    f32, else the tensor cores' bf16 or f16 rate."""
+    return {torch.float32: "f32", torch.float16: "f16"}.get(dtype, "bf16")
 
 
 def chunked_tol(dtype: torch.dtype, want: torch.Tensor) -> tuple[float, float]:
@@ -558,6 +609,38 @@ NO_SPILL = {"flash_attention": ("flash_fwd_kernel", "flash_fwd_wideE"),
 HGMMA_KERNELS = (("flash_attention", "flash_fwd_sm90"),
                  ("flash_attention", "flash_fwd_wide_sm90"),
                  ("moe_dispatch", "moe_gemm_sm90"))
+# float16 instances (``__half`` in the mangled name) each library must hold:
+# function part -> how many (MoE's whole tiles, tails and narrow rows; the
+# EMA scan's two; the chunked scan's three row counts of each kernel).
+F16_INSTANCES = {"moe_dispatch": {"moe_gemm_sm90": 3},
+                 "ssm_ema_scan": {"ssm_ema_kernel": 2},
+                 "ssm_chunked_scan": {"ssm_chunked_kernel": 3,
+                                      "ssm_chunked_general": 3}}
+
+
+def check_f16_instances(logs: dict[str, str], sass: dict) -> None:
+    """Phase 1's float16 checks: every float16 instance is built, each MoE
+    one holds HGMMA (its wgmma forms ``.f16.f16``), and no scan one
+    spills."""
+    for lib, parts in F16_INSTANCES.items():
+        spills = ptxas_spills(logs.get(lib, ""))
+        for part, count in parts.items():
+            found = {fn: n for fn, n in spills.items()
+                     if part in fn and "__half" in fn}
+            row = {"phase": "f16-instances", "library": lib,
+                   "function": part, "spill_bytes": found}
+            if lib in sass:
+                row["hgmma"] = {fn: c["HGMMA"] for fn, c in sass[lib].items()
+                                if part in fn and "__half" in fn}
+            say(row)
+            if len(found) != count or any(found.values()):
+                raise AssertionError(f"{part}: expected {count} float16 "
+                                     f"instances without spills, got "
+                                     f"{found}")
+            if lib in sass and (len(row["hgmma"]) != count
+                                or not all(row["hgmma"].values())):
+                raise AssertionError(f"a float16 {part} holds no HGMMA: "
+                                     f"{row['hgmma']}")
 
 
 def hold_main_path(launched: list, randn, rand,
@@ -905,13 +988,14 @@ def moe_full_width(bench: Bench, smi: str, dtype: torch.dtype,
     err = check_close("moe_dispatch", f"full {case}",
                       moe_dispatch(x, w, eids), want,
                       tol=attn_tol(dtype, want))
+    extra = {"max_abs_y": max_abs(want), **extra}
     del want
     row = timing_row(
         bench, smi, "moe_dispatch", case, dtype,
         bench.ms(lambda: moe_dispatch_sorted(x, w, tok, eid)),
         bench.ms(lambda: moe_dispatch_sorted_ref(x, w, tok, eid)), None,
         (x.numel() + w.numel() + t * f) * x.element_size() + 8 * t,
-        2.0 * t * d * f, "f32" if dtype == torch.float32 else "bf16",
+        2.0 * t * d * f, rate_of(dtype),
         **extra)
     if dtype == torch.bfloat16 and geo is None:
         grouped_mm_yardstick(bench, x, w, tok, eid, smi)
@@ -975,6 +1059,51 @@ ODD_FULL = {"token_gather": {**FULL_GATHER, "d": 5118},
             "moe_dispatch": {**FULL_MOE, "d": 2040, "f": 1400}}
 
 
+STREAM_N = 2**28             # STREAM's full-width arrays (elements)
+
+
+def stream_full_width(bench: Bench, smi: str, dtype: torch.dtype,
+                      **extra) -> dict[str, dict]:
+    """STREAM's four ops on two seeded arrays of ``STREAM_N`` elements: each
+    op's entry point, and its kernel writing into one preallocated output,
+    held bit for bit against the plain version, then timed in turns with
+    its library call writing into the same output and with the entry point,
+    which allocates its output as a user's call does (``ms`` is the
+    kernel's, ``entry_ms`` the entry point's).  Returns each op's timing
+    row (printed, with ``extra``)."""
+    from repro_torch.benchmarks.kernel_bench import stream_calls
+    from repro_torch.kernels.stream import ops as stream_ops
+    from repro_torch.kernels.stream.kernel import stream_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(TIMING_SEED)
+    a, b = (torch.randn(STREAM_N, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    o = torch.empty_like(a)
+    q, n = 3.0, STREAM_N
+    rows = {}
+    for op, (entry, plain, _, lib) in stream_calls().items():
+        spec = stream_ops.launch_spec(op, n, dtype)
+        want = plain(a, b, q)
+        check_close("stream", f"{op} full n=2^28 entry point",
+                    entry(a, b, q), want, exact=True)
+        check_close("stream", f"{op} full n=2^28 into out",
+                    stream_cuda(spec, op, a, b, q, out=o), want, exact=True)
+        del want
+        ms = bench.turns(
+            [("library", lambda: lib(a, b, q, o)),
+             ("kernel", lambda: stream_cuda(spec, op, a, b, q, out=o)),
+             ("entry", lambda: entry(a, b, q)),
+             ("library", lambda: lib(a, b, q, o))], STREAM_ROUNDS)
+        rows[op] = timing_row(
+            bench, smi, "stream", op, dtype, ms["kernel"],
+            bench.ms(lambda: plain(a, b, q)), ms["library"],
+            stream_ops.bytes_moved(op, n, a.element_size()),
+            stream_ops.STREAM_OPS[op][1] * n, "f32",
+            entry_ms=ms["entry"], vs_library=ms["kernel"] / ms["library"],
+            **extra)
+    return rows
+
+
 def gather_full_width(bench: Bench, smi: str, dtype: torch.dtype,
                       geo: dict | None = None, **extra) -> tuple[dict, float]:
     """The token gather at ``FULL_GATHER`` (or ``geo``): held exactly
@@ -1020,19 +1149,17 @@ ODD_MOE_F = (24, 200, 5)
 ODD_MOE_T = (256, 200)
 ODD_MOE_E = 4
 BIG_MOE = dict(t=1_900_000, d=3, f=5, e=4)
-# Shapes the four kernels still refuse on the card (ROADMAP.md, queue 2):
-# float16 inputs (the gather copies bytes and takes every dtype) and a
-# strided view.
-REFUSED_ODD = ("float16", "strided")
+# Each shape is held in these dtypes (float16 within one float16 ulp of
+# the plain version's largest magnitude, ``f16_tol``).
+ODD_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def odd_shapes_phase(K, gen) -> dict[str, dict]:
     """The new shapes of the scans, the gather and MoE dispatch, each held
-    against its plain version in f32 and bf16 (the EMA scan in f32 and the
-    gather bit for bit), each kernel's launch counter required to rise, and
-    the refusals of REFUSED_ODD required to name ROADMAP.md.  Returns, for
-    each kernel, the shapes held, their max abs errors by dtype and the
-    launches."""
+    against its plain version in f32, bf16 and float16 (the EMA scan in
+    f32 and the gather bit for bit), each kernel's launch counter required
+    to rise.  Returns, for each kernel, the shapes held, their max abs
+    errors by dtype and the launches."""
     from repro_torch.kernels.moe_dispatch import dispatch, moe_dispatch_ref
     from repro_torch.kernels.ssm_scan import (chunked_scan, ema_scan,
                                               ssm_chunked_ref, ssm_ema_ref)
@@ -1040,18 +1167,23 @@ def odd_shapes_phase(K, gen) -> dict[str, dict]:
 
     dev = torch.device("cuda")
     before = K.launch_counts()
-    out = {k: {"held": 0, "max_abs_err": {"float32": 0.0, "bfloat16": 0.0}}
+    out = {k: {"held": 0,
+               "max_abs_err": {dtype_name(dt): 0.0 for dt in ODD_DTYPES},
+               "max_abs_y": {dtype_name(dt): 0.0 for dt in ODD_DTYPES}}
            for k in ("ssm_ema_scan", "ssm_chunked_scan", "token_gather",
                      "moe_dispatch")}
+    want = None
 
     def held(kernel: str, dtype, err: float) -> None:
         row = out[kernel]
         row["held"] += 1
-        key = str(dtype).replace("torch.", "")
+        key = dtype_name(dtype)
         row["max_abs_err"][key] = max(row["max_abs_err"][key], err)
+        row["max_abs_y"][key] = max(row["max_abs_y"][key],
+                                    max_abs(want))
 
     t = ODD_SCAN_T
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in ODD_DTYPES:
         for d in ODD_SCAN_D:
             x, dt, g = ema_inputs(gen, t, d, dtype)
             want = ssm_ema_ref(x.float(), dt.float(), g.float())
@@ -1073,9 +1205,10 @@ def odd_shapes_phase(K, gen) -> dict[str, dict]:
             table = torch.randn(1000, d, generator=gen, device=dev).to(dtype)
             idx = torch.randint(0, 1000, (777,), generator=gen, device=dev,
                                 dtype=torch.int32)
+            want = gather_rows_ref(table, idx)
             held("token_gather", dtype, check_close(
                 "token_gather", f"odd 1000x{d} m=777", gather(table, idx),
-                gather_rows_ref(table, idx), exact=True, show=False))
+                want, exact=True, show=False))
         shapes = [(tt, d, f) for tt in ODD_MOE_T for d in ODD_MOE_D
                   for f in ODD_MOE_F]
         shapes.append((BIG_MOE["t"], BIG_MOE["d"], BIG_MOE["f"]))
@@ -1097,35 +1230,248 @@ def odd_shapes_phase(K, gen) -> dict[str, dict]:
         if row["launches"] < row["held"]:
             raise AssertionError(f"{kernel}: {row['held']} odd shapes held "
                                  f"with {row['launches']} kernel launches")
-    # what still raises on the card names ROADMAP.md
-    x16 = torch.zeros(64, 96, device=dev, dtype=torch.float16)
-    xs = torch.zeros(96, 64, device=dev).t()
-    ids = torch.zeros(64, dtype=torch.long, device=dev)
-    refusals = {
-        "ssm_ema_scan": (lambda: ema_scan(x16, x16, x16),
-                         lambda: ema_scan(xs, xs, xs)),
-        "ssm_chunked_scan": (
-            lambda: chunked_scan(x16, x16, x16[:, :24], x16[:, :24]),
-            lambda: chunked_scan(xs, xs, xs[:, :24], xs[:, :24])),
-        "token_gather": (None, lambda: gather(xs, ids[:5])),
-        "moe_dispatch": (
-            lambda: dispatch(x16, torch.zeros(2, 96, 24, device=dev,
-                                              dtype=torch.float16), ids),
-            lambda: dispatch(xs, torch.zeros(2, 96, 24, device=dev), ids)),
-    }
-    for kernel, calls in refusals.items():
-        for why, call in zip(REFUSED_ODD, calls):
-            if call is None:
-                continue
-            try:
-                call()
-            except ValueError as e:
-                if "ROADMAP.md" not in str(e):
-                    raise
-            else:
-                raise AssertionError(f"{kernel} on CUDA took a {why} input")
     for kernel, row in out.items():
         say({"phase": "odd-shapes", "kernel": kernel, **row})
+    return out
+
+
+def max_abs(t: torch.Tensor) -> float:
+    """The largest finite magnitude of ``t``."""
+    a = t.float().abs()
+    a = a[torch.isfinite(a)]
+    return a.max().item() if a.numel() else 0.0
+
+
+def f16_full_width() -> dict[str, dict]:
+    """STREAM, both scans and MoE dispatch held once each in float16 at the
+    full widths of phase 3 (``STREAM_N``, ``FULL_SCAN``, ``FULL_MOE``),
+    their inputs drawn as the bf16 rows of the same shape draw theirs
+    (``TIMING_SEED``): STREAM bit for bit against its plain version, the
+    rest within one float16 ulp of the float32 plain version's largest
+    magnitude on the same inputs, each printed with that magnitude; the EMA
+    scan also against the plain version rounded to float16 (``bitwise``).
+    Untimed: ``scripts/kernel_ab.py --only f16`` times them.  Returns each
+    kernel's max abs error and max |y|."""
+    from repro_torch.benchmarks.kernel_bench import stream_calls
+    from repro_torch.kernels.moe_dispatch import moe_dispatch, moe_dispatch_ref
+    from repro_torch.kernels.ssm_scan import (ssm_chunked_ref,
+                                              ssm_chunked_scan, ssm_ema_ref,
+                                              ssm_ema_scan)
+
+    f16 = torch.float16
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(TIMING_SEED)
+    a, b = (torch.randn(STREAM_N, generator=gen, device="cuda").to(f16)
+            for _ in range(2))
+    err = 0.0
+    for op, (entry, plain, _, _) in stream_calls().items():
+        want = plain(a, b, 3.0)
+        err = max(err, check_close("stream", f"{op} full n=2^28 float16",
+                                   entry(a, b, 3.0), want, exact=True))
+        out["stream"] = {"max_abs_err": err, "max_abs_y": max(
+            out.get("stream", {}).get("max_abs_y", 0.0), max_abs(want))}
+    del a, b, want
+    t, d, n, chunk = (FULL_SCAN[k] for k in ("t", "d", "n", "chunk"))
+    gen = torch.Generator(device="cuda").manual_seed(TIMING_SEED)
+    x, dt, g = ema_inputs(gen, t, d, f16)
+    want = ssm_ema_ref(x.float(), dt.float(), g.float())
+    got = ssm_ema_scan(x, dt, g, chunk=chunk)
+    case = f"full T={t} D={d} chunk={chunk} float16"
+    out["ssm_ema_scan"] = {
+        "max_abs_err": check_close("ssm_ema_scan", case, got, want,
+                                   tol=f16_tol(want)),
+        "max_abs_y": max_abs(want),
+        "bitwise": torch.equal(got, ssm_ema_ref(x, dt, g))}
+    say({"phase": "f16-ema-bitwise", "case": case, **out["ssm_ema_scan"]})
+    del x, dt, g, want, got
+    gen = torch.Generator(device="cuda").manual_seed(TIMING_SEED)
+    x, dt, bb, c = scan_inputs(gen, t, d, n, f16)
+    want = ssm_chunked_ref(x.float(), dt.float(), bb.float(), c.float())
+    out["ssm_chunked_scan"] = {
+        "max_abs_err": check_close(
+            "ssm_chunked_scan", f"full T={t} D={d} N={n} float16",
+            ssm_chunked_scan(x, dt, bb, c, chunk=chunk), want,
+            tol=f16_tol(want)),
+        "max_abs_y": max_abs(want)}
+    del x, dt, bb, c, want
+    gen = torch.Generator(device="cuda").manual_seed(TIMING_SEED)
+    x, w, eids, _, _ = moe_inputs(gen, FULL_MOE, f16)
+    want = moe_dispatch_ref(x.float(), w.float(), eids)
+    g = FULL_MOE
+    out["moe_dispatch"] = {
+        "max_abs_err": check_close(
+            "moe_dispatch", f"full T={x.shape[0]} D={g['d']} F={g['f']} "
+            f"E={g['n_experts']} top{g['top_k']} float16",
+            moe_dispatch(x, w, eids), want, tol=f16_tol(want)),
+        "max_abs_y": max_abs(want)}
+    del x, w, eids, want
+    torch.cuda.empty_cache()
+    for kernel, row in out.items():
+        say({"phase": "f16-full-width", "kernel": kernel, **row})
+    return out
+
+
+def views_phase(K, gen) -> dict[str, dict]:
+    """Each kernel family on a strided view and on a view that starts off
+    16 bytes, through its entry point, held bit for bit against the same
+    call on a contiguous copy, its ``copies`` counter required to rise by
+    the inputs that are not dense (one copy each), except for the gather's
+    table, which it reads where it lies (a column slice, rows apart, and an
+    offset table; its offset index vector is copied); then what still
+    raises on the card, each naming ROADMAP.md: flash and paged decode in
+    float16, float64 in every family but the gather (which copies bytes),
+    and inputs of mixed dtypes.  Returns, for each kernel, its views held
+    and copies made."""
+    from repro_torch.kernels.flash_attention import mha
+    from repro_torch.kernels.moe_dispatch import dispatch
+    from repro_torch.kernels.paged_kv_decode import paged_decode
+    from repro_torch.kernels.ssm_scan import chunked_scan, ema_scan
+    from repro_torch.kernels.stream import ops as stream_ops
+    from repro_torch.kernels.token_gather import gather
+
+    dev = torch.device("cuda")
+    out: dict[str, dict] = {}
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def strided(t: torch.Tensor) -> torch.Tensor:
+        """``t`` as a view into a wider array: its last dimension a slice
+        of one 7 elements wider."""
+        wide = torch.zeros(*t.shape[:-1], t.shape[-1] + 7, dtype=t.dtype,
+                           device=dev)
+        wide[..., 3:3 + t.shape[-1]] = t
+        return wide[..., 3:3 + t.shape[-1]]
+
+    def off16(t: torch.Tensor) -> torch.Tensor:
+        """``t`` as a contiguous view that starts one element (2 or 4
+        bytes) off its storage's 16-byte alignment."""
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+
+    def held(kernel: str, what: str, call, args: list, views: dict,
+             copies: int) -> None:
+        """``call(*args)`` with ``views`` (position -> view) in place of
+        those arguments, against ``call(*args)``; the kernel's copies must
+        rise by ``copies``."""
+        want = call(*args)
+        torch.cuda.synchronize()
+        before = K.copy_counts()[kernel]
+        got = call(*[views.get(i, a) for i, a in enumerate(args)])
+        made = K.copy_counts()[kernel] - before
+        check_close(kernel, f"view {what}", got, want, exact=True,
+                    show=False)
+        row = out.setdefault(kernel, {"views": [], "copies": 0})
+        row["views"].append(what)
+        row["copies"] += made
+        if made != copies:
+            raise AssertionError(f"{kernel} {what}: {made} dense copies, "
+                                 f"expected {copies}")
+
+    f16 = torch.float16
+    a, b = randn(2 * 512 * 128, dtype=f16), randn(2 * 512 * 128, dtype=f16)
+    triad = lambda u, v: stream_ops.stream_triad(u, v, 3.0)   # noqa: E731
+    held("stream", "strided a, b", triad, [a, b],
+         {0: torch.stack([a, a], dim=1)[:, 0],
+          1: torch.stack([b, b], dim=1)[:, 1]}, 2)
+    held("stream", "off16 a", triad, [a, b], {0: off16(a)}, 1)
+
+    table = randn(1000, 128)
+    idx = torch.randint(0, 1000, (777,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    held("token_gather", "row-strided table", gather, [table, idx],
+         {0: strided(table)}, 0)
+    held("token_gather", "off16 table and index", gather, [table, idx],
+         {0: off16(table), 1: off16(idx)}, 1)
+
+    q, k, v = (randn(1, 4, 256, 64) for _ in range(3))    # [B, H, S, D]
+    attend = lambda *t: mha(*t, causal=True)                 # noqa: E731
+    qs, ks, vs = (u.transpose(1, 2) for u in (q, k, v))      # [B, S, H, D]
+    held("flash_attention", "transposed [B, H, S, D] q, k, v", attend,
+         [u.contiguous() for u in (qs, ks, vs)], {0: qs, 1: ks, 2: vs}, 3)
+    held("flash_attention", "off16 q", attend,
+         [u.contiguous() for u in (qs, ks, vs)], {0: off16(qs.contiguous())},
+         1)
+
+    qd = randn(8, 128)
+    pages = randn(64, 16, 128)
+    table_p = torch.randperm(64, generator=gen, device=dev)[:40].to(
+        torch.int32)
+    held("paged_kv_decode", "strided q and pools", paged_decode,
+         [qd, pages, pages, table_p],
+         {0: strided(qd), 1: strided(pages), 2: strided(pages)}, 3)
+    held("paged_kv_decode", "off16 pools and table", paged_decode,
+         [qd, pages, pages, table_p],
+         {1: off16(pages), 2: off16(pages), 3: off16(table_p)}, 3)
+
+    x, w = randn(256, 128, dtype=f16), (randn(4, 128, 128) / 11).to(f16)
+    eids = torch.randint(0, 4, (256,), generator=gen, device=dev)
+    held("moe_dispatch", "strided x, transposed w", dispatch, [x, w, eids],
+         {0: strided(x), 1: w.transpose(1, 2).contiguous().transpose(1, 2)},
+         2)
+    held("moe_dispatch", "off16 x", dispatch, [x, w, eids], {0: off16(x)},
+         1)
+
+    xz = randn(300, 2 * 96, dtype=f16)          # Mamba's x = xz[:, :d]
+    xe, dte, ge = ema_inputs(gen, 300, 96, f16)
+    held("ssm_ema_scan", "x = xz[:, :d]", ema_scan, [xz[:, :96].contiguous(),
+                                                      dte, ge],
+         {0: xz[:, :96]}, 1)
+    held("ssm_ema_scan", "off16 x, dt, g", ema_scan, [xe, dte, ge],
+         {0: off16(xe), 1: off16(dte), 2: off16(ge)}, 3)
+    xc, dtc, bc, cc = scan_inputs(gen, 300, 96, 24, f16)
+    held("ssm_chunked_scan", "x = xz[:, :d], strided b", chunked_scan,
+         [xz[:, :96].contiguous(), dtc, bc, cc],
+         {0: xz[:, :96], 2: strided(bc)}, 2)
+    held("ssm_chunked_scan", "off16 c", chunked_scan, [xc, dtc, bc, cc],
+         {3: off16(cc)}, 1)
+
+    # what still raises on the card names ROADMAP.md
+    h16, h64 = torch.float16, torch.float64
+    z = lambda *shape, dtype=torch.float32: torch.zeros(   # noqa: E731
+        *shape, device=dev, dtype=dtype)
+    ids = torch.zeros(2, dtype=torch.int32, device=dev)
+    refused = {
+        "flash_attention float16": lambda: mha(
+            z(1, 128, 2, 64, dtype=h16), z(1, 128, 2, 64, dtype=h16),
+            z(1, 128, 2, 64, dtype=h16), causal=True),
+        "paged_kv_decode float16": lambda: paged_decode(
+            z(2, 64, dtype=h16), z(4, 16, 64, dtype=h16),
+            z(4, 16, 64, dtype=h16), ids),
+        "flash_attention float64": lambda: mha(
+            z(1, 128, 2, 64, dtype=h64), z(1, 128, 2, 64, dtype=h64),
+            z(1, 128, 2, 64, dtype=h64), causal=True),
+        "paged_kv_decode float64": lambda: paged_decode(
+            z(2, 64, dtype=h64), z(4, 16, 64, dtype=h64),
+            z(4, 16, 64, dtype=h64), ids),
+        "stream float64": lambda: stream_ops.stream_copy(
+            z(512 * 128, dtype=h64)),
+        "moe_dispatch float64": lambda: dispatch(
+            z(64, 96, dtype=h64), z(2, 96, 24, dtype=h64), ids.repeat(32)),
+        "ssm_ema_scan float64": lambda: ema_scan(
+            z(64, 96, dtype=h64), z(64, 96, dtype=h64), z(64, 96, dtype=h64)),
+        "ssm_chunked_scan float64": lambda: chunked_scan(
+            z(64, 96, dtype=h64), z(64, 96, dtype=h64), z(64, 8, dtype=h64),
+            z(64, 8, dtype=h64)),
+        "stream mixed": lambda: stream_ops.stream_add(
+            z(512 * 128), z(512 * 128, dtype=h16)),
+        "moe_dispatch mixed": lambda: dispatch(
+            z(64, 96), z(2, 96, 24, dtype=h16), ids.repeat(32)),
+        "ssm_ema_scan mixed": lambda: ema_scan(
+            z(64, 96), z(64, 96, dtype=h16), z(64, 96)),
+    }
+    for what, call in refused.items():
+        try:
+            call()
+        except ValueError as e:
+            if "ROADMAP.md" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{what} on CUDA was not refused")
+    for kernel, row in out.items():
+        say({"phase": "views", "kernel": kernel, **row})
+    say({"phase": "refused", "named_roadmap": sorted(refused)})
     return out
 
 
@@ -1169,7 +1515,8 @@ def ema_plan_of(t: int, d: int, itemsize: int) -> dict:
 
 def ema_tol(dtype: torch.dtype, want: torch.Tensor) -> dict:
     """check_close's limit for the EMA scan: float32 bit for bit (both
-    round op by op in one order), bf16 against the f32 plain version."""
+    round op by op in one order), bf16 and float16 against the f32 plain
+    version (``attn_tol``)."""
     if dtype == torch.float32:
         return {"exact": True}
     return {"tol": attn_tol(dtype, want)}
@@ -1407,6 +1754,7 @@ def ema_full_width(bench: Bench, smi: str, dtype: torch.dtype,
     err = check_close("ssm_ema_scan", f"full {case}",
                       ssm_ema_scan(x, dt, g, chunk=chunk), want,
                       **ema_tol(dtype, want))
+    extra = {"max_abs_y": max_abs(want), **extra}
     del want
     row = timing_row(
         bench, smi, "ssm_ema_scan", case, dtype,
@@ -1436,6 +1784,7 @@ def chunked_full_width(bench: Bench, smi: str, dtype: torch.dtype,
     err = check_close("ssm_chunked_scan", f"full {case}",
                       ssm_chunked_scan(x, dt, b, c, chunk=chunk), want,
                       tol=chunked_tol(dtype, want))
+    extra = {"max_abs_y": max_abs(want), **extra}
     del want
     row = timing_row(
         bench, smi, "ssm_chunked_scan", case, dtype,
@@ -4182,15 +4531,13 @@ def main() -> int:
     from repro_torch import kernels as K
     from repro_torch.capture.launch import record as record_launches
     from repro_torch.benchmarks.kernel_bench import (CardBench, card_identity,
-                                                     card_peaks, stream_calls)
+                                                     card_peaks)
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import attention_ref, mha
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_cuda as flash_kernel)
     from repro_torch.kernels.ssm_scan import ssm_ema_ref, ssm_ema_scan
     from repro_torch.kernels.ssm_scan.ops import scan_flops
-    from repro_torch.kernels.stream import ops as stream_ops
-    from repro_torch.kernels.stream.kernel import stream_cuda
     from repro_torch.serving import SCENARIOS, measure_windows
     from repro_torch.suite import SuiteRunner, default_registry
 
@@ -4236,6 +4583,7 @@ def main() -> int:
         if not held or not all(held.values()):
             raise AssertionError(f"an instance of {fn_name} holds no HGMMA "
                                  f"(wgmma) instruction: {held}")
+    check_f16_instances(logs, sass)
 
     tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-obs-")
     trace_dir = Path(tmp.name)      # one span/counter trace per main path
@@ -4251,45 +4599,12 @@ def main() -> int:
     def rand(*shape):
         return torch.rand(*shape, generator=gen, device=dev)
 
-    def record(*args, **kw) -> dict:
-        return timing_row(bench, smi, *args, **kw)
-
     clock("2+3 stream")
-    # -- 2+3. STREAM ------------------------------------------------------------
-    # In turns: the library call and the kernel, both writing into one
-    # preallocated output, and the entry point, which allocates its output
-    # as a user's call does.  ``ms`` is the kernel's; ``entry_ms`` the entry
-    # point's.
-    streams = stream_calls()
-    q = 3.0
-    n = 2**28
+    # -- 2+3. STREAM (the same timings as scripts/kernel_ab.py --only
+    # stream) -------------------------------------------------------------
     for dtype in (torch.float32, torch.bfloat16):
-        a, b = randn(n, dtype=dtype), randn(n, dtype=dtype)
-        o = torch.empty_like(a)
-        for op, (entry, plain, _, lib) in streams.items():
-            spec = stream_ops.launch_spec(op, n, dtype)
-            want = plain(a, b, q)
-            check_close("stream", f"{op} full n=2^28 entry point",
-                        entry(a, b, q), want, exact=True)
-            check_close("stream", f"{op} full n=2^28 into out",
-                        stream_cuda(spec, op, a, b, q, out=o), want,
-                        exact=True)
-            del want
-            ms = bench.turns(
-                [("library", lambda: lib(a, b, q, o)),
-                 ("kernel", lambda: stream_cuda(spec, op, a, b, q, out=o)),
-                 ("entry", lambda: entry(a, b, q)),
-                 ("library", lambda: lib(a, b, q, o))], STREAM_ROUNDS)
-            row = record(
-                "stream", op, dtype, ms["kernel"],
-                bench.ms(lambda: plain(a, b, q)), ms["library"],
-                stream_ops.bytes_moved(op, n, a.element_size()),
-                stream_ops.STREAM_OPS[op][1] * n, "f32",
-                entry_ms=ms["entry"], vs_library=ms["kernel"] / ms["library"])
-            if op == "triad":
-                rows["stream", dtype] = row
-        del a, b, o
-    torch.cuda.empty_cache()
+        rows["stream", dtype] = stream_full_width(bench, smi, dtype)["triad"]
+        torch.cuda.empty_cache()
 
     clock("2+3 gather")
     # -- 2+3. token gather (the same timing as scripts/kernel_ab.py) -------
@@ -4435,6 +4750,12 @@ def main() -> int:
     odd = odd_shapes_phase(K, gen)
     torch.cuda.empty_cache()
 
+    clock("2 float16, views")
+    # -- 2. float16 at full width, and every family on views ---------------
+    f16_rows = f16_full_width()
+    views = views_phase(K, gen)
+    torch.cuda.empty_cache()
+
     clock("2 window")
     # -- 2. the simulator's window count on seeded rows (timed in phase 14,
     # at the geometries the cuda backend's main paths give it) -------------
@@ -4460,6 +4781,7 @@ def main() -> int:
         roster = runner.roster()
         torch.cuda.synchronize()
     roster_launches = K.launch_counts()
+    roster_copies = K.copy_counts()
     roster_flash = dict(flash_kernel.launches_by_kernel)
     roster_s = time.perf_counter() - t0
     bad = [r for r in roster.records() if not r["match"]]
@@ -4467,7 +4789,10 @@ def main() -> int:
          "matching": len(roster.rows) - len(bad), "seconds": roster_s,
          "registry_seconds": registry_s, "seconds_by_source": by_source,
          "engine": runner.study.stats.as_dict(),
-         "launches": roster_launches, "flash_launches_by_kernel": roster_flash})
+         "launches": roster_launches, "flash_launches_by_kernel": roster_flash,
+         "copies": roster_copies})
+    if any(roster_copies.values()):
+        raise AssertionError(f"the roster copied inputs: {roster_copies}")
     for rec in roster.records():
         say({"phase": "roster-row", **rec})
     if len(roster.rows) != 45 or bad:
@@ -4509,11 +4834,16 @@ def main() -> int:
                  "launches": {k: after[k] - before[k] for k in after
                               if after[k] > before[k]}})
     serving_launches = K.launch_counts()
+    serving_copies = K.copy_counts()
     serving_flash = dict(flash_kernel.launches_by_kernel)
     serving_s = time.perf_counter() - t0
     say({"phase": "serving", "scenarios": len(timelines),
          "seconds": serving_s, "launches": serving_launches,
-         "flash_launches_by_kernel": serving_flash})
+         "flash_launches_by_kernel": serving_flash,
+         "copies": serving_copies})
+    if any(serving_copies.values()):
+        raise AssertionError(f"the serving path copied inputs: "
+                             f"{serving_copies}")
     missing = [k for k in ("flash_attention", "paged_kv_decode",
                            "moe_dispatch") if serving_launches[k] <= 0]
     if len(timelines) != 16 or missing:
@@ -4672,7 +5002,18 @@ def main() -> int:
             "max_abs_err": errs[kname], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            # the dtypes held on the card in this run; the main paths'
+            # dense copies of inputs (0)
+            "dtypes": sorted(TOOK.get(kname, ())),
+            "copies_by_path": {"roster": roster_copies[kname],
+                               "serving": serving_copies[kname]},
         }
+        if kname in f16_rows:
+            # float16 at full width (phase 2; timed by kernel_ab.py --only
+            # f16)
+            entry["f16"] = f16_rows[kname]
+        if kname in views:
+            entry["views"] = views[kname]
         if not scan:
             r16 = rows[kname, torch.bfloat16]
             entry.update(bf16_ms=r16["ms"], bf16_bound_ms=r16["bound_ms"],

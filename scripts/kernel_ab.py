@@ -46,7 +46,15 @@ embedding table and 8 192 tokens at D 5120, in both dtypes, beside
 reference's kernel route, ``chip_smoke.ODD_FULL``: the gather at D 5118,
 the EMA scan at D 7166, the chunked scan at D 7166 and N 96 (rows that
 are not 16-byte multiples), MoE dispatch at D 2040 and F 1400 (a K and an
-N tail), in both dtypes, only for a checkout that takes them).
+N tail), in both dtypes, only for a checkout that takes them);
+``stream``: STREAM's four ops at full width (2^28 elements) in both
+dtypes, in turns with their torch calls (``chip_smoke.stream_full_width``,
+phase 3's rows); ``f16``: float16 at full width, STREAM's four ops, the
+EMA and chunked scans at Zamba2-7B's layer (``chip_smoke.FULL_SCAN``) and
+MoE at DeepSeek-MoE-16B's (``chip_smoke.FULL_MOE``), each held within one
+float16 ulp of its plain version's largest magnitude and printed with it,
+its bound at 2-byte elements or at the tensor cores' f16 rate, STREAM
+beside its torch calls, only for a checkout that takes float16).
 
 ``--only window`` runs the checkout's roster on the card with
 ``backend="cuda"``, recording its window counts, and times the window
@@ -183,6 +191,9 @@ def main() -> int:
     cases = 0
     odd = chip_smoke.ODD_FULL if "odd" in only else {}
     for dtype in (torch.float32, torch.bfloat16):
+        if "stream" in only:
+            chip_smoke.stream_full_width(bench, smi, dtype, label=args.label)
+            torch.cuda.empty_cache()
         if "gather" in only:
             chip_smoke.gather_full_width(bench, smi, dtype, label=args.label)
         if "paged" in only:
@@ -195,7 +206,8 @@ def main() -> int:
             chip_smoke.chunked_full_width(bench, smi, dtype, label=args.label)
         if "ema" in only:
             chip_smoke.ema_full_width(bench, smi, dtype, label=args.label)
-        cases += len(only & {"gather", "paged", "moe", "scan", "ema"})
+        cases += len(only & {"stream", "gather", "paged", "moe", "scan",
+                             "ema"})
         for kernel, timing in (
                 ("token_gather", chip_smoke.gather_full_width),
                 ("ssm_ema_scan", chip_smoke.ema_full_width),
@@ -207,6 +219,16 @@ def main() -> int:
                 torch.cuda.empty_cache()
                 cases += 1
         torch.cuda.empty_cache()
+    if "f16" in only:
+        f16 = torch.float16
+        chip_smoke.stream_full_width(bench, smi, f16, label=args.label)
+        for timing in (chip_smoke.ema_full_width,
+                       chip_smoke.chunked_full_width,
+                       chip_smoke.moe_full_width):
+            torch.cuda.empty_cache()
+            timing(bench, smi, f16, label=args.label)
+        torch.cuda.empty_cache()
+        cases += 4
     if "flash" in only:
         for causal in (True, False):
             chip_smoke.flash_full_width(bench, smi, torch.float32, 128, causal,

@@ -42,15 +42,15 @@ STREAM_Q = 3.0
 ATTENTION_SHAPES = ((1, 1024, 8, 8, 128), (1, 2048, 8, 2, 128))
 
 # Published dense peaks of the SXM parts (NVIDIA data sheets): HBM bytes/s,
-# bf16 tensor-core and f32 CUDA-core flop/s, keyed by what nvidia-smi calls
-# the card ("NVIDIA H100 80GB HBM3" is the H100 SXM).
+# bf16 and f16 tensor-core and f32 CUDA-core flop/s, keyed by what
+# nvidia-smi calls the card ("NVIDIA H100 80GB HBM3" is the H100 SXM).
 # ``f32_issue``: f32 lane-instructions a second (132 SMs x 128 lanes x the
 # 1.98 GHz boost clock), the floor of a kernel that may not fuse its
 # multiplies and adds (the state-expanded scan's op-by-op update).
 PEAKS = {
-    "H100 80GB HBM3": dict(bytes=3.35e12, bf16=989e12, f32=67e12,
-                           f32_issue=132 * 128 * 1.98e9),
-    "H200": dict(bytes=4.8e12, bf16=989e12, f32=67e12,
+    "H100 80GB HBM3": dict(bytes=3.35e12, bf16=989e12, f16=989e12,
+                           f32=67e12, f32_issue=132 * 128 * 1.98e9),
+    "H200": dict(bytes=4.8e12, bf16=989e12, f16=989e12, f32=67e12,
                  f32_issue=132 * 128 * 1.98e9),
 }
 

@@ -8,13 +8,21 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define REPRO_EXPORT extern "C" __attribute__((visibility("default")))
 
 // Element types a wrapper may pass (kept in step with _build.DTYPE_CODES).
-enum ReproDType { REPRO_F32 = 0, REPRO_BF16 = 1 };
+enum ReproDType { REPRO_F32 = 0, REPRO_BF16 = 1, REPRO_F16 = 2 };
+
+// Bytes of one element of a ReproDType (0 for a code no kernel takes).
+inline int repro_elem_bytes(int dtype) {
+  return dtype == REPRO_F32                          ? 4
+         : dtype == REPRO_BF16 || dtype == REPRO_F16 ? 2
+                                                     : 0;
+}
 
 // Running-max initial value of the online softmax: the reference kernels
 // use -1e30, not -inf, so exp(m_prev - m_new) stays finite.
@@ -24,6 +32,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -34,6 +43,10 @@ __device__ __forceinline__ float from_f32<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);  // round to nearest even
 }
 
 // Host-side error text for the code an entry returned.

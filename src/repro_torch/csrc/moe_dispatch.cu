@@ -34,7 +34,9 @@
 //    sorted row lies in one M-tile, so every y row is written once, with
 //    no atomics, and the result is deterministic.
 //
-// bf16, moe_gemm_sm90 (tensor cores): bound on the card at a routed layer's
+// bf16 and f16, moe_gemm_sm90 (tensor cores; one template on the element
+// type, whose wgmma forms and tensor map alone differ): bound on the card
+// at a routed layer's
 // width (DeepSeek-MoE-16B, T = 24576, D = 2048, F = 1408, E = 64) by bytes,
 // just: 263 flops a byte against the H100's ~295, so the weights must stream
 // at HBM rate while wgmma stays fed.  A block is a producer warpgroup and
@@ -55,8 +57,8 @@
 // m64n256k16 with A K-major and B MN-major (the transpose bit), f32
 // accumulators (128 a thread; setmaxnreg moves registers from the producer
 // to the consumers), one stage's products in flight while the next is
-// issued.  The epilogue rounds once to bf16, stages the tile through shared
-// memory (swizzled) and writes 16-byte row segments
+// issued.  The epilogue rounds once to the element type, stages the tile
+// through shared memory (swizzled) and writes 16-byte row segments
 // scattered by tok.
 //
 // f32, moe_gemm_f32 (CUDA cores, since TF32 would miss the f32 tolerance and
@@ -74,14 +76,14 @@
 // partial: copies past D or F are zero-filled (a cp.async source size of
 // 0), so they add nothing, and columns past F are never stored.  Each
 // GEMM has a second instance, kNarrow, for rows that are not a multiple of
-// 16 bytes (f32 D or F % 4 != 0; bf16 D or F % 8 != 0): its copies move 4
-// bytes (2 for a bf16 row of odd length, by plain loads and stores), bf16
-// brings the weight panels by cp.async in place of TMA (whose row stride
-// must be a multiple of 16 bytes) into the same swizzled layout, and the
-// epilogue stores element by element.  Shapes of whole K stages and
-// N-tiles (f32 D % 32 == 0 and F % 128 == 0; bf16 D and F % 64 == 0), the
-// reference's kernel route among them, keep a third instance with no tail
-// tests (kExact).
+// 16 bytes (f32 D or F % 4 != 0; bf16 and f16 D or F % 8 != 0): its copies
+// move 4 bytes (2 for a 2-byte row of odd length, by plain loads and
+// stores), bf16 and f16 bring the weight panels by cp.async in place of
+// TMA (whose row stride must be a multiple of 16 bytes) into the same
+// swizzled layout, and the epilogue stores element by element.  Shapes of
+// whole K stages and N-tiles (f32 D % 32 == 0 and F % 128 == 0; bf16 and
+// f16 D and F % 64 == 0), the reference's kernel route among them, keep a
+// third instance with no tail tests (kExact).
 #include <algorithm>
 
 #include "common.cuh"
@@ -495,14 +497,15 @@ int launch_rows(const float* x, const float* w, const int* tok,
 }  // namespace f32k
 
 // ---------------------------------------------------------------------------
-// bf16: tensor-core grouped GEMM (sm_90a)
+// bf16 and f16: tensor-core grouped GEMM (sm_90a)
 // ---------------------------------------------------------------------------
 
 namespace sm90 {
 
 constexpr int kBM = 128;         // rows per M-tile: two consumers x 64
 constexpr int kBN = 256;         // columns per N-tile
-constexpr int kBK = 64;          // K per stage: one 128-byte row of bf16
+constexpr int kBK = 64;          // K per stage: one 128-byte row of 2-byte
+                                 // elements
 constexpr int kThreads = 384;    // producer + two consumer warpgroups
 constexpr int kStages = 3;       // ring depth
 // Stages of copies a producer thread keeps in flight before it hands the
@@ -511,44 +514,43 @@ constexpr int kStages = 3;       // ring depth
 // stage j must come before the producer waits for slot j + kStages - 1:
 // kLag <= kStages - 2, or the block deadlocks.
 constexpr int kLag = kStages - 2;
-constexpr int kPanel = 64 * 128;         // 64 rows x 64 bf16 columns
+constexpr int kPanel = 64 * 128;         // 64 rows x 64 columns
 constexpr int kPanels = kBN / 64;        // B and output panels
-constexpr int kATile = kBM * 128;        // 128 rows x 64 bf16
+constexpr int kATile = kBM * 128;        // 128 rows x 64 columns
 constexpr int kBTile = kPanels * kPanel;  // 64 D rows x kBN columns
 constexpr int kOut = kPanels * kPanel;    // a consumer's 64 x kBN
 constexpr int kSmem =
     1024 + kStages * (kATile + kBTile) + 2 * kOut + 8 * 3 * kStages;
 
-// Bytes a narrow copy moves: 4 (two bf16) where a row's length is even,
-// else 2 (one bf16, by a plain load and store).  Each lands at its place in
+// Bytes a narrow copy moves: 4 (two elements) where a row's length is
+// even, else 2 (one, by a plain load and store).  Each lands at its place in
 // the 128-byte-swizzled layout: row r's 16-byte chunk c at chunk c ^ (r %
 // 8) of its 128-byte row.  `valid` elements are read from src (0 or the
 // copy's own count), the rest are zeros; `base`, an address inside the
 // array, stands in for src when none is read.
+template <typename T>
 __device__ __forceinline__ void copy_narrow(uint8_t* row_base, int r, int col,
-                                            const __nv_bfloat16* src,
-                                            const __nv_bfloat16* base,
+                                            const T* src, const T* base,
                                             int valid, bool pairs) {
   uint8_t* dst = row_base + (((col / 8) ^ (r % 8)) * 16) + (col % 8) * 2;
   if (pairs) {
     cp_async4(smem_u32(dst), valid > 0 ? src : base, valid > 0 ? 4 : 0);
   } else {
-    *reinterpret_cast<__nv_bfloat16*>(dst) =
-        valid > 0 ? *src : __float2bfloat16(0.f);
+    *reinterpret_cast<T*>(dst) = valid > 0 ? *src : from_f32<T>(0.f);
   }
 }
 
 // kNarrow: x or w has rows that are not a multiple of 16 bytes; the
 // producers bring A and B in 4- or 2-byte copies, and B without TMA.
 // kTail: a K tail or a panel F ends inside (D or F % 64 != 0): A's copies
-// past D are zero-filled, B's by TMA's fill; kExact: neither.
-template <int kMode>
+// past D are zero-filled, B's by TMA's fill; kExact: neither.  T is the
+// element type, __nv_bfloat16 or __half.
+template <typename T, int kMode>
 __global__ void __launch_bounds__(kThreads, 1)
 moe_gemm_sm90(const __grid_constant__ CUtensorMap tm_w,
-              const __nv_bfloat16* __restrict__ x,
-              const __nv_bfloat16* __restrict__ w,
+              const T* __restrict__ x, const T* __restrict__ w,
               const int* __restrict__ tok, const int* __restrict__ tiles_buf,
-              __nv_bfloat16* __restrict__ y, int D, int F) {
+              T* __restrict__ y, int D, int F) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sA = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* sB = sA + kStages * kATile;
@@ -586,14 +588,14 @@ moe_gemm_sm90(const __grid_constant__ CUtensorMap tm_w,
       // never stored.  A panel F ends inside is loaded whole, its columns
       // past F zeros (TMA's fill, or the narrow copies').
       const int panels = min(kPanels, (F - n0 + 63) / 64);
-      const __nv_bfloat16* src[8];
+      const T* src[8];
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int r = tid / 8 + 16 * j;
         src[j] = x + (r < tl.rows ? static_cast<int64_t>(tok[tl.row0 + r]) * D
                                   : 0);
       }
-      const __nv_bfloat16* we = w + static_cast<int64_t>(tl.expert) * D * F;
+      const T* we = w + static_cast<int64_t>(tl.expert) * D * F;
       for (int kt = 0; kt < nk; ++kt, ++it) {
         const int s = it % kStages;
         mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
@@ -638,7 +640,7 @@ moe_gemm_sm90(const __grid_constant__ CUtensorMap tm_w,
             const int p = q / 512, k = (q / 8) % 64, c = q % 8;
             uint8_t* row = sB + s * kBTile + p * kPanel + k * 128;
             const int col = n0 + 64 * p + 8 * c;
-            const __nv_bfloat16* wsrc =
+            const T* wsrc =
                 we + static_cast<int64_t>(min(k0 + k, D - 1)) * F;
             for (int e = 0; e < 8; e += wstep) {
               const int valid = k0 + k < D ? min(wstep, F - col - e) : 0;
@@ -691,7 +693,7 @@ moe_gemm_sm90(const __grid_constant__ CUtensorMap tm_w,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk)
-        wgmma_ss_n256_tb(acc, sw128_desc(a_addr + kk * 32, 16),
+        wgmma_ss_n256_tb<T>(acc, sw128_desc(a_addr + kk * 32, 16),
                          sw128_desc(b_addr + kk * 16 * 128, kPanel),
                          (kt | kk) != 0);
       wgmma_commit();
@@ -704,7 +706,7 @@ moe_gemm_sm90(const __grid_constant__ CUtensorMap tm_w,
     reg_fence(acc);
     if (lane == 0) mbar_arrive(&empty[(it - 1) % kStages]);
 
-    // Round once to bf16, stage in this consumer's swizzled tile (acc[4n +
+    // Round once to T, stage in this consumer's swizzled tile (acc[4n +
     // 2r + e] is row row_lo + 8r, column 8n + col_in + e) and write the
     // valid rows and columns as 16-byte segments scattered by tok.
 #pragma unroll
@@ -715,7 +717,7 @@ moe_gemm_sm90(const __grid_constant__ CUtensorMap tm_w,
         *reinterpret_cast<uint32_t*>(out + (n / 8) * kPanel + row * 128 +
                                      (((n % 8) ^ (row % 8)) * 16) +
                                      col_in * 2) =
-            pack_bf16(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
+            pack2<T>(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
       }
     }
     asm volatile("bar.sync %0, 128;" ::"r"(1 + c) : "memory");
@@ -737,7 +739,7 @@ moe_gemm_sm90(const __grid_constant__ CUtensorMap tm_w,
       for (int i = t; i < 64 * cols; i += 128) {
         const int row = i / cols, col = i % cols;
         if (64 * c + row < tl.rows) {
-          const __nv_bfloat16 val = *reinterpret_cast<const __nv_bfloat16*>(
+          const T val = *reinterpret_cast<const T*>(
               out + (col / 64) * kPanel + row * 128 +
               ((((col % 64) / 8) ^ (row % 8)) * 16) + (col % 8) * 2);
           const int64_t dst =
@@ -750,9 +752,11 @@ moe_gemm_sm90(const __grid_constant__ CUtensorMap tm_w,
   }
 }
 
-// Tensor map over the contiguous [E, D, F] bf16 weights, boxes of {64 F
-// columns, 64 D rows, 1 expert}, 128-byte swizzle.
-bool make_w_map(CUtensorMap* map, const void* w, int D, int F, int E) {
+// Tensor map over the contiguous [E, D, F] 2-byte weights of tensor-map
+// type `type`, boxes of {64 F columns, 64 D rows, 1 expert}, 128-byte
+// swizzle.
+bool make_w_map(CUtensorMap* map, CUtensorMapDataType type, const void* w,
+                int D, int F, int E) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(F),
@@ -762,8 +766,8 @@ bool make_w_map(CUtensorMap* map, const void* w, int D, int F, int E) {
                                  static_cast<cuuint64_t>(D) * F * 2};
   const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(kBK), 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(w), dims, strides, box, elem_strides,
+  return encode(map, type, 3, const_cast<void*>(w), dims, strides, box,
+                elem_strides,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -772,21 +776,22 @@ bool make_w_map(CUtensorMap* map, const void* w, int D, int F, int E) {
 // Rows of x and w that are 16-byte multiples (D, F % 8 == 0) take TMA and
 // 16-byte copies (whole K stages and panels, D and F % 64 == 0, without
 // tail tests), other rows the narrow instance.
-int launch(const __nv_bfloat16* x, const void* w, const int* tok,
-           const int* tiles, __nv_bfloat16* y, int D, int F, int E, int grid,
-           cudaStream_t stream) {
+template <typename T>
+int launch(const void* x, const void* w, const int* tok, const int* tiles,
+           void* y, int D, int F, int E, int grid, cudaStream_t stream) {
   const bool narrow = D % 8 != 0 || F % 8 != 0;
   CUtensorMap tm{};  // unused by the narrow instance
-  if (!narrow && !make_w_map(&tm, w, D, F, E))
+  if (!narrow && !make_w_map(&tm, tma_type<T>(), w, D, F, E))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto* kern = narrow                           ? moe_gemm_sm90<kNarrow>
-               : D % kBK == 0 && F % 64 == 0 ? moe_gemm_sm90<kExact>
-                                               : moe_gemm_sm90<kTail>;
+  auto* kern = narrow                           ? moe_gemm_sm90<T, kNarrow>
+               : D % kBK == 0 && F % 64 == 0 ? moe_gemm_sm90<T, kExact>
+                                               : moe_gemm_sm90<T, kTail>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kern<<<grid, kThreads, kSmem, stream>>>(
-      tm, x, static_cast<const __nv_bfloat16*>(w), tok, tiles, y, D, F);
+      tm, static_cast<const T*>(x), static_cast<const T*>(w), tok, tiles,
+      static_cast<T*>(y), D, F);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -811,8 +816,9 @@ REPRO_EXPORT int moe_tile_list_launch(const void* tok, const void* eid,
 
 // Contract (checked by the Python wrapper): contiguous x [T, D], w [E, D,
 // F], int32 tok and eid [T], int32 scratch tiles [4 + 4 T + ceil(T / 32)],
-// y [T, F]; D >= 1, F >= 1, 16-byte aligned x, w and y; bm, the rows of an
-// M-tile, 128 for bf16 and 128 or 32 for f32; grid, the blocks of the
+// y [T, F], of one dtype (a ReproDType: f32, bf16 or f16); D >= 1, F >= 1,
+// 16-byte aligned x, w and y; bm, the rows of an M-tile, 128 for bf16 and
+// f16 and 128 or 32 for f32; grid, the blocks of the
 // persistent GEMM (plan.launch_shape: no more than fit on the card at
 // once).  Two launches (three above 1 859 584 tokens): the pre-pass (which
 // checks tok and eid on the card), then the grouped GEMM.
@@ -822,9 +828,10 @@ REPRO_EXPORT int moe_dispatch_launch(int dtype, const void* x, const void* w,
                                      int F, int n_experts, int bm, int grid,
                                      void* stream) {
   if (n_tokens == 0) return static_cast<int>(cudaSuccess);
-  const bool f32 = dtype == REPRO_F32, bf16 = dtype == REPRO_BF16;
+  const bool f32 = dtype == REPRO_F32;
   if (n_tokens < 0 || D < 1 || F < 1 || n_experts < 1 || grid < 1 ||
-      !(f32 || bf16) || !(bm == 128 || (f32 && bm == f32k::Tiling<2>::kBM)))
+      !(f32 || dtype == REPRO_BF16 || dtype == REPRO_F16) ||
+      !(bm == 128 || (f32 && bm == f32k::Tiling<2>::kBM)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* tk = static_cast<const int*>(tok);
@@ -833,10 +840,11 @@ REPRO_EXPORT int moe_dispatch_launch(int dtype, const void* x, const void* w,
                                    static_cast<int*>(tiles), n_tokens,
                                    n_experts, bm, s);
   if (err != 0) return err;
-  if (bf16)
-    return sm90::launch(static_cast<const __nv_bfloat16*>(x), w, tk, tl,
-                        static_cast<__nv_bfloat16*>(y), D, F, n_experts, grid,
-                        s);
+  if (dtype == REPRO_BF16)
+    return sm90::launch<__nv_bfloat16>(x, w, tk, tl, y, D, F, n_experts,
+                                       grid, s);
+  if (dtype == REPRO_F16)
+    return sm90::launch<__half>(x, w, tk, tl, y, D, F, n_experts, grid, s);
   const float* xf = static_cast<const float*>(x);
   const float* wf = static_cast<const float*>(w);
   float* yf = static_cast<float*>(y);

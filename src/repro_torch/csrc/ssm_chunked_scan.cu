@@ -52,8 +52,11 @@
 // more than one, each block writes its part of y in f32 to a scratch
 // [parts, T, D], and ssm_chunked_combine adds the parts in part order, so
 // a rerun is bit-identical.  The copies are 16-byte cp.async where a row's
-// bytes allow it, else 8- or 4-byte cp.async, else (bf16 rows of odd
-// length) plain loads (plan.py's copy_piece).
+// bytes allow it, else 8- or 4-byte cp.async, else (bf16 or f16 rows of
+// odd length) plain loads (plan.py's copy_piece).  f32, bf16 and f16
+// (each kernel instanced on its element type; the 2-byte types share the
+// plans, plan.py's itemsize): every value is read as f32, the state and
+// sums stay f32, and y is rounded once.
 #include <algorithm>
 
 #include "common.cuh"
@@ -143,7 +146,7 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // R consecutive elements of shared memory as floats, in 16-byte loads (or
-// one 8-byte load: 4 bf16).
+// one 8-byte load: 4 bf16 or f16).
 template <int R>
 __device__ __forceinline__ void load_vec(const float* p, float (&out)[R]) {
 #pragma unroll
@@ -152,15 +155,19 @@ __device__ __forceinline__ void load_vec(const float* p, float (&out)[R]) {
     out[j] = v.x, out[j + 1] = v.y, out[j + 2] = v.z, out[j + 3] = v.w;
   }
 }
-__device__ __forceinline__ float2 bf2(uint32_t w) {
+// Two 2-byte elements of one 32-bit word as floats.
+__device__ __forceinline__ float2 pair2(uint32_t w, const __nv_bfloat16*) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
 }
-template <int R>
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
-                                         float (&out)[R]) {
+__device__ __forceinline__ float2 pair2(uint32_t w, const __half*) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&w));
+}
+template <int R, typename T>
+__device__ __forceinline__ void load_vec(const T* p, float (&out)[R]) {
+  static_assert(sizeof(T) == 2, "bf16 or f16");
   if constexpr (R == 4) {
     const uint2 v = *reinterpret_cast<const uint2*>(p);
-    const float2 lo = bf2(v.x), hi = bf2(v.y);
+    const float2 lo = pair2(v.x, p), hi = pair2(v.y, p);
     out[0] = lo.x, out[1] = lo.y, out[2] = hi.x, out[3] = hi.y;
   } else {
 #pragma unroll
@@ -169,7 +176,7 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
       const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float2 f = bf2(w[e]);
+        const float2 f = pair2(w[e], p);
         out[j + 2 * e] = f.x, out[j + 2 * e + 1] = f.y;
       }
     }
@@ -522,7 +529,8 @@ bool valid_piece(int piece, int elem, int64_t bytes) {
 }  // namespace
 
 // Contract (checked by the Python wrapper): contiguous, 16-byte aligned x,
-// dt, y [T, D] and b, c [T, N], D >= 1, N >= 1; the plan from plan.py: R
+// dt, y [T, D] and b, c [T, N] of one dtype (a ReproDType: f32, bf16 or
+// f16), D >= 1, N >= 1; the plan from plan.py: R
 // state rows a thread (4, 8 or 16), CH channels a block (a power of two,
 // CH * NP / R <= 256 threads), S steps a stage, NP the padded rows of a
 // part of `per` rows (parts = ceil(N / per)), x_piece and bc_piece the
@@ -533,7 +541,7 @@ REPRO_EXPORT int ssm_chunked_launch(int dtype, const void* x, const void* dt,
                                     void* part_y, int n_steps, int D, int N,
                                     int R, int CH, int S, int NP, int per,
                                     int x_piece, int bc_piece, void* stream) {
-  const int elem = dtype == REPRO_BF16 ? 2 : 4;
+  const int elem = repro_elem_bytes(dtype);
   const int parts = per > 0 ? (N + per - 1) / per : 0;
   if ((R != 4 && R != 8 && R != 16) || n_steps < 0 || D < 0 || N < 1 ||
       per < 1 || per > NP || NP < 16 || NP > 256 || (NP & (NP - 1)) ||
@@ -552,5 +560,7 @@ REPRO_EXPORT int ssm_chunked_launch(int dtype, const void* x, const void* dt,
     return launch_r<float>(R, x, dt, b, c, y, py, p, s);
   if (dtype == REPRO_BF16)
     return launch_r<__nv_bfloat16>(R, x, dt, b, c, y, py, p, s);
+  if (dtype == REPRO_F16)
+    return launch_r<__half>(R, x, dt, b, c, y, py, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -40,11 +40,14 @@
 // Every D >= 1: the grid is ceil(D / CH) blocks, and the consumers of the
 // last block's channels past D compute and store nothing.  TMA needs a row
 // stride that is a multiple of 16 bytes; where x's rows are not (f32 D %
-// 4 != 0, bf16 D % 8 != 0), kCopyWarps producer warps bring the same
-// [S, CH] tiles with cp.async of the widest of 8 and 4 bytes that divides
-// a row, each thread's copies arriving on the stage's full mbarrier as
-// they land (cp.async.mbarrier.arrive.noinc), or, for bf16 rows of an odd
-// D, with plain loads and stores before its arrival (plan.py's `piece`).
+// 4 != 0, bf16 and f16 D % 8 != 0), kCopyWarps producer warps bring the
+// same [S, CH] tiles with cp.async of the widest of 8 and 4 bytes that
+// divides a row, each thread's copies arriving on the stage's full
+// mbarrier as they land (cp.async.mbarrier.arrive.noinc), or, for 2-byte
+// rows of an odd D, with plain loads and stores before its arrival
+// (plan.py's `piece`).  bf16 and f16 run the same instances on their own
+// element type: each step reads its three values as f32 and rounds y once,
+// as the plain version does.
 // Copies of channels past D are not made: nothing reads them.
 #include "common.cuh"
 #include "sm90.cuh"  // mbarriers, the tensor-map encoder, TMA loads
@@ -89,7 +92,7 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 // Producer thread `lane` of `lanes` copies its share of stage i's [S, CH]
 // tiles of x, dt and g (channels d0 .. d0 + CH - 1 that lie below D, steps
 // below n_steps) into dst, in pieces of `piece` bytes: cp.async for 4 and
-// 8, plain loads and stores for 2 (a bf16 row of odd length).
+// 8, plain loads and stores for 2 (a bf16 or f16 row of odd length).
 template <typename T>
 __device__ __forceinline__ void copy_stage(
     T* dst, const T* __restrict__ x, const T* __restrict__ dt,
@@ -266,12 +269,12 @@ int launch(CUtensorMapDataType type, const void* x, const void* dt,
 // multiple of 128 bytes), a ring of `ring` stages within the shared memory
 // a block may use, and `piece`, the bytes of a copy: 16 (TMA; x's rows a
 // multiple of 16 bytes), 8 or 4 (cp.async; dividing a row's bytes) or 2
-// (plain loads of bf16).
+// (plain loads of bf16 or f16).  f32, bf16 or f16 (dtype, a ReproDType).
 REPRO_EXPORT int ssm_ema_launch(int dtype, const void* x, const void* dt,
                                 const void* g, void* y, int n_steps, int D,
                                 int CH, int S, int ring, int piece,
                                 void* stream) {
-  const int elem = dtype == REPRO_BF16 ? 2 : 4;
+  const int elem = repro_elem_bytes(dtype);
   const int64_t row = static_cast<int64_t>(D) * elem;
   if (n_steps < 0 || D < 0 || CH < 1 || (CH & (CH - 1)) ||
       CH > kMaxThreads - 32 || CH * elem < 16 || S < 1 || S > 256 ||
@@ -288,5 +291,8 @@ REPRO_EXPORT int ssm_ema_launch(int dtype, const void* x, const void* dt,
   if (dtype == REPRO_BF16)
     return launch<__nv_bfloat16>(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, dt, g,
                                  y, n_steps, D, CH, S, ring, piece, s);
+  if (dtype == REPRO_F16)
+    return launch<__half>(CU_TENSOR_MAP_DATA_TYPE_FLOAT16, x, dt, g, y,
+                          n_steps, D, CH, S, ring, piece, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -14,9 +14,10 @@
 // this was the fastest; streaming cache hints (__ldcs / __stcs) and an
 // unrolled grid-stride loop over the resident grid were slower.  The
 // scalar q is passed by value instead of fetched as a (1,) block.
-// Arithmetic rounds op by op (__fmul_rn / __fadd_rn, and through bf16
-// between the multiply and the add for bf16 inputs), so the result is the
-// plain PyTorch version's bit for bit.
+// Arithmetic rounds op by op (__fmul_rn / __fadd_rn, and through the
+// element type between the multiply and the add for bf16 and f16 inputs),
+// so the result is the plain PyTorch version's bit for bit.  f32, bf16 and
+// f16 share the 16-byte vectors: 4 or 8 elements each.
 #include "common.cuh"
 
 enum StreamOp { STREAM_COPY = 0, STREAM_SCALE = 1, STREAM_ADD = 2, STREAM_TRIAD = 3 };
@@ -116,5 +117,7 @@ REPRO_EXPORT int stream_launch(int op, int dtype, const void* a, const void* b,
   if (dtype == REPRO_F32) return dispatch<float>(op, a, b, o, q, n_elems / 4, s);
   if (dtype == REPRO_BF16)
     return dispatch<__nv_bfloat16>(op, a, b, o, q, n_elems / 8, s);
+  if (dtype == REPRO_F16)
+    return dispatch<__half>(op, a, b, o, q, n_elems / 8, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -2,7 +2,9 @@
 
 Each package has ``ref.py`` (the plain PyTorch version), ``kernel.py``
 (the ctypes wrapper of ``csrc/<name>.cu``, with a plain-int ``launches``
-counter it bumps on every launch), ``ops.py`` (the entry points, as the
+counter it bumps on every launch, and a ``copies`` counter it bumps on
+every dense copy it makes of a strided or unaligned input,
+``_build.dense``), ``ops.py`` (the entry points, as the
 reference's: a kernel-level one that computes the launch spec and records
 it, and a dispatcher that records it only where the reference launches
 its Pallas kernel; both launch the kernel for CUDA tensors and the plain
@@ -29,7 +31,7 @@ from __future__ import annotations
 from . import (flash_attention, moe_dispatch, paged_kv_decode, ssm_scan,
                stream, token_gather, window_scan)
 
-__all__ = ["KERNELS", "launch_counts", "reset_launch_counts",
+__all__ = ["KERNELS", "launch_counts", "copy_counts", "reset_launch_counts",
            "flash_attention", "moe_dispatch", "paged_kv_decode", "ssm_scan",
            "stream", "token_gather", "window_scan"]
 
@@ -51,9 +53,16 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def copy_counts() -> dict[str, int]:
+    """Dense copies of inputs per kernel since the last reset."""
+    return {name: fn.copies for name, fn in KERNELS.items()}
+
+
 def reset_launch_counts() -> None:
+    """Set every kernel's ``launches`` and ``copies`` to 0."""
     for fn in KERNELS.values():
         fn.launches = 0
+        fn.copies = 0
     split = flash_attention.kernel.flash_attention_cuda.launches_by_kernel
     for name in split:
         split[name] = 0

@@ -7,6 +7,11 @@ Each ``csrc/<name>.cu`` is compiled at first use by ``nvcc`` for
 edited source is rebuilt and a stale library is never loaded.  Pointers
 and the CUDA stream cross the boundary as ``c_void_p``; every entry
 returns ``cudaGetLastError()`` and :func:`check` raises if it is not 0.
+
+Kernels read dense arrays: :func:`dense` hands a wrapper its input itself
+when it is contiguous and 16-byte aligned, else a contiguous, aligned copy
+made on the card, counted on the wrapper's ``copies`` beside its
+``launches``.
 """
 
 from __future__ import annotations
@@ -24,14 +29,17 @@ from pathlib import Path
 import torch
 
 __all__ = ["CSRC", "BUILD_DIR", "ARCH", "nvcc_command", "build", "bind",
-           "check", "on_card", "dtype_code", "stream_ptr", "sm_count"]
+           "check", "on_card", "dtype_code", "dense", "is_dense",
+           "stream_ptr", "sm_count"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH = "arch=compute_90a,code=sm_90a"
 
 # Element-type codes of csrc/common.cuh (ReproDType).
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# Alignment of the data every kernel reads (16-byte vectors, TMA).
+ALIGN = 16
 
 _LOCK = threading.Lock()
 
@@ -146,13 +154,33 @@ def on_card(*tensors: torch.Tensor) -> bool:
 
 def dtype_code(*tensors: torch.Tensor) -> int:
     """The kernel's element-type code; raises unless all tensors share one
-    dtype the kernels take (float32 or bfloat16)."""
+    dtype the kernels take (float32, bfloat16 or float16)."""
     dtypes = {t.dtype for t in tensors}
     if len(dtypes) != 1 or next(iter(dtypes)) not in DTYPE_CODES:
         raise ValueError(
             f"kernel takes one dtype of {list(DTYPE_CODES)}, got {dtypes} "
             f"(other dtypes: ROADMAP.md, queue 2)")
     return DTYPE_CODES[dtypes.pop()]
+
+
+def is_dense(t: torch.Tensor) -> bool:
+    """Whether a kernel may read ``t`` as it lies: contiguous and 16-byte
+    aligned."""
+    return t.is_contiguous() and t.data_ptr() % ALIGN == 0
+
+
+def dense(t: torch.Tensor, owner=None) -> torch.Tensor:
+    """``t`` itself when it is contiguous and 16-byte aligned, else a
+    contiguous, aligned copy of it on its own device (a strided, expanded
+    or sliced view, or a contiguous one that starts off 16 bytes), counted
+    on ``owner.copies`` (the wrapper that launches on it) where given."""
+    if is_dense(t):
+        return t
+    # the caching allocator's blocks are 512-byte aligned
+    out = t.clone(memory_format=torch.contiguous_format)
+    if owner is not None:
+        owner.copies += 1
+    return out
 
 
 def stream_ptr(t: torch.Tensor) -> int:

@@ -21,7 +21,10 @@ cluster that also splits S, summed from the blocks' parts
 (``plan.wide_f32_plan``, ``plan.wide_sm90_plan``).  Every kernel takes
 any Sq, Sk >= 1: its last q tile and last kv tile may be partial (rows
 past the end load as zeros, their scores are masked, their outputs never
-stored).  A wider or ragged head raises and names ROADMAP.md.
+stored).  A wider or ragged head, and float16 (which the kernels are
+not built for), raise and name ROADMAP.md.  A strided or unaligned input
+(a transposed [B, H, S, D] view, a slice) is read through one dense copy
+(``_build.dense``, counted on ``flash_attention_cuda.copies``).
 """
 
 from __future__ import annotations
@@ -73,7 +76,7 @@ def kernel_path(dtype: torch.dtype, d: int, block_q: int = 128,
     geometry (``spec`` None in :func:`flash_attention_cuda`) too."""
     if dtype not in PATHS:
         raise ValueError(f"flash_attention kernel takes {list(PATHS)}, "
-                         f"got {dtype}")
+                         f"got {dtype} (other dtypes: ROADMAP.md, queue 2)")
     if not head_dim_ok(d, dtype):
         raise ValueError(f"flash_attention kernel takes D % 8 == 0 up to "
                          f"{max_head_dim(dtype)} in {dtype}, got D={d} "
@@ -112,11 +115,7 @@ def flash_attention_cuda(spec: LaunchSpec | None, q: torch.Tensor,
     if sq < 1 or sk < 1 or b < 1:
         raise ValueError(f"flash_attention takes B, Sq, Sk >= 1; got "
                          f"B={b}, Sq={sq}, Sk={sk}")
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
-               for t in (q, k, v)):
-        raise ValueError("flash_attention kernel takes contiguous, 16-byte "
-                         "aligned inputs (strided or unaligned views: "
-                         "ROADMAP.md, queue 2)")
+    q, k, v = (_build.dense(t, flash_attention_cuda) for t in (q, k, v))
     dp = padded_head_dim(d)
     if q.dtype == torch.float32:
         per, n_splits = split_plan(b, h, sq, sk, n_sm=_build.sm_count(q),
@@ -141,5 +140,6 @@ def flash_attention_cuda(spec: LaunchSpec | None, q: torch.Tensor,
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.copies = 0
 flash_attention_cuda.launches_by_kernel = dict.fromkeys(
     [*PATHS.values(), *WIDE_PATHS.values()], 0)

@@ -6,10 +6,13 @@ whose grid walks the expert-sorted token stream one token a step.
 checks the token order is a permutation and builds the list of M-tiles
 (runs of one expert cut into at most ``plan.block_rows`` rows) in device
 memory, then a persistent grouped GEMM over (M-tile, N-tile) items, on
-the tensor cores for bf16 and the CUDA cores for f32, at every D, F >= 1
-and every token count (above 1 859 584 tokens the pre-pass's permutation
-check keeps its bitmap in global memory).  :func:`tile_list_on_card` runs
-the pre-pass alone, to check its list against ``plan.tile_list``.
+the tensor cores for bf16 and f16 and the CUDA cores for f32, at every D,
+F >= 1 and every token count (above 1 859 584 tokens the pre-pass's
+permutation check keeps its bitmap in global memory).  A strided or
+unaligned input is read through one dense copy (``_build.dense``, counted
+on ``moe_grouped_gemm.copies``); ``out`` is written in place and must be
+dense.  :func:`tile_list_on_card` runs the pre-pass alone, to check its
+list against ``plan.tile_list``.
 """
 
 from __future__ import annotations
@@ -50,11 +53,13 @@ def _tiles_scratch(t: int, device: torch.device) -> torch.Tensor:
                        dtype=torch.int32, device=device)
 
 
-def _check_ids(t: int, tok: torch.Tensor, eid: torch.Tensor) -> None:
-    if any(v.dtype != torch.int32 or v.shape != (t,) or not v.is_contiguous()
-           for v in (tok, eid)):
-        raise ValueError("moe dispatch: expected contiguous [T] int32 tok "
-                         "and eid")
+def _check_ids(t: int, tok: torch.Tensor, eid: torch.Tensor, owner=None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """tok and eid, each dense (a copy counted on ``owner.copies`` where
+    one is not); raises unless both are [T] int32."""
+    if any(v.dtype != torch.int32 or v.shape != (t,) for v in (tok, eid)):
+        raise ValueError("moe dispatch: expected [T] int32 tok and eid")
+    return _build.dense(tok, owner), _build.dense(eid, owner)
 
 
 def moe_grouped_gemm(spec: LaunchSpec, x: torch.Tensor, w: torch.Tensor,
@@ -71,20 +76,19 @@ def moe_grouped_gemm(spec: LaunchSpec, x: torch.Tensor, w: torch.Tensor,
     code = _build.dtype_code(x, w)
     t, d = spec.operand("x").shape
     n_experts, _, f = spec.operand("w").shape
-    _check_ids(t, tok, eid)
-    if (x.shape != (t, d) or w.shape != (n_experts, d, f)
-            or not (x.is_contiguous() and w.is_contiguous())
-            or x.data_ptr() % 16 or w.data_ptr() % 16):
-        raise ValueError("moe_grouped_gemm: expected contiguous, 16-byte "
-                         "aligned x [T, D] and w [E, D, F] (strided or "
-                         "unaligned views: ROADMAP.md, queue 2)")
+    if x.shape != (t, d) or w.shape != (n_experts, d, f):
+        raise ValueError("moe_grouped_gemm: expected x [T, D] and w "
+                         "[E, D, F]")
+    if out is not None and (out.shape != (t, f) or out.dtype != x.dtype
+                            or out.device != x.device
+                            or not _build.is_dense(out)):
+        raise ValueError("moe_grouped_gemm: out must be a contiguous, "
+                         "16-byte aligned [T, F] tensor like x (it is "
+                         "written in place)")
+    tok, eid = _check_ids(t, tok, eid, moe_grouped_gemm)
+    x, w = _build.dense(x, moe_grouped_gemm), _build.dense(w, moe_grouped_gemm)
     if out is None:
         out = torch.empty((t, f), dtype=x.dtype, device=x.device)
-    elif (out.shape != (t, f) or out.dtype != x.dtype
-          or out.device != x.device or not out.is_contiguous()
-          or out.data_ptr() % 16):
-        raise ValueError("moe_grouped_gemm: out must be a contiguous, "
-                         "16-byte aligned [T, F] tensor like x")
     if t == 0:
         return out
     tiles = _tiles_scratch(t, x.device)
@@ -98,6 +102,7 @@ def moe_grouped_gemm(spec: LaunchSpec, x: torch.Tensor, w: torch.Tensor,
 
 
 moe_grouped_gemm.launches = 0
+moe_grouped_gemm.copies = 0
 
 
 def tile_list_on_card(tok: torch.Tensor, eid: torch.Tensor, n_experts: int,
@@ -109,7 +114,7 @@ def tile_list_on_card(tok: torch.Tensor, eid: torch.Tensor, n_experts: int,
     if not _build.on_card(tok, eid):
         raise ValueError("tile_list_on_card takes CUDA tensors")
     t = tok.shape[0]
-    _check_ids(t, tok, eid)
+    tok, eid = _check_ids(t, tok, eid)
     if t == 0:
         return torch.zeros(0, 3, dtype=torch.long)
     tiles = _tiles_scratch(t, tok.device)

@@ -23,18 +23,19 @@ import torch
 __all__ = ["BM", "SMALL_BM", "BN", "BLOCKS_PER_SM", "block_rows",
            "launch_shape", "tile_list", "tile_capacity"]
 
-BM = 128         # sorted rows per M-tile: bf16 always, f32 at scale
+BM = 128         # sorted rows per M-tile: bf16 and f16 always, f32 at scale
 SMALL_BM = 32    # f32 M-tile of a small dispatch
-BN = {torch.float32: 128, torch.bfloat16: 256}   # columns per N-tile
+# columns per N-tile (bf16 and f16 run one tensor-core GEMM)
+BN = {torch.float32: 128, torch.bfloat16: 256, torch.float16: 256}
 # Blocks of each GEMM one SM holds at once (moe_gemm_f32 is built for two,
 # __launch_bounds__(256, 2); moe_gemm_sm90 takes most of the shared memory).
-BLOCKS_PER_SM = {torch.float32: 2, torch.bfloat16: 1}
+BLOCKS_PER_SM = {torch.float32: 2, torch.bfloat16: 1, torch.float16: 1}
 
 
 def block_rows(dtype: torch.dtype, n_tokens: int, f: int, *,
                n_sm: int) -> int:
     """Rows of an M-tile for one dispatch on a card of ``n_sm`` SMs:
-    ``BM`` for bf16 (two wgmma M of 64); for f32 ``BM`` when even the
+    ``BM`` for bf16 and f16 (two wgmma M of 64); for f32 ``BM`` when even the
     fewest 128-row items (one tile a ``BM`` rows) fill every block the
     card holds, else ``SMALL_BM``, so that a small dispatch's items, 4x
     lighter, spread over more SMs."""

@@ -7,7 +7,10 @@ cut into ranges of consecutive table entries (``plan.split_plan``), one
 block walks each range in table order for each head group
 (``plan.head_groups``), and a second launch combines the blocks' partials
 in split order; one range writes the output directly.  Every H >= 1, every
-D % 8 == 0 up to ``plan.MAX_HEAD_DIM`` and every page size is taken.
+D % 8 == 0 up to ``plan.MAX_HEAD_DIM`` and every page size is taken, in
+float32 or bfloat16; float16, which the kernel is not built for, raises
+and names ROADMAP.md.  A strided or unaligned input is read through one
+dense copy (``_build.dense``, counted on ``paged_decode_cuda.copies``).
 """
 
 from __future__ import annotations
@@ -22,7 +25,10 @@ from repro_torch.capture.launch import LaunchSpec
 from .. import _build
 from .plan import lanes_vec, split_plan
 
-__all__ = ["paged_decode_cuda", "smem_bytes", "MAX_SMEM_BYTES"]
+__all__ = ["paged_decode_cuda", "smem_bytes", "MAX_SMEM_BYTES",
+           "DTYPES"]
+
+DTYPES = (torch.float32, torch.bfloat16)   # the kernel's instances
 
 MAX_SMEM_BYTES = 232_448   # dynamic shared memory one Hopper block may use
 
@@ -59,18 +65,19 @@ def paged_decode_cuda(spec: LaunchSpec, q: torch.Tensor,
     if not _build.on_card(q, k_pages, v_pages, page_table):
         raise ValueError("paged_decode_cuda takes CUDA tensors")
     code = _build.dtype_code(q, k_pages, v_pages)
+    if q.dtype not in DTYPES:
+        raise ValueError(f"paged decode kernel takes {list(DTYPES)}, got "
+                         f"{q.dtype} (other dtypes: ROADMAP.md, queue 2)")
     h, d = q.shape
     n_pages, page, _ = k_pages.shape
     n_active = spec.grid[0]
     if (page_table.dtype != torch.int32 or page_table.shape != (n_active,)
-            or v_pages.shape != k_pages.shape
-            or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16
-            or not all(t.is_contiguous()
-                       for t in (q, k_pages, v_pages, page_table))):
-        raise ValueError("paged_decode_cuda: expected contiguous "
-                         "inputs, equal 16-byte aligned K/V pools and an [n] "
-                         "int32 table (strided or unaligned views: "
-                         "ROADMAP.md, queue 2)")
+            or v_pages.shape != k_pages.shape):
+        raise ValueError("paged_decode_cuda: expected equal K/V pools and "
+                         "an [n] int32 table")
+    q, k_pages, v_pages, page_table = (
+        _build.dense(t, paged_decode_cuda)
+        for t in (q, k_pages, v_pages, page_table))
     lanes_vec(d)   # raises on a head width no instance takes
     per, n_splits = split_plan(n_active, page, d, h, q.element_size(),
                                n_sm=_build.sm_count(q))
@@ -94,3 +101,4 @@ def paged_decode_cuda(spec: LaunchSpec, q: torch.Tensor,
 
 
 paged_decode_cuda.launches = 0
+paged_decode_cuda.copies = 0

@@ -11,7 +11,10 @@ loads, its blocks and stages laid out by ``plan.ema_plan``;
 :func:`ssm_chunked_cuda` one block per tile of channels and part of the
 state, its [N, tile] state (padded to a power of two, in parts of at most
 256 rows) in registers, laid out by ``plan.scan_plan``.  Both take every
-D >= 1, and the chunked scan every N >= 1.
+D >= 1, and the chunked scan every N >= 1, in float32, bfloat16 or
+float16 (the 2-byte types share their plans).  A strided or unaligned
+input is read through one dense copy (``_build.dense``, counted on the
+wrapper's ``copies``).
 """
 
 from __future__ import annotations
@@ -43,12 +46,14 @@ def _chunked_fn():
                        [i, v, v, v, v, v, v, i, i, i, i, i, i, i, i, i, i, v])
 
 
-def _check(name: str, shapes: dict, tensors: dict) -> None:
+def _dense(owner, shapes: dict, tensors: dict) -> list[torch.Tensor]:
+    """The tensors, each dense (a copy counted on ``owner.copies`` where
+    one is not); raises unless each has its shape."""
     for key, t in tensors.items():
-        if tuple(t.shape) != shapes[key] or not t.is_contiguous():
-            raise ValueError(f"{name}: {key} must be a contiguous "
-                             f"{shapes[key]} tensor, got {tuple(t.shape)} "
-                             f"(strided views: ROADMAP.md, queue 2)")
+        if tuple(t.shape) != shapes[key]:
+            raise ValueError(f"{owner.__name__}: {key} must be a "
+                             f"{shapes[key]} tensor, got {tuple(t.shape)}")
+    return [_build.dense(t, owner) for t in tensors.values()]
 
 
 def ssm_ema_cuda(spec: LaunchSpec, x: torch.Tensor, dt: torch.Tensor,
@@ -59,11 +64,8 @@ def ssm_ema_cuda(spec: LaunchSpec, x: torch.Tensor, dt: torch.Tensor,
         raise ValueError("ssm_ema_cuda takes CUDA tensors")
     code = _build.dtype_code(x, dt, g)
     t, d = spec.operand("x").shape
-    _check("ssm_ema_cuda", {"x": (t, d), "dt": (t, d), "g": (t, d)},
-           {"x": x, "dt": dt, "g": g})
-    if any(u.data_ptr() % 16 for u in (x, dt, g)):
-        raise ValueError("ssm_ema_cuda takes 16-byte aligned tensors "
-                         "(unaligned views: ROADMAP.md, queue 2)")
+    x, dt, g = _dense(ssm_ema_cuda, {"x": (t, d), "dt": (t, d), "g": (t, d)},
+                      {"x": x, "dt": dt, "g": g})
     plan = ema_plan(t, d, x.element_size(), n_sm=_build.sm_count(x))
     y = torch.empty_like(x)
     err = _ema_fn()(code, x.data_ptr(), dt.data_ptr(), g.data_ptr(),
@@ -83,12 +85,10 @@ def ssm_chunked_cuda(spec: LaunchSpec, x: torch.Tensor, dt: torch.Tensor,
     code = _build.dtype_code(x, dt, b, c)
     t, d = spec.operand("x").shape
     n = spec.operand("b").shape[1]
-    _check("ssm_chunked_cuda",
-           {"x": (t, d), "dt": (t, d), "b": (t, n), "c": (t, n)},
-           {"x": x, "dt": dt, "b": b, "c": c})
-    if any(u.data_ptr() % 16 for u in (x, dt, b, c)):
-        raise ValueError("ssm_chunked_cuda takes 16-byte aligned tensors "
-                         "(unaligned views: ROADMAP.md, queue 2)")
+    x, dt, b, c = _dense(
+        ssm_chunked_cuda,
+        {"x": (t, d), "dt": (t, d), "b": (t, n), "c": (t, n)},
+        {"x": x, "dt": dt, "b": b, "c": c})
     size = x.element_size()
     plan = scan_plan(t, d, n, size, n_sm=_build.sm_count(x))
     _, per, _ = state_split(n)
@@ -108,4 +108,6 @@ def ssm_chunked_cuda(spec: LaunchSpec, x: torch.Tensor, dt: torch.Tensor,
 
 
 ssm_ema_cuda.launches = 0
+ssm_ema_cuda.copies = 0
 ssm_chunked_cuda.launches = 0
+ssm_chunked_cuda.copies = 0

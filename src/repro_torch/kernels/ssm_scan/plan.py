@@ -200,10 +200,12 @@ def _pow2_floor(v: int) -> int:
 
 def ema_plan(t: int, d: int, itemsize: int, *, n_sm: int) -> EmaPlan:
     """The plan for an EMA scan over ``t`` steps of ``d >= 1`` channels of
-    ``itemsize``-byte elements (4 or 2) on a card of ``n_sm`` SMs."""
+    ``itemsize``-byte elements (4: float32; 2: bfloat16 or float16) on a
+    card of ``n_sm`` SMs."""
     if d < 1 or t < 0 or itemsize not in (2, 4):
-        raise ValueError(f"ssm EMA kernel takes D >= 1 and float32 or "
-                         f"bf16; got D={d}, itemsize={itemsize}")
+        raise ValueError(f"ssm EMA kernel takes D >= 1 and float32, "
+                         f"bfloat16 or float16; got D={d}, "
+                         f"itemsize={itemsize}")
     ch = 16 // itemsize   # rows of 16 bytes, TMA's least
     while (2 * ch <= EMA_MAX_CHANNELS and fits(d, 2 * ch)
            and -(-d // (2 * ch)) >= n_sm):

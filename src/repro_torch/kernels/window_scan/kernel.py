@@ -58,15 +58,17 @@ def window_count_cuda(q: torch.Tensor, rows: torch.Tensor,
                       chunk: int) -> torch.Tensor:
     """Launch the window count on CUDA tensors: ``q`` [m] and ``rows``
     [3, R] (lo, thr, span), both int32 or both int64 -> counts [R] of that
-    type.  Every lo must lie in [0, m)."""
+    type.  Every lo must lie in [0, m).  A strided or unaligned input is
+    read through one dense copy, counted on ``window_count_cuda.copies``."""
     if not _build.on_card(q, rows):
         raise ValueError("window_count_cuda takes CUDA tensors")
     if (q.dtype not in (torch.int32, torch.int64) or rows.dtype != q.dtype
             or q.dim() != 1 or rows.dim() != 2 or rows.shape[0] != 3
-            or not q.is_contiguous() or not rows.is_contiguous()
             or q.numel() == 0):
-        raise ValueError("window_count_cuda: expected a non-empty contiguous "
-                         "[m] q and [3, R] rows of one dtype, int32 or int64")
+        raise ValueError("window_count_cuda: expected a non-empty [m] q and "
+                         "[3, R] rows of one dtype, int32 or int64")
+    q = _build.dense(q, window_count_cuda)
+    rows = _build.dense(rows, window_count_cuda)
     n_rows = rows.shape[1]
     out = torch.empty(n_rows, dtype=q.dtype, device=q.device)
     if n_rows == 0:
@@ -81,3 +83,4 @@ def window_count_cuda(q: torch.Tensor, rows: torch.Tensor,
 
 
 window_count_cuda.launches = 0
+window_count_cuda.copies = 0

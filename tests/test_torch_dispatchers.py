@@ -102,25 +102,58 @@ def test_dispatchers_are_exported_as_the_reference_exports_them():
 
 @pytest.mark.cuda
 def test_card_raises_naming_roadmap_outside_the_kernels():
-    """The kernels take every D, N and token count on the card; what still
-    raises is a float16 input or a strided view (ROADMAP.md, queue 2)."""
+    """The scans and MoE take float16 and strided views on the card, held
+    against their plain versions (f32 on the same inputs) within one float16
+    ulp of the largest magnitude, each view read through one counted copy;
+    what still raises names ROADMAP.md: float16 in flash and paged decode,
+    float64 anywhere."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
+    from repro_torch.kernels.flash_attention import mha
+    from repro_torch.kernels.moe_dispatch import moe_dispatch_ref
+    from repro_torch.kernels.paged_kv_decode import paged_decode
+    from repro_torch.kernels.ssm_scan import ssm_chunked_ref, ssm_ema_ref
+    from repro_torch.kernels.ssm_scan.kernel import (ssm_chunked_cuda,
+                                                     ssm_ema_cuda)
+
+    def held(got, want):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2.0 ** -10 * want.float().abs().max().item()
+
     dev = torch.device("cuda")
-    x16 = torch.zeros(64, 96, device=dev, dtype=torch.float16)
-    xs = torch.zeros(96, 64, device=dev).t()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x32 = torch.randn(64, 96, generator=gen, device=dev)
+    dt32 = 0.95 + 0.049 * torch.rand(64, 96, generator=gen, device=dev)
+    b32 = torch.randn(64, 24, generator=gen, device=dev) / 24 ** 0.5
+    x16, dt16, b16 = x32.half(), dt32.half(), b32.half()
+    held(ema_scan(x16, dt16, x16),
+         ssm_ema_ref(x16.float(), dt16.float(), x16.float()))
+    held(chunked_scan(x16, dt16, b16, b16),
+         ssm_chunked_ref(x16.float(), dt16.float(), b16.float(),
+                         b16.float()))
+    xs = x32.t().contiguous().t()               # a strided view
+    copies = ssm_ema_cuda.copies, ssm_chunked_cuda.copies
+    held(ema_scan(xs, dt32, xs), ssm_ema_ref(x32, dt32, x32))
+    held(chunked_scan(xs, dt32, b32, b32),
+         ssm_chunked_ref(x32, dt32, b32, b32))
+    assert (ssm_ema_cuda.copies - copies[0],
+            ssm_chunked_cuda.copies - copies[1]) == (2, 1)
+    w16 = (torch.randn(2, 96, 24, generator=gen, device=dev) / 10).half()
+    eid = torch.randint(0, 2, (64,), generator=gen, device=dev)
+    held(dispatch(x16, w16, eid),
+         moe_dispatch_ref(x16.float(), w16.float(), eid))
+    held(dispatch(xs, w16.float(), eid),
+         moe_dispatch_ref(x32, w16.float(), eid))
+    q = torch.zeros(1, 128, 2, 64, device=dev, dtype=torch.float16)
     with pytest.raises(ValueError, match="ROADMAP.md"):
-        ema_scan(x16, x16, x16)
+        mha(q, q, q, causal=True)
+    pages = torch.zeros(4, 16, 64, device=dev, dtype=torch.float16)
     with pytest.raises(ValueError, match="ROADMAP.md"):
-        ema_scan(xs, xs, xs)
-    b = torch.zeros(64, 24, device=dev)
+        paged_decode(q[0, 0], pages, pages,
+                     torch.zeros(2, dtype=torch.int32, device=dev))
+    x64 = x32.double()
     with pytest.raises(ValueError, match="ROADMAP.md"):
-        chunked_scan(xs, xs, b, b)
+        ema_scan(x64, x64, x64)
     with pytest.raises(ValueError, match="ROADMAP.md"):
-        chunked_scan(x16, x16, b.half(), b.half())
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        dispatch(xs, torch.zeros(2, 96, 24, device=dev),
-                 torch.zeros(64, dtype=torch.int32, device=dev))
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        dispatch(x16, torch.zeros(2, 96, 24, device=dev, dtype=torch.float16),
-                 torch.zeros(64, dtype=torch.int32, device=dev))
+        dispatch(x64, w16.double(), eid)
